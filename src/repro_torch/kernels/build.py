@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` exports a plain C interface and compiles, with
 with ``ctypes``.  No PyTorch header is included, so a build takes
 seconds.  Libraries are built at first use into ``_build/`` beside this
 file (listed in ``.gitignore``); the file name carries a hash of the
-source and the flags, so an edited source never loads a stale library.
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source never loads a stale library.
 Several sources build concurrently, one ``nvcc`` process each.
 
 Nothing here runs at import: the CPU-only test environment has no
@@ -24,7 +25,7 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES: Tuple[str, ...] = ("flash_decode",)
+SOURCES: Tuple[str, ...] = ("flash_decode", "paged_flash_decode")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-lineinfo", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
@@ -47,8 +48,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 

@@ -1,14 +1,17 @@
 """Core layer primitives: norms, rope, GQA attention, MLP.
 
 Plain functions over explicit parameter dicts, mirroring the reference's
-``models/layers.py`` leaf for leaf.  Only the dense GQA path is ported:
-the no-cache forward and the dense slot cache (prefill and decode).  The
-reference's paged, int8, ring-buffer and cross-attention branches raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+``models/layers.py`` leaf for leaf.  The GQA path is ported with every
+cache layout the serving engine has: no cache, the dense slot cache and
+the paged pool, each in the config's dtype or int8.  The reference's
+ring-buffer and cross-attention branches raise ``NotImplementedError``
+naming the ``ROADMAP.md`` item that ports them.
 
-Cached decode attention always goes through
-:func:`repro_torch.kernels.flash_decode.flash_decode`: the hand-written
-CUDA kernel on the card, its plain PyTorch version for CPU tensors.
+Cached decode attention always goes through a kernel wrapper:
+:func:`repro_torch.kernels.flash_decode.flash_decode` over the dense
+slot cache, :func:`repro_torch.kernels.paged_flash_decode.
+paged_flash_decode` through the block table — the hand-written CUDA
+kernels on the card, their plain PyTorch versions for CPU tensors.
 """
 from __future__ import annotations
 
@@ -19,7 +22,9 @@ import torch
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.paged_flash_decode import paged_flash_decode
 from repro_torch.models.schema import ParamSpec
+from repro_torch.serving import kv_quant as KQ
 
 NEG_INF = -1e30
 
@@ -167,17 +172,49 @@ def _write_step(cache, rows, pos):
                                    cache[bidx, idx])
 
 
+def _write_page_step(pool, rows, page, off, keep):
+    """pool (NP, ps, ...) <- rows (B, ...) at (page[b], off[b]) where
+    ``keep[b]``, in place and with no host sync (the reference scatters
+    to the out-of-range page ``NP`` with ``mode="drop"``).  A dropped
+    row's table entry may be stale and name a page another slot now
+    writes, so a dropped row does not write back its own target: it
+    repeats the first kept row's write (or, when no row is kept, row
+    0's old value).  Every duplicate index then carries one value, and
+    the scatter's order cannot matter."""
+    # a one-element index tensor: indexing with a 0-dim tensor would
+    # read it back to the host
+    first = keep.to(torch.int32).argmax().reshape(1)
+    keep_rows = keep.reshape(-1, *([1] * (rows.dim() - 1)))
+    vals = torch.where(keep_rows, rows.to(pool.dtype), pool[page, off])
+    vals = torch.where(keep_rows, vals, vals.index_select(0, first))
+    page = torch.where(keep, page, page.index_select(0, first))
+    off = torch.where(keep, off, off.index_select(0, first))
+    pool[page, off] = vals
+
+
 def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
               causal=True, cross_kv=None, ring=False, page_table=None):
-    """x: (B, S, d). cache: {"k","v"} dense slot cache or None.
-    positions: (B, S).  Returns (out, new_cache).
+    """x: (B, S, d).  cache: None, a dense slot cache {"k", "v"} or its
+    int8 form {"k_q", "v_q", "k_s", "v_s"}; with ``page_table`` the
+    same leaves are page pools (num_pages, page_size, Hkv, Dh).
+    positions: (B, S) absolute positions.  Returns (out, cache).
 
     With a cache, this step's k/v are written into it IN PLACE (the
     slot cache is the largest buffer the server holds, so it is never
-    copied) and the same dict is returned.  Prefill (S > 1) writes rows
-    [0, S) and attends over them; decode (S == 1) writes each row's k/v
-    at its own position and attends over [0, position] through the
-    flash-decode kernel.
+    copied) and the same dict is returned.
+
+    * Prefill (S > 1) writes rows at ``positions`` — a suffix prefill
+      starts past 0 when a shared prefix is already resident — and
+      attends over ``[0, positions[:, -1] + 1)`` with the causal mask by
+      absolute position.
+    * Dense decode (S == 1) writes each row's k/v at its own position
+      and attends over [0, position] through the flash-decode kernel.
+    * Paged decode (``page_table`` (B, max_blocks) int32) writes into
+      the page that holds the position and attends through the paged
+      kernel; a position past the table (an idle slot parked at
+      ``max_blocks * page_size``) drops its write.
+    * int8 leaves: the step's k/v are quantized on the way in and the
+      kernels read the dequantized views.
     """
     if cross_kv is not None:
         raise NotImplementedError(
@@ -185,12 +222,6 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
     if ring and window:
         raise NotImplementedError(
             "ring-buffer sliding-window cache: ROADMAP.md queue 1, item 8")
-    if page_table is not None:
-        raise NotImplementedError(
-            "paged KV cache: ROADMAP.md queue 1, items 2-3")
-    if cache is not None and "k_q" in cache:
-        raise NotImplementedError(
-            "int8 KV cache: ROADMAP.md queue 1, items 2-3")
 
     B, S, d = x.shape
     q = _proj_heads(x, p["wq"])
@@ -206,23 +237,64 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
         out = attention(q, k, v, q_pos=positions, causal=causal,
                         window=window, softcap=cfg.attn_logit_softcap,
                         q_chunk=cfg.attn_q_chunk)
+    elif S == 1 and page_table is not None:
+        # paged decode: write this step's k/v into the page holding
+        # `pos`, read back through the block table
+        quant = "k_q" in cache
+        pool = cache["k_q"] if quant else cache["k"]
+        NP, ps = pool.shape[:2]
+        MB = page_table.shape[1]
+        pos = positions[:, 0]
+        blk = pos // ps
+        keep = blk < MB
+        page = page_table[torch.arange(B, device=x.device),
+                          blk.clamp(max=MB - 1)].long().clamp(0, NP - 1)
+        off = (pos % ps).long()
+        if quant:
+            kq, ks = KQ.quantize(k[:, 0])
+            vq, vs = KQ.quantize(v[:, 0])
+            for name, rows in (("k_q", kq), ("v_q", vq), ("k_s", ks),
+                               ("v_s", vs)):
+                _write_page_step(cache[name], rows, page, off, keep)
+            pk, pv = KQ.read(cache, dtype=v.dtype)
+        else:
+            _write_page_step(cache["k"], k[:, 0], page, off, keep)
+            _write_page_step(cache["v"], v[:, 0], page, off, keep)
+            pk, pv = cache["k"], cache["v"]
+        out = paged_flash_decode(q[:, 0], pk, pv, page_table, pos + 1)
+        out = out[:, None].to(v.dtype)
     else:
-        ck, cv = cache["k"], cache["v"]
+        quant = "k_q" in cache
         if S == 1:
             pos = positions[:, 0]
-            _write_step(ck, k[:, 0], pos)
-            _write_step(cv, v[:, 0], pos)
+            if quant:
+                KQ.insert_step(cache, k, v, pos)
+            else:
+                _write_step(cache["k"], k[:, 0], pos)
+                _write_step(cache["v"], v[:, 0], pos)
+        else:
+            bidx = torch.arange(B, device=x.device)[:, None]
+            idx = positions.long()
+            if quant:
+                kq, ks = KQ.quantize(k)
+                vq, vs = KQ.quantize(v)
+                for name, rows in (("k_q", kq), ("v_q", vq), ("k_s", ks),
+                                   ("v_s", vs)):
+                    cache[name][bidx, idx] = rows
+            else:
+                cache["k"][bidx, idx] = k.to(cache["k"].dtype)
+                cache["v"][bidx, idx] = v.to(cache["v"].dtype)
+        ck, cv = (KQ.read(cache, dtype=v.dtype) if quant
+                  else (cache["k"], cache["v"]))
+        kv_len = positions[:, -1] + 1
+        if S == 1:
             # kv_len masking subsumes the causal mask at decode
-            out = flash_decode(q[:, 0], ck, cv, pos + 1)[:, None]
+            out = flash_decode(q[:, 0], ck, cv, kv_len)[:, None]
             out = out.to(v.dtype)
         else:
-            # prefill always starts at position 0 here (a suffix prefill
-            # past a shared prefix belongs to the paged engine)
-            ck[:, :S] = k.to(ck.dtype)
-            cv[:, :S] = v.to(cv.dtype)
-            out = attention(q, ck[:, :S], cv[:, :S], q_pos=positions,
-                            kv_len=positions[:, -1] + 1, causal=causal,
-                            window=window, softcap=cfg.attn_logit_softcap,
+            out = attention(q, ck, cv, q_pos=positions, kv_len=kv_len,
+                            causal=causal, window=window,
+                            softcap=cfg.attn_logit_softcap,
                             q_chunk=cfg.attn_q_chunk)
     H, Dh = out.shape[-2:]
     wo = p["wo"]

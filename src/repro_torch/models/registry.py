@@ -31,6 +31,19 @@ class Model:
         return zeros_from_schema(self.cache_schema(batch, max_len),
                                  device=resolve_device(device))
 
+    def paged_cache_schema(self, num_slots: int, num_pages: int,
+                           page_size: int, max_blocks: int):
+        return T.paged_cache_schema(self.cfg, num_slots, num_pages,
+                                    page_size, max_blocks)
+
+    def init_paged_cache(self, num_slots: int, num_pages: int,
+                         page_size: int, max_blocks: int, *, device="cuda"):
+        """The page pool and block tables, allocated once on ``device``."""
+        return zeros_from_schema(
+            self.paged_cache_schema(num_slots, num_pages, page_size,
+                                    max_blocks),
+            device=resolve_device(device))
+
     # forward passes --------------------------------------------------
     def prefill(self, params, inputs, cache):
         return T.forward_prefill(params, self.cfg, inputs, cache)

@@ -27,6 +27,7 @@ _DTYPES = {
     "float16": torch.float16,
     "float32": torch.float32,
     "int32": torch.int32,
+    "int8": torch.int8,
 }
 
 

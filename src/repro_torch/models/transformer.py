@@ -8,9 +8,10 @@ carry across from the reference leaf for leaf.  Where the reference
 scans over the stack, the port loops over it and takes a view of each
 slice.
 
-Scope: full-attention dense GQA decoders (the ``qwen1.5-32b`` family).
-Any other family or attention variant raises ``NotImplementedError``
-naming its ``ROADMAP.md`` item.
+Scope: full-attention dense GQA decoders (the ``qwen1.5-32b`` family),
+with the dense slot cache or the paged pool, each in the config's dtype
+or int8 (``kv_quant_int8``).  Any other family or attention variant
+raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch
 from repro_torch.core.config import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.schema import ParamSpec, stack_specs, tree_map
+from repro_torch.serving import kv_quant as KQ
 
 
 @dataclass(frozen=True)
@@ -58,9 +60,6 @@ def _check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: the port serves dense full-attention GQA "
             f"decoders only; {', '.join(found)}: ROADMAP.md queue 1, "
             f"item 8")
-    if cfg.kv_quant_int8:
-        raise NotImplementedError(
-            f"{cfg.name}: int8 KV cache: ROADMAP.md queue 1, items 2-3")
 
 
 def layer_structure(cfg: ModelConfig) -> Tuple[List[LayerSig], List[LayerSig], int]:
@@ -86,12 +85,13 @@ def _layer_schema(cfg: ModelConfig, s: LayerSig) -> Dict[str, Any]:
 
 
 def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
-                cache=None):
+                cache=None, page_table=None):
     """One residual block.  Returns (x, cache); the cache is updated in
     place (see :func:`repro_torch.models.layers.gqa_apply`)."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     out, cache = L.gqa_apply(p["attn"], h, cfg, positions=positions,
-                             cache=cache, window=s.window, causal=s.causal)
+                             cache=cache, window=s.window, causal=s.causal,
+                             page_table=page_table)
     x = x + out
     h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + L.mlp_apply(p["mlp"], h2), cache
@@ -99,6 +99,10 @@ def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
 
 def _layer_cache_schema(cfg: ModelConfig, s: LayerSig, batch: int,
                         max_len: int) -> Dict[str, ParamSpec]:
+    if cfg.kv_quant_int8:
+        # int8 payload + float16 per-position scales
+        return KQ.quant_kv_cache_schema(batch, max_len, cfg.n_kv_heads,
+                                        cfg.head_dim)
     kv = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     axes = ("batch", "seq", "kv_heads", "head_dim")
     return {"k": ParamSpec(kv, axes, cfg.dtype, "zeros"),
@@ -148,6 +152,35 @@ def init_cache_schema(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, A
     }
 
 
+def paged_cache_schema(cfg: ModelConfig, num_slots: int, num_pages: int,
+                       page_size: int, max_blocks: int) -> Dict[str, Any]:
+    """Paged decode-cache spec tree (a block pool).
+
+    Per layer: a global pool of ``num_pages`` K/V pages of ``page_size``
+    positions — :func:`_layer_cache_schema` with ``batch=num_pages,
+    max_len=page_size``, int8 included.  On top: a per-slot ``table``
+    (num_slots, max_blocks) int32 shared across layers, and the usual
+    per-slot ``pos``.  Only full-attention GQA stacks page.
+    """
+    prefix, block, n_blocks = layer_structure(cfg)
+    for s in prefix + block:
+        if s.kind != "A" or s.cross or cfg.attn_type == "mla" or s.window:
+            raise ValueError(
+                f"{cfg.name}: paged KV cache supports full-attention "
+                f"GQA layers only (got kind={s.kind} cross={s.cross} "
+                f"attn_type={cfg.attn_type} window={s.window})")
+    return {
+        "pos": ParamSpec((num_slots,), ("batch",), "int32", "zeros"),
+        "table": ParamSpec((num_slots, max_blocks), ("batch", ""),
+                           "int32", "zeros"),
+        "prefix": [_layer_cache_schema(cfg, s, num_pages, page_size)
+                   for s in prefix],
+        "blocks": stack_specs(
+            {f"p{j}": _layer_cache_schema(cfg, s, num_pages, page_size)
+             for j, s in enumerate(block)}, n_blocks),
+    }
+
+
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
@@ -190,20 +223,34 @@ def _forward_cached(params, cfg, inputs, cache, *, prefill):
     x = _embed_lookup(params, cfg, tokens)
 
     if prefill:
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device)[None].expand(B, S)
-        new_pos = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
+        # "pos0" (B,) shifts each row's positions: a paged suffix
+        # prefill runs only tokens [pos0, pos0 + S) against a scratch
+        # cache whose [0, pos0) rows hold the gathered shared prefix
+        steps = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        pos0 = inputs.get("pos0")
+        if pos0 is None:
+            positions = steps[None].expand(B, S)
+            new_pos = torch.full((B,), S, dtype=torch.int32,
+                                 device=tokens.device)
+        else:
+            positions = pos0[:, None] + steps[None]
+            new_pos = pos0 + S
     else:
         positions = cache["pos"][:, None]
         new_pos = cache["pos"] + 1
 
+    # paged slot cache: the per-slot block table, shared across layers;
+    # prefill runs on the dense scratch and never sees one
+    page_table = None if prefill else cache.get("table")
+
     for lp, lc, s in zip(params["prefix"], cache["prefix"], prefix):
-        x, _ = apply_layer(lp, x, cfg, s, positions=positions, cache=lc)
+        x, _ = apply_layer(lp, x, cfg, s, positions=positions, cache=lc,
+                           page_table=page_table)
     for i in range(n_blocks):
         bp, bc = _slice(params["blocks"], i), _slice(cache["blocks"], i)
         for j, s in enumerate(block):
             x, _ = apply_layer(bp[f"p{j}"], x, cfg, s, positions=positions,
-                               cache=bc[f"p{j}"])
+                               cache=bc[f"p{j}"], page_table=page_table)
     cache["pos"] = new_pos
 
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)

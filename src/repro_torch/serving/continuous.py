@@ -11,11 +11,11 @@ The engine is split into two layers:
   unit-tested with a pure numpy fake executor.
 * **Device executor** (:mod:`repro_torch.serving.executor`): prefill,
   insert+commit and the K-step decode chunk over the once-per-lifetime
-  slot cache.
+  slot cache — dense rows, or (``paged=True``) a page pool with block
+  tables, whose host-side allocator and prefix cache
+  (:class:`~repro_torch.serving.paged.PagePool`) the engine owns.
 
-This slice ports the dense slot cache: ``paged=True`` raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.  The reference's
-sharded executors and chaos seams are not ported yet.
+The reference's sharded executors and chaos seams are not ported yet.
 
 **Prefill/decode overlap.**  Executor calls are async dispatch; the
 scheduler exploits that by dispatching the decode chunk for resident
@@ -33,7 +33,9 @@ the same padded length prefill as one dispatch (JetStream's batched
 prefill->insert pattern).  Grouping scans a bounded
 ``admission_lookahead`` window of the queue, so one odd-length prompt
 at the head no longer degrades batched prefill to singletons
-(head-of-line blocking); skipped prompts keep their relative order.
+(head-of-line blocking); skipped prompts keep their relative order.  A
+paged engine also groups by the previewed prefix-hit depth ``p0``, so
+a group prefills one uniform suffix.
 
 Greedy semantics match the padded engine exactly: prefill emits the
 first token (argmax of the last prompt logit), decode feeds the
@@ -55,6 +57,7 @@ import numpy as np
 from repro_torch.core.errors import TransientFaultError
 from repro_torch.data.tokenizer import PAD
 from repro_torch.obs import NULL_TRACER
+from repro_torch.serving.paged import PagePlan, PagePool
 
 
 @dataclass
@@ -105,6 +108,12 @@ class EngineStats:
     n_exec_faults: int = 0    # executor admit/decode calls that raised
     n_requeued: int = 0       # faulted requests re-admitted by the engine
     n_timed_out: int = 0      # requests cancelled past their deadline
+    # paged-KV-cache counters (all zero on dense engines)
+    n_deferred_admissions: int = 0   # page pool exhausted -> retried later
+    n_pages_evicted: int = 0         # prefix-cache LRU evictions
+    n_cow_forks: int = 0             # mid-page suffix copy-on-write forks
+    prefill_tokens_avoided: int = 0  # prompt tokens served from shared pages
+    prompt_tokens_total: int = 0     # all admitted (padded) prompt tokens
     # recent per-admission concurrency trace (bounded) — lets tests
     # assert requests from different action buckets were in flight
     # together without growing in long serving runs
@@ -132,10 +141,9 @@ class ContinuousEngine:
                  prefill_batch: int = 1, admission_lookahead: int = 16,
                  executor=None, clock=None,
                  watchdog_syncs: int = 8, max_requeues: int = 0,
-                 paged: bool = False, metrics=None):
-        if paged or getattr(executor, "paged", False):
-            raise NotImplementedError(
-                "paged KV cache: ROADMAP.md queue 1, items 2-3")
+                 paged: bool = False, page_size: int = 16,
+                 num_pages: Optional[int] = None,
+                 prefix_sharing: bool = True, metrics=None):
         if executor is None:
             if model is None:
                 raise ValueError("ContinuousEngine needs model+params or "
@@ -144,7 +152,8 @@ class ContinuousEngine:
             executor = SingleDeviceExecutor(
                 model, params, num_slots=num_slots, max_len=max_len,
                 max_new_cap=max_new_cap, sync_every=sync_every,
-                prefill_batch=prefill_batch)
+                prefill_batch=prefill_batch, paged=paged,
+                page_size=page_size, num_pages=num_pages)
         self.executor = executor
         self.model = model
         self.params = params
@@ -169,6 +178,16 @@ class ContinuousEngine:
         self.max_requeues = max(0, max_requeues)
         self.stats = EngineStats()
         self.stats.cache_allocations = executor.cache_allocations
+
+        # paged KV cache: host-side allocator + prefix cache mirroring
+        # the executor's device page pool.  `_slot_plan[s]` holds the
+        # resident request's PagePlan (its page references) until the
+        # slot is released on harvest / quarantine / expiry / abort.
+        self._pages = None
+        self._slot_plan: List[Optional[PagePlan]] = [None] * self.num_slots
+        if getattr(executor, "paged", False):
+            self._pages = PagePool(executor.num_pages, executor.page_size,
+                                   prefix_sharing=prefix_sharing)
 
         S = self.num_slots
         # host mirrors of the device control arrays (refreshed at sync)
@@ -198,8 +217,8 @@ class ContinuousEngine:
             self.bind_metrics(metrics)
 
     def bind_metrics(self, registry) -> None:
-        """Register :class:`EngineStats` as scrape-time views over
-        ``registry``.  Idempotent per
+        """Register :class:`EngineStats` (and the page pool, when
+        paged) as scrape-time views over ``registry``.  Idempotent per
         registry so the Gateway's bind and a constructor-passed
         registry don't double-register the names."""
         if id(registry) in self._bound_registries:
@@ -208,7 +227,9 @@ class ContinuousEngine:
         fields = ("n_admitted", "n_completed", "n_rejected", "n_prefills",
                   "n_decode_chunks", "n_decode_steps", "n_quarantined",
                   "n_nan_trips", "n_watchdog_trips", "n_exec_faults",
-                  "n_requeued", "n_timed_out")
+                  "n_requeued", "n_timed_out", "n_deferred_admissions",
+                  "n_pages_evicted", "n_cow_forks",
+                  "prefill_tokens_avoided", "prompt_tokens_total")
         counters = {f: registry.counter(f"engine_{f}_total")
                     for f in fields}
         concur_g = registry.gauge("engine_concurrent_slots",
@@ -227,6 +248,8 @@ class ContinuousEngine:
             queue_g.set(len(self._queue))
 
         registry.register_collector(scrape)
+        if self._pages is not None:
+            self._pages.bind_metrics(registry)
 
     # -- submission ----------------------------------------------------
 
@@ -282,16 +305,31 @@ class ContinuousEngine:
 
     # -- admission planning --------------------------------------------
 
+    def _partition(self, slot: int) -> int:
+        """Page-pool partition owning ``slot``'s pages (one partition on
+        a single device)."""
+        return slot * self._pages.partitions // self.num_slots
+
+    def _preview_p0(self, req: SlotRequest, slot: int, plen: int) -> int:
+        row = list(req.prompt) + [PAD] * (plen - len(req.prompt))
+        return self._pages.preview_hit_tokens(row, self._partition(slot))
+
     def _next_group(self) -> List[SlotRequest]:
         """Pop the next admission group off the queue: the head plus up
         to ``prefill_batch - 1`` more prompts with the same padded
         length from a bounded lookahead window (skipped prompts keep
-        their relative queue order)."""
+        their relative queue order).  A paged engine additionally
+        requires the same previewed prefix-hit depth ``p0`` — the whole
+        group prefills one uniform suffix ``[p0, plen)`` — previewing
+        each candidate against the partition of the free slot it would
+        actually receive (members take free slots in deque order)."""
         cap = min(self.prefill_batch, len(self._free))
         head = self._queue.popleft()
         group = [head]
         if cap > 1 and self.admission_lookahead > 0:
             plen = self._padded_len(len(head.prompt))
+            head_p0 = (self._preview_p0(head, self._free[0], plen)
+                       if self._pages is not None else 0)
             picked: List[int] = []
             for i in range(min(len(self._queue), self.admission_lookahead)):
                 if 1 + len(picked) >= cap:
@@ -299,11 +337,58 @@ class ContinuousEngine:
                 req = self._queue[i]
                 if self._padded_len(len(req.prompt)) != plen:
                     continue
+                if (self._pages is not None and self._preview_p0(
+                        req, self._free[1 + len(picked)], plen) != head_p0):
+                    continue
                 picked.append(i)
             group += [self._queue[i] for i in picked]
             for i in reversed(picked):
                 del self._queue[i]
         return group
+
+    def _plan_group(self, toks: np.ndarray, group: List[SlotRequest],
+                    slots: List[int]) -> Optional[List[PagePlan]]:
+        """Reserve pages for every row of an admission group.  Returns
+        the plans, or ``None`` — with every reserved reference released
+        — when the pool cannot serve the group (back-pressure) or an
+        eviction during planning changed a later row's hit depth (the
+        deferred group re-previews consistently on the next step)."""
+        plans: List[PagePlan] = []
+        p0: Optional[int] = None
+        for row, req, slot in zip(toks, group, slots):
+            pl = self._pages.plan([int(t) for t in row],
+                                  int(req.max_new_tokens),
+                                  self._partition(slot))
+            if pl is None or (p0 is not None and pl.p0 != p0):
+                if pl is not None:
+                    self._pages.release(pl)
+                for q in plans:
+                    self._pages.release(q)
+                return None
+            p0 = pl.p0
+            plans.append(pl)
+        return plans
+
+    def _dispatch_paged(self, toks: np.ndarray, slot_idx: np.ndarray,
+                        limits: np.ndarray, plans: List[PagePlan]) -> None:
+        """Build the device-side admission arrays from the plans and
+        dispatch the gather + suffix-prefill + paged commit."""
+        ex = self.executor
+        PB = self.prefill_batch
+        MB, MBs, NP = ex.max_blocks, ex.mb_scratch, ex.num_pages
+        p0 = plans[0].p0
+        tables = np.zeros((PB, MB), np.int32)
+        wmask = np.zeros((PB, MBs), bool)
+        gsrc = np.full((PB, MBs), NP, np.int32)
+        pos0 = np.zeros(PB, np.int32)
+        for i, pl in enumerate(plans):
+            tables[i, :len(pl.pages)] = pl.pages
+            wm = pl.write_mask[:MBs]
+            wmask[i, :len(wm)] = wm
+            gsrc[i, :len(pl.gather_src)] = pl.gather_src
+            pos0[i] = pl.p0
+        ex.admit_paged(np.ascontiguousarray(toks[:, p0:]), slot_idx,
+                       limits, pos0, tables, wmask, gsrc)
 
     def _start_admissions(self) -> None:
         """Dispatch prefill+insert for every admittable group — async,
@@ -327,17 +412,46 @@ class ContinuousEngine:
             slot_idx[:len(group)] = slots
             limits = np.zeros(PB, np.int32)
             limits[:len(group)] = [req.max_new_tokens for req in group]
+            plans = None
+            if self._pages is not None:
+                plans = self._plan_group(toks, group, slots)
+                if plans is None:
+                    # pool exhausted (or plan/preview divergence): put
+                    # the group back and retry after decode frees pages
+                    for slot in reversed(slots):
+                        self._free.appendleft(slot)
+                    for req in reversed(group):
+                        self._queue.appendleft(req)
+                    self.stats.n_deferred_admissions += 1
+                    break
             t_adm0 = self.tracer.now()
             try:
-                self.executor.admit(toks, slot_idx, limits)
+                if plans is not None:
+                    self._dispatch_paged(toks, slot_idx, limits, plans)
+                else:
+                    self.executor.admit(toks, slot_idx, limits)
             except TransientFaultError as exc:
                 self.stats.n_exec_faults += 1
+                if plans is not None:
+                    for pl in plans:
+                        self._pages.release(pl)
                 for slot in reversed(slots):
                     self._free.appendleft(slot)
                 for req in reversed(group):
                     self._fail_or_requeue(req, f"admit fault: {exc}",
                                           prompt_len=plen)
                 break
+            if plans is not None:
+                # register AFTER the successful dispatch: pages become
+                # sharable only once the commit that fills them is in
+                # stream order (same-group twins never share)
+                for slot, pl in zip(slots, plans):
+                    self._pages.commit(pl)
+                    self._slot_plan[slot] = pl
+                self.stats.prefill_tokens_avoided += plans[0].p0 * len(group)
+                self.stats.prompt_tokens_total += plen * len(group)
+                self.stats.n_cow_forks = self._pages.n_cow_forks
+                self.stats.n_pages_evicted = self._pages.n_evicted
             self.stats.n_prefills += 1
             self.tracer.engine_span("prefill_dispatch", t_adm0,
                                     self.tracer.now(), n=len(group),
@@ -384,9 +498,23 @@ class ContinuousEngine:
             self._requeues.pop(rid, None)
             self._rid[slot] = None
             self._slot_req[slot] = None
+            self._release_slot_pages(slot)
             self._free.append(slot)
 
     # -- fault tolerance -----------------------------------------------
+
+    def _release_slot_pages(self, slot: int) -> None:
+        """Drop a released slot's page references (paged engines only).
+        Safe at harvest/quarantine/expiry: any queued work that could
+        read the pages was enqueued before the commit that may later
+        overwrite them, and an idle slot's decode write parks at a
+        sentinel position past its block table."""
+        if self._pages is None:
+            return
+        pl = self._slot_plan[slot]
+        if pl is not None:
+            self._pages.release(pl)
+            self._slot_plan[slot] = None
 
     def _fail_or_requeue(self, req: SlotRequest, reason: str, *,
                          prompt_len: int = 0) -> None:
@@ -421,6 +549,7 @@ class ContinuousEngine:
         req = self._slot_req[slot]
         self._rid[slot] = None
         self._slot_req[slot] = None
+        self._release_slot_pages(slot)
         if req is not None:
             self._fail_or_requeue(req, reason)
 
@@ -477,6 +606,7 @@ class ContinuousEngine:
             self._active[s] = False
             self._rid[s] = None
             self._slot_req[s] = None
+            self._release_slot_pages(s)
             self._free.append(s)
         if self._queue:
             keep = deque()
@@ -512,6 +642,7 @@ class ContinuousEngine:
             self._active[s] = False
             self._stall[s] = 0
             self._last_gen[s] = -1
+            self._release_slot_pages(s)
             self._free.append(s)
             if req is not None:
                 self._fail_or_requeue(req, reason)

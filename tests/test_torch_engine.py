@@ -110,12 +110,6 @@ def test_nan_quarantine_leaves_peers_token_identical(models):
     assert not ex.slot_faults().any()
 
 
-def test_paged_engine_raises(models):
-    _, _, tm, tp = models
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ContinuousEngine(tm, tp, paged=True, **KW)
-
-
 def test_decode_chunk_issues_no_host_sync(models, monkeypatch):
     """A decode chunk's `sync_every` steps never read a device value back
     to the host: every slot-state update stays a tensor op."""

@@ -125,10 +125,9 @@ def test_decode_write_past_the_row_is_dropped():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(page_table=torch.zeros(1, 2, dtype=torch.int32)),
     dict(ring=True, window=4),
     dict(cross_kv=(None, None)),
-], ids=["paged", "ring", "cross"])
+], ids=["ring", "cross"])
 def test_unported_attention_branches_raise(kw):
     _, tc = _configs()
     tm = build_model(tc)
@@ -140,7 +139,7 @@ def test_unported_attention_branches_raise(kw):
                     cache={"k": None, "v": None}, **kw)
 
 
-@pytest.mark.parametrize("kw", [dict(sliding_window=8), dict(kv_quant_int8=True),
+@pytest.mark.parametrize("kw", [dict(sliding_window=8),
                                 dict(attn_logit_softcap=30.0),
                                 dict(arch_type="ssm")])
 def test_unported_model_families_raise(kw):

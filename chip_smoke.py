@@ -5,35 +5,49 @@
 
 Phases, each on its own lines; any failure exits nonzero:
 
-1. device   — the card's name and power limit (``nvidia-smi``); no CUDA
-              device is a failure.
-2. build    — compile every hand-written kernel from ``src/`` (one
-              ``nvcc`` per source, concurrently) and print the build
-              seconds and the ``-Xptxas -v`` report.
-3. kernels  — hold each kernel against its plain PyTorch version in
-              bf16 at the main path's shapes and time the kernel, the
-              plain version, the bound and a library yardstick: K1
-              flash_decode (dense slot cache), K2 paged_flash_decode
-              (block table into a page pool, with a parked slot).
-4. small    — the SMOKE decoder in bf16: prefill + decode on the card
-              against the same weights on the host.
-5. main     — ``qwen1.5-32b`` FULL (64 layers, d_model 5120, seeded
-              bf16 weights) served through ``Gateway.serve`` on the
-              dense slot cache: 8 requests under ``FixedPolicy(0)``, 8
-              under a seeded ``MLPPolicy``.  Checks that K1 was launched
-              64 times per decode step, that no slot was quarantined and
-              that every generating request produced a token.
-6. profile  — 8 more requests under ``torch.profiler``: the card's busy
-              and idle share and the kernels that take its time.
-7. paged    — the dense engine's buffers freed, the same 16 requests
-              on the paged engine (page size 8, 400 pages, prefix
-              sharing): K2 launched 64 times per decode step, K1 never,
-              every request served, prompt tokens served from shared
-              pages, no deferral; prints the prefix-hit rate, forks,
-              peak pages, ms per decode step and the greedy tokens that
-              agree with the dense phase's.
-8. int8     — the paged engine with the int8 KV cache, 8 requests under
-              ``FixedPolicy(0)``: K2 launches, no quarantine, tokens.
+1. device    — the card's name and power limit (``nvidia-smi``); no CUDA
+               device is a failure.
+2. build     — compile every hand-written kernel from ``src/`` (one
+               ``nvcc`` per source, concurrently) and print the build
+               seconds and the ``-Xptxas -v`` report.
+3. kernels   — hold each decode kernel against its plain PyTorch version
+               in bf16 at the main path's shapes and time the kernel, the
+               plain version, the bound and a library yardstick: K1
+               flash_decode (dense slot cache), K2 paged_flash_decode
+               (block table into a page pool, with a parked slot).
+4. retrieval — the batched retrieval path at the SQuAD scale (20,000
+               synthetic paragraphs, 64 questions, k = 10):
+               ``DenseIndex.topk_batch`` (K3 dense_topk) and
+               ``bm25_scores`` (K5) once each, counted; each held against
+               its plain version in float32 and the host's numpy
+               retrieval (ids identical but for ties within 1e-5), and
+               timed; K3 again on 1,048,576 seeded unit rows (1 GiB).
+5. small     — the SMOKE decoder in bf16: prefill + decode on the card
+               against the same weights on the host.
+6. main      — ``qwen1.5-32b`` FULL (64 layers, d_model 5120, seeded
+               bf16 weights) served through ``Gateway.serve`` on the
+               dense slot cache, with the bm25, dense and hybrid
+               retrievers behind a shared retrieval cache: 8 requests
+               under ``FixedPolicy(0)``, 8 under a seeded ``MLPPolicy``
+               (both bm25).  Checks that K1 was launched 64 times per
+               decode step, that no slot was quarantined and that every
+               generating request produced a token.
+7. profile   — 8 more requests under ``torch.profiler``: the card's busy
+               and idle share and the kernels that take its time.
+8. hybrid    — the same engine under the ``hybrid9`` action space:
+               ``FixedPolicy(3)`` (dense retrieval) and ``FixedPolicy(7)``
+               (bm25 + dense fusion), 4 questions twice each; checks
+               cache hits, no degraded lookup, K1 launches, and prints
+               this phase's decode steps on their own lines.
+9. paged     — the dense engine's buffers freed, the same 16 requests
+               on the paged engine (page size 8, 400 pages, prefix
+               sharing): K2 launched 64 times per decode step, K1 never,
+               every request served, prompt tokens served from shared
+               pages, no deferral; prints the prefix-hit rate, forks,
+               peak pages, ms per decode step and the greedy tokens that
+               agree with the dense phase's.
+10. int8     — the paged engine with the int8 KV cache, 8 requests under
+               ``FixedPolicy(0)``: K2 launches, no quarantine, tokens.
 
 The last two lines are the JSON kernel table and the device record.
 Imports nothing of the JAX package.
@@ -53,11 +67,16 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
+FP32_OPS_PER_S = 67e12         # H100 SXM float32 on CUDA cores
 NUM_SLOTS, PREFILL_BATCH = 8, 4
 MAX_PROMPT_LEN, MAX_NEW_TOKENS = 384, 8
 PAGE_SIZE, NUM_PAGES = 8, 400  # max_len 392 = 49 pages; tables of 50
 KERNEL_TOL = 2e-2  # bf16 output: |out| <~ 3 rounds at 2^-8 relative, plus
 #                    the kernel's fp32 sums in another order
+RETRIEVAL_TOL = 1e-5  # float32 scores: the same sums in another order
+SQUAD_PARAGRAPHS, SQUAD_QUESTIONS, TOP_K = 20000, 64, 10
+BIG_DOCS = 1 << 20    # 1 GiB of float32 rows at E = 256
+BM25_HOST_QUESTIONS = 8  # BM25Index.topk saturates all of tf per question
 
 
 def say(*a) -> None:
@@ -253,6 +272,273 @@ def paged_kernel_phase() -> dict:
     return rows[0]
 
 
+def cuda_ms_cold(fn, iters: int = 20) -> float:
+    """Mean device time of one ``fn()`` call with the 50 MB L2 cache
+    flushed before each (a 64 MiB write between the timed launches)."""
+    import torch
+    flush = torch.empty(16 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def device_split(fn) -> str:
+    """The device time of each kernel of one ``fn()`` call, by
+    ``torch.profiler`` (self device time, us)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    items = sorted(((e.self_device_time_total, e.key)
+                    for e in prof.key_averages()
+                    if e.self_device_time_total > 0), reverse=True)
+    if not items:
+        return "not measured (the profiler saw no device activity)"
+    return ", ".join(f"{key[:48]} {us:.2f} us" for us, key in items)
+
+
+def _tie_swaps(ids, want_ids, rows, tol: float, label: str) -> int:
+    """Hold a top-k against a reference top-k of the same queries: the
+    ids are the same at every position except where the reference's
+    own scores (``rows``, (Q, D)) of the two ids tie within ``tol``,
+    and no id repeats in a row.  Returns the number of such swaps."""
+    import numpy as np
+    ids, want_ids = np.asarray(ids), np.asarray(want_ids)
+    if ids.shape != want_ids.shape:
+        raise AssertionError(f"[{label}] ids {ids.shape} vs reference "
+                             f"{want_ids.shape}")
+    swaps = 0
+    for qi in range(ids.shape[0]):
+        if len(set(ids[qi].tolist())) != ids.shape[1]:
+            raise AssertionError(f"[{label}] query {qi}: repeated ids "
+                                 f"{ids[qi].tolist()}")
+        for j in np.flatnonzero(ids[qi] != want_ids[qi]):
+            a, b = rows[qi][ids[qi, j]], rows[qi][want_ids[qi, j]]
+            if not abs(float(a) - float(b)) <= tol:
+                raise AssertionError(
+                    f"[{label}] query {qi} position {j}: id {ids[qi, j]} "
+                    f"(score {a}) where the reference has id "
+                    f"{want_ids[qi, j]} (score {b})")
+            swaps += 1
+    return swaps
+
+
+def _k3_row(label, q, docs, counted, reference=None) -> dict:
+    """Hold the K3 result ``counted`` (the main path's launch) against
+    the plain version on the same inputs and time kernel, plain version
+    and library yardstick.  ``reference``: (ids, (Q, D) scores) of a
+    host-side reference to hold the ids against as well."""
+    import torch
+    from repro_torch.kernels.dense_topk import dense_topk, dense_topk_torch
+    Q, E = q.shape
+    D, k = docs.shape[0], TOP_K
+    got_s, got_i = counted
+    want_s, want_i = dense_topk_torch(q, docs, k=k)
+    rows = (q @ docs.T).cpu().numpy()   # the plain version's scores
+    torch.cuda.synchronize()
+    err = (got_s - want_s).abs().max().item()
+    swaps = _tie_swaps(got_i.cpu().numpy(), want_i.cpu().numpy(), rows,
+                       RETRIEVAL_TOL, f"dense_topk {label}")
+    host = ""
+    if reference is not None:
+        host_swaps = _tie_swaps(got_i.cpu().numpy(), reference[0],
+                                reference[1], RETRIEVAL_TOL,
+                                f"dense_topk {label} vs DenseIndex.topk")
+        host = (f"; ids vs DenseIndex.topk (numpy) for all {Q} questions: "
+                f"{host_swaps} tie swap(s)")
+    del rows
+
+    def library():
+        return torch.topk(q @ docs.T, k, dim=1)
+    iters = 100 if D < BIG_DOCS else 10
+    ms = cuda_ms(lambda: dense_topk(q, docs, k=k), iters)
+    plain_ms = cuda_ms(lambda: dense_topk_torch(q, docs, k=k), iters)
+    library_ms = cuda_ms(library, iters)
+    cold = ""
+    if D * E * 4 < 50e6:
+        cold = (f" | kernel, L2 flushed before each launch "
+                f"{cuda_ms_cold(lambda: dense_topk(q, docs, k=k)) * 1e3:.2f}"
+                f" us")
+    nbytes = (Q * E + D * E) * 4 + Q * k * 8
+    nops = 2 * Q * D * E
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S) * 1e3
+    bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
+                >= nops / FP32_OPS_PER_S else "operations")
+    say(f"== kernel dense_topk [{label}: Q={Q} D={D} E={E} k={k}, float32]")
+    say(f"   max_abs_err {err:.3e} (tol {RETRIEVAL_TOL:.0e}); ids vs the "
+        f"plain version: {swaps} tie swap(s){host}")
+    say(f"   kernel {ms * 1e3:.2f} us | plain {plain_ms * 1e3:.2f} us | "
+        f"library yardstick torch.topk(q @ docs.T) {library_ms * 1e3:.2f} us "
+        f"| bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB, "
+        f"{nops / 1e9:.2f} GFLOP: {bound_by}){cold}")
+    say(f"   device time by kernel, one call: "
+        f"{device_split(lambda: dense_topk(q, docs, k=k))}")
+    if not err <= RETRIEVAL_TOL:
+        raise AssertionError(f"dense_topk [{label}] scores disagree with "
+                             f"its plain version: {err}")
+    return dict(name="dense_topk", route="cuda",
+                source="src/repro_torch/kernels/csrc/dense_topk.cu",
+                replaces="src/repro/kernels/dense_topk.py:100",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
+def retrieval_kernel_phase() -> tuple:
+    """K3 and K5 on the batched retrieval path at the SQuAD scale (a
+    synthetic corpus of 20,000 paragraphs, 64 questions, k = 10): the
+    path's entry points (``DenseIndex.topk_batch``, ``bm25_scores``) run
+    once with the launch counts set to 0 just before and read just
+    after; then each kernel is held against its plain version and the
+    host's numpy retrieval, and timed.  K3 is held and timed again on
+    1,048,576 seeded random unit rows (1 GiB).  Returns the table's
+    main-path rows and the path's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.data import SyntheticSquad
+    from repro_torch.kernels.bm25 import bm25_scores, bm25_scores_torch
+    from repro_torch.kernels.dense_topk import dense_topk
+    from repro_torch.retrieval import BM25Index, DenseIndex
+    t0 = time.perf_counter()
+    data = SyntheticSquad(n_paragraphs=SQUAD_PARAGRAPHS,
+                          n_questions=SQUAD_QUESTIONS, seed=0)
+    texts = [p.text for p in data.paragraphs]
+    questions = [q.text for q in data.questions]
+    t1 = time.perf_counter()
+    bm25 = BM25Index.build(texts)
+    t2 = time.perf_counter()
+    dense = DenseIndex.build(texts)
+    t3 = time.perf_counter()
+    say(f"== retrieval kernels: SyntheticSquad {len(texts)} paragraphs, "
+        f"{len(questions)} questions ({t1 - t0:.1f} s); BM25Index "
+        f"{bm25.tf.shape} ({t2 - t1:.1f} s, {(bm25.tf > 0).mean():.4f} "
+        f"nonzero); DenseIndex {dense.emb.shape} ({t3 - t2:.1f} s) "
+        f"on the host")
+    qtf = torch.from_numpy(np.stack([bm25.query_vector(t)
+                                     for t in questions])).cuda()
+    tf, doc_len, idf = (torch.from_numpy(a).cuda()
+                        for a in (bm25.tf, bm25.doc_len, bm25.idf))
+    emb = dense.device_emb("cuda")
+    torch.cuda.synchronize()
+
+    # -- the batched retrieval path, counted -----------------------------
+    counters = (dense_topk, bm25_scores)
+    for fn in counters:
+        fn.launches = 0
+    ids, scores = dense.topk_batch(questions, TOP_K)
+    bm = bm25_scores(qtf, tf, doc_len, idf)
+    bm_i = torch.topk(bm, TOP_K, dim=1).indices
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    say(f"   path: DenseIndex.topk_batch + bm25_scores -> top-{TOP_K}: "
+        f"launches {launches}")
+    if launches != {"dense_topk": 1, "bm25_scores": 1}:
+        raise AssertionError(f"[retrieval] launches {launches}: want one "
+                             f"of each kernel")
+
+    # -- K3: against the plain version and DenseIndex.topk ---------------
+    qe = torch.from_numpy(np.stack([dense.encode(t) for t in questions]))
+    host_ids = np.stack([dense.topk(t, TOP_K)[0] for t in questions])
+    host_rows = np.stack([dense.scores_np(e) for e in qe.numpy()])
+    host_err = max(float(np.abs(scores[i] - host_rows[i][host_ids[i]]).max())
+                   for i in range(len(questions)))
+    if not host_err <= RETRIEVAL_TOL:
+        raise AssertionError(f"topk_batch scores vs DenseIndex.topk: "
+                             f"{host_err}")
+    qe = qe.cuda()
+    counted = (torch.from_numpy(scores).cuda(),
+               torch.from_numpy(ids).cuda())
+    k3 = _k3_row(f"SQuAD scale, topk_batch; scores vs DenseIndex.topk "
+                 f"{host_err:.2e}", qe, emb, counted, (host_ids, host_rows))
+
+    # -- K5: against the plain version and BM25Index.topk ----------------
+    want = bm25_scores_torch(qtf, tf, doc_len, idf)
+    rel = ((bm - want).abs().max() / want.abs().max()).item()
+    n_host = BM25_HOST_QUESTIONS
+    t0 = time.perf_counter()
+    host_ids = np.stack([bm25.topk(t, TOP_K)[0]
+                         for t in questions[:n_host]])
+    host_s = (time.perf_counter() - t0) / n_host
+    host_rows = np.stack([bm25.scores_np(bm25.query_vector(t))
+                          for t in questions[:n_host]])
+    bm25_swaps = _tie_swaps(bm_i[:n_host].cpu().numpy(), host_ids,
+                            host_rows,
+                            RETRIEVAL_TOL * float(np.abs(host_rows).max()),
+                            "bm25_scores top-k vs BM25Index.topk")
+    k1, b = bm25.cfg.k1, bm25.cfg.b
+    avg = doc_len.mean() + 1e-6
+    norm = k1 * (1 - b + b * doc_len / avg)
+    wq = qtf * idf[None, :]
+    sat = tf * (k1 + 1.0) / (tf + norm[:, None])
+
+    def library():
+        return wq @ sat.T
+    lib_rel = ((library() - want).abs().max() / want.abs().max()).item()
+    ms = cuda_ms(lambda: bm25_scores(qtf, tf, doc_len, idf), 20)
+    plain_ms = cuda_ms(lambda: bm25_scores_torch(qtf, tf, doc_len, idf), 20)
+    library_ms = cuda_ms(library, 20)
+    Q, V = qtf.shape
+    D = tf.shape[0]
+    nbytes = (Q * V + D * V + D + V + Q * D) * 4
+    # The work this run's data needs: a zero term frequency adds nothing,
+    # so only the nonzeros of tf are saturated and multiplied.  The dense
+    # count, which the kernel does, is printed beside it.
+    nnz = int((tf > 0).sum().item())
+    nops = 2 * Q * nnz + 3 * nnz
+    dense_ops = 2 * Q * D * V + 3 * D * V
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S) * 1e3
+    bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
+                >= nops / FP32_OPS_PER_S else "operations")
+    say(f"== kernel bm25 [SQuAD scale: Q={Q} D={D} V={V}, float32]")
+    say(f"   max relative err {rel:.3e} (tol {RETRIEVAL_TOL:.0e}); library "
+        f"{lib_rel:.3e}; top-{TOP_K} vs BM25Index.topk (numpy, "
+        f"{host_s:.2f} s a question on the host) for the first {n_host} "
+        f"questions: {bm25_swaps} tie swap(s)")
+    say(f"   kernel {ms * 1e3:.2f} us | plain {plain_ms * 1e3:.2f} us | "
+        f"library yardstick wq @ sat.T (prep untimed) "
+        f"{library_ms * 1e3:.2f} us | bound {bound_ms * 1e3:.2f} us "
+        f"({nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} GFLOP over {nnz} "
+        f"nonzero tf: {bound_by}); the dense product the kernel does is "
+        f"{dense_ops / 1e9:.2f} GFLOP = "
+        f"{dense_ops / FP32_OPS_PER_S * 1e6:.2f} us at the f32 peak")
+    say(f"   device time by kernel, one call: "
+        f"{device_split(lambda: bm25_scores(qtf, tf, doc_len, idf))}")
+    if not rel <= RETRIEVAL_TOL:
+        raise AssertionError(f"bm25 disagrees with its plain version: {rel}")
+    k5 = dict(name="bm25_scores", route="cuda",
+              source="src/repro_torch/kernels/csrc/bm25.cu",
+              replaces="src/repro/kernels/bm25.py:40",
+              max_abs_err=(bm - want).abs().max().item(), ms=ms,
+              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+              library_ms=library_ms)
+    del tf, sat, want, bm, emb, dense, bm25
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- K3 at 1,048,576 docs ----------------------------------------------
+    g = torch.Generator(device="cuda").manual_seed(2)
+    docs = torch.randn((BIG_DOCS, 256), generator=g, device="cuda")
+    docs.div_(docs.norm(dim=1, keepdim=True))
+    qb = torch.randn((SQUAD_QUESTIONS, 256), generator=g, device="cuda")
+    qb.div_(qb.norm(dim=1, keepdim=True))
+    _k3_row("1M seeded unit rows", qb, docs, dense_topk(qb, docs, k=TOP_K))
+    del docs, qb
+    torch.cuda.empty_cache()
+    return [k3, k5], launches
+
+
 def small_model_phase() -> None:
     """The SMOKE decoder in bf16, prefill + 4 decode steps, card (kernel)
     against host (plain attention) on the same weights and tokens."""
@@ -395,6 +681,28 @@ def _requests(qs, i):
             for q in qs[8 * i: 8 * i + 8]]
 
 
+def _step_ms(chunks, steps: int) -> float:
+    """Device time per decode step over CUDA-event pairs around chunks."""
+    return sum(s.elapsed_time(e) for s, e in chunks) / max(steps, 1)
+
+
+def _check_served(label, served, n_req: int, engine) -> None:
+    """Every request served, every generating request produced its
+    tokens, no slot quarantined."""
+    if len(served) != n_req:
+        raise AssertionError(f"[{label}] {len(served)} of {n_req} requests "
+                             f"served")
+    for req, action, out, _ in served:
+        if out.rejected or (not out.refused
+                            and out.cost_tokens < MAX_PROMPT_LEN + 1):
+            raise AssertionError(f"[{label}] request {req.qid} "
+                                 f"(a{action.idx}) did not generate: {out}")
+    if engine.stats.n_quarantined or engine.quarantined_slots:
+        raise AssertionError(f"[{label}] {engine.stats.n_quarantined} "
+                             f"slot(s) quarantined (NaN/inf logits or no "
+                             f"progress)")
+
+
 def _drive(label, backend, index, qs, n_batches, card, n_layers,
            counters) -> dict:
     """Serve ``n_batches`` micro-batches of 8 through ``Gateway.serve``
@@ -428,7 +736,7 @@ def _drive(label, backend, index, qs, n_batches, card, n_layers,
 
     es = engine.stats
     steps = es.n_decode_steps
-    step_ms = sum(s.elapsed_time(e) for s, e in rec["chunks"]) / max(steps, 1)
+    step_ms = _step_ms(rec["chunks"], steps)
     weight_bytes = sum(t.numel() * t.element_size()
                        for t in tree_leaves(engine.params))
     bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
@@ -445,18 +753,7 @@ def _drive(label, backend, index, qs, n_batches, card, n_layers,
     say(f"   launches {launches} for {n_layers} layers x {steps} decode "
         f"steps")
 
-    n_req = 8 * n_batches
-    if len(served) != n_req:
-        raise AssertionError(f"[{label}] {len(served)} of {n_req} requests "
-                             f"served")
-    for req, action, out, _ in served:
-        if out.rejected or (not out.refused
-                            and out.cost_tokens < MAX_PROMPT_LEN + 1):
-            raise AssertionError(f"[{label}] request {req.qid} "
-                                 f"(a{action.idx}) did not generate: {out}")
-    if es.n_quarantined or engine.quarantined_slots:
-        raise AssertionError(f"[{label}] {es.n_quarantined} slot(s) "
-                             f"quarantined (NaN/inf logits or no progress)")
+    _check_served(label, served, 8 * n_batches, engine)
     return {"launches": launches, "steps": steps, "rec": rec,
             "gateways": gateways}
 
@@ -481,6 +778,67 @@ def _free_gpu_memory(label: str) -> None:
         f"allocated after freeing the previous engine")
 
 
+def hybrid_phase(backend, index, data, rec, n_layers, counters) -> None:
+    """The retriever-choice action space ``hybrid9`` on the dense
+    engine's backend: ``FixedPolicy(3)`` (dense, k=5, guarded), then
+    ``FixedPolicy(7)`` (hybrid, k=5, auto), each over 4 questions twice
+    (repeats hit the shared retrieval cache).  Checks: every request
+    served on its action, cache hits, nothing degraded, no slot
+    quarantined, K1 launched 64 times per decode step of this phase."""
+    import torch
+    from repro_torch.core.config import RouterConfig
+    from repro_torch.routing import (FixedPolicy, Gateway, Request,
+                                     get_action_space)
+    engine, cache = backend.engine, backend.retrieval_cache
+    space = get_action_space("hybrid9")
+    steps0, chunks0 = engine.stats.n_decode_steps, len(rec["chunks"])
+    hits0, lookups0 = cache.hits, cache.lookups
+    qs = data.questions[:4] * 2
+    served = []
+    say(f"== hybrid: hybrid9 space on the dense engine, retrievers "
+        f"{sorted(backend.retrievers)}, shared retrieval cache of "
+        f"{cache.maxsize}")
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for idx in (3, 7):
+        a = space[idx]
+        gw = Gateway(FixedPolicy(idx), backend, router_cfg=RouterConfig(),
+                     index=index, max_batch=8, adaptive_refusal=False,
+                     action_space=space,
+                     on_outcome=lambda *o: served.append(o))
+        st = gw.serve([Request(qid=q.qid, question=q, slo="quality_first")
+                       for q in qs])
+        torch.cuda.synchronize()
+        say(f"   FixedPolicy({idx}) [{a.retriever}, k={a.k}, {a.mode}]: "
+            f"served {st.served}, actions "
+            f"{dict(sorted(st.action_counts.items()))}, degraded "
+            f"{st.degraded}, retrieval cache hits / lookups "
+            f"{st.retrieval_cache_hits} / {st.retrieval_cache_lookups}, "
+            f"latency {st.latency_percentiles()}")
+        if st.served != len(qs) or dict(st.action_counts) != {idx: len(qs)}:
+            raise AssertionError(f"[hybrid] FixedPolicy({idx}): served "
+                                 f"{st.served}, actions {st.action_counts}")
+        if st.degraded:
+            raise AssertionError(f"[hybrid] {st.degraded} degraded "
+                                 f"lookups")
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    steps = engine.stats.n_decode_steps - steps0
+    chunks = rec["chunks"][chunks0:]
+    step_ms = _step_ms(chunks, steps)
+    hits, lookups = cache.hits - hits0, cache.lookups - lookups0
+    say(f"   hybrid: {steps} decode steps in {len(chunks)} chunks, "
+        f"{step_ms:.2f} ms per step (device time of the chunks); serve "
+        f"wall {wall:.2f} s; cache hits {hits} of {lookups} lookups in "
+        f"this phase; launches {launches}")
+    _check_served("hybrid", served, 2 * len(qs), engine)
+    if hits <= 0:
+        raise AssertionError("[hybrid] no retrieval cache hit")
+    _check_launches("hybrid", launches, "flash_decode", steps, n_layers,
+                    absent=("paged_flash_decode",))
+
+
 def main_path_phases(card: str) -> dict:
     """qwen1.5-32b FULL behind Gateway.serve, on the dense slot cache,
     then the paged pool, then the paged int8 pool.  Returns each
@@ -491,7 +849,8 @@ def main_path_phases(card: str) -> dict:
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.paged_flash_decode import paged_flash_decode
     from repro_torch.models import build_model
-    from repro_torch.retrieval import BM25Index
+    from repro_torch.retrieval import (BM25Index, DenseIndex,
+                                       build_retriever_suite)
     from repro_torch.routing import ContinuousEngineBackend
 
     cfg = get_config("qwen1.5-32b", "full")
@@ -504,19 +863,20 @@ def main_path_phases(card: str) -> dict:
         f"seeded init {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
     data = SyntheticSquad(n_paragraphs=600, n_questions=1000, seed=0)
-    index = BM25Index.build([p.text for p in data.paragraphs])
+    texts = [p.text for p in data.paragraphs]
+    index = BM25Index.build(texts)
     counters = {"flash_decode": flash_decode,
                 "paged_flash_decode": paged_flash_decode}
     # 8 + 8 counted requests, then 8 for the profiled micro-batch
     qs = data.questions[-16:] + data.questions[-24:-16]
     L = cfg.n_layers
 
-    def backend_for(m, **engine_kw):
+    def backend_for(m, retrieval=None, **engine_kw):
         b = ContinuousEngineBackend.create(
             m, params, HashTokenizer(cfg.vocab_size), index,
             num_slots=NUM_SLOTS, prefill_batch=PREFILL_BATCH,
             max_prompt_len=MAX_PROMPT_LEN, max_new_tokens=MAX_NEW_TOKENS,
-            **engine_kw)
+            **(retrieval or {}), **engine_kw)
         e = b.engine
         say(f"   engine: num_slots {NUM_SLOTS}, prefill_batch "
             f"{PREFILL_BATCH}, max_len {e.max_len}, {engine_kw or 'dense'}, "
@@ -524,17 +884,20 @@ def main_path_phases(card: str) -> dict:
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
         return b
 
-    # -- dense slot cache: K1 -------------------------------------------
-    dense = _drive("dense", backend_for(model), index, qs, 2, card, L,
-                   counters)
+    # -- dense slot cache: K1; bm25, dense and hybrid retrievers --------
+    backend = backend_for(model, retrieval=dict(
+        retrievers=build_retriever_suite(index, DenseIndex.build(texts)),
+        retrieval_cache_size=64))
+    dense = _drive("dense", backend, index, qs, 2, card, L, counters)
     _check_launches("dense", dense["launches"], "flash_decode",
                     dense["steps"], L, absent=("paged_flash_decode",))
     profile_phase(dense["gateways"][1][1], _requests(qs, 2),
                   dense["rec"]["batch_wall"])
+    hybrid_phase(backend, index, data, dense["rec"], L, counters)
     dense_tokens, dense_step_ms = dense["rec"]["tokens"], \
         dense["rec"]["step_ms"]
     launches = {"flash_decode": dense["launches"]["flash_decode"]}
-    del dense
+    del dense, backend
     _free_gpu_memory("paged")
 
     # -- paged pool with prefix sharing: K2 -----------------------------
@@ -583,8 +946,10 @@ def main() -> None:
     card = device_phase()
     build_phase()
     rows = [kernel_phase(), paged_kernel_phase()]
+    retrieval_rows, launches = retrieval_kernel_phase()
+    rows += retrieval_rows
     small_model_phase()
-    launches = main_path_phases(card)
+    launches.update(main_path_phases(card))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for row in rows:

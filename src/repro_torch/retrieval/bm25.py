@@ -3,12 +3,13 @@
 The paper's retriever: BM25 bag-of-words scoring over the corpus
 paragraphs [Robertson & Zaragoza 2009].  The index is a dense
 (docs × hashed vocab) term-frequency matrix built in numpy.  Serving
-(``topk``, ``passages``, the router's score statistics) scores one query
-on the host in numpy, as the reference does; ``scores_batch`` scores a
-batch of queries in torch on any device.
+(``topk``, the router's score statistics) scores one query on the host
+in numpy, as the reference does; ``scores_batch`` scores a batch of
+queries through ``repro_torch.kernels.bm25``: the plain torch version
+on the CPU, the K5 kernel on the card.
 
-``passages(query, k)`` is the thin stand-in for the reference's
-``Retriever`` protocol: the engine backends consume it directly.
+The engine backends reach it through the ``Retriever`` protocol of
+``retrieval/hybrid.py`` (``IndexRetriever("bm25", index)``).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.core.config import RetrievalConfig
 from repro_torch.data.tokenizer import words, _h
+from repro_torch.kernels.bm25 import bm25_scores
 
 
 def hash_term(w: str, dim: int) -> int:
@@ -64,16 +66,16 @@ class BM25Index:
         return (sat * (self.idf * qv)[None, :]).sum(axis=1)
 
     def scores_batch(self, qvs: torch.Tensor) -> torch.Tensor:
-        """Batched scoring in torch on ``qvs``'s device: (Q, V) -> (Q, D)."""
-        k1, b = self.cfg.k1, self.cfg.b
+        """Batched scoring on ``qvs``'s device: (Q, V) -> (Q, D).
+
+        Goes through ``kernels.bm25.bm25_scores``: its plain version on
+        the CPU, the K5 kernel on the card.
+        """
         dev = qvs.device
-        tf = torch.from_numpy(self.tf).to(dev)
-        dl = torch.from_numpy(self.doc_len).to(dev)
-        avg = dl.mean() + 1e-6
-        norm = k1 * (1 - b + b * dl[:, None] / avg)
-        sat = tf * (k1 + 1) / (tf + norm)                        # (D, V)
-        w = qvs * torch.from_numpy(self.idf).to(dev)[None, :]   # (Q, V)
-        return w @ sat.T
+        return bm25_scores(qvs, torch.from_numpy(self.tf).to(dev),
+                           torch.from_numpy(self.doc_len).to(dev),
+                           torch.from_numpy(self.idf).to(dev),
+                           k1=self.cfg.k1, b=self.cfg.b)
 
     def topk(self, query: str, k: int):
         """Returns (indices, scores) of the top-k docs for a query."""
@@ -83,13 +85,6 @@ class BM25Index:
         idx = np.argpartition(-s, min(k, len(s) - 1))[:k]
         idx = idx[np.argsort(-s[idx])]
         return idx, s[idx]
-
-    def passages(self, query: str, k: int) -> List[str]:
-        """The top-k passage texts (what the prompt builder consumes)."""
-        if k <= 0:
-            return []
-        idx, _ = self.topk(query, k)
-        return [self.texts[i] for i in idx]
 
     def score_stats(self, query: str, k: int = 5) -> np.ndarray:
         """Uncertainty indicators from retrieval scores (paper §3.3)."""

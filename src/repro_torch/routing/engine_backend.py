@@ -1,5 +1,5 @@
-"""Real-model generation backend: BM25 retrieval + the continuous
-engine behind the :class:`~repro_torch.routing.backends.GenerationBackend`
+"""Real-model generation backend: retrieval + the continuous engine
+behind the :class:`~repro_torch.routing.backends.GenerationBackend`
 protocol.
 
 :class:`ContinuousEngineBackend` implements ``execute_mixed`` so ALL
@@ -14,20 +14,26 @@ token-accounting truth (cost, refusal) and conservative quality
 indicators (``correct=False``; unanswerable queries that get an answer
 anyway count as hallucinations), exactly as the reference does.
 
-Retrieval goes straight to each named retriever's ``passages(query,
-k)`` (a :class:`~repro_torch.retrieval.bm25.BM25Index` by default).  The
-reference's hybrid retrievers, retrieval cache, circuit breakers and
-fallback arrive with the retrieval and fault slices.
+Retrieval goes through the named retrievers of
+:mod:`repro_torch.retrieval.hybrid` (bm25 over ``index`` by default):
+a shared bounded LRU in front when ``retrieval_cache_size > 0``, a
+circuit breaker per retriever under it, and a failed lookup rewritten
+to the bm25 fallback as a *degraded* outcome.
 """
 from __future__ import annotations
 
 from typing import List, Mapping, Optional, Sequence, Tuple
 
+from repro_torch.core.errors import TransientFaultError
 from repro_torch.data.synthetic_squad import Question
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.generation.prompts import REFUSAL_TEXT, build_prompt
 from repro_torch.obs import NULL_TRACER
 from repro_torch.retrieval.bm25 import BM25Index
+from repro_torch.retrieval.hybrid import (Retriever, bind_retrieval_metrics,
+                                          collect_breakers,
+                                          resolve_retrievers,
+                                          retrieve_with_fallback)
 from repro_torch.routing.registry import Action
 from repro_torch.serving.pipeline import ActionOutcome
 
@@ -38,22 +44,27 @@ REFUSE_COST_TOKENS = 5.0
 class EngineBackend:
     """Retrieval + prompt building + outcome accounting over an engine."""
 
-    # telemetry: the Gateway installs its tracer here so engine spans
-    # land in the same trace (no-op by default)
+    # telemetry: the Gateway installs its tracer here so retrieval and
+    # engine spans land in the same trace (no-op by default)
     tracer = NULL_TRACER
 
     def __init__(self, engine, tokenizer: HashTokenizer, index: BM25Index,
                  *, max_prompt_len: int = 384, max_new_tokens: int = 8,
-                 retrievers: Optional[Mapping[str, object]] = None):
+                 retrievers: Optional[Mapping[str, Retriever]] = None,
+                 retrieval_cache_size: int = 0,
+                 breaker_kw: Optional[dict] = None):
         self.engine = engine
         self.tok = tokenizer
         self.index = index
         self.max_prompt_len = max_prompt_len
         self.max_new_tokens = max_new_tokens
-        # named retrievers, each with passages(query, k); None = bm25
-        # over `index`
-        self.retrievers = dict(retrievers) if retrievers is not None \
-            else {"bm25": index}
+        # named retrievers (None = bm25-only over `index`); a shared
+        # bounded LRU fronts them when retrieval_cache_size > 0, and a
+        # per-retriever circuit breaker sits under the cache
+        self.retrievers, self.retrieval_cache = resolve_retrievers(
+            retrievers, index, cache_size=retrieval_cache_size,
+            breaker_kw=breaker_kw)
+        self.breakers = collect_breakers(self.retrievers)
 
     def install_tracer(self, tracer) -> None:
         """Adopt the Gateway's tracer (called once at Gateway
@@ -63,15 +74,23 @@ class EngineBackend:
             self.engine.tracer = tracer
 
     def bind_metrics(self, registry) -> None:
-        """Register the engine counters as views over ``registry``."""
+        """Register this backend's stat sources (retrieval cache,
+        breakers, engine counters) as views over ``registry``."""
+        bind_retrieval_metrics(registry, self.breakers,
+                               self.retrieval_cache)
         bind = getattr(self.engine, "bind_metrics", None)
         if bind is not None:
             bind(registry)
 
-    def _prep(self, q: Question, action: Action) -> Tuple[List[int], bool]:
+    def _prep(self, q: Question, action: Action
+              ) -> Tuple[List[int], bool, bool]:
         """Retrieve with the action's retriever at its depth and build
         the prompt tokens.  Returns (token ids padded to
-        max_prompt_len, retrieval hit)."""
+        max_prompt_len, retrieval hit, degraded).  ``degraded`` means
+        the action's retriever failed (open breaker / fault) and the
+        lookup was rewritten to the bm25 fallback; a transient fault
+        with no working fallback raises ``TransientFaultError``."""
+        degraded = False
         if action.k <= 0:
             passages: List[str] = []
         else:
@@ -79,13 +98,14 @@ class EngineBackend:
                 raise KeyError(
                     f"action retriever {action.retriever!r} not "
                     f"configured; available: {sorted(self.retrievers)}")
-            passages = self.retrievers[action.retriever].passages(
-                q.text, action.k)
+            passages, degraded = retrieve_with_fallback(
+                self.retrievers, action.retriever, q.text, action.k,
+                tracer=self.tracer)
         hit = bool(q.gold_answer) and any(
             q.gold_answer in p for p in passages)
         prompt = build_prompt(action.mode, q.text, passages)
         return self.tok.encode(prompt, bos=True,
-                               max_len=self.max_prompt_len), hit
+                               max_len=self.max_prompt_len), hit, degraded
 
     @staticmethod
     def _refusal_outcome(q: Question, action: Action) -> ActionOutcome:
@@ -140,12 +160,14 @@ class EngineBackend:
 
     @staticmethod
     def _generated_outcome(q: Question, action: Action, prompt_len: int,
-                           n_out: int, hit: bool) -> ActionOutcome:
+                           n_out: int, hit: bool,
+                           degraded: bool = False) -> ActionOutcome:
         return ActionOutcome(
             qid=q.qid, action=action.idx, correct=False, refused=False,
             hallucinated=not q.answerable,
             cost_tokens=float(prompt_len + n_out), hit=hit,
-            answerable=q.answerable, answer=f"<{n_out} generated tokens>")
+            answerable=q.answerable,
+            answer=f"<{n_out} generated tokens>", degraded=degraded)
 
 
 class ContinuousEngineBackend(EngineBackend):
@@ -164,7 +186,9 @@ class ContinuousEngineBackend(EngineBackend):
                index: BM25Index, *, num_slots: int = 8,
                max_prompt_len: int = 384, max_new_tokens: int = 8,
                sync_every: int = 4, prefill_batch: Optional[int] = None,
-               retrievers: Optional[Mapping[str, object]] = None,
+               retrievers: Optional[Mapping[str, Retriever]] = None,
+               retrieval_cache_size: int = 0,
+               breaker_kw: Optional[dict] = None,
                **engine_kw) -> "ContinuousEngineBackend":
         """Build a :class:`~repro_torch.serving.continuous.ContinuousEngine`
         sized for this backend's prompts (slot caches hold the padded
@@ -178,33 +202,43 @@ class ContinuousEngineBackend(EngineBackend):
             prefill_batch=(num_slots if prefill_batch is None
                            else prefill_batch), **engine_kw)
         return cls(engine, tokenizer, index, max_prompt_len=max_prompt_len,
-                   max_new_tokens=max_new_tokens, retrievers=retrievers)
+                   max_new_tokens=max_new_tokens, retrievers=retrievers,
+                   retrieval_cache_size=retrieval_cache_size,
+                   breaker_kw=breaker_kw)
 
     def execute_mixed(self, questions: Sequence[Question],
                       actions: Sequence[Action]) -> List[ActionOutcome]:
         outcomes: List[ActionOutcome] = [None] * len(questions)
-        submitted = {}   # rid -> (position, question, action, hit, plen)
+        submitted = {}   # rid -> (position, question, action, hit, plen,
+        #                          degraded)
         for i, (q, action) in enumerate(zip(questions, actions)):
             if action.mode == "refuse":
                 outcomes[i] = self._refusal_outcome(q, action)
                 continue
-            toks, hit = self._prep(q, action)
+            try:
+                toks, hit, degraded = self._prep(q, action)
+            except TransientFaultError as exc:
+                # dead retrieval path for THIS request only — the rest
+                # of the micro-batch still serves
+                outcomes[i] = self._transient_outcome(q, action, str(exc))
+                continue
             rid = self.engine.reserve_rid()
             # non-strict: an over-length prompt is rejected per-request
             # (failed CompletedGeneration) instead of raising and
             # killing the micro-batch with other slots still resident
             self.engine.submit(rid, toks, self.max_new_tokens,
                                strict=False)
-            submitted[rid] = (i, q, action, hit, len(toks))
+            submitted[rid] = (i, q, action, hit, len(toks), degraded)
         if submitted:
             done = self.engine.run()
-            for rid, (i, q, action, hit, plen) in submitted.items():
+            for rid, (i, q, action, hit, plen, degraded) in \
+                    submitted.items():
                 gen = done[rid]
                 if gen.failed:
                     outcomes[i] = self._failed_outcome(q, action, gen)
                 else:
                     outcomes[i] = self._generated_outcome(
-                        q, action, plen, gen.n_steps, hit)
+                        q, action, plen, gen.n_steps, hit, degraded)
                 # engine-clock stamps: the Gateway slices its dispatch
                 # window into prefill/decode spans with these
                 outcomes[i].admitted_at = gen.admitted_at

@@ -31,6 +31,7 @@ from repro_torch.core.config import RetrievalConfig, RouterConfig
 from repro_torch.data import HashTokenizer, SyntheticSquad
 from repro_torch.models import build_model
 from repro_torch.retrieval import BM25Index
+from repro_torch.retrieval import IndexRetriever as TIndexRetriever
 from repro_torch.routing import (ContinuousEngineBackend, FixedPolicy,
                                  Gateway, MLPPolicy, Request)
 
@@ -88,7 +89,7 @@ def test_corpus_questions_and_index_identical(setup):
         atol=1e-5)
     for t in texts:
         for k in (2, 5, 10):
-            assert tindex.passages(t, k) == \
+            assert TIndexRetriever("bm25", tindex).passages(t, k) == \
                 IndexRetriever("bm25", index).passages(t, k)
         np.testing.assert_array_equal(tindex.score_stats(t),
                                       index.score_stats(t))

@@ -48,6 +48,31 @@ Phases, each on its own lines; any failure exits nonzero:
                agree with the dense phase's.
 10. int8     — the paged engine with the int8 KV cache, 8 requests under
                ``FixedPolicy(0)``: K2 launches, no quarantine, tokens.
+11. train    — the serving weights freed, ``make_train_step`` (fused
+               loss, plain attention, AdamW) for 8 steps on
+               ``qwen1.5-32b`` at full width with its depth cut 64 -> 4
+               (seeded bf16 weights, ``remat="full"``), over the port's
+               ``LMDataset`` at batch 4 x seq 1024: finite loss and
+               gradient norm, params moved, the loss falling, no K4
+               launch; ms per step, tokens/s, model FLOPs/s, peak
+               memory, the AdamW update and the forward timed alone, the
+               device time of one step by kernel, and one loss and
+               gradient under each of remat none / full / dots (the
+               same numbers, each mode's peak memory).
+12. eval     — on the trained params, a held batch through
+               ``make_eval_step`` with K4 and with the plain attention:
+               K4 launched 4 times (once a layer), the losses agreeing;
+               ``forward_train_loss`` under ``no_grad`` with K4; a train
+               step through K4 raising the gradient guard.
+13. cli      — ``python -m repro_torch.launch.train`` (qwen SMOKE, 20
+               steps) in a subprocess on the card: the loss falls, and its
+               npz checkpoint loads back equal through
+               ``load_checkpoint``.
+
+The kernel checks (phase 3) include K4 flash_attention: the training
+shape (B=4, S=1024, H=Hkv=40, D=128, causal), GQA G=2, a non-causal
+ragged case, D=64 and a causal Sq != Skv case, each against its plain
+version; the training shape is timed beside its bound and SDPA.
 
 The last two lines are the JSON kernel table and the device record.
 Imports nothing of the JAX package.
@@ -57,6 +82,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -77,6 +103,13 @@ RETRIEVAL_TOL = 1e-5  # float32 scores: the same sums in another order
 SQUAD_PARAGRAPHS, SQUAD_QUESTIONS, TOP_K = 20000, 64, 10
 BIG_DOCS = 1 << 20    # 1 GiB of float32 rows at E = 256
 BM25_HOST_QUESTIONS = 8  # BM25Index.topk saturates all of tf per question
+# training: full width, depth cut so params, gradients and AdamW moments
+# (12 B a param) fit one 80 GB card beside the activations
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4, 1024, 4, 8
+EVAL_RTOL = 5e-3  # bf16 activations: K4 rounds P to bf16 and sums in
+#                   another order than the plain float32 attention
+REMAT_RTOL = 1e-3  # the same forward; bf16 gradients summed by atomics in
+#                    an order that may change from run to run
 
 
 def say(*a) -> None:
@@ -272,6 +305,76 @@ def paged_kernel_phase() -> dict:
     return rows[0]
 
 
+def attention_kernel_phase() -> dict:
+    """K4 flash_attention against its plain version in bf16: the training
+    shape (B=4, S=1024, H=Hkv=40, D=128, causal), then GQA G=2, a
+    non-causal case with Sq != Skv and ragged tiles, D=64 (SMOKE), and a
+    causal Sq != Skv case.  The training shape is timed beside its bound
+    and SDPA.  Returns the training shape's row of the table."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_torch)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    row = None
+    for label, B, Sq, Skv, H, Hkv, D, causal in (
+            ("training shape", 4, 1024, 1024, 40, 40, 128, True),
+            ("GQA G=2", 2, 512, 512, 16, 8, 128, True),
+            ("non-causal, G=4, ragged", 2, 320, 448, 8, 2, 128, False),
+            ("SMOKE D=64", 2, 256, 256, 4, 4, 64, True),
+            ("causal Sq != Skv", 1, 200, 136, 4, 4, 64, True)):
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device="cuda",
+                               dtype=torch.bfloat16)
+        q, k, v = rnd(B, Sq, H, D), rnd(B, Skv, Hkv, D), rnd(B, Skv, Hkv, D)
+        with torch.no_grad():
+            out = flash_attention(q, k, v, causal=causal)
+            want = flash_attention_torch(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        say(f"== kernel flash_attention [{label}: B={B} Sq={Sq} Skv={Skv} "
+            f"H={H} Hkv={Hkv} D={D} causal={causal}]: max_abs_err "
+            f"{err:.3e} (tol {KERNEL_TOL:.0e})")
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"flash_attention [{label}] disagrees with "
+                                 f"its plain version: {err}")
+        if row is None:
+            # the yardstick: SDPA on (B, H, S, D) views of the same tensors
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+            def library():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
+            lib_err = (library().transpose(1, 2).float()
+                       - want.float()).abs().max().item()
+            with torch.no_grad():
+                ms = cuda_ms(lambda: flash_attention(q, k, v))
+                plain_ms = cuda_ms(lambda: flash_attention_torch(q, k, v),
+                                   10)
+            library_ms = cuda_ms(library)
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+            pairs = Sq * (Sq + 1) // 2          # (q, kv) pairs attended
+            nops = 4 * B * H * D * pairs
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            say(f"   kernel {ms * 1e3:.2f} us | plain {plain_ms * 1e3:.2f} us"
+                f" | library (SDPA, is_causal) {library_ms * 1e3:.2f} us, "
+                f"max_abs_err {lib_err:.3e} | bound {bound_ms * 1e3:.2f} us "
+                f"({nbytes / 1e6:.1f} MB: {t_bytes * 1e6:.2f} us; "
+                f"{nops / 1e9:.2f} GFLOP: {t_ops * 1e6:.2f} us; {bound_by}); "
+                f"kernel at {nops / ms / 1e9:.1f} TFLOP/s")
+            row = dict(
+                name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:63",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+        del q, k, v, out, want
+    torch.cuda.empty_cache()
+    return row
+
+
 def cuda_ms_cold(fn, iters: int = 20) -> float:
     """Mean device time of one ``fn()`` call with the 50 MB L2 cache
     flushed before each (a 64 MiB write between the timed launches)."""
@@ -291,9 +394,10 @@ def cuda_ms_cold(fn, iters: int = 20) -> float:
     return total / iters
 
 
-def device_split(fn) -> str:
-    """The device time of each kernel of one ``fn()`` call, by
-    ``torch.profiler`` (self device time, us)."""
+def device_split(fn, top: int = 0) -> str:
+    """The device time of each kernel of one ``fn()`` call (the ``top``
+    largest when ``top`` > 0), by ``torch.profiler`` (self device time,
+    us)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -306,7 +410,10 @@ def device_split(fn) -> str:
                     if e.self_device_time_total > 0), reverse=True)
     if not items:
         return "not measured (the profiler saw no device activity)"
-    return ", ".join(f"{key[:48]} {us:.2f} us" for us, key in items)
+    total = sum(us for us, _ in items)
+    items = items[:top] if top else items
+    return f"{total:.2f} us in all: " + ", ".join(
+        f"{key[:48]} {us:.2f} us" for us, key in items)
 
 
 def _tie_swaps(ids, want_ids, rows, tol: float, label: str) -> int:
@@ -942,14 +1049,295 @@ def main_path_phases(card: str) -> dict:
     return launches
 
 
+def train_phase(card: str) -> dict:
+    """``make_train_step`` (fused loss, the plain attention: the
+    reference's only trainable setting) on qwen1.5-32b at full width, 4
+    layers, bf16, ``remat="full"``, over the port's ``LMDataset`` at seq
+    1024 and batch 4.  Checks finite loss and gradient norm every step,
+    params moved, the loss falling, and no K4 launch; prints ms per step
+    (CUDA events), tokens/s, peak memory and model FLOPs/s.  Returns the
+    trained params and the model."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_dataset import LMDataset
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import build_model
+    from repro_torch.models.schema import tree_leaves, zeros_from_schema
+    from repro_torch.models.transformer import forward_train_loss
+    from repro_torch.training import (OptConfig, adamw_init_schema,
+                                      adamw_update, make_train_step)
+    full = get_config("qwen1.5-32b", "full")
+    model = build_model(dataclasses.replace(full, n_layers=TRAIN_LAYERS))
+    cfg = model.cfg
+    n = model.n_params()
+    say(f"== train: {cfg.name} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads = {cfg.n_kv_heads} kv heads, head_dim "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, QKV bias, "
+        f"tied embeddings, {cfg.dtype}, remat={cfg.remat!r}), "
+        f"{n / 1e9:.3f} B params")
+    n_full = build_model(full).n_params()
+    say(f"   reduced: n_layers {full.n_layers} -> {cfg.n_layers} (params, "
+        f"gradients and AdamW moments of the {full.n_layers}-layer model "
+        f"need {n_full / 1e9:.1f} B x 12 B = {n_full * 12 / 1e9:.0f} GB)")
+    _free_gpu_memory("train")
+    params = model.init(seed=0, device="cuda")
+    opt_state = zeros_from_schema(adamw_init_schema(model.schema),
+                                  device="cuda")
+    ds = LMDataset(cfg, TRAIN_SEQ)
+    batches = ds.batches(TRAIN_BATCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    say(f"   data: LMDataset stream of {len(ds.stream)} tokens, batch "
+        f"{TRAIN_BATCH} x seq {TRAIN_SEQ} = {tokens} tokens a step; "
+        f"{TRAIN_STEPS} steps, lr 3e-4, warmup 2")
+    step_fn = make_train_step(model, OptConfig(lr=3e-4, warmup_steps=2,
+                                               total_steps=TRAIN_STEPS))
+    def watched():
+        # bf16 weights of ~0.02 move by more than half a rounding step;
+        # the norms' ones would not (3e-4 against 2^-8)
+        return (params["blocks"]["p0"]["mlp"]["w_down"][0],
+                params["blocks"]["p0"]["attn"]["bq"], params["embed"][:4096])
+    before = [t.float().clone() for t in watched()]
+    events, metrics = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    for _ in range(TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in
+                 next(batches).items()}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        end.record()
+        events.append((start, end))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    k4_launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    ms = [s.elapsed_time(e) for s, e in events]
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    say(f"   losses {[round(x, 4) for x in losses]}")
+    say(f"   grad_norm {[round(x, 4) for x in gnorms]}")
+    say(f"   lr {[float(m['lr']) for m in metrics]}")
+    steady = ms[1:]
+    step_ms = sum(steady) / len(steady)
+    mfu = 6 * n * tokens / (step_ms / 1e3)
+    say(f"   ms per step {[round(x, 2) for x in ms]} (CUDA events); steady "
+        f"(steps 2..{TRAIN_STEPS}) {step_ms:.2f} ms = "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s; model FLOPs/s "
+        f"(6 N tokens / step) {mfu / 1e12:.1f} T = {mfu / BF16_OPS_PER_S:.3f}"
+        f" of 989 TFLOP/s; peak memory {peak / 2**30:.2f} GiB [{card}]")
+    moved = [(t.float() - b).abs().max().item()
+             for t, b in zip(watched(), before)]
+    say(f"   params moved (max |delta| of w_down[0, 0], bq[0], embed[:4096]): "
+        f"{moved}; K4 launches during the train steps: {k4_launches}")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"[train] non-finite loss or grad_norm: "
+                             f"{losses}, {gnorms}")
+    if not all(x > 0 for x in moved):
+        raise AssertionError(f"[train] params did not move: {moved}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"[train] the loss did not fall: {losses}")
+    if k4_launches:
+        raise AssertionError(f"[train] K4 launched {k4_launches} times in "
+                             f"train steps")
+    if any(t.requires_grad for t in tree_leaves(params)):
+        raise AssertionError("[train] params left requiring grad")
+    # where a step's time goes: the optimizer alone (on zero gradients:
+    # the same arithmetic) and the forward alone, against the whole step
+    zero = [torch.zeros_like(p) for p in tree_leaves(params)]
+    opt_ms = cuda_ms(lambda: adamw_update(zero, opt_state, params,
+                                          OptConfig()), 3)
+    del zero
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: forward_train_loss(params, cfg, batch), 3)
+    say(f"   split: AdamW update {opt_ms:.2f} ms, forward_train_loss "
+        f"without autograd {fwd_ms:.2f} ms, so forward + backward with the "
+        f"recompute about {step_ms - opt_ms:.2f} ms of the {step_ms:.2f} ms "
+        f"step")
+    say(f"   device time by kernel, one more step (top 10): "
+        f"{device_split(lambda: step_fn(params, opt_state, batch), 10)}")
+    del opt_state, metrics, before
+    remat_check(params, cfg, batch)
+    return {"params": params, "model": model, "step_ms": step_ms}
+
+
+def remat_check(params, cfg, batch) -> None:
+    """The three remat modes on the card, one loss and gradient each on
+    the same params and batch: the same loss, gradient norms within
+    REMAT_RTOL, and the peak memory of each."""
+    import torch
+    from repro_torch.models.schema import tree_leaves
+    from repro_torch.models.transformer import forward_train_loss
+    from repro_torch.training.optimizer import global_norm
+    leaves = tree_leaves(params)
+    out = {}
+    for remat in ("full", "dots", "none"):
+        c = dataclasses.replace(cfg, remat=remat)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            loss = forward_train_loss(params, c, batch)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        out[remat] = (float(loss.detach()), float(global_norm(grads)),
+                      torch.cuda.max_memory_allocated() / 2**30)
+        del loss, grads
+    say("   remat modes, one loss + gradient each on the same batch: "
+        + "; ".join(f"{k}: loss {v[0]:.6f}, grad_norm {v[1]:.6f}, peak "
+                    f"{v[2]:.2f} GiB" for k, v in out.items()))
+    ref_loss, ref_norm, _ = out["full"]
+    for k, (loss, norm, _) in out.items():
+        if (abs(loss - ref_loss) > REMAT_RTOL * abs(ref_loss)
+                or abs(norm - ref_norm) > REMAT_RTOL * ref_norm):
+            raise AssertionError(f"[train] remat {k} disagrees with full: "
+                                 f"{out}")
+
+
+def eval_phase(trained: dict, card: str) -> dict:
+    """On the trained params, one held batch: ``make_eval_step`` with K4
+    (``use_pallas_attention=True``) and with the plain attention, counted
+    and timed; ``forward_train_loss`` under ``torch.no_grad()`` with K4;
+    a train step with K4 raises the gradient guard.  Returns K4's
+    launches on this path."""
+    import torch
+    from repro_torch.data.lm_dataset import LMDataset
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import build_model
+    from repro_torch.models.schema import zeros_from_schema
+    from repro_torch.models.transformer import forward_train_loss
+    from repro_torch.training import (OptConfig, adamw_init_schema,
+                                      make_eval_step, make_train_step)
+    params, model = trained["params"], trained["model"]
+    k4_model = build_model(dataclasses.replace(model.cfg,
+                                               use_pallas_attention=True))
+    L = model.cfg.n_layers
+    held = {k: torch.from_numpy(v).cuda() for k, v in next(
+        LMDataset(model.cfg, TRAIN_SEQ, seed=1).batches(TRAIN_BATCH)).items()}
+    plain_eval, k4_eval = make_eval_step(model), make_eval_step(k4_model)
+    say(f"== eval: held batch {TRAIN_BATCH} x {TRAIN_SEQ} (LMDataset seed "
+        f"1) on the trained params")
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    k4_loss = k4_eval(params, held)
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    plain_loss = plain_eval(params, held)
+    flash_attention.launches = 0
+    with torch.no_grad():
+        fused = forward_train_loss(params, k4_model.cfg, held)
+    torch.cuda.synchronize()
+    fused_launches = flash_attention.launches
+    k4_ms = cuda_ms(lambda: k4_eval(params, held), 5)
+    plain_ms = cuda_ms(lambda: plain_eval(params, held), 5)
+    a, b, c = float(k4_loss), float(plain_loss), float(fused)
+    rel = abs(a - b) / abs(b)
+    say(f"   eval loss with K4 {a:.6f}, plain attention {b:.6f}: relative "
+        f"difference {rel:.2e} (tol {EVAL_RTOL:.0e}); forward_train_loss "
+        f"under no_grad with K4 {c:.6f}")
+    say(f"   K4 launches: {launches} per eval call, {fused_launches} per "
+        f"forward_train_loss, for {L} layers; eval step {k4_ms:.2f} ms "
+        f"with K4, {plain_ms:.2f} ms plain [{card}]")
+    if launches != L or fused_launches != L:
+        raise AssertionError(f"[eval] K4 launched {launches} / "
+                             f"{fused_launches} times for {L} layers")
+    if not (math.isfinite(a) and math.isfinite(c) and rel <= EVAL_RTOL
+            and abs(c - b) / abs(b) <= EVAL_RTOL):
+        raise AssertionError(f"[eval] losses disagree: K4 {a}, plain {b}, "
+                             f"fused {c}")
+    opt_state = zeros_from_schema(adamw_init_schema(model.schema),
+                                  device="cuda")
+    flash_attention.launches = 0
+    try:
+        make_train_step(k4_model, OptConfig())(params, opt_state, held)
+    except RuntimeError as e:
+        if "no gradient" not in str(e):
+            raise
+        say(f"   train step with K4 raises: {e}")
+    else:
+        raise AssertionError("[eval] a train step through K4 did not raise")
+    if int(opt_state["step"]) != 0 or flash_attention.launches:
+        raise AssertionError("[eval] the refused train step changed state")
+    return {"flash_attention": launches}
+
+
+def cli_phase(card: str) -> None:
+    """``python -m repro_torch.launch.train`` on the card (qwen SMOKE, 20
+    steps) in a subprocess; its final loss must be finite and below its
+    first, and its checkpoint must load back through ``load_checkpoint``
+    with every leaf equal to the saved arrays."""
+    import os
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.schema import zeros_from_schema
+    from repro_torch.training import adamw_init_schema
+    from repro_torch.training.checkpoint import _paths, load_checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "qwen1.5-32b", "--variant", "smoke", "--steps", "20",
+               "--ckpt", tmp]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        say(f"== cli: {' '.join(cmd[1:-1])} <tmpdir>: exit {r.returncode} "
+            f"in {wall:.1f} s")
+        for line in r.stdout.splitlines():
+            say(f"   | {line}")
+        if r.returncode != 0:
+            raise AssertionError(f"[cli] exit {r.returncode}: {r.stderr}")
+        got = re.search(r"final loss (\S+) \(start (\S+)\)", r.stdout)
+        final, start = float(got.group(1)), float(got.group(2))
+        if not (math.isfinite(final) and final < start):
+            raise AssertionError(f"[cli] final loss {final}, start {start}")
+        model = build_model(get_config("qwen1.5-32b", "smoke"))
+        step, params, opt = load_checkpoint(
+            tmp, model.init(seed=1, device="cuda"),
+            zeros_from_schema(adamw_init_schema(model.schema),
+                              device="cuda"))
+        n = 0
+        for name, tree in (("params", params), ("opt", opt)):
+            with np.load(Path(tmp) / f"{name}_{step}.npz") as z:
+                for key, leaf in _paths(tree):
+                    if not np.array_equal(leaf.float().cpu().numpy(),
+                                          z[key].astype(np.float32)):
+                        raise AssertionError(f"[cli] {name} leaf {key} "
+                                             f"differs from the checkpoint")
+                    n += 1
+        fresh = model.init(seed=0, device="cuda")
+        if step != 20 or int(opt["step"]) != 20 or torch.equal(
+                params["embed"], fresh["embed"]):
+            raise AssertionError(f"[cli] checkpoint step {step}, opt step "
+                                 f"{int(opt['step'])}, or untrained params")
+        say(f"   checkpoint step {step}: {n} leaves loaded back equal to the "
+            f"saved arrays [{card}]")
+
+
 def main() -> None:
     card = device_phase()
     build_phase()
-    rows = [kernel_phase(), paged_kernel_phase()]
+    rows = [kernel_phase(), paged_kernel_phase(), attention_kernel_phase()]
     retrieval_rows, launches = retrieval_kernel_phase()
     rows += retrieval_rows
     small_model_phase()
     launches.update(main_path_phases(card))
+    trained = train_phase(card)
+    launches.update(eval_phase(trained, card))
+    del trained
+    _free_gpu_memory("cli")
+    cli_phase(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for row in rows:

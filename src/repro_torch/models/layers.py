@@ -12,6 +12,10 @@ Cached decode attention always goes through a kernel wrapper:
 slot cache, :func:`repro_torch.kernels.paged_flash_decode.
 paged_flash_decode` through the block table — the hand-written CUDA
 kernels on the card, their plain PyTorch versions for CPU tensors.
+The no-cache branch takes :func:`repro_torch.kernels.flash_attention.
+flash_attention` under the reference's condition
+(``cfg.use_pallas_attention``, causal, no window or softcap, Sq == Skv,
+Sq % 128 == 0); it has no gradient, as the reference's kernel has none.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from typing import Dict
 import torch
 
 from repro_torch.core.config import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.paged_flash_decode import paged_flash_decode
 from repro_torch.models.schema import ParamSpec
@@ -234,9 +239,14 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        out = attention(q, k, v, q_pos=positions, causal=causal,
-                        window=window, softcap=cfg.attn_logit_softcap,
-                        q_chunk=cfg.attn_q_chunk)
+        if (cfg.use_pallas_attention and causal and not window
+                and not cfg.attn_logit_softcap and q.shape[1] == k.shape[1]
+                and q.shape[1] % 128 == 0):
+            out = flash_attention(q, k, v, causal=True)
+        else:
+            out = attention(q, k, v, q_pos=positions, causal=causal,
+                            window=window, softcap=cfg.attn_logit_softcap,
+                            q_chunk=cfg.attn_q_chunk)
     elif S == 1 and page_table is not None:
         # paged decode: write this step's k/v into the page holding
         # `pos`, read back through the block table

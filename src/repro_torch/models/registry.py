@@ -45,6 +45,9 @@ class Model:
             device=resolve_device(device))
 
     # forward passes --------------------------------------------------
+    def train_logits(self, params, inputs):
+        return T.forward_train(params, self.cfg, inputs)
+
     def prefill(self, params, inputs, cache):
         return T.forward_prefill(params, self.cfg, inputs, cache)
 

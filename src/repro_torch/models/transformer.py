@@ -10,16 +10,28 @@ slice.
 
 Scope: full-attention dense GQA decoders (the ``qwen1.5-32b`` family),
 with the dense slot cache or the paged pool, each in the config's dtype
-or int8 (``kv_quant_int8``).  Any other family or attention variant
-raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+or int8 (``kv_quant_int8``), and the no-cache training forward with its
+losses.  Any other family or attention variant raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item.
+
+Training: gradients reach the stacked ``blocks`` leaves through the
+per-slice views, so ``.grad`` (or ``torch.autograd.grad``) of a stacked
+leaf holds every block's gradient, as JAX's scan gives it.  ``cfg.remat``
+rematerializes each block in the backward pass: ``"full"`` keeps only
+the block's input, ``"dots"`` also keeps the outputs of the weight
+products (``aten.mm`` / ``aten.addmm``: the counterpart of
+``dots_with_no_batch_dims_saveable``), ``"none"`` keeps everything.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.models import layers as L
@@ -255,3 +267,132 @@ def _forward_cached(params, cfg, inputs, cache, *, prefill):
 
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _unembed(params, cfg, x[:, -1:]), cache
+
+
+# ---------------------------------------------------------------------------
+# No-cache forward (training, evaluation) and losses
+# ---------------------------------------------------------------------------
+
+
+def _embed_inputs(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor]):
+    """Token embedding.  Returns (x, positions); text only (the modality
+    frontends raise in ``layer_structure``)."""
+    tokens = inputs["tokens"]
+    B, S = tokens.shape
+    x = _embed_lookup(params, cfg, tokens)
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device)[None].expand(B, S)
+    return x, positions
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the outputs
+    of the 2-D weight products, recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _backbone(params, cfg: ModelConfig, inputs):
+    """Embedding and every layer, under ``cfg.remat``.  Returns the
+    hidden states before the final norm and the auxiliary loss (0: no
+    MoE layer is ported)."""
+    prefix, block, n_blocks = layer_structure(cfg)
+    x, positions = _embed_inputs(params, cfg, inputs)
+    for lp, s in zip(params["prefix"], prefix):
+        x, _ = apply_layer(lp, x, cfg, s, positions=positions)
+
+    def block_body(h, bp):
+        for j, s in enumerate(block):
+            h, _ = apply_layer(bp[f"p{j}"], h, cfg, s, positions=positions)
+        return h
+
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"{cfg.name}: unknown remat {cfg.remat!r}")
+    # nothing is saved for a backward pass when autograd is off
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    kw = ({"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _save_weight_products)}
+          if cfg.remat == "dots" else {})
+    for i in range(n_blocks):
+        bp = _slice(params["blocks"], i)
+        x = (checkpoint(block_body, x, bp, use_reentrant=False, **kw)
+             if remat else block_body(x, bp))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
+
+
+def forward_train(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor]):
+    """Full-sequence forward.  Returns (logits (B, S, V) float32, extras)
+    with ``extras["aux_loss"]`` 0 (no MoE layer is ported)."""
+    x, aux = _backbone(params, cfg, inputs)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _unembed(params, cfg, x), {"aux_loss": aux}
+
+
+def _masked_nll(logits, labels, ignore_id: int, z_loss: float):
+    """(sum over the valid positions of NLL + z_loss * lse**2, number of
+    valid positions as int32)."""
+    valid = labels != ignore_id
+    lab = torch.where(valid, labels, 0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+    lse = torch.logsumexp(logits, dim=-1)
+    nll = nll + z_loss * lse ** 2
+    return torch.where(valid, nll, 0.0).sum(), valid.sum(dtype=torch.int32)
+
+
+def _ce_chunk(xc, w, lc, ignore_id: int, z_loss: float):
+    # the product in the params' dtype, then float32, as the reference's
+    # einsum(...).astype(float32)
+    return _masked_nll((xc @ w.T).float(), lc, ignore_id, z_loss)
+
+
+def chunked_ce(x, w, labels, *, ignore_id: int = -1, z_loss: float = 1e-4,
+               chunk: int = 512):
+    """Cross-entropy without materializing (B, S, V) logits.
+
+    x: (B, S, d) final hidden states; w: (V, d) unembedding.  The sequence
+    is cut into chunks of ``c = min(chunk, S)`` positions, ``c`` lowered
+    until it divides S; each chunk is rematerialized in the backward pass,
+    so only one chunk's (B, c, V) logits exist at a time.  Returns
+    (sum_nll float32, n_valid int32).
+    """
+    B, S, d = x.shape
+    c = min(chunk, S)
+    while S % c != 0:
+        c -= 1
+    remat = torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    nvalid = torch.zeros((), dtype=torch.int32, device=x.device)
+    for i in range(0, S, c):
+        args = (x[:, i:i + c], w, labels[:, i:i + c], ignore_id, z_loss)
+        s, nv = (checkpoint(_ce_chunk, *args, use_reentrant=False) if remat
+                 else _ce_chunk(*args))
+        tot, nvalid = tot + s, nvalid + nv
+    return tot, nvalid
+
+
+def forward_train_loss(params, cfg: ModelConfig,
+                       batch: Dict[str, torch.Tensor]):
+    """Memory-lean training loss: backbone + chunked CE (+ aux, 0)."""
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    labels = batch["labels"]
+    x, aux = _backbone(params, cfg, inputs)
+    xn = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    S_txt = labels.shape[1]
+    tot, nvalid = chunked_ce(xn[:, -S_txt:], w, labels)
+    return tot / nvalid.clamp(min=1) + aux
+
+
+def loss_fn(logits, labels, *, extras=None, ignore_id: int = -1,
+            z_loss: float = 1e-4):
+    """Next-token CE with ignore mask, z-loss and the aux loss."""
+    S = labels.shape[1]
+    # logits[:, -S:] drops modality positions
+    tot, nvalid = _masked_nll(logits[:, -S:], labels, ignore_id, z_loss)
+    loss = tot / nvalid.clamp(min=1)
+    if extras:
+        loss = loss + extras.get("aux_loss", 0.0)
+    return loss

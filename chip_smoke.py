@@ -64,15 +64,36 @@ Phases, each on its own lines; any failure exits nonzero:
                K4 launched 4 times (once a layer), the losses agreeing;
                ``forward_train_loss`` under ``no_grad`` with K4; a train
                step through K4 raising the gradient guard.
-13. cli      — ``python -m repro_torch.launch.train`` (qwen SMOKE, 20
-               steps) in a subprocess on the card: the loss falls, and its
-               npz checkpoint loads back equal through
+13. mamba serve — ``mamba2-130m`` FULL (24 layers, d_model 768, seeded
+               bf16 weights, not cut) through ``Gateway.serve`` on the
+               dense slot engine, 8 + 8 requests as in phase 6: no
+               kernel launched (the cached prefill and the O(1) decode
+               step never take K6), every request served, each engine
+               token the greedy choice of a per-request prefill/decode
+               loop on the card; decode step and prefill ms, peak memory.
+14. mamba eval — a held batch of 4 x 2048 through ``make_eval_step``
+               with K6 (24 launches a call) and with the plain scan: the
+               losses agreeing; both timed.
+15. mamba train — ``make_train_step`` for 8 steps at 4 x 2048 with the
+               chunk cut 256 -> 64: finite, falling losses, no K6
+               launch; ms per step, tokens/s, peak memory; the gradient
+               norm at chunk 256 (NaN, as the reference's); a train step
+               through K6 raising the gradient guard.
+16. cli      — ``python -m repro_torch.launch.train`` twice at once, in
+               subprocesses on the card: qwen SMOKE and the defaults
+               (mamba2-130m SMOKE), 20 steps each: each loss falls, and
+               each npz checkpoint loads back equal through
                ``load_checkpoint``.
 
 The kernel checks (phase 3) include K4 flash_attention: the training
 shape (B=4, S=1024, H=Hkv=40, D=128, causal), GQA G=2, a non-causal
 ragged case, D=64 and a causal Sq != Skv case, each against its plain
-version; the training shape is timed beside its bound and SDPA.
+version; the training shape is timed beside its bound and SDPA.  And K6
+ssd_chunk_scan: mamba2-130m's evaluation shape (B=4, S=2048, H=24,
+hd=64, N=128, chunk 256, bf16, A_log = 0), G=2 H=8, chunks 64 and 128,
+S < chunk and the reference test's shape, each against its plain
+version in float32 within 5e-5 of max |y|; the evaluation shape is timed
+beside its bound (no PyTorch call computes the scan: no library time).
 
 The last two lines are the JSON kernel table and the device record.
 Imports nothing of the JAX package.
@@ -110,6 +131,14 @@ EVAL_RTOL = 5e-3  # bf16 activations: K4 rounds P to bf16 and sums in
 #                   another order than the plain float32 attention
 REMAT_RTOL = 1e-3  # the same forward; bf16 gradients summed by atomics in
 #                    an order that may change from run to run
+SSD_RTOL = 5e-5   # of max |y|, float32 before the final rounding: the same
+#                   sums in another order (the reference's kernel test's)
+MAMBA = "mamba2-130m"
+MAMBA_EVAL_SEQ, MAMBA_BATCH = 2048, 4
+MAMBA_TRAIN_CHUNK, MAMBA_TRAIN_STEPS = 64, 8
+MAMBA_EVAL_RTOL = 1e-3  # bf16 activations; both scans sum in float32
+TOKEN_GAP_RTOL = 2e-2   # of max |logit|: bf16 rounding of a batch of 8
+#                         against a batch of 1
 
 
 def say(*a) -> None:
@@ -371,6 +400,99 @@ def attention_kernel_phase() -> dict:
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
         del q, k, v, out, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def ssd_ops(B, S, H, hd, N, c) -> int:
+    """The float32 operations an SSD scan needs: the causal half of the
+    two intra-chunk products in every chunk, and the inter-chunk term
+    and the state update in every chunk with a state before or after it
+    (the first chunk's state is zero, the last one's is not returned)."""
+    nc = S // c
+    pairs = c * (c + 1) // 2
+    return B * H * (nc * pairs * 2 * (N + hd) + (nc - 1) * 2 * 2 * c * hd * N)
+
+
+def ssd_kernel_phase() -> dict:
+    """K6 ssd_chunk_scan against its plain version: the evaluation shape
+    of mamba2-130m FULL (B=4, S=2048, H=24, hd=64, G=1, N=128, chunk 256,
+    bf16 inputs, A_log = 0 so that exp(cum_t - cum_s) overflows above the
+    diagonal), G=2 H=8, chunks 64 and 128, S < chunk, and the reference
+    test's shape.  Compared in float32 before the final rounding, within
+    SSD_RTOL of max |y|; the bf16 output must be the float32 one rounded.
+    The evaluation shape is timed beside its bound.  Returns its row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan import (ssd_chunk_scan,
+                                              ssd_chunk_scan_torch)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    row = None
+    for label, B, S, H, hd, G, N, chunk, dtype in (
+            ("eval shape", 4, 2048, 24, 64, 1, 128, 256, torch.bfloat16),
+            ("G=2 H=8", 2, 1024, 8, 64, 2, 64, 256, torch.float32),
+            ("chunk 64", 2, 1024, 24, 64, 1, 128, 64, torch.bfloat16),
+            ("chunk 128", 2, 1024, 24, 64, 1, 128, 128, torch.bfloat16),
+            ("S < chunk", 2, 200, 8, 64, 1, 128, 256, torch.float32),
+            ("reference test shape", 2, 256, 4, 32, 2, 16, 32,
+             torch.float32)):
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(shape, generator=g, device="cuda")
+                    * scale).to(dtype)
+        x = rnd(B, S, H, hd)
+        Bm, Cm = rnd(B, S, G, N, scale=0.5), rnd(B, S, G, N, scale=0.5)
+        dt = F.softplus(torch.randn((B, S, H), generator=g,
+                                    device="cuda")).to(dtype)
+        A_log = (torch.zeros(H, device="cuda") if G == 1 else
+                 torch.randn(H, generator=g, device="cuda") * 0.3).to(dtype)
+        args = (x, Bm, Cm, dt, A_log)
+        with torch.no_grad():
+            y32 = ssd_chunk_scan(*args, chunk=chunk, out_dtype=torch.float32)
+            y = ssd_chunk_scan(*args, chunk=chunk)
+            want = ssd_chunk_scan_torch(*args, chunk=chunk,
+                                        out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        c = min(chunk, S)
+        err = (y32 - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        fall = float((dt.float() * -torch.exp(A_log.float())).reshape(
+            B, S // c, c, H).sum(2).min())
+        rounded = torch.equal(y, y32.to(dtype))
+        say(f"== kernel ssd_chunk_scan [{label}: B={B} S={S} H={H} hd={hd} "
+            f"G={G} N={N} chunk {c}, {str(dtype)[6:]}]: max_abs_err "
+            f"{err:.3e}, relative to max |y| {rel:.3e} (tol "
+            f"{SSD_RTOL:.0e}); cum falls to {fall:.1f} within a chunk; "
+            f"finite {bool(torch.isfinite(y32).all())}; {str(dtype)[6:]} "
+            f"output = float32 output rounded: {rounded}")
+        if not (rel <= SSD_RTOL and torch.isfinite(y32).all() and rounded
+                and y.dtype == dtype):
+            raise AssertionError(f"ssd_chunk_scan [{label}] disagrees with "
+                                 f"its plain version: {rel}")
+        if row is None:
+            with torch.no_grad():
+                ms = cuda_ms(lambda: ssd_chunk_scan(*args, chunk=chunk), 20)
+                plain_ms = cuda_ms(
+                    lambda: ssd_chunk_scan_torch(*args, chunk=chunk), 5)
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in (*args, y))
+            nops = ssd_ops(B, S, H, hd, N, c)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            say(f"   kernel {ms * 1e3:.2f} us | plain {plain_ms * 1e3:.2f} us"
+                f" | library: none (no single PyTorch call computes the SSD "
+                f"scan) | bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.1f} "
+                f"MB: {t_bytes * 1e6:.2f} us; {nops / 1e9:.2f} GFLOP float32:"
+                f" {t_ops * 1e6:.2f} us; {bound_by}); kernel at "
+                f"{nops / ms / 1e9:.2f} TFLOP/s")
+            say(f"   device time by kernel, one call: "
+                f"{device_split(lambda: ssd_chunk_scan(*args, chunk=chunk))}")
+            row = dict(name="ssd_chunk_scan", route="cuda",
+                       source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                       replaces="src/repro/kernels/ssd_scan.py:60",
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        del x, Bm, Cm, dt, args, y, y32, want
     torch.cuda.empty_cache()
     return row
 
@@ -724,22 +846,27 @@ def profile_phase(gw, reqs, plain_wall_s: float) -> None:
 
 
 def _instrument(engine) -> dict:
-    """Record, for one engine: CUDA events around each decode chunk, the
-    greedy tokens of every finished request keyed by its prompt, and (on
-    a paged engine) the peak pages in use after each admission round."""
+    """Record, for one engine: CUDA events around each decode chunk and
+    each admission (prefill + commit) of the dense executor, the greedy
+    tokens of every finished request keyed by its prompt, and (on a
+    paged engine) the peak pages in use after each admission round."""
     import torch
-    rec = {"chunks": [], "tokens": {}, "peak_pages": 0}
+    rec = {"chunks": [], "admits": [], "tokens": {}, "peak_pages": 0}
     prompts = {}
-    run_chunk, submit, run = (engine.executor.decode_chunk, engine.submit,
-                              engine.run)
+    ex = engine.executor
+    run_chunk, admit_group, submit, run = (ex.decode_chunk, ex.admit,
+                                           engine.submit, engine.run)
 
-    def timed_chunk():
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        run_chunk()
-        e.record()
-        rec["chunks"].append((s, e))
+    def timed(fn, key):
+        def call(*a, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **kw)
+            e.record()
+            rec[key].append((s, e))
+            return out
+        return call
 
     def recording_submit(rid, prompt, *a, **kw):
         prompts[rid] = tuple(prompt)
@@ -751,7 +878,8 @@ def _instrument(engine) -> dict:
             if not gen.failed:
                 rec["tokens"][prompts[rid]] = [int(t) for t in gen.tokens]
         return done
-    engine.executor.decode_chunk = timed_chunk
+    ex.decode_chunk = timed(run_chunk, "chunks")
+    ex.admit = timed(admit_group, "admits")
     engine.submit, engine.run = recording_submit, recording_run
     if engine._pages is not None:
         admit = engine._start_admissions
@@ -1267,11 +1395,257 @@ def eval_phase(trained: dict, card: str) -> dict:
     return {"flash_attention": launches}
 
 
+def _greedy_gaps(model, params, rec) -> tuple:
+    """Each served prompt again, alone, through ``prefill`` and
+    ``decode`` on a batch-1 cache, fed the engine's tokens: how many of
+    the engine's greedy tokens are the loop's argmax too, and the largest
+    gap (max logit - the engine token's logit) over max |logit|."""
+    import torch
+    agree = total = 0
+    worst = 0.0
+    with torch.no_grad():
+        for prompt, toks in rec["tokens"].items():
+            cache = model.init_cache(1, len(prompt) + len(toks), device="cuda")
+            lg, _ = model.prefill(params, {"tokens": torch.tensor(
+                [prompt], dtype=torch.int64, device="cuda")}, cache)
+            for i, t in enumerate(toks):
+                row = lg[0, -1]
+                gap = (row.max() - row[t]) / row.abs().max()
+                agree += int(row.argmax()) == t
+                worst = max(worst, float(gap))
+                total += 1
+                if i + 1 < len(toks):
+                    lg, _ = model.decode(params, {"tokens": torch.tensor(
+                        [[t]], dtype=torch.int32, device="cuda")}, cache)
+    return agree, total, worst
+
+
+def mamba_serve_phase(card: str) -> None:
+    """``mamba2-130m`` FULL (24 layers, d_model 768, seeded bf16 weights,
+    not cut) through ``Gateway.serve`` on the dense slot engine: 8 slots,
+    prefill batch 4, prompts of 384 tokens, 8 new tokens; 8 requests
+    under ``FixedPolicy(0)``, 8 under the seeded ``MLPPolicy``, every
+    launch count 0 just before and read just after.  Checks every request
+    served with its tokens, no quarantine, no kernel launched (the cached
+    prefill and the O(1) decode step never take K6, as in the
+    reference), and each engine token is the greedy choice of the same
+    model run per request within TOKEN_GAP_RTOL."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import HashTokenizer, SyntheticSquad
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.paged_flash_decode import paged_flash_decode
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan
+    from repro_torch.models import build_model
+    from repro_torch.models.ssm import ssm_dims
+    from repro_torch.retrieval import BM25Index
+    from repro_torch.routing import ContinuousEngineBackend
+    cfg = get_config(MAMBA, "full")
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    say(f"== mamba serve: {cfg.name} FULL, {cfg.n_layers} layers x d_model "
+        f"{cfg.d_model} (d_state {cfg.ssm.d_state}, head_dim "
+        f"{cfg.ssm.head_dim}, {ssm_dims(cfg)[1]} heads, chunk "
+        f"{cfg.ssm.chunk_size}), {model.n_params() / 1e6:.1f} M params "
+        f"{cfg.dtype}, seeded")
+    data = SyntheticSquad(n_paragraphs=600, n_questions=1000, seed=0)
+    index = BM25Index.build([p.text for p in data.paragraphs])
+    backend = ContinuousEngineBackend.create(
+        model, params, HashTokenizer(cfg.vocab_size), index,
+        num_slots=NUM_SLOTS, prefill_batch=PREFILL_BATCH,
+        max_prompt_len=MAX_PROMPT_LEN, max_new_tokens=MAX_NEW_TOKENS)
+    counters = {"flash_decode": flash_decode,
+                "paged_flash_decode": paged_flash_decode,
+                "flash_attention": flash_attention,
+                "ssd_chunk_scan": ssd_chunk_scan}
+    run = _drive("mamba dense", backend, index, data.questions[-16:], 2,
+                 card, cfg.n_layers, counters)
+    rec = run["rec"]
+    admits = [s_.elapsed_time(e) for s_, e in rec["admits"]]
+    say(f"   prefill: {len(admits)} admission groups (prefill batch "
+        f"{PREFILL_BATCH}, {sum(map(len, rec['tokens']))} prompt tokens), "
+        f"{sum(admits) / max(len(admits), 1):.2f} ms each (device time of "
+        f"prefill + commit), {[round(a, 2) for a in admits]}")
+    if any(run["launches"].values()):
+        raise AssertionError(f"[mamba serve] kernels launched on the "
+                             f"serving path: {run['launches']}")
+    agree, total, worst = _greedy_gaps(model, params, rec)
+    say(f"   {agree} of {total} greedy tokens of {len(rec['tokens'])} "
+        f"requests agree with a per-request prefill/decode loop on the "
+        f"card; largest gap to that loop's top logit {worst:.2e} of max "
+        f"|logit| (tol {TOKEN_GAP_RTOL:.0e}) [{card}]")
+    if not total or worst > TOKEN_GAP_RTOL:
+        raise AssertionError(f"[mamba serve] engine tokens are not the "
+                             f"per-request greedy choice: {worst}")
+
+
+def mamba_eval_phase(card: str) -> dict:
+    """``mamba2-130m`` FULL (seeded bf16 weights) on a held batch of 4 x
+    2048 tokens through ``make_eval_step`` with K6 (``use_pallas_ssd``:
+    every layer's scan, 24 launches a call) and with the plain chunked
+    scan; the losses within MAMBA_EVAL_RTOL.  Returns K6's launches on
+    this path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_dataset import LMDataset
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan
+    from repro_torch.models import build_model
+    from repro_torch.training import make_eval_step
+    cfg = get_config(MAMBA, "full")
+    model = build_model(cfg)
+    k6_model = build_model(dataclasses.replace(cfg, use_pallas_ssd=True))
+    params = model.init(seed=0, device="cuda")
+    held = {k: torch.from_numpy(v).cuda() for k, v in next(
+        LMDataset(cfg, MAMBA_EVAL_SEQ, seed=1).batches(MAMBA_BATCH)).items()}
+    plain_eval, k6_eval = make_eval_step(model), make_eval_step(k6_model)
+    say(f"== mamba eval: {cfg.name} FULL, held batch {MAMBA_BATCH} x "
+        f"{MAMBA_EVAL_SEQ} (LMDataset seed 1), chunk {cfg.ssm.chunk_size}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_chunk_scan.launches = 0
+    k6_loss = k6_eval(params, held)
+    torch.cuda.synchronize()
+    launches = ssd_chunk_scan.launches
+    plain_loss = plain_eval(params, held)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    k6_ms = cuda_ms(lambda: k6_eval(params, held), 3)
+    plain_ms = cuda_ms(lambda: plain_eval(params, held), 3)
+    a, b = float(k6_loss), float(plain_loss)
+    rel = abs(a - b) / abs(b)
+    say(f"   eval loss with K6 {a:.6f}, plain scan {b:.6f}: relative "
+        f"difference {rel:.2e} (tol {MAMBA_EVAL_RTOL:.0e}); K6 launches "
+        f"{launches} per eval call for {cfg.n_layers} layers")
+    say(f"   eval step {k6_ms:.2f} ms with K6, {plain_ms:.2f} ms plain; "
+        f"peak memory {peak:.2f} GiB [{card}]")
+    say(f"   device time by kernel, one eval call with K6 (top 8): "
+        f"{device_split(lambda: k6_eval(params, held), 8)}")
+    if launches != cfg.n_layers:
+        raise AssertionError(f"[mamba eval] K6 launched {launches} times for "
+                             f"{cfg.n_layers} layers")
+    if not (math.isfinite(a) and rel <= MAMBA_EVAL_RTOL):
+        raise AssertionError(f"[mamba eval] losses disagree: K6 {a}, plain "
+                             f"{b}")
+    return {"ssd_chunk_scan": launches}
+
+
+def mamba_train_phase(card: str) -> None:
+    """``make_train_step`` (fused loss, the plain chunked scan, AdamW) for
+    8 steps on ``mamba2-130m`` FULL with ``ssm.chunk_size = 64`` (the
+    chunk at which the reference's FULL gradient is finite), seeded bf16
+    weights, ``remat="full"``, over ``LMDataset`` at batch 4 x seq 2048.
+    Checks finite losses and gradient norms, the last loss below the
+    first, no K6 launch, and a train step with ``use_pallas_ssd`` raising
+    the gradient guard; prints ms per step, tokens/s, peak memory, and
+    the gradient norm at FULL's chunk of 256 (NaN in the reference)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_dataset import LMDataset
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan
+    from repro_torch.models import build_model
+    from repro_torch.models.schema import tree_leaves, zeros_from_schema
+    from repro_torch.models.transformer import forward_train_loss
+    from repro_torch.training import (OptConfig, adamw_init_schema,
+                                      make_train_step)
+    from repro_torch.training.optimizer import global_norm
+    full = get_config(MAMBA, "full")
+    cfg = dataclasses.replace(full, ssm=dataclasses.replace(
+        full.ssm, chunk_size=MAMBA_TRAIN_CHUNK))
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    opt_state = zeros_from_schema(adamw_init_schema(model.schema),
+                                  device="cuda")
+    batches = LMDataset(cfg, MAMBA_EVAL_SEQ).batches(MAMBA_BATCH)
+    tokens = MAMBA_BATCH * MAMBA_EVAL_SEQ
+    # the qwen train phase's schedule; at lr 1e-3 dt grows until cum
+    # falls by more than 88 within 64 rows, and the gradient turns NaN
+    # as at chunk 256 (PERF.md, the Mamba2 findings)
+    opt_cfg = OptConfig(lr=3e-4, warmup_steps=2,
+                        total_steps=MAMBA_TRAIN_STEPS)
+    step_fn = make_train_step(model, opt_cfg)
+    say(f"== mamba train: {cfg.name} FULL with chunk_size "
+        f"{full.ssm.chunk_size} -> {MAMBA_TRAIN_CHUNK}, remat "
+        f"{cfg.remat!r}, batch {MAMBA_BATCH} x seq {MAMBA_EVAL_SEQ} = "
+        f"{tokens} tokens a step, {MAMBA_TRAIN_STEPS} steps, lr "
+        f"{opt_cfg.lr}, warmup {opt_cfg.warmup_steps}")
+    events, metrics = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_chunk_scan.launches = 0
+    for _ in range(MAMBA_TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in
+                 next(batches).items()}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        end.record()
+        events.append((start, end))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    launches = ssd_chunk_scan.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = [s_.elapsed_time(e) for s_, e in events]
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    step_ms = sum(ms[1:]) / len(ms[1:])
+    say(f"   losses {[round(x, 4) for x in losses]}")
+    say(f"   grad_norm {[round(x, 4) for x in gnorms]}")
+    say(f"   ms per step {[round(x, 2) for x in ms]} (CUDA events); steady "
+        f"{step_ms:.2f} ms = {tokens / step_ms * 1e3:.0f} tokens/s; peak "
+        f"memory {peak:.2f} GiB; K6 launches in the train steps {launches} "
+        f"[{card}]")
+    say(f"   device time by kernel, one more step (top 8): "
+        f"{device_split(lambda: step_fn(params, opt_state, batch), 8)}")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"[mamba train] non-finite loss or grad_norm: "
+                             f"{losses}, {gnorms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"[mamba train] the loss did not fall: {losses}")
+    if launches:
+        raise AssertionError(f"[mamba train] K6 launched {launches} times in "
+                             f"train steps")
+    # FULL's own chunk of 256: exp(cum_t - cum_s) is inf above the
+    # diagonal, and its gradient through the mask is NaN (the reference's
+    # too); shown, not trained
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss = forward_train_loss(params, full, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        gn = float(global_norm([g for g in grads if g is not None]))
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    say(f"   at chunk {full.ssm.chunk_size}: loss {float(loss.detach()):.6f}, "
+        f"gradient norm {gn} (NaN in the reference as well)")
+    del loss, grads
+    k6_step = make_train_step(build_model(dataclasses.replace(
+        cfg, use_pallas_ssd=True)), opt_cfg)
+    step0 = int(opt_state["step"])
+    try:
+        k6_step(params, opt_state, batch)
+    except RuntimeError as e:
+        if "no gradient" not in str(e):
+            raise
+        say(f"   train step with K6 raises: {e}")
+    else:
+        raise AssertionError("[mamba train] a train step through K6 did not "
+                             "raise")
+    if int(opt_state["step"]) != step0 or ssd_chunk_scan.launches != launches:
+        raise AssertionError("[mamba train] the refused step changed state")
+
+
 def cli_phase(card: str) -> None:
-    """``python -m repro_torch.launch.train`` on the card (qwen SMOKE, 20
-    steps) in a subprocess; its final loss must be finite and below its
-    first, and its checkpoint must load back through ``load_checkpoint``
-    with every leaf equal to the saved arrays."""
+    """``python -m repro_torch.launch.train`` on the card, twice at once
+    in two subprocesses: qwen SMOKE (``--arch qwen1.5-32b``) and the
+    defaults (``mamba2-130m`` SMOKE), 20 steps each.  Each final loss must
+    be finite and below its first, and each checkpoint must load back
+    through ``load_checkpoint`` with every leaf equal to the saved
+    arrays."""
     import os
     import re
     import tempfile
@@ -1283,59 +1657,75 @@ def cli_phase(card: str) -> None:
     from repro_torch.models.schema import zeros_from_schema
     from repro_torch.training import adamw_init_schema
     from repro_torch.training.checkpoint import _paths, load_checkpoint
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     with tempfile.TemporaryDirectory() as tmp:
-        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-               "qwen1.5-32b", "--variant", "smoke", "--steps", "20",
-               "--ckpt", tmp]
-        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-        t0 = time.perf_counter()
-        r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                           text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        say(f"== cli: {' '.join(cmd[1:-1])} <tmpdir>: exit {r.returncode} "
-            f"in {wall:.1f} s")
-        for line in r.stdout.splitlines():
-            say(f"   | {line}")
-        if r.returncode != 0:
-            raise AssertionError(f"[cli] exit {r.returncode}: {r.stderr}")
-        got = re.search(r"final loss (\S+) \(start (\S+)\)", r.stdout)
-        final, start = float(got.group(1)), float(got.group(2))
-        if not (math.isfinite(final) and final < start):
-            raise AssertionError(f"[cli] final loss {final}, start {start}")
-        model = build_model(get_config("qwen1.5-32b", "smoke"))
-        step, params, opt = load_checkpoint(
-            tmp, model.init(seed=1, device="cuda"),
-            zeros_from_schema(adamw_init_schema(model.schema),
-                              device="cuda"))
-        n = 0
-        for name, tree in (("params", params), ("opt", opt)):
-            with np.load(Path(tmp) / f"{name}_{step}.npz") as z:
-                for key, leaf in _paths(tree):
-                    if not np.array_equal(leaf.float().cpu().numpy(),
-                                          z[key].astype(np.float32)):
-                        raise AssertionError(f"[cli] {name} leaf {key} "
-                                             f"differs from the checkpoint")
-                    n += 1
-        fresh = model.init(seed=0, device="cuda")
-        if step != 20 or int(opt["step"]) != 20 or torch.equal(
-                params["embed"], fresh["embed"]):
-            raise AssertionError(f"[cli] checkpoint step {step}, opt step "
-                                 f"{int(opt['step'])}, or untrained params")
-        say(f"   checkpoint step {step}: {n} leaves loaded back equal to the "
-            f"saved arrays [{card}]")
+        runs = []
+        for arch, flags in (("qwen1.5-32b", ["--arch", "qwen1.5-32b",
+                                             "--variant", "smoke"]),
+                            (MAMBA, [])):
+            ckpt = str(Path(tmp) / arch)
+            cmd = [sys.executable, "-m", "repro_torch.launch.train", *flags,
+                   "--steps", "20", "--ckpt", ckpt]
+            runs.append((arch, ckpt, cmd, time.perf_counter(),
+                         subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                          stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True)))
+        for arch, ckpt, cmd, t0, proc in runs:
+            out, err = proc.communicate(timeout=600)
+            say(f"== cli: {' '.join(cmd[1:-1])} <tmpdir>: exit "
+                f"{proc.returncode} in {time.perf_counter() - t0:.1f} s "
+                f"(both runs at once)")
+            for line in out.splitlines():
+                say(f"   | {line}")
+            if proc.returncode != 0:
+                raise AssertionError(f"[cli {arch}] exit {proc.returncode}: "
+                                     f"{err}")
+            got = re.search(r"final loss (\S+) \(start (\S+)\)", out)
+            final, start = float(got.group(1)), float(got.group(2))
+            if not (math.isfinite(final) and final < start):
+                raise AssertionError(f"[cli {arch}] final loss {final}, "
+                                     f"start {start}")
+            model = build_model(get_config(arch, "smoke"))
+            step, params, opt = load_checkpoint(
+                ckpt, model.init(seed=1, device="cuda"),
+                zeros_from_schema(adamw_init_schema(model.schema),
+                                  device="cuda"))
+            n = 0
+            for name, tree in (("params", params), ("opt", opt)):
+                with np.load(Path(ckpt) / f"{name}_{step}.npz") as z:
+                    for key, leaf in _paths(tree):
+                        if not np.array_equal(leaf.float().cpu().numpy(),
+                                              z[key].astype(np.float32)):
+                            raise AssertionError(
+                                f"[cli {arch}] {name} leaf {key} differs "
+                                f"from the checkpoint")
+                        n += 1
+            fresh = model.init(seed=0, device="cuda")
+            if step != 20 or int(opt["step"]) != 20 or torch.equal(
+                    params["embed"], fresh["embed"]):
+                raise AssertionError(f"[cli {arch}] checkpoint step {step}, "
+                                     f"opt step {int(opt['step'])}, or "
+                                     f"untrained params")
+            say(f"   {arch} checkpoint step {step}: {n} leaves loaded back "
+                f"equal to the saved arrays [{card}]")
 
 
 def main() -> None:
     card = device_phase()
     build_phase()
     rows = [kernel_phase(), paged_kernel_phase(), attention_kernel_phase()]
+    k6 = ssd_kernel_phase()
     retrieval_rows, launches = retrieval_kernel_phase()
-    rows += retrieval_rows
+    rows += retrieval_rows + [k6]
     small_model_phase()
     launches.update(main_path_phases(card))
     trained = train_phase(card)
     launches.update(eval_phase(trained, card))
     del trained
+    _free_gpu_memory("mamba")
+    mamba_serve_phase(card)
+    launches.update(mamba_eval_phase(card))
+    mamba_train_phase(card)
     _free_gpu_memory("cli")
     cli_phase(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -4,14 +4,27 @@ An own copy of the reference's ``core/config.py``: the model-zoo
 :class:`ModelConfig` plus the SLO-routing testbed configs
 (:class:`RouterConfig`, :class:`SLOProfile`, :class:`RetrievalConfig`,
 :class:`TestbedConfig`).  Field names and defaults are identical, so a
-config printed by either package reads the same.  The MLA / MoE / SSM
-sub-configs are not ported yet: the port serves dense GQA decoders, and
-those fields stay ``None``.
+config printed by either package reads the same.  The MLA and MoE
+sub-configs are not ported yet: the port serves dense GQA decoders and
+the Mamba2 family (:class:`SSMConfig`), and those two fields stay
+``None``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD config."""
+
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk_size: int = 256
+    n_groups: int = 1
 
 
 @dataclass(frozen=True)
@@ -55,7 +68,7 @@ class ModelConfig:
 
     mla: Optional[Any] = None
     moe: Optional[Any] = None
-    ssm: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
 
     # encoder-decoder (Whisper)
     is_encoder_decoder: bool = False

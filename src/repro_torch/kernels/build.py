@@ -26,7 +26,8 @@ from typing import Dict, Iterable, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES: Tuple[str, ...] = ("flash_decode", "paged_flash_decode",
-                            "dense_topk", "bm25", "flash_attention")
+                            "dense_topk", "bm25", "flash_attention",
+                            "ssd_scan")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-lineinfo", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")

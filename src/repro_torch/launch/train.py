@@ -8,8 +8,9 @@ host, and optionally writes an npz checkpoint (the reference's format).
         --variant smoke --steps 20 --ckpt /tmp/ckpt
 
 The flags are the reference's ``launch/train.py`` local mode's, plus
-``--device``.  ``--arch`` keeps its default, ``mamba2-130m``, which the
-port does not have yet (``ROADMAP.md`` queue 1, item 8).
+``--device``.  ``--arch`` keeps the reference's default, ``mamba2-130m``;
+its SMOKE variant trains at the config's chunk of 64 (FULL's 256 gives a
+NaN gradient in the reference as here, ``ROADMAP.md`` queue 3).
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Decoder assembly for the dense GQA family.
+"""Decoder assembly for the dense GQA and Mamba2 families.
 
 Mirrors the reference's ``models/transformer.py``: layers are grouped
 into an optional unrolled prefix followed by ``n_blocks`` repeats of a
@@ -10,8 +10,13 @@ slice.
 
 Scope: full-attention dense GQA decoders (the ``qwen1.5-32b`` family),
 with the dense slot cache or the paged pool, each in the config's dtype
-or int8 (``kv_quant_int8``), and the no-cache training forward with its
-losses.  Any other family or attention variant raises
+or int8 (``kv_quant_int8``); Mamba2 stacks (``"M"`` layers, the
+``mamba2-130m`` family: :mod:`repro_torch.models.ssm`) with the dense
+slot cache of conv tails and SSM states (the paged pool raises for
+them, as the reference's does); and the no-cache training forward with
+its losses for both.  Any other family or attention variant (MoE, MLA,
+encoder-decoder, modality frontends, multi-token prediction, sliding
+window, logit softcap; so Jamba too, for its MoE) raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item.
 
 Training: gradients reach the stacked ``blocks`` leaves through the
@@ -36,6 +41,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.core.config import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.schema import ParamSpec, stack_specs, tree_map
+from repro_torch.models.ssm import ssm_apply, ssm_cache_schema, ssm_schema
 from repro_torch.serving import kv_quant as KQ
 
 
@@ -53,12 +59,14 @@ def _lcm(a, b):
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """Raise for anything outside the ported dense-GQA scope."""
+    """Raise for anything outside the ported dense-GQA and Mamba2 scope."""
+    kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
+    if "M" in kinds and cfg.ssm is None:
+        raise ValueError(f"{cfg.name}: Mamba layers need cfg.ssm")
     unported = [
-        (cfg.attn_type != "gqa", f"attn_type={cfg.attn_type!r}"),
+        ("A" in kinds and cfg.attn_type != "gqa",
+         f"attn_type={cfg.attn_type!r}"),
         (cfg.moe is not None, "mixture of experts"),
-        (cfg.ssm is not None or cfg.arch_type == "ssm"
-         or "M" in cfg.layer_pattern, "Mamba2 SSD layers"),
         (cfg.is_encoder_decoder, "encoder-decoder"),
         (cfg.modality != "text", f"modality={cfg.modality!r}"),
         (bool(cfg.mtp_depth), "multi-token prediction"),
@@ -70,8 +78,8 @@ def _check_supported(cfg: ModelConfig) -> None:
     if found:
         raise NotImplementedError(
             f"{cfg.name}: the port serves dense full-attention GQA "
-            f"decoders only; {', '.join(found)}: ROADMAP.md queue 1, "
-            f"item 8")
+            f"decoders and Mamba2 stacks only; {', '.join(found)}: "
+            f"ROADMAP.md queue 1, item 8")
 
 
 def layer_structure(cfg: ModelConfig) -> Tuple[List[LayerSig], List[LayerSig], int]:
@@ -92,25 +100,41 @@ def layer_structure(cfg: ModelConfig) -> Tuple[List[LayerSig], List[LayerSig], i
 
 def _layer_schema(cfg: ModelConfig, s: LayerSig) -> Dict[str, Any]:
     d = cfg.d_model
-    return {"ln1": L.rmsnorm_schema(d), "attn": L.gqa_schema(cfg),
-            "ln2": L.rmsnorm_schema(d), "mlp": L.mlp_schema(cfg)}
+    out: Dict[str, Any] = {"ln1": L.rmsnorm_schema(d)}
+    if s.kind == "M":
+        out["ssm"] = ssm_schema(cfg)
+    else:
+        out["attn"] = L.gqa_schema(cfg)
+    # ln2 stays without an MLP (Mamba2: d_ff = 0), as in the reference
+    out["ln2"] = L.rmsnorm_schema(d)
+    if s.kind == "A" or cfg.d_ff:
+        out["mlp"] = L.mlp_schema(cfg)
+    return out
 
 
 def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
                 cache=None, page_table=None):
     """One residual block.  Returns (x, cache); the cache is updated in
-    place (see :func:`repro_torch.models.layers.gqa_apply`)."""
+    place (see :func:`repro_torch.models.layers.gqa_apply` and
+    :func:`repro_torch.models.ssm.ssm_apply`)."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    out, cache = L.gqa_apply(p["attn"], h, cfg, positions=positions,
-                             cache=cache, window=s.window, causal=s.causal,
-                             page_table=page_table)
+    if s.kind == "M":
+        out, cache = ssm_apply(p["ssm"], h, cfg, cache=cache)
+    else:
+        out, cache = L.gqa_apply(p["attn"], h, cfg, positions=positions,
+                                 cache=cache, window=s.window,
+                                 causal=s.causal, page_table=page_table)
     x = x + out
-    h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + L.mlp_apply(p["mlp"], h2), cache
+    if "mlp" in p:
+        # the reference adds an FFN term of 0.0 when there is no MLP
+        x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x, cache
 
 
 def _layer_cache_schema(cfg: ModelConfig, s: LayerSig, batch: int,
                         max_len: int) -> Dict[str, ParamSpec]:
+    if s.kind == "M":
+        return ssm_cache_schema(cfg, batch)
     if cfg.kv_quant_int8:
         # int8 payload + float16 per-position scales
         return KQ.quant_kv_cache_schema(batch, max_len, cfg.n_kv_heads,

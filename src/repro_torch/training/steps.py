@@ -49,7 +49,11 @@ def make_train_step(model: Model, opt_cfg: OptConfig, *,
 
     def value_and_grad(params, leaves, mb):
         loss = loss_for(params, mb)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
+        # a leaf the loss never reads (a Mamba2 layer's ln2: no MLP
+        # follows it) gets a zero gradient, as jax.grad gives it
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(leaves, grads)]
 
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)

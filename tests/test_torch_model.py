@@ -141,7 +141,7 @@ def test_unported_attention_branches_raise(kw):
 
 @pytest.mark.parametrize("kw", [dict(sliding_window=8),
                                 dict(attn_logit_softcap=30.0),
-                                dict(arch_type="ssm")])
+                                dict(attn_type="mla")])
 def test_unported_model_families_raise(kw):
     _, tc = _configs(**kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

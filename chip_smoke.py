@@ -18,10 +18,17 @@ Phases, each on its own lines; any failure exits nonzero:
 4. retrieval — the batched retrieval path at the SQuAD scale (20,000
                synthetic paragraphs, 64 questions, k = 10):
                ``DenseIndex.topk_batch`` (K3 dense_topk) and
-               ``bm25_scores`` (K5) once each, counted; each held against
-               its plain version in float32 and the host's numpy
-               retrieval (ids identical but for ties within 1e-5), and
-               timed; K3 again on 1,048,576 seeded unit rows (1 GiB).
+               ``BM25Index.scores_batch`` (K5 on the index's nonzeros,
+               ``device_csr``, uploaded once and timed) once each,
+               counted; each held against its plain version in float32
+               and the host's numpy retrieval (ids identical but for ties
+               within 1e-5), and timed; K5's whole call (its row's time)
+               and its kernel alone (``kernel_ms``), also on a dense
+               ``tf`` (its compaction timed with it), beside two
+               yardsticks (cuBLAS ``wq @ sat.T`` and ``torch.sparse.mm``
+               on a CSR of the saturated values) and three bounds (what
+               the batch's terms need, every nonzero, the dense matrix);
+               K3 again on 1,048,576 seeded unit rows (1 GiB).
 5. small     — the SMOKE decoder in bf16: prefill + decode on the card
                against the same weights on the host.
 6. main      — ``qwen1.5-32b`` FULL (64 layers, d_model 5120, seeded
@@ -85,10 +92,15 @@ Phases, each on its own lines; any failure exits nonzero:
                each npz checkpoint loads back equal through
                ``load_checkpoint``.
 
-The kernel checks (phase 3) include K4 flash_attention: the training
-shape (B=4, S=1024, H=Hkv=40, D=128, causal), GQA G=2, a non-causal
-ragged case, D=64 and a causal Sq != Skv case, each against its plain
-version; the training shape is timed beside its bound and SDPA.  And K6
+The kernel checks (phase 3) include K4 flash_attention: first the count
+of HGMMA (wgmma) instructions in its SASS (``cuobjdump -sass``; none is a
+failure) and its ``-Xptxas -v`` lines; then the training shape (B=4,
+S=1024, H=Hkv=40, D=128, causal), GQA G=2, a non-causal ragged case,
+D=64 and a causal Sq != Skv case, each against its plain version; the
+training shape is timed beside its bound and SDPA.  Kernel times are
+CUDA-event means of back-to-back calls after the card has been given a
+head start (a spin longer than the host's enqueueing), so that they time
+the card and not the host's launch rate.  And K6
 ssd_chunk_scan: mamba2-130m's evaluation shape (B=4, S=2048, H=24,
 hd=64, N=128, chunk 256, bf16, A_log = 0), G=2 H=8, chunks 64 and 128,
 S < chunk and the reference test's shape, each against its plain
@@ -164,7 +176,17 @@ def device_phase():
     return card
 
 
-def build_phase() -> None:
+def ptxas_lines(compiler_output: str) -> list:
+    """The ``-Xptxas -v`` lines of one source's build (registers, shared
+    memory, spills) and its warnings."""
+    return [line.strip() for line in compiler_output.splitlines()
+            if any(w in line for w in ("register", "smem", "spill",
+                                       "arning", "Performance"))]
+
+
+def build_phase() -> dict:
+    """Builds every kernel source; returns ``build.build_all``'s report,
+    ``{source: {"seconds", "compiler_output"}}``."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     report = build.build_all()
@@ -172,20 +194,40 @@ def build_phase() -> None:
         f"{time.perf_counter() - t0:.2f} s")
     for name, r in report.items():
         say(f"   {name}: nvcc {r['seconds']:.2f} s")
-        for line in r["compiler_output"].splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                say(f"     {line.strip()}")
+        for line in ptxas_lines(r["compiler_output"]):
+            say(f"     {line}")
+    return report
+
+
+def sass_count(name: str, opcode: str) -> int:
+    """How many instructions of the built ``csrc/<name>.cu`` library's
+    SASS (``cuobjdump -sass``) carry ``opcode``."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return sum(opcode in line for line in sass.splitlines())
 
 
 def cuda_ms(fn, iters: int = 100) -> float:
     """Mean device time of one ``fn()`` call, by CUDA events around
-    ``iters`` back-to-back calls after a warm-up."""
+    ``iters`` back-to-back calls after a warm-up.  The card first spins
+    for longer than the host takes to enqueue the calls, so the events
+    time the calls back to back on the card and not the host's launch
+    rate."""
     import torch
     for _ in range(3):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = (time.perf_counter() - t0) * iters
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
+    # 2e9 cycles a second bounds the SM clock from above; at most 2 s
+    torch.cuda._sleep(int(min(2.0, 1.5 * host_s + 1e-3) * 2e9))
     start.record()
     for _ in range(iters):
         fn()
@@ -334,16 +376,25 @@ def paged_kernel_phase() -> dict:
     return rows[0]
 
 
-def attention_kernel_phase() -> dict:
+def attention_kernel_phase(build_report: dict) -> dict:
     """K4 flash_attention against its plain version in bf16: the training
     shape (B=4, S=1024, H=Hkv=40, D=128, causal), then GQA G=2, a
     non-causal case with Sq != Skv and ragged tiles, D=64 (SMOKE), and a
     causal Sq != Skv case.  The training shape is timed beside its bound
-    and SDPA.  Returns the training shape's row of the table."""
+    and SDPA; its HGMMA count and its ptxas lines (from ``build_report``,
+    ``build_phase``'s) are printed first.  Returns the training shape's
+    row of the table."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_torch)
+    hgmma = sass_count("flash_attention", "HGMMA")
+    ptxas = ptxas_lines(build_report["flash_attention"]["compiler_output"])
+    say(f"== kernel flash_attention: {hgmma} HGMMA instruction(s) in its "
+        f"SASS; ptxas: {' | '.join(ptxas)}")
+    if not hgmma:
+        raise AssertionError("flash_attention's SASS has no HGMMA: the "
+                             "products do not run on wgmma")
     g = torch.Generator(device="cuda").manual_seed(2)
     row = None
     for label, B, Sq, Skv, H, Hkv, D, causal in (
@@ -625,19 +676,150 @@ def _k3_row(label, q, docs, counted, reference=None) -> dict:
                 library_ms=library_ms)
 
 
+def _k5_row(bm25, questions, qtf, csr, doc_len, idf, bm, bm_i,
+            csr_s: float) -> dict:
+    """Hold K5's result ``bm`` (the main path's launch, through
+    ``BM25Index.scores_batch`` on the index's ``BM25Csr``) against the
+    plain version on the same inputs and its top-k ``bm_i`` against the
+    host's ``BM25Index.topk``; time the call (the row's ``ms``), the
+    kernel alone (``kernel_ms``), the plain version, the call on a dense
+    ``tf`` (compaction included) and two library yardsticks; compute the
+    bound of what this run's data needs, beside the bounds of every
+    nonzero and of the dense input."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import bm25 as k5
+    from repro_torch.kernels.bm25 import bm25_scores, bm25_scores_torch
+    tf = torch.from_numpy(bm25.tf).cuda()
+    want = bm25_scores_torch(qtf, csr, doc_len, idf)
+    dense_want = bm25_scores_torch(qtf, tf, doc_len, idf)
+    scale = want.abs().max()
+    rel = ((bm - want).abs().max() / scale).item()
+    dense_in = bm25_scores(qtf, tf, doc_len, idf)
+    dense_rel = ((dense_in - want).abs().max() / scale).item()
+    plain_rel = ((dense_want - want).abs().max() / scale).item()
+    n_host = BM25_HOST_QUESTIONS
+    t0 = time.perf_counter()
+    host_ids = np.stack([bm25.topk(t, TOP_K)[0]
+                         for t in questions[:n_host]])
+    host_s = (time.perf_counter() - t0) / n_host
+    host_rows = np.stack([bm25.scores_np(bm25.query_vector(t))
+                          for t in questions[:n_host]])
+    bm25_swaps = _tie_swaps(bm_i[:n_host].cpu().numpy(), host_ids,
+                            host_rows,
+                            RETRIEVAL_TOL * float(np.abs(host_rows).max()),
+                            "bm25_scores top-k vs BM25Index.topk")
+    # the yardsticks' inputs, prep untimed: the saturated matrix, dense
+    # and as a CSR tensor of the same nonzeros
+    k1, b = bm25.cfg.k1, bm25.cfg.b
+    norm = k1 * (1 - b + b * doc_len / (doc_len.mean() + 1e-6))
+    wq = qtf * idf[None, :]
+    sat = tf * (k1 + 1.0) / (tf + norm[:, None])
+    sat_csr = torch.sparse_csr_tensor(
+        csr.row_ptr.long(), csr.cols.long(),
+        csr.vals * (k1 + 1.0) / (csr.vals + norm[k5._csr_rows(csr)]),
+        csr.shape)
+    wqT = wq.T.contiguous()
+
+    def cublas():
+        return wq @ sat.T
+
+    def sparse():
+        return torch.sparse.mm(sat_csr, wqT)
+    cublas_rel = ((cublas() - want).abs().max() / scale).item()
+    sparse_rel = ((sparse().T - want).abs().max() / scale).item()
+    # the whole call (the row's time, as every row's), its time on the
+    # host's clock back to back, and the kernel alone on the wrapper's
+    # prep (untimed, as the yardsticks' prep is)
+    ms = cuda_ms(lambda: bm25_scores(qtf, csr, doc_len, idf))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        bm25_scores(qtf, csr, doc_len, idf)
+    torch.cuda.synchronize()
+    call_wall_ms = (time.perf_counter() - t0) * 10
+    kernel = k5._kernel()
+    prep = k5._kernel_prep(qtf, doc_len, idf, k1, b)
+    kernel_ms = cuda_ms(
+        lambda: k5._launch(kernel, *prep[:2], csr, prep[2], k1))
+    plain_ms = cuda_ms(lambda: bm25_scores_torch(qtf, csr, doc_len, idf),
+                       20)
+    dense_ms = cuda_ms(lambda: bm25_scores(qtf, tf, doc_len, idf), 20)
+    cublas_ms = cuda_ms(cublas, 20)
+    library_ms = cuda_ms(sparse, 20)
+    Q, V = qtf.shape
+    D, nnz = csr.shape[0], csr.vals.numel()
+    used = prep[1]
+    n_terms = int(used.sum().item())
+    n_used = int(used[csr.cols.long()].sum().item())
+    # what this run's data needs: row_ptr, every col (to find the used
+    # ones), norm, the used flags and the output; vals and the weights
+    # only of the used terms; the saturation (3) and the Q products (2 Q)
+    # of each used nonzero.  Beside it the same count over every nonzero
+    # and all of wq.
+    fixed = (D + 1) * 4 + nnz * 4 + D * 4 + V + Q * D * 4
+    nbytes = fixed + n_used * 4 + n_terms * Q * 4
+    nops = (2 * Q + 3) * n_used
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    all_bytes = fixed + nnz * 4 + Q * V * 4
+    all_ms = max(all_bytes / HBM_BYTES_PER_S,
+                 (2 * Q + 3) * nnz / FP32_OPS_PER_S) * 1e3
+    dense_bytes = (Q * V + D * V + D + V + Q * D) * 4
+    say(f"== kernel bm25 [SQuAD scale: Q={Q} D={D} V={V}, float32, "
+        f"{nnz} nonzero tf ({nnz / D:.1f} a document), {n_used} of them "
+        f"in the {n_terms} terms of the batch]")
+    say(f"   BM25Index.device_csr: compacted on the host and copied with "
+        f"doc_len and idf ({(D + 1) * 4 + nnz * 8 + D * 4 + V * 4} bytes) "
+        f"in {csr_s * 1e3:.2f} ms, once")
+    say(f"   max relative err {rel:.3e} (tol {RETRIEVAL_TOL:.0e}); dense-"
+        f"input call {dense_rel:.3e}; plain dense version {plain_rel:.3e}; "
+        f"cuBLAS {cublas_rel:.3e}; torch.sparse.mm {sparse_rel:.3e}; "
+        f"top-{TOP_K} vs BM25Index.topk (numpy, {host_s:.2f} s a question "
+        f"on the host) for the first {n_host} questions: {bm25_swaps} tie "
+        f"swap(s)")
+    say(f"   call {ms * 1e3:.2f} us on the card (torch prep + kernel; "
+        f"{call_wall_ms * 1e3:.2f} us a call on the host's clock) | kernel "
+        f"alone {kernel_ms * 1e3:.2f} us | plain (CSR) "
+        f"{plain_ms * 1e3:.2f} us | dense-input call, compaction included "
+        f"{dense_ms * 1e3:.2f} us | library torch.sparse.mm (CSR of the "
+        f"saturated values, prep untimed) {library_ms * 1e3:.2f} us | "
+        f"cuBLAS wq @ sat.T (prep untimed) {cublas_ms * 1e3:.2f} us")
+    say(f"   bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB: "
+        f"{t_bytes * 1e6:.2f} us; {nops / 1e6:.1f} MFLOP: "
+        f"{t_ops * 1e6:.2f} us; {bound_by}): call "
+        f"{ms / bound_ms:.1f} x, kernel {kernel_ms / bound_ms:.1f} x | "
+        f"counting every nonzero and all of wq {all_ms * 1e3:.2f} us "
+        f"({all_bytes / 1e6:.2f} MB) | dense-input bound "
+        f"{dense_bytes / HBM_BYTES_PER_S * 1e6:.2f} us "
+        f"({dense_bytes / 1e6:.2f} MB)")
+    say(f"   device time by kernel, one call: "
+        f"{device_split(lambda: bm25_scores(qtf, csr, doc_len, idf))}")
+    if not (rel <= RETRIEVAL_TOL and dense_rel <= RETRIEVAL_TOL):
+        raise AssertionError(f"bm25 disagrees with its plain version: "
+                             f"{rel}, dense input {dense_rel}")
+    return dict(name="bm25_scores", route="cuda",
+                source="src/repro_torch/kernels/csrc/bm25.cu",
+                replaces="src/repro/kernels/bm25.py:40",
+                max_abs_err=(bm - want).abs().max().item(), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, kernel_ms=kernel_ms)
+
+
 def retrieval_kernel_phase() -> tuple:
     """K3 and K5 on the batched retrieval path at the SQuAD scale (a
     synthetic corpus of 20,000 paragraphs, 64 questions, k = 10): the
-    path's entry points (``DenseIndex.topk_batch``, ``bm25_scores``) run
-    once with the launch counts set to 0 just before and read just
-    after; then each kernel is held against its plain version and the
+    path's entry points (``DenseIndex.topk_batch``,
+    ``BM25Index.scores_batch``) run once with the launch counts set to 0
+    just before and read just after; then each kernel is held against its plain version and the
     host's numpy retrieval, and timed.  K3 is held and timed again on
     1,048,576 seeded random unit rows (1 GiB).  Returns the table's
     main-path rows and the path's launch counts."""
     import numpy as np
     import torch
     from repro_torch.data import SyntheticSquad
-    from repro_torch.kernels.bm25 import bm25_scores, bm25_scores_torch
+    from repro_torch.kernels.bm25 import bm25_scores
     from repro_torch.kernels.dense_topk import dense_topk
     from repro_torch.retrieval import BM25Index, DenseIndex
     t0 = time.perf_counter()
@@ -657,22 +839,31 @@ def retrieval_kernel_phase() -> tuple:
         f"on the host")
     qtf = torch.from_numpy(np.stack([bm25.query_vector(t)
                                      for t in questions])).cuda()
-    tf, doc_len, idf = (torch.from_numpy(a).cuda()
-                        for a in (bm25.tf, bm25.doc_len, bm25.idf))
     emb = dense.device_emb("cuda")
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    csr = bm25.device_csr("cuda")     # compacted on the host, copied once
+    torch.cuda.synchronize()
+    csr_s = time.perf_counter() - t0
+    doc_len, idf = (torch.from_numpy(a).cuda()
+                    for a in (bm25.doc_len, bm25.idf))
+    if bm25.device_csr("cuda") is not csr:
+        raise AssertionError("[retrieval] device_csr was built twice")
 
     # -- the batched retrieval path, counted -----------------------------
     counters = (dense_topk, bm25_scores)
     for fn in counters:
         fn.launches = 0
     ids, scores = dense.topk_batch(questions, TOP_K)
-    bm = bm25_scores(qtf, tf, doc_len, idf)
+    bm = bm25.scores_batch(qtf)
     bm_i = torch.topk(bm, TOP_K, dim=1).indices
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counters}
-    say(f"   path: DenseIndex.topk_batch + bm25_scores -> top-{TOP_K}: "
-        f"launches {launches}")
+    if bm25.device_csr(qtf.device) is not csr:
+        raise AssertionError(f"[retrieval] scores_batch on {qtf.device} "
+                             f"uploaded the index again")
+    say(f"   path: DenseIndex.topk_batch + BM25Index.scores_batch -> "
+        f"top-{TOP_K}: launches {launches}")
     if launches != {"dense_topk": 1, "bm25_scores": 1}:
         raise AssertionError(f"[retrieval] launches {launches}: want one "
                              f"of each kernel")
@@ -693,66 +884,8 @@ def retrieval_kernel_phase() -> tuple:
                  f"{host_err:.2e}", qe, emb, counted, (host_ids, host_rows))
 
     # -- K5: against the plain version and BM25Index.topk ----------------
-    want = bm25_scores_torch(qtf, tf, doc_len, idf)
-    rel = ((bm - want).abs().max() / want.abs().max()).item()
-    n_host = BM25_HOST_QUESTIONS
-    t0 = time.perf_counter()
-    host_ids = np.stack([bm25.topk(t, TOP_K)[0]
-                         for t in questions[:n_host]])
-    host_s = (time.perf_counter() - t0) / n_host
-    host_rows = np.stack([bm25.scores_np(bm25.query_vector(t))
-                          for t in questions[:n_host]])
-    bm25_swaps = _tie_swaps(bm_i[:n_host].cpu().numpy(), host_ids,
-                            host_rows,
-                            RETRIEVAL_TOL * float(np.abs(host_rows).max()),
-                            "bm25_scores top-k vs BM25Index.topk")
-    k1, b = bm25.cfg.k1, bm25.cfg.b
-    avg = doc_len.mean() + 1e-6
-    norm = k1 * (1 - b + b * doc_len / avg)
-    wq = qtf * idf[None, :]
-    sat = tf * (k1 + 1.0) / (tf + norm[:, None])
-
-    def library():
-        return wq @ sat.T
-    lib_rel = ((library() - want).abs().max() / want.abs().max()).item()
-    ms = cuda_ms(lambda: bm25_scores(qtf, tf, doc_len, idf), 20)
-    plain_ms = cuda_ms(lambda: bm25_scores_torch(qtf, tf, doc_len, idf), 20)
-    library_ms = cuda_ms(library, 20)
-    Q, V = qtf.shape
-    D = tf.shape[0]
-    nbytes = (Q * V + D * V + D + V + Q * D) * 4
-    # The work this run's data needs: a zero term frequency adds nothing,
-    # so only the nonzeros of tf are saturated and multiplied.  The dense
-    # count, which the kernel does, is printed beside it.
-    nnz = int((tf > 0).sum().item())
-    nops = 2 * Q * nnz + 3 * nnz
-    dense_ops = 2 * Q * D * V + 3 * D * V
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S) * 1e3
-    bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
-                >= nops / FP32_OPS_PER_S else "operations")
-    say(f"== kernel bm25 [SQuAD scale: Q={Q} D={D} V={V}, float32]")
-    say(f"   max relative err {rel:.3e} (tol {RETRIEVAL_TOL:.0e}); library "
-        f"{lib_rel:.3e}; top-{TOP_K} vs BM25Index.topk (numpy, "
-        f"{host_s:.2f} s a question on the host) for the first {n_host} "
-        f"questions: {bm25_swaps} tie swap(s)")
-    say(f"   kernel {ms * 1e3:.2f} us | plain {plain_ms * 1e3:.2f} us | "
-        f"library yardstick wq @ sat.T (prep untimed) "
-        f"{library_ms * 1e3:.2f} us | bound {bound_ms * 1e3:.2f} us "
-        f"({nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} GFLOP over {nnz} "
-        f"nonzero tf: {bound_by}); the dense product the kernel does is "
-        f"{dense_ops / 1e9:.2f} GFLOP = "
-        f"{dense_ops / FP32_OPS_PER_S * 1e6:.2f} us at the f32 peak")
-    say(f"   device time by kernel, one call: "
-        f"{device_split(lambda: bm25_scores(qtf, tf, doc_len, idf))}")
-    if not rel <= RETRIEVAL_TOL:
-        raise AssertionError(f"bm25 disagrees with its plain version: {rel}")
-    k5 = dict(name="bm25_scores", route="cuda",
-              source="src/repro_torch/kernels/csrc/bm25.cu",
-              replaces="src/repro/kernels/bm25.py:40",
-              max_abs_err=(bm - want).abs().max().item(), ms=ms,
-              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-              library_ms=library_ms)
-    del tf, sat, want, bm, emb, dense, bm25
+    k5 = _k5_row(bm25, questions, qtf, csr, doc_len, idf, bm, bm_i, csr_s)
+    del csr, bm, emb, dense, bm25
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1712,8 +1845,9 @@ def cli_phase(card: str) -> None:
 
 def main() -> None:
     card = device_phase()
-    build_phase()
-    rows = [kernel_phase(), paged_kernel_phase(), attention_kernel_phase()]
+    report = build_phase()
+    rows = [kernel_phase(), paged_kernel_phase(),
+            attention_kernel_phase(report)]
     k6 = ssd_kernel_phase()
     retrieval_rows, launches = retrieval_kernel_phase()
     rows += retrieval_rows + [k6]
@@ -1732,7 +1866,8 @@ def main() -> None:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for row in rows:
         row["launches"] = launches[row["name"]]
-    print(json.dumps({"kernels": [{k: row[k] for k in keys}
+    # every row has the keys above, in that order; K5's adds kernel_ms
+    print(json.dumps({"kernels": [{**{k: row[k] for k in keys}, **row}
                                   for row in rows]}))
     print(card)
     import torch

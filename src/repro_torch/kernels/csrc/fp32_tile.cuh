@@ -1,5 +1,5 @@
-// The float32 tile product shared by the retrieval kernels, dense top-k
-// (dense_topk.cu, K3) and BM25 scoring (bm25.cu, K5).
+// The float32 tile product shared by dense top-k (dense_topk.cu, K3) and
+// the SSD chunk scan (ssd_scan.cu, K6).
 //
 // A block of kThreads threads computes a kTile x kTile tile of
 // A (rows, n) . B (cols, n)^T on CUDA cores, in exact float32 (fmaf, no

@@ -15,11 +15,14 @@ splits' partial top-k lists.
 * :func:`dense_topk_torch` — the plain PyTorch version, with the
   semantics of the reference's ``kernels/ref.py::dense_topk_ref``.
 
-Contract (that of the reference's ``ops.dense_topk``): q ``(Q, E)``,
-docs ``(D, E)``, cast to float32.  ``k <= 0`` or ``D == 0`` gives empty
-``(Q, 0)`` outputs; ``k`` clamps to ``D``; any ``Q`` and ``D``.  Returns
-``(scores (Q, k) float32 descending, ids (Q, k) int32)``; exact score
-ties go to the lower doc id (``lax.top_k`` order).
+Contract: q ``(Q, E)``, docs ``(D, E)``, cast to float32.  ``k <= 0`` or
+``D == 0`` gives empty ``(Q, 0)`` outputs; ``k`` clamps to ``D``; any
+``Q`` and ``D``.  Returns ``(scores (Q, k) float32 descending, ids (Q, k)
+int32)``; exact score ties go to the lower doc id (``lax.top_k`` order).
+The plain version takes any ``k`` and ``E``, as the reference's
+``ops.dense_topk`` does; the CUDA kernel is narrower: ``k <= 32``
+(``MAX_K``) and ``E`` a multiple of 4 up to 768 (``MAX_E``), and the
+wrapper raises on a CUDA tensor outside that.
 """
 from __future__ import annotations
 

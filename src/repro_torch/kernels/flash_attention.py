@@ -6,9 +6,11 @@ flash_attention_pallas`` (body ``_flash_kernel``, wrapper
 ``repro/kernels/ops.py::flash_attention``).  On the card it runs the
 hand-written CUDA kernel in ``csrc/flash_attention.cu``; the design notes
 are at the top of that file.  In short: Q, K and V are read in place in
-the model's ``(B, S, H, D)`` layout (no transpose, no GQA copy), both
-products run on the tensor cores, and under ``causal`` the kv loop stops
-at the diagonal tile.
+the model's ``(B, S, H, D)`` layout through TMA tensor maps (no
+transpose, no GQA copy) by a producer warpgroup, and two consumer
+warpgroups run both products by ``wgmma`` with the softmax in registers;
+a persistent grid walks the (q tile, head) items head by head; under
+``causal`` the kv loop stops at the diagonal tile.
 
 * :func:`flash_attention` — the wrapper.  CPU tensors take the plain
   version; CUDA tensors launch the kernel or raise (there is no
@@ -97,11 +99,13 @@ def _check(q, k, v) -> None:
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, q on "
                              f"{q.device}")
-        # 16-byte row loads: unit last stride, rows 8-element aligned
+        # TMA: unit last stride, the other strides and the base 16-byte
+        # aligned
         if (t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1])
                 or t.data_ptr() % 16):
             raise ValueError(f"flash_attention: {name} strides {t.stride()} "
-                             f"/ alignment do not allow 16-byte row loads")
+                             f"/ alignment do not allow TMA copies (16-byte "
+                             f"aligned base and strides)")
 
 
 def _kernel():
@@ -114,17 +118,24 @@ def _kernel():
     return fn
 
 
+def _args(q, k, v, out, causal: bool) -> tuple:
+    """The C function's arguments after the four pointers and before
+    the stream: ``B, H, Hkv, Sq, Skv, D, causal``, the (batch, seq, head)
+    strides in elements of q, k, v and out, and the softmax scale."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    return (B, H, Hkv, Sq, Skv, D, int(causal), *strides,
+            1.0 / math.sqrt(D))
+
+
 def _launch(q, k, v, causal: bool):
     _check(q, k, v)
     kernel = _kernel()
-    B, Sq, H, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     rc = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, H, Hkv, Sq, Skv, D, int(causal), *strides,
-                1.0 / math.sqrt(D), stream)
+                *_args(q, k, v, out, causal), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")

@@ -148,6 +148,45 @@ def test_cuda_request_launches_or_raises_never_falls_back(
     assert fa.flash_attention.launches == before
 
 
+@pytest.mark.parametrize("layout", ["bshd", "bhsd_view"])
+def test_launch_arguments_follow_the_c_signature(layout):
+    """``_args`` gives the C function ``B, H, Hkv, Sq, Skv, D, causal``,
+    then the (batch, seq, head) element strides of q, k, v and out (the
+    kernel's tensor maps and stores read them) and 1/sqrt(D): 20 values
+    between the 4 pointers and the stream."""
+    B, Sq, Skv, H, Hkv, D = 2, 96, 160, 8, 2, 64
+    if layout == "bshd":
+        q = torch.zeros(B, Sq, H, D)
+        k = torch.zeros(B, Skv, Hkv, D)
+    else:   # (B, H, S, D) storage seen as (B, S, H, D): strides in place
+        q = torch.zeros(B, H, Sq, D).transpose(1, 2)
+        k = torch.zeros(B, Hkv, Skv, D).transpose(1, 2)
+    out = torch.empty(q.shape)
+    args = fa._args(q, k, k, out, causal=True)
+    assert len(args) == 20
+    assert args[:7] == (B, H, Hkv, Sq, Skv, D, 1)
+    assert args[7:10] == q.stride()[:3] and args[10:13] == k.stride()[:3]
+    assert args[13:16] == k.stride()[:3]
+    assert args[16:19] == out.stride()[:3]
+    assert args[19] == pytest.approx(D ** -0.5)
+    assert fa._args(q, k, k, out, causal=False)[6] == 0
+
+
+def test_cuda_request_with_unaligned_strides_raises():
+    """TMA copies need 16-byte aligned strides: a row stride that is not a
+    multiple of 8 elements raises before any build."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a host without a card")
+    before = fa.flash_attention.launches
+    with FakeTensorMode():
+        q = torch.empty_strided((2, 128, 4, 64), (128 * 4 * 68, 4 * 68, 68, 1),
+                                dtype=torch.bfloat16, device="cuda")
+        k = _fake_cuda((2, 128, 4, 64), torch.bfloat16)
+        with pytest.raises(ValueError, match="TMA"):
+            fa.flash_attention(q, k, k)
+    assert fa.flash_attention.launches == before
+
+
 def _model_pair(**kw):
     rc = dataclasses.replace(ref_config("qwen1.5-32b", "smoke"),
                              dtype="float32", **kw)

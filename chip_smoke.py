@@ -14,7 +14,10 @@ Phases, each on its own lines; any failure exits nonzero:
                in bf16 at the main path's shapes and time the kernel, the
                plain version, the bound and a library yardstick: K1
                flash_decode (dense slot cache), K2 paged_flash_decode
-               (block table into a page pool, with a parked slot).
+               (block table into a page pool, with a parked slot; the
+               main path, GQA and one 4096-row slot among short ones,
+               each also through K1 on the same rows gathered, with each
+               wrapper's host time a call).
 4. retrieval — the batched retrieval path at the SQuAD scale (20,000
                synthetic paragraphs, 64 questions, k = 10):
                ``DenseIndex.topk_batch`` (K3 dense_topk) and
@@ -103,9 +106,14 @@ head start (a spin longer than the host's enqueueing), so that they time
 the card and not the host's launch rate.  And K6
 ssd_chunk_scan: mamba2-130m's evaluation shape (B=4, S=2048, H=24,
 hd=64, N=128, chunk 256, bf16, A_log = 0), G=2 H=8, chunks 64 and 128,
-S < chunk and the reference test's shape, each against its plain
-version in float32 within 5e-5 of max |y|; the evaluation shape is timed
-beside its bound (no PyTorch call computes the scan: no library time).
+S < chunk, the reference test's shape and rows off 16-byte boundaries
+(strided x, B, C; N=18), each against its plain
+version in float32 within 5e-5 of max |y|; first the count of HMMA
+(mma.sync) instructions in its SASS (none is a failure); the evaluation
+shape is timed beside its bound -- bytes, or its operations on the bf16
+tensor cores it feeds, with the float32 CUDA-core basis printed beside
+-- and the device time of each of its three launches (no PyTorch call
+computes the scan: no library time).
 
 The last two lines are the JSON kernel table and the device record.
 Imports nothing of the JAX package.
@@ -299,30 +307,58 @@ def kernel_phase() -> dict:
     return rows[0]
 
 
+def host_us(fn, calls: int = 200) -> float:
+    """The host's time to issue one ``fn()`` call (wrapper, checks and
+    launch), by the host clock around ``calls`` back-to-back calls that
+    the card does not hold up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def paged_kernel_phase() -> dict:
     """K2 paged_flash_decode against its plain version at the paged main
-    path's shape (page size 8, 50-block tables into 400 pages) and a GQA
-    shape, through a shuffled table whose entries past each slot's
-    length are stale out-of-range ids, with one slot parked at
-    max_blocks * page_size + 1 as an idle slot is.  Returns the
-    main-path row of the table."""
+    path's shape (page size 8, 50-block tables into 400 pages), a GQA
+    shape, and a long slot (page size 16, 256-block tables, one slot of
+    4096 rows among short ones), through a shuffled table whose entries
+    past each slot's length are stale out-of-range ids, with a slot
+    parked at max_blocks * page_size + 1 as an idle slot is.  Each case
+    is also timed through K1 on the same rows gathered into a dense cache,
+    and the wrappers' host time a call is printed.  Returns the main-path
+    row of the table."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.paged_flash_decode import (
-        paged_flash_decode, paged_flash_decode_torch)
+        paged_flash_decode, paged_flash_decode_torch, partitions)
     g = torch.Generator(device="cuda").manual_seed(1)
-    B, H, D, ps, MB, NP = 8, 40, 128, PAGE_SIZE, 50, NUM_PAGES
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    B, H, D = 8, 40, 128
     rows = []
-    for label, Hkv in (("main path", 40), ("GQA", 8)):
+    for label, Hkv, ps, MB, NP in (
+            ("main path", 40, PAGE_SIZE, 50, NUM_PAGES),
+            ("GQA", 8, PAGE_SIZE, 50, NUM_PAGES),
+            ("long slot", 8, 16, 256, 2048)):
         def rnd(*shape):
             return torch.randn(shape, generator=g, device="cuda",
                                dtype=torch.bfloat16)
         q, kp, vp = rnd(B, H, D), rnd(NP, ps, Hkv, D), rnd(NP, ps, Hkv, D)
         table = torch.randperm(NP, generator=g, device="cuda")[:B * MB]
         table = table.reshape(B, MB).to(torch.int32)
-        lens = torch.randint(1, MB * ps - ps + 1, (B,), generator=g,
-                             device="cuda", dtype=torch.int32)
-        lens[0], lens[1], lens[2] = 1, MB * ps + 1, MB * ps - ps
+        if label == "long slot":
+            lens = torch.randint(1, 300, (B,), generator=g, device="cuda",
+                                 dtype=torch.int32)
+            lens[0], lens[1], lens[2] = MB * ps, 1, MB * ps + 1
+        else:
+            lens = torch.randint(1, MB * ps - ps + 1, (B,), generator=g,
+                                 device="cuda", dtype=torch.int32)
+            lens[0], lens[1], lens[2] = 1, MB * ps + 1, MB * ps - ps
         n = lens.clamp(1, MB * ps)
         # stale ids past each slot's allocation: clamped, never read
         past = (torch.arange(MB, device="cuda")[None, :] * ps
@@ -333,10 +369,12 @@ def paged_kernel_phase() -> dict:
         torch.cuda.synchronize()
         err = (out.float() - want.float()).abs().max().item()
         # the yardstick: SDPA over the rows already gathered (the
-        # gather is excluded: no single PyTorch call reads a table)
+        # gather is excluded: no single PyTorch call reads a table); K1
+        # over the same gathered rows
         tab = table.long().clamp(0, NP - 1)
-        kt = kp[tab].reshape(B, MB * ps, Hkv, D).transpose(1, 2)
-        vt = vp[tab].reshape(B, MB * ps, Hkv, D).transpose(1, 2)
+        kd = kp[tab].reshape(B, MB * ps, Hkv, D)
+        vd = vp[tab].reshape(B, MB * ps, Hkv, D)
+        kt, vt = kd.transpose(1, 2), vd.transpose(1, 2)
         mask = (torch.arange(MB * ps, device="cuda")[None, :]
                 < n[:, None])[:, None, None, :]
         q4 = q[:, :, None]
@@ -345,10 +383,16 @@ def paged_kernel_phase() -> dict:
             return F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask,
                                                   enable_gqa=True)
         lib_err = (library()[:, :, 0].float() - want.float()).abs().max()
+        k1_err = (flash_decode(q, kd, vd, n).float()
+                  - want.float()).abs().max().item()
         ms = cuda_ms(lambda: paged_flash_decode(q, kp, vp, table, lens))
         plain_ms = cuda_ms(
             lambda: paged_flash_decode_torch(q, kp, vp, table, lens))
         library_ms = cuda_ms(library)
+        k1_ms = cuda_ms(lambda: flash_decode(q, kd, vd, n))
+        k2_host = host_us(lambda: paged_flash_decode(q, kp, vp, table, lens))
+        k1_host = host_us(lambda: flash_decode(q, kd, vd, n))
+        parts, part_pages = partitions(MB, ps, B, Hkv, sms)
         nbytes = (q.numel() * 2 + int(n.long().sum()) * Hkv * D * 2 * 2
                   + table.numel() * 4 + B * 4 + B * H * D * 2)
         nops = int(n.long().sum()) * H * D * 4
@@ -356,13 +400,18 @@ def paged_kernel_phase() -> dict:
                        nops / BF16_OPS_PER_S) * 1e3
         say(f"== kernel paged_flash_decode [{label}: B={B} H={H} Hkv={Hkv} "
             f"D={D} page_size={ps} max_blocks={MB} num_pages={NP}, lengths "
-            f"{lens.tolist()}]")
+            f"{lens.tolist()}; {parts} partition(s) of {part_pages} pages "
+            f"on {sms} SMs]")
         say(f"   max_abs_err {err:.3e} (tol {KERNEL_TOL:.0e}); library "
-            f"max_abs_err {float(lib_err):.3e}")
+            f"max_abs_err {float(lib_err):.3e}; K1 on the gathered rows "
+            f"max_abs_err {k1_err:.3e}")
         say(f"   kernel {ms * 1e3:.2f} us | plain {plain_ms * 1e3:.2f} us | "
             f"library (SDPA on pre-gathered rows) {library_ms * 1e3:.2f} us "
-            f"| bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB)")
-        if not err <= KERNEL_TOL:
+            f"| bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB) | K1 "
+            f"on the same rows, gathered {k1_ms * 1e3:.2f} us")
+        say(f"   host time a call: paged_flash_decode {k2_host:.2f} us, "
+            f"flash_decode {k1_host:.2f} us")
+        if not (err <= KERNEL_TOL and k1_err <= KERNEL_TOL):
             raise AssertionError(f"paged_flash_decode [{label}] disagrees "
                                  f"with its plain version: {err}")
         rows.append(dict(
@@ -370,8 +419,8 @@ def paged_kernel_phase() -> dict:
             source="src/repro_torch/kernels/csrc/paged_flash_decode.cu",
             replaces="src/repro/kernels/flash_decode.py:84",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by="bytes", library_ms=library_ms))
-        del q, kp, vp, out, want, kt, vt
+            bound_by="bytes", library_ms=library_ms, host_us=k2_host))
+        del q, kp, vp, out, want, kd, vd, kt, vt
     torch.cuda.empty_cache()
     return rows[0]
 
@@ -469,14 +518,26 @@ def ssd_kernel_phase() -> dict:
     """K6 ssd_chunk_scan against its plain version: the evaluation shape
     of mamba2-130m FULL (B=4, S=2048, H=24, hd=64, G=1, N=128, chunk 256,
     bf16 inputs, A_log = 0 so that exp(cum_t - cum_s) overflows above the
-    diagonal), G=2 H=8, chunks 64 and 128, S < chunk, and the reference
-    test's shape.  Compared in float32 before the final rounding, within
+    diagonal), G=2 H=8, chunks 64 and 128, S < chunk, the reference
+    test's shape, and x, B and C read through strides that split their
+    rows off 16-byte boundaries.  Compared in float32 before the final rounding, within
     SSD_RTOL of max |y|; the bf16 output must be the float32 one rounded.
-    The evaluation shape is timed beside its bound.  Returns its row."""
+    The evaluation shape is timed beside its bound: the larger of its
+    bytes and its operations on the bf16 tensor cores that the kernel
+    feeds, with the float32 CUDA-core basis of the kernel it replaced
+    printed beside it, and the device time of each of its three
+    launches.  The count of tensor-core (HMMA) instructions in its SASS
+    is printed first; none is a failure.  Returns its row."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ssd_scan import (ssd_chunk_scan,
                                               ssd_chunk_scan_torch)
+    hmma = sass_count("ssd_scan", "HMMA")
+    say(f"== kernel ssd_chunk_scan: {hmma} HMMA (mma.sync) instruction(s) "
+        f"in its SASS")
+    if not hmma:
+        raise AssertionError("ssd_scan's SASS has no HMMA: the products do "
+                             "not run on the tensor cores")
     g = torch.Generator(device="cuda").manual_seed(3)
     row = None
     for label, B, S, H, hd, G, N, chunk, dtype in (
@@ -486,10 +547,16 @@ def ssd_kernel_phase() -> dict:
             ("chunk 128", 2, 1024, 24, 64, 1, 128, 128, torch.bfloat16),
             ("S < chunk", 2, 200, 8, 64, 1, 128, 256, torch.float32),
             ("reference test shape", 2, 256, 4, 32, 2, 16, 32,
-             torch.float32)):
+             torch.float32),
+            # rows that are not whole 16-byte pieces: the staging's
+            # element-by-element path
+            ("strided rows", 2, 256, 4, 40, 1, 18, 64, torch.bfloat16)):
+        pad = 3 if label == "strided rows" else 0
+
         def rnd(*shape, scale=1.0):
-            return (torch.randn(shape, generator=g, device="cuda")
-                    * scale).to(dtype)
+            wide = (*shape[:-1], shape[-1] + pad)
+            return (torch.randn(wide, generator=g, device="cuda")
+                    * scale).to(dtype)[..., :shape[-1]]
         x = rnd(B, S, H, hd)
         Bm, Cm = rnd(B, S, G, N, scale=0.5), rnd(B, S, G, N, scale=0.5)
         dt = F.softplus(torch.randn((B, S, H), generator=g,
@@ -527,22 +594,25 @@ def ssd_kernel_phase() -> dict:
             nbytes = sum(t.numel() * t.element_size()
                          for t in (*args, y))
             nops = ssd_ops(B, S, H, hd, N, c)
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S
+            fp32_bound_ms = nops / FP32_OPS_PER_S * 1e3
             bound_ms = max(t_bytes, t_ops) * 1e3
             bound_by = "bytes" if t_bytes >= t_ops else "operations"
             say(f"   kernel {ms * 1e3:.2f} us | plain {plain_ms * 1e3:.2f} us"
                 f" | library: none (no single PyTorch call computes the SSD "
                 f"scan) | bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.1f} "
-                f"MB: {t_bytes * 1e6:.2f} us; {nops / 1e9:.2f} GFLOP float32:"
-                f" {t_ops * 1e6:.2f} us; {bound_by}); kernel at "
-                f"{nops / ms / 1e9:.2f} TFLOP/s")
+                f"MB: {t_bytes * 1e6:.2f} us; {nops / 1e9:.2f} GFLOP on the "
+                f"bf16 tensor cores: {t_ops * 1e6:.2f} us; {bound_by}; the "
+                f"float32 CUDA-core basis: {fp32_bound_ms * 1e3:.2f} us); "
+                f"kernel at {nops / ms / 1e9:.2f} TFLOP/s")
             say(f"   device time by kernel, one call: "
                 f"{device_split(lambda: ssd_chunk_scan(*args, chunk=chunk))}")
             row = dict(name="ssd_chunk_scan", route="cuda",
                        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
                        replaces="src/repro/kernels/ssd_scan.py:60",
                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                       fp32_bound_ms=fp32_bound_ms, hmma=hmma)
         del x, Bm, Cm, dt, args, y, y32, want
     torch.cuda.empty_cache()
     return row

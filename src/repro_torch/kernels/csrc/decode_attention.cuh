@@ -1,8 +1,8 @@
-// Single-query GQA attention for Hopper (sm_90a): the body shared by the
-// dense flash-decode kernel (flash_decode.cu, K1) and the paged one
-// (paged_flash_decode.cu, K2).  The two differ only in where position p's
-// K/V row lies, which each passes in as a `Rows` functor; everything else
-// -- the loads, the online softmax, the merges -- is this one body.
+// Single-query GQA attention for Hopper (sm_90a): the body of the dense
+// flash-decode kernel (flash_decode.cu, K1), which passes where position
+// p's K/V row lies as a `Rows` functor.  The paged kernel
+// (paged_flash_decode.cu, K2) has a body of its own and takes only the
+// helpers here (load8, the (D, G) dispatch).
 //
 // One block of kThreads threads serves one (kv head, slot) pair and all G
 // query heads of that kv head:

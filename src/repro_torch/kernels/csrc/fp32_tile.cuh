@@ -1,5 +1,4 @@
-// The float32 tile product shared by dense top-k (dense_topk.cu, K3) and
-// the SSD chunk scan (ssd_scan.cu, K6).
+// The float32 tile product of dense top-k (dense_topk.cu, K3).
 //
 // A block of kThreads threads computes a kTile x kTile tile of
 // A (rows, n) . B (cols, n)^T on CUDA cores, in exact float32 (fmaf, no

@@ -3,14 +3,22 @@
 Replaces the TPU kernel ``repro/kernels/flash_decode.py::
 paged_flash_decode_pallas`` (body ``_paged_flash_decode_kernel``, wrapper
 ``repro/kernels/ops.py::paged_flash_decode``).  On the card it runs the
-hand-written CUDA kernel in ``csrc/paged_flash_decode.cu``, which shares
-its body with the dense kernel (``csrc/decode_attention.cuh``) and
-differs only in how a row's address is formed: one table lookup per
-row.  Bound by the K/V bytes of the valid rows, like the dense kernel.
+hand-written CUDA kernel in ``csrc/paged_flash_decode.cu``; the design
+notes are at the top of that file.  Bound by the K/V bytes of the valid
+rows, like the dense kernel; so the kernel keeps several pages in
+flight per block (a ``cp.async`` ring in shared memory, with the block's
+table entries staged there once), hands its blocks the longest slots
+first, and splits each (slot, kv head) into :func:`partitions`, one
+block each, merged in the same launch by the last block to finish.  The
+count depends on shapes alone, never on ``lengths``, so the decode path
+stays free of host syncs.
 
 * :func:`paged_flash_decode` — the wrapper.  CPU tensors take the plain
   version; CUDA tensors launch the kernel or raise (there is no
-  fallback).  ``paged_flash_decode.launches`` counts kernel launches.
+  fallback).  ``paged_flash_decode.launches`` counts kernel launches
+  (one a call).  The partials and tickets of the merge live in a
+  per-(device, stream) scratch the module keeps (:func:`_scratch`); the
+  kernel leaves the tickets at zero.
 * :func:`paged_flash_decode_torch` — the plain PyTorch version, with the
   semantics of the reference's ``kernels/ref.py::paged_flash_decode_ref``
   plus the clamps of its ``ops.paged_flash_decode``.
@@ -30,6 +38,31 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_decode import (HEAD_DIMS, MAX_GROUP,
                                               flash_decode_torch)
+
+BLOCKS_PER_SM = 2          # split until the card has this many blocks an SM
+MAX_PARTITION_ROWS = 512   # and until no block can walk more rows than this
+MIN_PARTITION_ROWS = 64    # but no partition shorter (the merge has a cost)
+MAX_PARTITIONS = 256       # the kernel's bound (its merge weights)
+
+
+def partitions(max_blocks: int, page_size: int, B: int, Hkv: int,
+               num_sms: int) -> tuple:
+    """``(parts, part_pages)``: each (slot, kv head) is cut into ``parts``
+    runs of ``part_pages`` table entries, one block each.  A function of
+    shapes only -- never of the lengths, which live on the card -- so the
+    decode path picks it without a host sync.  Splits until the grid has
+    ``BLOCKS_PER_SM * num_sms`` blocks and no run is longer than
+    ``MAX_PARTITION_ROWS`` rows (a slot may be as long as the table), with
+    no run shorter than ``MIN_PARTITION_ROWS`` rows (unless the table is)
+    and none empty of table entries.  Each split past one adds the
+    merge's few microseconds, so a grid that already fills the card with
+    tables of at most ``MAX_PARTITION_ROWS`` rows is not split."""
+    want = max(-(-BLOCKS_PER_SM * num_sms // (B * Hkv)),
+               -(-max_blocks * page_size // MAX_PARTITION_ROWS))
+    most = max(1, min(max_blocks * page_size // MIN_PARTITION_ROWS,
+                      MAX_PARTITIONS))
+    part_pages = -(-max_blocks // max(1, min(want, most, max_blocks)))
+    return -(-max_blocks // part_pages), part_pages
 
 
 def paged_flash_decode_torch(q, k_pages, v_pages, table, lengths):
@@ -97,11 +130,31 @@ def _check(q, kp, vp, table, lengths) -> None:
 def _kernel():
     fn = build.load("paged_flash_decode").paged_flash_decode_bf16
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                        + [ctypes.c_longlong] * 11
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+_num_sms: dict = {}
+_scratches: dict = {}
+
+
+def _scratch(device, stream: int, n_tickets: int, n_floats: int):
+    """The merge's (tickets, partials) for launches on ``stream``: int32
+    zeros that every launch leaves zero, and float32 partials that every
+    launch writes before it reads them.  Kept per (device, stream) --
+    launches on one stream run in order -- and grown when a call needs
+    more."""
+    key = (device, stream)
+    tickets, part = _scratches.get(key, (None, None))
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=device)
+    if part is None or part.numel() < n_floats:
+        part = torch.empty(n_floats, dtype=torch.float32, device=device)
+    _scratches[key] = tickets, part
+    return tickets, part
 
 
 def _launch(q, kp, vp, table, lengths):
@@ -110,13 +163,24 @@ def _launch(q, kp, vp, table, lengths):
     B, H, D = q.shape
     NP, ps, Hkv = kp.shape[:3]
     MB = table.shape[1]
-    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    dev = q.device
+    if dev not in _num_sms:
+        _num_sms[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    parts, part_pages = partitions(MB, ps, B, Hkv, _num_sms[dev])
+    out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    part_ptr = tickets_ptr = None
+    if parts > 1:
+        tickets, part = _scratch(dev, stream, B * Hkv,
+                                 B * H * parts * (D + 2))
+        part_ptr, tickets_ptr = part.data_ptr(), tickets.data_ptr()
     rc = kernel(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(),
-                lengths.data_ptr(), out.data_ptr(), B, H, Hkv, NP, ps, MB, D,
-                q.stride(0), q.stride(1), kp.stride(0), kp.stride(1),
-                kp.stride(2), vp.stride(0), vp.stride(1), vp.stride(2),
-                table.stride(0), out.stride(0), out.stride(1),
+                lengths.data_ptr(), out.data_ptr(), part_ptr, tickets_ptr,
+                B, H, Hkv, NP, ps, MB, D, parts, part_pages, q.stride(0),
+                q.stride(1), kp.stride(0), kp.stride(1), kp.stride(2),
+                vp.stride(0), vp.stride(1), vp.stride(2), table.stride(0),
+                out.stride(0), out.stride(1),
                 1.0 / D ** 0.5, stream)
     if rc != 0:
         raise RuntimeError(f"paged_flash_decode kernel launch failed: CUDA "

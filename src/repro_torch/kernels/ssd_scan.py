@@ -5,15 +5,24 @@ Replaces the TPU kernel ``repro/kernels/ssd_scan.py::ssd_scan_pallas``
 (body ``_ssd_kernel``, wrapper ``repro/kernels/ops.py::ssd_chunk_scan``,
 oracle ``repro/kernels/ref.py::ssd_scan_ref``).  On the card it runs the
 hand-written CUDA kernel in ``csrc/ssd_scan.cu``; the design notes are at
-the top of that file.  In short: one block per (batch, head) walks its
-chunks in order with the (head_dim, d_state) state in shared memory; x,
-B, C and dt are read in place in the model's layouts (head ``h`` reads
-group ``h // (H // G)``), and every product runs in float32 on CUDA
-cores.
+the top of that file.  In short: the call is bound by its bytes (16.4 us
+at the evaluation shape; its 15.3 GFLOP take 15.5 us on the bf16 tensor
+cores), so every chunk runs at once instead of one walk per (batch,
+head): chunk states, a pass over the chunks in order, then each chunk's
+output, three launches of one C entry point.  Every product runs on the
+tensor cores (``mma.sync`` bf16, float32 accumulator); a float32 operand
+is split into bf16 parts (two for bf16 inputs, three for float32), which
+holds float32 accuracy.  x, B, C and dt are read in place in the model's
+layouts (head ``h`` reads group ``h // (H // G)``).  The wrapper
+allocates the float32 workspace of chunk states
+(:func:`workspace_floats`) through PyTorch's caching allocator; nothing
+syncs with the host.
 
 * :func:`ssd_chunk_scan` — the wrapper.  CPU tensors take the plain
   version; CUDA tensors launch the kernel or raise (there is no
-  fallback).  ``ssd_chunk_scan.launches`` counts kernel launches.
+  fallback).  ``ssd_chunk_scan.launches`` counts calls of the kernel's
+  entry point (its three launches count once): a Mamba2 evaluation pass
+  with ``use_pallas_ssd`` makes one a layer, 24 for mamba2-130m.
 * :func:`ssd_chunk_scan_torch` — the plain PyTorch version: the chunked
   einsum form of :func:`ssd_chunked`, in float32.
 * :func:`ssd_chunked` — that chunked form with its final state: the
@@ -47,7 +56,7 @@ from repro_torch.kernels import build
 
 MAX_HEAD_DIM = 64      # one 64-column tile of the output
 MAX_D_STATE = 128
-MAX_CHUNK = 1024       # a chunk's decay lives in shared memory
+MAX_CHUNK = 1024       # a chunk's dt and cum live in shared memory
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -192,11 +201,19 @@ def _check(x, B_, C_, dt, A_log, chunk: int, out_dtype) -> None:
                              f"the last dim must be contiguous")
 
 
+def workspace_floats(Bsz: int, S: int, H: int, hd: int, N: int,
+                     chunk: int) -> int:
+    """The kernel's float32 workspace: a (hd, N) state and a cum_end for
+    every (batch, head, chunk) but each sequence's last chunk."""
+    return Bsz * H * (S // chunk - 1) * (hd * N + 1)
+
+
 def _kernel():
     fn = build.load("ssd_scan").ssd_scan
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                       + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 12
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -210,11 +227,13 @@ def _launch(x, B_, C_, dt, A_log, chunk: int, out_dtype):
     if out.numel() == 0:
         return out
     a_log = A_log.float().contiguous()       # (H,): a = -exp(A_log) in-kernel
+    ws_floats = workspace_floats(Bsz, S, H, hd, N, chunk)
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     strides = [s for t in (x, B_, C_, dt) for s in t.stride()[:3]]
     rc = kernel(x.data_ptr(), B_.data_ptr(), C_.data_ptr(), dt.data_ptr(),
-                a_log.data_ptr(), out.data_ptr(), Bsz, S, H, hd, G, N, chunk,
-                int(x.dtype == torch.bfloat16),
+                a_log.data_ptr(), out.data_ptr(), ws.data_ptr(), ws_floats,
+                Bsz, S, H, hd, G, N, chunk, int(x.dtype == torch.bfloat16),
                 int(out_dtype == torch.bfloat16), *strides, stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")

@@ -1,5 +1,6 @@
-"""The PyTorch port (``src/repro_torch``) and ``chip_smoke.py`` import
-neither JAX nor any module of the reference package ``repro``."""
+"""The PyTorch port (``src/repro_torch``), ``chip_smoke.py`` and the
+port's card scripts import neither JAX nor any module of the reference
+package ``repro``."""
 import ast
 import subprocess
 import sys
@@ -41,7 +42,8 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0]
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "paged_decode_sweep.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_statement_names_jax_or_reference(path):
     roots = set(_imported_roots(path))

@@ -5,6 +5,9 @@
   ``ops.paged_flash_decode`` (the Pallas kernel in interpret mode, as
   ``tests/test_flash_decode.py`` runs it), and the wrapper's routing:
   CPU tensors take the plain version, CUDA tensors launch or raise.
+  The kernel's split of long slots, emulated (per-partition softmax
+  states merged in partition order), against the plain version; its
+  partition count and launch arguments depend on shapes only.
 * The model: a suffix prefill from ``pos0`` and a paged decode step
   give the reference's logits and pools.
 * The engine: the port's paged engine is token-identical to the
@@ -156,6 +159,142 @@ def test_cuda_request_launches_or_raises_never_falls_back(
         with pytest.raises(error, match=match):
             pfd.paged_flash_decode(q, pages, pages, table, lens)
     assert pfd.paged_flash_decode.launches == before
+
+
+def _partitioned_decode(q, kp, vp, table, lens, parts, part_pages):
+    """K2's split in torch: each (slot, kv head) cut into ``parts`` runs
+    of ``part_pages`` table entries; each run's softmax state (m, l, acc)
+    over its rows below the clamped length -- an empty run gives m =
+    -1e30, l = 0, acc = 0 -- merged in run order as the kernel's last
+    block merges them."""
+    B, H, D = q.shape
+    NP, ps, Hkv = kp.shape[:3]
+    MB = table.shape[1]
+    G = H // Hkv
+    n = lens.long().clamp(1, MB * ps)
+    tab = table.long().clamp(0, NP - 1)
+    k = kp[tab].reshape(B, MB * ps, Hkv, D).float()
+    v = vp[tab].reshape(B, MB * ps, Hkv, D).float()
+    qg = q.float().reshape(B, Hkv, G, D) / D ** 0.5
+    out = torch.empty(B, Hkv, G, D)
+    for b in range(B):
+        for j in range(Hkv):
+            ms, ls, accs = [], [], []
+            for part in range(parts):
+                lo = part * part_pages * ps
+                hi = min(int(n[b]), min((part + 1) * part_pages, MB) * ps)
+                if hi <= lo:
+                    ms.append(torch.full((G,), pfd_NEG_INF))
+                    ls.append(torch.zeros(G))
+                    accs.append(torch.zeros(G, D))
+                    continue
+                s = qg[b, j] @ k[b, lo:hi, j].T
+                m = s.max(-1).values
+                e = torch.exp(s - m[:, None])
+                ms.append(m)
+                ls.append(e.sum(-1))
+                accs.append(e @ v[b, lo:hi, j])
+            m_all = torch.stack(ms)                      # (parts, G)
+            c = torch.exp(m_all - m_all.max(0).values)
+            den = (torch.stack(ls) * c).sum(0).clamp(min=1e-30)
+            out[b, j] = (torch.stack(accs) * c[..., None]).sum(0) \
+                / den[:, None]
+    return out.reshape(B, H, D)
+
+
+pfd_NEG_INF = -1e30
+
+
+@pytest.mark.parametrize("MB,ps,parts", [
+    (8, 8, 3),     # 3 + 3 + 2 pages
+    (8, 8, 8),     # a page a run: most runs past the short slots
+    (5, 16, 2),
+    (50, 8, None),  # the main path's table, split as on a 132-SM card
+])
+@pytest.mark.parametrize("G", [1, 2])
+def test_partition_merge_matches_the_plain_version(MB, ps, parts, G):
+    """Per-run softmax states merged in run order give the plain
+    version's output: with empty runs (a length-1 slot, short slots
+    under many runs), a full slot and a parked one (length max_blocks *
+    page_size + 1, clamped)."""
+    Hkv = 2
+    q, kp, vp, table, lens = (torch.from_numpy(a) for a in _kernel_inputs(
+        5, MB, ps, G * Hkv, Hkv, 64, seed=MB + ps))
+    if parts is None:
+        parts, part_pages = pfd.partitions(MB, ps, 5, Hkv, 132)
+    else:
+        part_pages = -(-MB // parts)
+    assert (parts - 1) * part_pages < MB <= parts * part_pages
+    assert lens[0] == 1 and lens[2] == MB * ps + 1
+    got = _partitioned_decode(q, kp, vp, table, lens, parts, part_pages)
+    want = pfd.paged_flash_decode_torch(q, kp, vp, table, lens)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=KERNEL_TOL,
+                               atol=KERNEL_TOL)
+
+
+def test_partition_count_depends_on_shapes_only():
+    """The split is a function of the table's shape, the batch, the kv
+    heads and the SM count -- ``lengths`` is not among its inputs, so
+    choosing it never reads the card -- and its runs cover the table,
+    none empty of entries, none shorter than MIN_PARTITION_ROWS rows
+    unless the table is."""
+    import inspect
+    assert list(inspect.signature(pfd.partitions).parameters) == [
+        "max_blocks", "page_size", "B", "Hkv", "num_sms"]
+    for MB in (1, 4, 50, 256, 4096):
+        for ps in (8, 16):
+            for B, Hkv in ((1, 1), (8, 8), (8, 40), (64, 40)):
+                parts, pages = pfd.partitions(MB, ps, B, Hkv, 132)
+                assert 1 <= parts <= min(MB, pfd.MAX_PARTITIONS)
+                assert (parts - 1) * pages < MB <= parts * pages
+                assert (parts == 1 or pages * ps
+                        >= pfd.MIN_PARTITION_ROWS * 0.5)
+    assert pfd.partitions(50, 8, 8, 40, 132) == pfd.partitions(50, 8, 8, 40,
+                                                               132)
+
+
+class _Stream:
+    cuda_stream = 0
+
+
+@pytest.mark.parametrize("B,Hkv,MB", [(8, 40, 50), (3, 1, 64)])
+def test_launch_arguments_depend_on_shapes_only(monkeypatch, B, Hkv, MB):
+    """The wrapper's kernel arguments, through a stand-in kernel: the
+    partition count and the scratch (tickets left at zero, partials
+    sized B * H * parts * (D + 2)) are the same for any lengths -- a
+    long slot among short ones, or all of length 1 -- none is read back
+    to the host, and one launch is counted a call."""
+    calls = []
+
+    def fake_kernel(*args):
+        calls.append(args)
+        return 0
+    monkeypatch.setattr(pfd, "_kernel", lambda: fake_kernel)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
+    monkeypatch.setattr(pfd, "_num_sms", {torch.device("cpu"): 132})
+    monkeypatch.setattr(pfd, "_scratches", {})
+    monkeypatch.setattr(pfd.paged_flash_decode, "launches", 0)
+    G, D, ps = 2, 128, 8
+    q, kp, vp, table, lens = (torch.from_numpy(a) for a in _kernel_inputs(
+        B, MB, ps, G * Hkv, Hkv, D))
+    q, kp, vp = q.bfloat16(), kp.bfloat16(), vp.bfloat16()
+    ones = torch.ones_like(lens)
+    with _ScalarReads() as syncs:
+        pfd._launch(q, kp, vp, table, lens)
+        pfd._launch(q, kp, vp, table, ones)
+    assert syncs.reads == 0 and pfd.paged_flash_decode.launches == 2
+    a, b = calls
+    # the same but for the lengths (and the output, allocated anew)
+    assert a[:4] == b[:4] and a[6:] == b[6:] and a[4] != b[4]
+    parts, part_pages = pfd.partitions(MB, ps, B, Hkv, 132)
+    assert a[15:17] == (parts, part_pages)
+    if parts == 1:
+        assert a[6] is None and a[7] is None
+    else:
+        ((tickets, part),) = pfd._scratches.values()
+        assert a[6] == part.data_ptr() and a[7] == tickets.data_ptr()
+        assert tickets.numel() == B * Hkv and not tickets.any()
+        assert part.numel() == B * G * Hkv * parts * (D + 2)
 
 
 # ---------------------------------------------------------------------------

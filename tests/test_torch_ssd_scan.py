@@ -8,13 +8,17 @@ sequential oracle ``ref.ssd_scan_ref`` on the same numpy inputs, at the
 reference test's shapes and tolerance: 5e-5 of max |y| (the same float32
 sums in another order, and the chunked form's decays against the
 oracle's step-by-step products).  The CUDA kernel itself runs only on
-the card, where ``chip_smoke.py`` holds it against the plain version.
+the card, where ``chip_smoke.py`` holds it against the plain version;
+here its arithmetic -- every product taken on bf16 parts, as the tensor
+cores take it -- is emulated in torch and held against float64, and its
+wrapper's arguments are checked through a stand-in kernel.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.kernels import ref
 from repro.kernels import ssd_chunk_scan as ref_ssd_chunk_scan
@@ -164,3 +168,153 @@ def test_cuda_request_launches_or_raises_never_falls_back(
         with pytest.raises(error, match=match):
             K6.ssd_chunk_scan(*args, chunk=chunk)
     assert K6.ssd_chunk_scan.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The kernel's arithmetic: bf16 operand parts on the tensor cores
+# ---------------------------------------------------------------------------
+
+
+def _parts(t, n):
+    """t (float32) as n bf16 parts, each the rounding of what the earlier
+    parts leave (the kernel's ``put_parts`` / ``split_words``)."""
+    out, rest = [], t.float()
+    for _ in range(n):
+        p = rest.bfloat16().float()
+        out.append(p)
+        rest = rest - p
+    return out
+
+
+def _products(eq, a_parts, b_parts, n_split):
+    """sum of einsum(a_i, b_j) over i + j < n_split, in float32 (the
+    products of bf16 parts are exact in the tensor cores' float32
+    accumulator)."""
+    acc = 0
+    for k in reversed(range(n_split)):
+        for i, a in enumerate(a_parts):
+            if 0 <= k - i < len(b_parts):
+                acc = acc + torch.einsum(eq, a, b_parts[k - i])
+    return acc
+
+
+def _kernel_emulated(x, B_, C_, dt, A_log, c, n_split=None):
+    """The kernel's three phases in torch, with every product taken as it
+    takes it: inputs arriving in bf16 as one part, float32 inputs and the
+    float32 operands the kernel forms (x dt decay, W, prev) in
+    ``n_split`` parts (2 for bf16 inputs, 3 for float32, as ``Prec`` in
+    ``csrc/ssd_scan.cu``).  G = 1."""
+    Bsz, S, H, hd = x.shape
+    N = B_.shape[-1]
+    nc = S // c
+    bf16_in = x.dtype == torch.bfloat16
+    n_split = n_split or (2 if bf16_in else 3)
+    n_in = 1 if bf16_in else n_split
+    xf = x.float().reshape(Bsz, nc, c, H, hd)
+    Bf = B_.float().reshape(Bsz, nc, c, 1, N)
+    Cf = C_.float().reshape(Bsz, nc, c, 1, N)
+    dtf = dt.float().reshape(Bsz, nc, c, H)
+    cum = torch.cumsum(dtf * -torch.exp(A_log.float()), 2)
+    Bp, Cp, xp = _parts(Bf, n_in), _parts(Cf, n_in), _parts(xf, n_in)
+    # phase 1: chunk states
+    dec = dtf * torch.exp(cum[:, :, -1:] - cum)
+    s_chunk = _products("bzshd,bzsgn->bzhdn", _parts(xf * dec[..., None],
+                                                     n_split), Bp, n_split)
+    # phase 3, intra-chunk: exp only where s <= t
+    S_ = _products("bztgn,bzsgn->bzts", Cp, Bp, n_split)
+    tri = torch.ones(c, c, dtype=torch.bool).tril()
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    W = torch.where(tri[None, None, :, :, None],
+                    S_[..., None] * torch.exp(torch.where(
+                        tri[None, None, :, :, None], diff, 0.0))
+                    * dtf[:, :, None], 0.0)
+    y = _products("bztsh,bzshd->bzthd", _parts(W, n_split), xp, n_split)
+    # phase 2, then the inter-chunk term
+    prev = torch.zeros(Bsz, H, hd, N)
+    for z in range(1, nc):
+        prev = prev * torch.exp(cum[:, z - 1, -1])[..., None, None] \
+            + s_chunk[:, z - 1]
+        inter = _products("btgn,bhdn->bthd", [p[:, z] for p in Cp],
+                          _parts(prev, n_split), n_split)
+        y[:, z] += inter * torch.exp(cum[:, z])[..., None]
+    return y.reshape(Bsz, S, H, hd)
+
+
+def _float64_scan(x, B_, C_, dt, A_log):
+    """The sequential scan in float64 (``ref.ssd_scan_ref``'s recurrence)."""
+    Bsz, S, H, hd = x.shape
+    a = -np.exp(A_log.double().numpy())
+    xd, Bd, Cd, dtd = (t.double().numpy() for t in (x, B_, C_, dt))
+    state = np.zeros((Bsz, H, hd, B_.shape[-1]))
+    y = np.zeros((Bsz, S, H, hd))
+    for t in range(S):
+        state = (state * np.exp(dtd[:, t] * a)[..., None, None]
+                 + (xd[:, t] * dtd[:, t, :, None])[..., None]
+                 * Bd[:, t, 0][:, None, None, :])
+        y[:, t] = np.einsum("bhdn,bn->bhd", state, Cd[:, t, 0])
+    return y
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_operand_split_holds_the_tolerance(dtype):
+    """The kernel's products on bf16 tensor cores, emulated: with a
+    float32 operand split into two bf16 parts (bf16 inputs) or every
+    operand into three (float32 inputs), the scan holds 5e-5 of max |y|
+    against float64 at FULL's chunk 256 and A_log = 0 (cum falls by about
+    180 within a chunk).  One part -- plain bf16, no better than plain
+    TF32 -- misses it by far, which is why the kernel splits."""
+    x, B_, C_, dt, A_log = (torch.from_numpy(a).to(dtype) if i < 4
+                            else torch.from_numpy(a)
+                            for i, a in enumerate(_inputs(1, 768, 2, 64, 1,
+                                                          128, seed=4)))
+    want = _float64_scan(x, B_, C_, dt, A_log)
+    got = _kernel_emulated(x, B_, C_, dt, A_log, 256).double().numpy()
+    assert np.isfinite(got).all()
+    assert _rel(got, want) < TOL
+    one_part = _kernel_emulated(x, B_, C_, dt, A_log, 256, n_split=1)
+    assert _rel(one_part.double().numpy(), want) > 10 * TOL
+
+
+class _Stream:
+    cuda_stream = 0
+
+
+class _ScalarReads(TorchDispatchMode):
+    """Records every device-to-host scalar read: each is an
+    ``aten._local_scalar_dense`` call."""
+
+    def __init__(self):
+        super().__init__()
+        self.reads = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.reads += func is torch.ops.aten._local_scalar_dense.default
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("S,chunk", [(512, 128), (200, 256)])
+def test_launch_passes_a_workspace_sized_from_shapes(monkeypatch, S, chunk):
+    """The wrapper hands the kernel one float32 workspace of
+    ``workspace_floats`` (a state and a cum_end for every chunk but each
+    sequence's last; none for a single chunk), allocated without a host
+    sync, and counts one launch a call."""
+    calls = []
+
+    def fake_kernel(*args):
+        calls.append(args)
+        return 0
+    monkeypatch.setattr(K6, "_kernel", lambda: fake_kernel)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
+    monkeypatch.setattr(K6.ssd_chunk_scan, "launches", 0)
+    B, H, hd, G, N = 2, 4, 64, 2, 128
+    ts = [torch.from_numpy(a).bfloat16() if i < 4 else torch.from_numpy(a)
+          for i, a in enumerate(_inputs(B, S, H, hd, G, N))]
+    with _ScalarReads() as syncs:
+        K6._launch(*ts, min(chunk, S), torch.bfloat16)
+    assert syncs.reads == 0 and K6.ssd_chunk_scan.launches == 1
+    (args,) = calls
+    nc = S // min(chunk, S)
+    want = B * H * (nc - 1) * (hd * N + 1)
+    assert K6.workspace_floats(B, S, H, hd, N, min(chunk, S)) == want
+    assert args[7] == want and (args[6] != 0) == (want > 0)
+    assert args[8:15] == (B, S, H, hd, G, N, min(chunk, S))

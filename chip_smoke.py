@@ -31,7 +31,15 @@ Phases, each on its own lines; any failure exits nonzero:
                yardsticks (cuBLAS ``wq @ sat.T`` and ``torch.sparse.mm``
                on a CSR of the saturated values) and three bounds (what
                the batch's terms need, every nonzero, the dense matrix);
-               K3 again on 1,048,576 seeded unit rows (1 GiB).
+               K3 again on 1,048,576 seeded unit rows (1 GiB).  K3's
+               HGMMA (wgmma) count in its SASS first (none is a failure);
+               each K3 row with its bound on the TF32 tensor cores it
+               feeds beside the float32 CUDA-core basis of the kernel it
+               replaced, the wrapper's time a call on the host's clock
+               and the kernels one call launches (one); then K3 across
+               its contract against the plain version: k = 64 (timed
+               beside k = 10), Q = 5 and 200, D < 64, E = 768, and rows
+               duplicated into other tiles and blocks (ids exact).
 5. small     — the SMOKE decoder in bf16: prefill + decode on the card
                against the same weights on the host.
 6. main      — ``qwen1.5-32b`` FULL (64 layers, d_model 5120, seeded
@@ -120,6 +128,7 @@ Imports nothing of the JAX package.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import gc
 import json
@@ -134,6 +143,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM dense TF32 tensor cores
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 on CUDA cores
 NUM_SLOTS, PREFILL_BATCH = 8, 4
 MAX_PROMPT_LEN, MAX_NEW_TOKENS = 384, 8
@@ -685,11 +695,31 @@ def _tie_swaps(ids, want_ids, rows, tol: float, label: str) -> int:
     return swaps
 
 
+def kernel_launches(fn, calls: int = 5) -> dict:
+    """``{kernel name: launches a call}`` of ``fn()`` by ``torch.profiler``
+    over ``calls`` calls; empty when the profiler saw no device
+    activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count / calls for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+
+
 def _k3_row(label, q, docs, counted, reference=None) -> dict:
     """Hold the K3 result ``counted`` (the main path's launch) against
     the plain version on the same inputs and time kernel, plain version
-    and library yardstick.  ``reference``: (ids, (Q, D) scores) of a
-    host-side reference to hold the ids against as well."""
+    and library yardstick; the bound on the TF32 tensor cores the kernel
+    feeds (three products per float32 product) beside the float32
+    CUDA-core basis of the kernel it replaced; the wrapper's time a call
+    on the host's clock and the kernels one call launches.
+    ``reference``: (ids, (Q, D) scores) of a host-side reference to hold
+    the ids against as well."""
     import torch
     from repro_torch.kernels.dense_topk import dense_topk, dense_topk_torch
     Q, E = q.shape
@@ -716,6 +746,12 @@ def _k3_row(label, q, docs, counted, reference=None) -> dict:
     ms = cuda_ms(lambda: dense_topk(q, docs, k=k), iters)
     plain_ms = cuda_ms(lambda: dense_topk_torch(q, docs, k=k), iters)
     library_ms = cuda_ms(library, iters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        dense_topk(q, docs, k=k)
+    torch.cuda.synchronize()
+    host_us = (time.perf_counter() - t0) / iters * 1e6
     cold = ""
     if D * E * 4 < 50e6:
         cold = (f" | kernel, L2 flushed before each launch "
@@ -723,27 +759,103 @@ def _k3_row(label, q, docs, counted, reference=None) -> dict:
                 f" us")
     nbytes = (Q * E + D * E) * 4 + Q * k * 8
     nops = 2 * Q * D * E
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S) * 1e3
-    bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
-                >= nops / FP32_OPS_PER_S else "operations")
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_tc = 3 * nops / TF32_OPS_PER_S
+    bound_ms = max(t_bytes, t_tc) * 1e3
+    bound_by = "bytes" if t_bytes >= t_tc else "operations"
+    fp32_bound_ms = max(t_bytes, nops / FP32_OPS_PER_S) * 1e3
+    launched = kernel_launches(lambda: dense_topk(q, docs, k=k))
     say(f"== kernel dense_topk [{label}: Q={Q} D={D} E={E} k={k}, float32]")
     say(f"   max_abs_err {err:.3e} (tol {RETRIEVAL_TOL:.0e}); ids vs the "
         f"plain version: {swaps} tie swap(s){host}")
     say(f"   kernel {ms * 1e3:.2f} us | plain {plain_ms * 1e3:.2f} us | "
         f"library yardstick torch.topk(q @ docs.T) {library_ms * 1e3:.2f} us "
-        f"| bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB, "
-        f"{nops / 1e9:.2f} GFLOP: {bound_by}){cold}")
+        f"| wrapper {host_us:.2f} us a call on the host's clock{cold}")
+    say(f"   bound {bound_ms * 1e3:.2f} us, {bound_by} ({nbytes / 1e6:.2f} "
+        f"MB: {t_bytes * 1e6:.2f} us; 3 x {nops / 1e9:.2f} GFLOP on the TF32 "
+        f"tensor cores: {t_tc * 1e6:.2f} us) | the float32 CUDA-core basis "
+        f"of the kernel it replaced: {fp32_bound_ms * 1e3:.2f} us | kernel "
+        f"at {bound_ms / ms:.1%} of the bound")
+    say(f"   kernels a call (torch.profiler, 5 calls): "
+        f"{launched or 'not measured (the profiler saw no device activity)'}")
     say(f"   device time by kernel, one call: "
         f"{device_split(lambda: dense_topk(q, docs, k=k))}")
     if not err <= RETRIEVAL_TOL:
         raise AssertionError(f"dense_topk [{label}] scores disagree with "
                              f"its plain version: {err}")
+    # the profiler may drop a call's events on this machine, never add one
+    if launched and (len(launched) != 1 or max(launched.values()) > 1.0):
+        raise AssertionError(f"dense_topk [{label}]: one call launched "
+                             f"{launched}, want one kernel")
     return dict(name="dense_topk", route="cuda",
                 source="src/repro_torch/kernels/csrc/dense_topk.cu",
                 replaces="src/repro/kernels/dense_topk.py:100",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms)
+                library_ms=library_ms, fp32_bound_ms=fp32_bound_ms,
+                host_us=host_us)
+
+
+def k3_contract_phase(hgmma: int) -> None:
+    """K3 across its contract, each against its plain version on seeded
+    unit rows (scores within RETRIEVAL_TOL, ids equal but for tie swaps
+    within it): k = 64 at the main-path shape (timed beside k = 10),
+    ragged Q (5 and 200), D < 64, E = 768, and a corpus of 4,000 rows
+    each placed five times at random positions (other tiles, other
+    blocks), whose ids must equal the plain version's exactly (equal rows
+    score bitwise-equal, exact ties to the lower id)."""
+    import torch
+    from repro_torch.kernels.dense_topk import dense_topk, dense_topk_torch
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def unit(n, e):
+        x = torch.randn((n, e), generator=g, device="cuda")
+        return x / x.norm(dim=1, keepdim=True)
+    say(f"== kernel dense_topk across its contract ({hgmma} HGMMA (wgmma) "
+        f"instruction(s) in its SASS)")
+    times = {}
+    for label, Q, D, E, k in (("k = 64", 64, SQUAD_PARAGRAPHS, 256, 64),
+                              ("k = 10", 64, SQUAD_PARAGRAPHS, 256, 10),
+                              ("Q = 5", 5, SQUAD_PARAGRAPHS, 256, TOP_K),
+                              ("Q = 200", 200, SQUAD_PARAGRAPHS, 256, TOP_K),
+                              ("D < 64", 64, 37, 256, TOP_K),
+                              ("E = 768", 64, SQUAD_PARAGRAPHS, 768, TOP_K),
+                              ("duplicated rows", 64, SQUAD_PARAGRAPHS, 256,
+                               TOP_K)):
+        q = unit(Q, E)
+        if label == "duplicated rows":
+            base = unit(D // 5, E)
+            perm = torch.randperm(D, generator=g, device="cuda")
+            docs = base.repeat(5, 1)[perm]
+        else:
+            docs = unit(D, E)
+        got_s, got_i = dense_topk(q, docs, k=k)
+        want_s, want_i = dense_topk_torch(q, docs, k=k)
+        torch.cuda.synchronize()
+        err = (got_s - want_s).abs().max().item()
+        if label == "duplicated rows":
+            exact = torch.equal(got_i, want_i)
+            note = f"ids equal to the plain version's: {exact}"
+            if not exact:
+                raise AssertionError(f"dense_topk [{label}]: ids differ from "
+                                     f"the plain version's")
+        else:
+            swaps = _tie_swaps(got_i.cpu().numpy(), want_i.cpu().numpy(),
+                               (q @ docs.T).cpu().numpy(), RETRIEVAL_TOL,
+                               f"dense_topk {label}")
+            note = f"{swaps} tie swap(s)"
+        if label.startswith("k = "):
+            times[label] = cuda_ms(lambda: dense_topk(q, docs, k=k))
+            note += f"; kernel {times[label] * 1e3:.2f} us"
+        say(f"   [{label}: Q={Q} D={D} E={E} k={min(k, D)}] max_abs_err "
+            f"{err:.3e}; {note}")
+        if not (err <= RETRIEVAL_TOL and got_s.shape == (Q, min(k, D))):
+            raise AssertionError(f"dense_topk [{label}] disagrees with its "
+                                 f"plain version: {err}")
+        del q, docs
+    say(f"   k = 64 takes {times['k = 64'] / times['k = 10']:.2f} x the time "
+        f"of k = 10")
+    torch.cuda.empty_cache()
 
 
 def _k5_row(bm25, questions, qtf, csr, doc_len, idf, bm, bm_i,
@@ -892,6 +1004,12 @@ def retrieval_kernel_phase() -> tuple:
     from repro_torch.kernels.bm25 import bm25_scores
     from repro_torch.kernels.dense_topk import dense_topk
     from repro_torch.retrieval import BM25Index, DenseIndex
+    hgmma = sass_count("dense_topk", "HGMMA")
+    say(f"== kernel dense_topk: {hgmma} HGMMA (wgmma) instruction(s) in its "
+        f"SASS")
+    if not hgmma:
+        raise AssertionError("dense_topk's SASS has no HGMMA: the products "
+                             "do not run on the tensor cores")
     t0 = time.perf_counter()
     data = SyntheticSquad(n_paragraphs=SQUAD_PARAGRAPHS,
                           n_questions=SQUAD_QUESTIONS, seed=0)
@@ -965,9 +1083,14 @@ def retrieval_kernel_phase() -> tuple:
     docs.div_(docs.norm(dim=1, keepdim=True))
     qb = torch.randn((SQUAD_QUESTIONS, 256), generator=g, device="cuda")
     qb.div_(qb.norm(dim=1, keepdim=True))
-    _k3_row("1M seeded unit rows", qb, docs, dense_topk(qb, docs, k=TOP_K))
+    k3_1m = _k3_row("1M seeded unit rows", qb, docs,
+                    dense_topk(qb, docs, k=TOP_K))
+    k3.update(ms_1m=k3_1m["ms"], bound_ms_1m=k3_1m["bound_ms"],
+              plain_ms_1m=k3_1m["plain_ms"],
+              library_ms_1m=k3_1m["library_ms"], hgmma=hgmma)
     del docs, qb
     torch.cuda.empty_cache()
+    k3_contract_phase(hgmma)
     return [k3, k5], launches
 
 
@@ -1911,6 +2034,233 @@ def cli_phase(card: str) -> None:
                                      f"untrained params")
             say(f"   {arch} checkpoint step {step}: {n} leaves loaded back "
                 f"equal to the saved arrays [{card}]")
+
+
+K3_PROFILE_SHAPES = (("main path", SQUAD_PARAGRAPHS, TOP_K),
+                     ("main path, k = 64", SQUAD_PARAGRAPHS, 64),
+                     ("1M docs", BIG_DOCS, TOP_K))
+K3_PROFILE_PHASES = ("products start", "copy issue", "copy wait", "barrier",
+                     "split", "products wait", "accumulate", "selection",
+                     "query fragments", "proxy fence", "barrier")
+K3_PROFILE_STAMPS = ("start", "first stage", "stream end", "grid barrier",
+                     "merged")
+
+
+def _k3_sub(text: str, old: str, new: str) -> str:
+    if text.count(old) != 1:
+        raise SystemExit(f"dense_topk_profile: the source no longer has "
+                         f"one {old[:60]!r}; update _k3_probes/_k3_variants")
+    return text.replace(old, new)
+
+
+def _k3_probes(src: str) -> str:
+    """The source with per-phase cycle counters and per-block stamps,
+    written to two device arrays read back by ``read_probes``."""
+    src = _k3_sub(src, "namespace {\n\nconstexpr int kWG", """\
+__device__ long long g_cyc[8192][12];
+__device__ unsigned long long g_ns[8192][5];
+extern "C" int read_k3_probes(void* cyc, void* ns, int n) {
+  cudaError_t e = cudaMemcpyFromSymbol(cyc, g_cyc, (size_t)n * 96);
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(ns, g_ns, (size_t)n * 40);
+  return (int)e;
+}
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+namespace {
+
+constexpr int kWG""")
+    blk = "blockIdx.y * gridDim.x + blockIdx.x"
+    src = _k3_sub(src, "  const auto doc0 = ", f"""\
+  unsigned long long* const NS = g_ns[{blk}];
+  if (tid == 0) {{ NS[0] = now_ns(); NS[1] = NS[2] = NS[3] = NS[4] = 0; }}
+  long long P[11] = {{0}}, c0 = 0, c1 = 0;
+#define TICK(i) do {{ c1 = clock64(); P[i] += c1 - c0; c0 = c1; }} while (0)
+  const auto doc0 = """)
+    src = _k3_sub(src, "  if (steps > 0) {\n    split_stage(0);",
+                  "  if (tid == 0) NS[1] = now_ns();\n"
+                  "  if (steps > 0) {\n    split_stage(0);")
+    src = _k3_sub(src, "    start_products(it);\n",
+                  "    c0 = clock64();\n    start_products(it);\n"
+                  "    TICK(0);\n")
+    src = _k3_sub(src, "    const bool more = it + 1 < steps;\n",
+                  "    TICK(1);\n    const bool more = it + 1 < steps;\n")
+    src = _k3_sub(src, "      cp_async_wait_dyn(p.stages - 2);\n"
+                  "      wg_sync(wg);  // stage it + 1 landed, every thread's"
+                  " copies\n"
+                  "      split_stage(it + 1);\n",
+                  "      cp_async_wait_dyn(p.stages - 2);\n      TICK(2);\n"
+                  "      wg_sync(wg);\n      TICK(3);\n"
+                  "      split_stage(it + 1);\n      TICK(4);\n")
+    src = _k3_sub(src, "    fence_regs(alo);\n    const int chunk",
+                  "    fence_regs(alo);\n    TICK(5);\n    const int chunk")
+    src = _k3_sub(src, "    if (chunk == n_ec - 1) {\n",
+                  "    TICK(6);\n    if (chunk == n_ec - 1) {\n")
+    src = _k3_sub(src, "    if (more) {\n      load_a(it + 1);\n"
+                  "      asm volatile(\"fence.proxy.async.shared::cta;"
+                  "\\n\" ::: \"memory\");\n      wg_sync(wg);\n    }\n  }\n",
+                  "    TICK(7);\n    if (more) {\n      load_a(it + 1);\n"
+                  "      TICK(8);\n"
+                  "      asm volatile(\"fence.proxy.async.shared::cta;"
+                  "\\n\" ::: \"memory\");\n      TICK(9);\n"
+                  "      wg_sync(wg);\n"
+                  "      TICK(10);\n    }\n  }\n"
+                  f"  if (tid == 0) {{\n    for (int z = 0; z < 11; ++z) "
+                  f"g_cyc[{blk}][z] = P[z];\n"
+                  f"    g_cyc[{blk}][11] = steps;\n  }}\n")
+    src = _k3_sub(src,
+                  "  cp_async_wait<0>();\n  __syncthreads();  // the rings",
+                  "  cp_async_wait<0>();\n  if (tid == 0) NS[2] = now_ns();\n"
+                  "  __syncthreads();  // the rings")
+    src = _k3_sub(src, "  grid_barrier(p.bar, p.S * gridDim.y);\n",
+                  "  grid_barrier(p.bar, p.S * gridDim.y);\n"
+                  "  if (tid == 0) NS[3] = now_ns();\n")
+    src = _k3_sub(src,
+                  "          p.out_i[(int64_t)(q0 + j) * p.k + pos] = mi[r];"
+                  "\n        }\n      }\n  }\n}",
+                  "          p.out_i[(int64_t)(q0 + j) * p.k + pos] = mi[r];"
+                  "\n        }\n      }\n    if (tid == 0) NS[4] = now_ns();"
+                  "\n  }\n}")
+    return src
+
+
+def _k3_variants(src: str) -> dict:
+    wg = "      wgmma_tf32(acc, "
+    return {
+        "no selection": _k3_sub(src, "    if (chunk == n_ec - 1) {\n",
+                                "    if (chunk == n_ec - 1 && p.k < 0) {\n"),
+        "no products": src.replace(wg, "      if (p.k < 0) wgmma_tf32(acc, "),
+        "32-column stages": _k3_sub(src, "int cc = 64, n_wg = 2",
+                                    "int cc = 32, n_wg = 2"),
+        "one warpgroup, 32-column stages": _k3_sub(
+            src, "    if (stages >= 3 && (cc == 32 || slots == 16)) break;",
+            "    if (false) break;"),
+        "probes": _k3_probes(src),
+    }
+
+
+def _k3_build_variants(variants: dict) -> dict:
+    """One ``nvcc`` per variant, all started together, into ``_build``."""
+    from repro_torch.kernels import build
+    out_dir = build.BUILD_DIR / "profile"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in variants.items():
+        stem = "".join(ch if ch.isalnum() else "_" for ch in name)
+        cu, so = out_dir / f"{stem}.cu", out_dir / f"lib{stem}.so"
+        cu.write_text(text)
+        procs[name] = (so, subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-I",
+             str(build.CSRC), "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"dense_topk_profile: {name} failed to build:"
+                             f"\n{log[-4000:]}")
+        lib = ctypes.CDLL(str(so))
+        lib.dense_topk_f32.argtypes = ([ctypes.c_void_p] * 7
+                                       + [ctypes.c_int] * 5
+                                       + [ctypes.c_void_p])
+        lib.dense_topk_f32.restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def _k3_call(lib, q, docs, k):
+    """The wrapper's launch, through another build of the kernel."""
+    import torch
+    from repro_torch.kernels import dense_topk as dt
+    Q, E = q.shape
+    D = docs.shape[0]
+    p = dt.plan(D, Q, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    out_s, out_i = dt._empty(q, k)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    bar, ls, li = dt._scratch(q.device, stream, dt.scratch_sizes(p, k))
+    rc = lib.dense_topk_f32(q.data_ptr(), docs.data_ptr(), ls.data_ptr(),
+                            li.data_ptr(), bar.data_ptr(), out_s.data_ptr(),
+                            out_i.data_ptr(), Q, D, E, k, p.slices, stream)
+    if rc:
+        raise RuntimeError(f"dense_topk_profile: launch failed: {rc}")
+    return out_s, out_i, p
+
+
+def dense_topk_profile() -> None:
+    """Where K3 spends its time (not part of ``main``; run it with
+    ``python3 -c "import chip_smoke as c; c.device_phase();
+    c.dense_topk_profile()"``).  At the batched retrieval path's shape
+    (Q=64 seeded unit queries against D=20,000 unit rows, E=256, k=10),
+    the same at k=64, and at D=1,048,576 it times the kernel as built and
+    variants of its source built beside it, each with one part taken out
+    or changed: ``no selection`` (the tiles' scores never offered),
+    ``no products`` (the wgmma products skipped, the lists fed whatever
+    the accumulators hold), ``32-column stages`` (the stage width of
+    k > 16 for every k), ``one warpgroup, 32-column stages`` (one
+    consumer warpgroup a block; 64-column stages need two).  Then, on
+    the kernel built with two probes: the cycles a stage of warpgroup 0
+    spends in each phase of its loop (``clock64``, the median over
+    blocks) and each block's start, first stage, end of its stream, grid
+    barrier and merge (``%globaltimer``, us after the first block
+    starts).  The variants that compute the same function (the last
+    two) are held against the plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.dense_topk import dense_topk, dense_topk_torch
+    build.build_all(["dense_topk"])
+    libs = _k3_build_variants(
+        _k3_variants((build.CSRC / "dense_topk.cu").read_text()))
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def unit(n):
+        x = torch.randn((n, 256), generator=g, device="cuda")
+        return x / x.norm(dim=1, keepdim=True)
+    for label, D, k in K3_PROFILE_SHAPES:
+        q, docs = unit(64), unit(D)
+        iters = 100 if D < BIG_DOCS else 10
+        want_s, want_i = dense_topk_torch(q, docs, k=k)
+        ms = cuda_ms(lambda: dense_topk(q, docs, k=k), iters)
+        line = [f"kernel {ms * 1e3:.2f}"]
+        for name in ("no selection", "no products", "32-column stages",
+                     "one warpgroup, 32-column stages"):
+            lib = libs[name]
+            if "stages" in name:
+                s, i, _ = _k3_call(lib, q, docs, k)
+                err = (s - want_s).abs().max().item()
+                if not err <= RETRIEVAL_TOL:
+                    raise AssertionError(f"[{label}] {name}: {err}")
+            ms = cuda_ms(lambda: _k3_call(lib, q, docs, k), iters)
+            line.append(f"{name} {ms * 1e3:.2f}")
+        say(f"== dense_topk [{label}: Q=64 D={D} E=256 k={k}] us: "
+            + " | ".join(line))
+        _, _, p = _k3_call(libs["probes"], q, docs, k)
+        torch.cuda.synchronize()
+        n = p.slices * p.q_tiles
+        cyc = (ctypes.c_longlong * (n * 12))()
+        ns = (ctypes.c_ulonglong * (n * 5))()
+        if libs["probes"].read_k3_probes(cyc, ns, n):
+            raise RuntimeError("dense_topk_profile: probes not read")
+        c = np.array(cyc, dtype=np.float64).reshape(n, 12)
+        per = np.median(c[:, :11] / np.maximum(c[:, 11:], 1), axis=0)
+        say("   cycles a stage, warpgroup 0 (median over blocks): "
+            + ", ".join(f"{a} {v:.0f}"
+                        for a, v in zip(K3_PROFILE_PHASES, per)))
+        t = np.array(ns, dtype=np.float64).reshape(n, 5)
+        t0 = t[:, 0].min()
+        parts = []
+        for col, name in enumerate(K3_PROFILE_STAMPS):
+            v = (t[:, col][t[:, col] > 0] - t0) / 1e3
+            if len(v):
+                parts.append(f"{name} {np.median(v):.2f} (max {v.max():.2f},"
+                             f" {len(v)} blocks)")
+        say("   us after the first block starts, median: "
+            + "; ".join(parts))
+        del q, docs
+        torch.cuda.empty_cache()
 
 
 def main() -> None:

@@ -4,14 +4,19 @@ Replaces the TPU kernel ``repro/kernels/dense_topk.py::
 _dense_topk_padded`` (body ``_dense_topk_kernel``, merge ``_merge_topk``,
 wrapper ``repro/kernels/ops.py::dense_topk``).  On the card it runs the
 hand-written CUDA kernel in ``csrc/dense_topk.cu``; the design notes are
-at the top of that file.  In short: a block holds 64 queries in shared
-memory and streams its split of the corpus past them, folding each
-score tile into a running top-k per query; a second pass merges the
-splits' partial top-k lists.
+at the top of that file.  In short: one launch; a block holds 64 queries
+in shared memory and streams its slice of the corpus past them
+(:func:`plan`), the score tiles on the tensor cores (wgmma) with
+float32 accuracy (three TF32 products per float32 product), each tile
+folded into a running top-k per query in registers; after a grid
+barrier each query's lists are merged by one block, in the same launch.
 
 * :func:`dense_topk` — the wrapper.  CPU tensors take the plain version;
   CUDA tensors launch the kernel or raise (there is no fallback).
-  ``dense_topk.launches`` counts kernel launches.
+  ``dense_topk.launches`` counts kernel launches (one a call).  The merge
+  lists and the barrier's counters live in a per-(device, stream)
+  scratch the module keeps (:func:`_scratch`); the kernel leaves the
+  counters at zero.
 * :func:`dense_topk_torch` — the plain PyTorch version, with the
   semantics of the reference's ``kernels/ref.py::dense_topk_ref``.
 
@@ -20,22 +25,34 @@ Contract: q ``(Q, E)``, docs ``(D, E)``, cast to float32.  ``k <= 0`` or
 ``Q`` and ``D``.  Returns ``(scores (Q, k) float32 descending, ids (Q, k)
 int32)``; exact score ties go to the lower doc id (``lax.top_k`` order).
 The plain version takes any ``k`` and ``E``, as the reference's
-``ops.dense_topk`` does; the CUDA kernel is narrower: ``k <= 32``
-(``MAX_K``) and ``E`` a multiple of 4 up to 768 (``MAX_E``), and the
-wrapper raises on a CUDA tensor outside that.
+``ops.dense_topk`` does; the CUDA kernel takes ``k <= 64`` (``MAX_K``,
+the reference's deployed bound) and ``E`` a multiple of 4 (16-byte row
+copies) up to 768 (``MAX_E``), and the wrapper raises on a CUDA tensor
+outside that.  Its scores are within 1e-5 of the plain version's on unit
+rows (the same sums, in another order and through TF32 parts).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
 
-MAX_K = 32             # one warp holds a running top-k, one entry a lane
-MAX_E = 768            # the query tile, E * 256 bytes, in shared memory
-TILE = 64              # docs per tile (csrc/fp32_tile.cuh kTile)
-BLOCKS_PER_SM = 2      # splits of the doc axis aim at this many blocks
+MAX_K = 64         # a running top-k of up to 64 entries, 16 a quad lane
+MAX_E = 768        # the 64-query tile, 256 E bytes, in shared memory
+TILE = 64          # docs per tile (csrc/dense_topk.cu kDT)
+QUERY_TILE = 64    # queries per block (kQT)
+
+
+class Plan(NamedTuple):
+    """How one launch cuts the work: ``q_tiles`` tiles of 64 queries,
+    each streamed against ``slices`` slices of the doc axis, one block
+    per (query tile, slice), all resident at once; after the grid
+    barrier query j of a query tile is merged by slice j % slices."""
+    q_tiles: int
+    slices: int
 
 
 def _empty(q, k):
@@ -72,6 +89,40 @@ def dense_topk(q, docs, *, k: int):
 dense_topk.launches = 0
 
 
+def list_slots(k: int) -> int:
+    """Entries of a running list in the kernel: 16, 32 or 64."""
+    return 16 if k <= 16 else 32 if k <= 32 else 64
+
+
+def plan(n_docs: int, n_queries: int, n_sms: int) -> Plan:
+    """One block per (query tile, slice), at most one per SM so that the
+    grid is resident at once; every slice at least one 64-doc tile."""
+    n_tiles = -(-n_docs // TILE)
+    q_tiles = -(-n_queries // QUERY_TILE)
+    return Plan(q_tiles, max(1, min(n_tiles, n_sms // q_tiles)))
+
+
+def tile_range(slice_: int, slices: int, n_tiles: int) -> range:
+    """The 64-doc tiles of one slice (the kernel's t0, t1)."""
+    return range(slice_ * n_tiles // slices,
+                 (slice_ + 1) * n_tiles // slices)
+
+
+def merged_queries(slice_: int, slices: int) -> range:
+    """The queries of a query tile whose lists the block of ``slice_``
+    merges after the grid barrier (one list from every slice each)."""
+    return range(slice_, QUERY_TILE, slices)
+
+
+def scratch_sizes(p: Plan, k: int) -> int:
+    """Entries of the merge lists a launch needs (none for one slice):
+    every block's list of each of its 64 queries, ``list_slots(k) + 4``
+    entries a row (padded)."""
+    if p.slices == 1:
+        return 0
+    return p.q_tiles * p.slices * QUERY_TILE * (list_slots(k) + 4)
+
+
 def _check(q, docs, k: int) -> None:
     if q.dim() != 2 or docs.dim() != 2 or q.shape[1] != docs.shape[1]:
         raise ValueError(f"dense_topk: q {tuple(q.shape)}, docs "
@@ -91,21 +142,31 @@ def _kernel():
     lib = build.load("dense_topk")
     fn = lib.dense_topk_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def splits(n_docs: int, n_queries: int, n_sms: int):
-    """``(tiles_per_split, S)``: the doc axis cut into 64-doc tiles,
-    grouped into S splits so that about ``BLOCKS_PER_SM`` blocks of
-    (query tile, split) run on each SM."""
-    n_tiles = -(-n_docs // TILE)
-    q_tiles = -(-n_queries // TILE)
-    want = max(1, BLOCKS_PER_SM * n_sms // q_tiles)
-    per = -(-n_tiles // min(want, n_tiles))
-    return per, -(-n_tiles // per)
+_num_sms: dict = {}
+_scratches: dict = {}
+
+
+def _scratch(device, stream: int, n_entries: int):
+    """The merge's (barrier, list scores, list ids) for launches on
+    ``stream``: two int32 counters that every launch leaves zero, and
+    lists that every launch writes before it reads them.  Kept per
+    (device, stream) -- launches on one stream run in order -- and grown
+    when a call needs more."""
+    key = (device, stream)
+    bar, ls, li = _scratches.get(key, (None, None, None))
+    if bar is None:
+        bar = torch.zeros(2, dtype=torch.int32, device=device)
+    if ls is None or ls.numel() < n_entries:
+        ls = torch.empty(n_entries, dtype=torch.float32, device=device)
+        li = torch.empty(n_entries, dtype=torch.int32, device=device)
+    _scratches[key] = bar, ls, li
+    return bar, ls, li
 
 
 def _launch(q, docs, k: int):
@@ -119,15 +180,19 @@ def _launch(q, docs, k: int):
         return _empty(q, k)
     if q.data_ptr() % 16 or docs.data_ptr() % 16:
         raise ValueError("dense_topk: q and docs must start 16-byte aligned")
-    per, S = splits(D, Q, torch.cuda.get_device_properties(
-        q.device).multi_processor_count)
-    part_s = torch.empty((Q, S, k), dtype=torch.float32, device=q.device)
-    part_i = torch.empty((Q, S, k), dtype=torch.int32, device=q.device)
+    dev = q.device
+    if dev not in _num_sms:
+        _num_sms[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    p = plan(D, Q, _num_sms[dev])
     out_s, out_i = _empty(q, k)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = kernel(q.data_ptr(), docs.data_ptr(), part_s.data_ptr(),
-                part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), Q, D,
-                E, k, per, S, stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = (None, None, None)
+    if p.slices > 1:
+        bar, ls, li = _scratch(dev, stream, scratch_sizes(p, k))
+        ptrs = (ls.data_ptr(), li.data_ptr(), bar.data_ptr())
+    rc = kernel(q.data_ptr(), docs.data_ptr(), *ptrs, out_s.data_ptr(),
+                out_i.data_ptr(), Q, D, E, k, p.slices, stream)
     if rc != 0:
         raise RuntimeError(f"dense_topk kernel launch failed: CUDA error {rc}")
     dense_topk.launches += 1

@@ -42,31 +42,51 @@ Phases, each on its own lines; any failure exits nonzero:
                duplicated into other tiles and blocks (ids exact).
 5. small     — the SMOKE decoder in bf16: prefill + decode on the card
                against the same weights on the host.
-6. main      — ``qwen1.5-32b`` FULL (64 layers, d_model 5120, seeded
+6. router    — the paper's router on the FULL testbed
+               (``configs/paper_slo_router.py``: 800 / 200 questions over
+               600 paragraphs, 30 epochs): ``run_experiment`` builds the
+               offline log on the host (its seconds printed) and trains
+               the six policies of Table 1 on the card (each training's
+               wall and ms an epoch), prints the grid and checks the
+               paper's failure mode (cheap Argmax-CE refuses > 0.5 with
+               acc < 0.2 and a reward under best-fixed's; quality_first
+               Argmax-CE within 0.1 of best-fixed, refusing < 0.8; the
+               constrained objective (cap 0.45) refusing less with a
+               higher acc, on the mean over the draws of seeds 0..19,
+               each draw printed: at this cap one draw decides it); then
+               quality_first Argmax-CE trained from one host-drawn init on
+               the card and on the host (at most 2 of 200 eval actions
+               may disagree; the largest parameter difference and each
+               disagreeing action's top-two logit margin printed) and the
+               time to route a micro-batch; one ``ConditionedPolicy`` for
+               both profiles (cheap must refuse more); the quickstart's
+               ``Gateway`` + ``SimulatorBackend`` under cheap, 60 requests.
+7. main      — ``qwen1.5-32b`` FULL (64 layers, d_model 5120, seeded
                bf16 weights) served through ``Gateway.serve`` on the
                dense slot cache, with the bm25, dense and hybrid
                retrievers behind a shared retrieval cache: 8 requests
-               under ``FixedPolicy(0)``, 8 under a seeded ``MLPPolicy``
-               (both bm25).  Checks that K1 was launched 64 times per
-               decode step, that no slot was quarantined and that every
-               generating request produced a token.
-7. profile   — 8 more requests under ``torch.profiler``: the card's busy
+               under ``FixedPolicy(0)``, 8 routed by the quality_first
+               router trained in phase 6 (both bm25).  Checks that K1
+               was launched 64 times per decode step, that no slot was
+               quarantined, that every generating request produced a
+               token and that at least one of the router's 8 generated.
+8. profile   — 8 more requests under ``torch.profiler``: the card's busy
                and idle share and the kernels that take its time.
-8. hybrid    — the same engine under the ``hybrid9`` action space:
+9. hybrid    — the same engine under the ``hybrid9`` action space:
                ``FixedPolicy(3)`` (dense retrieval) and ``FixedPolicy(7)``
                (bm25 + dense fusion), 4 questions twice each; checks
                cache hits, no degraded lookup, K1 launches, and prints
                this phase's decode steps on their own lines.
-9. paged     — the dense engine's buffers freed, the same 16 requests
+10. paged    — the dense engine's buffers freed, the same 16 requests
                on the paged engine (page size 8, 400 pages, prefix
                sharing): K2 launched 64 times per decode step, K1 never,
                every request served, prompt tokens served from shared
                pages, no deferral; prints the prefix-hit rate, forks,
                peak pages, ms per decode step and the greedy tokens that
                agree with the dense phase's.
-10. int8     — the paged engine with the int8 KV cache, 8 requests under
+11. int8     — the paged engine with the int8 KV cache, 8 requests under
                ``FixedPolicy(0)``: K2 launches, no quarantine, tokens.
-11. train    — the serving weights freed, ``make_train_step`` (fused
+12. train    — the serving weights freed, ``make_train_step`` (fused
                loss, plain attention, AdamW) for 8 steps on
                ``qwen1.5-32b`` at full width with its depth cut 64 -> 4
                (seeded bf16 weights, ``remat="full"``), over the port's
@@ -77,27 +97,28 @@ Phases, each on its own lines; any failure exits nonzero:
                device time of one step by kernel, and one loss and
                gradient under each of remat none / full / dots (the
                same numbers, each mode's peak memory).
-12. eval     — on the trained params, a held batch through
+13. eval     — on the trained params, a held batch through
                ``make_eval_step`` with K4 and with the plain attention:
                K4 launched 4 times (once a layer), the losses agreeing;
                ``forward_train_loss`` under ``no_grad`` with K4; a train
                step through K4 raising the gradient guard.
-13. mamba serve — ``mamba2-130m`` FULL (24 layers, d_model 768, seeded
+14. mamba serve — ``mamba2-130m`` FULL (24 layers, d_model 768, seeded
                bf16 weights, not cut) through ``Gateway.serve`` on the
-               dense slot engine, 8 + 8 requests as in phase 6: no
-               kernel launched (the cached prefill and the O(1) decode
-               step never take K6), every request served, each engine
-               token the greedy choice of a per-request prefill/decode
-               loop on the card; decode step and prefill ms, peak memory.
-14. mamba eval — a held batch of 4 x 2048 through ``make_eval_step``
+               dense slot engine, 8 + 8 requests as in phase 7 (the
+               trained router routes the second 8): no kernel launched
+               (the cached prefill and the O(1) decode step never take
+               K6), every request served, each engine token the greedy
+               choice of a per-request prefill/decode loop on the card;
+               decode step and prefill ms, peak memory.
+15. mamba eval — a held batch of 4 x 2048 through ``make_eval_step``
                with K6 (24 launches a call) and with the plain scan: the
                losses agreeing; both timed.
-15. mamba train — ``make_train_step`` for 8 steps at 4 x 2048 with the
+16. mamba train — ``make_train_step`` for 8 steps at 4 x 2048 with the
                chunk cut 256 -> 64: finite, falling losses, no K6
                launch; ms per step, tokens/s, peak memory; the gradient
                norm at chunk 256 (NaN, as the reference's); a train step
                through K6 raising the gradient guard.
-16. cli      — ``python -m repro_torch.launch.train`` twice at once, in
+17. cli      — ``python -m repro_torch.launch.train`` twice at once, in
                subprocesses on the card: qwen SMOKE and the defaults
                (mamba2-130m SMOKE), 20 steps each: each loss falls, and
                each npz checkpoint loads back equal through
@@ -123,8 +144,9 @@ tensor cores it feeds, with the float32 CUDA-core basis printed beside
 -- and the device time of each of its three launches (no PyTorch call
 computes the scan: no library time).
 
-The last two lines are the JSON kernel table and the device record.
-Imports nothing of the JAX package.
+The last three lines are the JSON kernel table, the card's name and
+power limit (``nvidia-smi``), and the ``{"ok": true, ...}`` device
+record.  Imports nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -169,6 +191,10 @@ MAMBA_TRAIN_CHUNK, MAMBA_TRAIN_STEPS = 64, 8
 MAMBA_EVAL_RTOL = 1e-3  # bf16 activations; both scans sum in float32
 TOKEN_GAP_RTOL = 2e-2   # of max |logit|: bf16 rounding of a batch of 8
 #                         against a batch of 1
+ROUTER_CAP = 0.45        # the constrained objective's refusal cap
+ROUTER_SEEDS = 20        # draws the constrained objective is held over
+ROUTER_MAX_DISAGREE = 2  # of 200 eval actions, card vs host training: the
+#                          same float32 steps, sums in another order
 
 
 def say(*a) -> None:
@@ -1135,6 +1161,182 @@ def small_model_phase() -> None:
                              f"host: {worst}")
 
 
+def router_phase(card: str):
+    """The paper's router, trained on the card at the FULL testbed
+    (``configs/paper_slo_router.py``: 800 train / 200 eval questions
+    over 600 paragraphs, the 5-action paper space, 30 epochs): the
+    Table 1 grid through ``run_experiment``, the refusal collapse under
+    ``cheap``, the card's training against the host's from one initial
+    draw, one SLO-conditioned policy routing both profiles, and the
+    quickstart's Gateway over the simulator backend.  Returns the
+    quality_first Argmax-CE policy trained on the card, which routes the
+    serving phases."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import paper_slo_router
+    from repro_torch.core.actions import REFUSE_ACTION, SLO_PROFILES
+    from repro_torch.core.experiment import run_experiment
+    from repro_torch.core.metrics import evaluate_actions
+    from repro_torch.core.policy import (init_policy, policy_actions,
+                                         train_policy)
+    from repro_torch.routing import (ConditionedPolicy, Gateway, MLPPolicy,
+                                     Request, SimulatorBackend)
+    cfg = paper_slo_router.FULL
+    rc = cfg.router
+    steps = -(-cfg.n_train // rc.batch_size)
+    say(f"== router: paper_slo_router.FULL, {cfg.n_train} train / "
+        f"{cfg.n_eval} eval questions over {cfg.n_paragraphs} paragraphs, "
+        f"MLP {rc.state_dim} -> {rc.hidden_dims} -> {rc.n_actions}, "
+        f"{rc.n_epochs} epochs of {steps} steps (batch {rc.batch_size}), "
+        f"float32")
+    res, extras, (train_log, eval_log) = run_experiment(
+        cfg, include_mitigation=True, refusal_cap=ROUTER_CAP, verbose=False,
+        device="cuda")
+    secs = extras["seconds"]
+    say(f"   offline log (host, one question at a time): "
+        f"{secs['build_testbed']:.2f} s for {train_log.n + eval_log.n} "
+        f"questions x {train_log.n_actions} actions")
+    for key, hist in extras["train_hist"].items():
+        say(f"   train {key:28s} {secs[key]:.3f} s wall, "
+            f"{secs[key] / rc.n_epochs * 1e3:.2f} ms an epoch; last epoch "
+            f"loss {hist['loss']:.4f}, p_refuse {hist['p_refuse']:.3f}, "
+            f"lambda {hist['lambda']:.3f} [{card}]")
+    for line in res.table().splitlines():
+        say("   " + line)
+    say(f"   action distributions: {extras['action_dists']}")
+    rows = {(r["slo"], r["method"]): r for r in res.rows}
+    best = {r["slo"]: r for r in res.rows
+            if r["method"].startswith("best-fixed")}
+    ce, con = rows[("cheap", "argmax_ce")], rows[("cheap", "constrained")]
+    qf = rows[("quality_first", "argmax_ce")]
+    say(f"   Table 1's draw (seed {rc.seed}): cheap constrained refuse "
+        f"share {con['action_dist'][REFUSE_ACTION]} and acc {con['acc']} "
+        f"against argmax_ce's {ce['action_dist'][REFUSE_ACTION]} and "
+        f"{ce['acc']}")
+    # At this cap the constraint on the mean refusal probability barely
+    # binds (Argmax-CE's own is about 0.5 in training), so one draw
+    # decides whether the eval refusals fall; the objective's effect is
+    # held on the mean over the draws of seeds 0 .. ROUTER_SEEDS - 1.
+    cheap = SLO_PROFILES["cheap"]
+    cheap_rewards = train_log.rewards(cheap)
+    draws = {"argmax_ce": [], "constrained": []}
+    t0 = time.perf_counter()
+    for seed in range(ROUTER_SEEDS):
+        for obj, out in draws.items():
+            tr = train_policy(train_log, cheap_rewards, rc, objective=obj,
+                              refusal_cap=ROUTER_CAP, seed=seed,
+                              device="cuda")
+            rep = evaluate_actions(
+                eval_log, policy_actions(tr.params, eval_log.states, rc),
+                cheap, obj)
+            out.append((float(rep.action_dist[REFUSE_ACTION]), rep.acc))
+    ref_share = {o: float(np.mean([d[0] for d in v]))
+                 for o, v in draws.items()}
+    acc = {o: float(np.mean([d[1] for d in v])) for o, v in draws.items()}
+    held = sum(c[0] < a[0] and c[1] > a[1] for a, c in
+               zip(draws["argmax_ce"], draws["constrained"]))
+    say(f"   cheap over seeds 0..{ROUTER_SEEDS - 1} "
+        f"({2 * ROUTER_SEEDS} trainings, {time.perf_counter() - t0:.1f} s): "
+        f"mean refuse share {ref_share}, mean acc {acc}; constrained "
+        f"refuses less with a higher acc in {held} of {ROUTER_SEEDS} "
+        f"draws; argmax_ce refuse share > 0.5 in "
+        f"{sum(d[0] > 0.5 for d in draws['argmax_ce'])} of them")
+    say(f"     (refuse share, acc) by seed: {draws}")
+    checks = {
+        "cheap argmax_ce refuses > 0.5": ce["refuse"] > 0.5,
+        "cheap argmax_ce acc < 0.2": ce["acc"] < 0.2,
+        "cheap argmax_ce reward < best-fixed's":
+            ce["reward"] < best["cheap"]["reward"],
+        "cheap constrained mean refuse share < argmax_ce's":
+            ref_share["constrained"] < ref_share["argmax_ce"],
+        "cheap constrained mean acc > argmax_ce's":
+            acc["constrained"] > acc["argmax_ce"],
+        "quality_first argmax_ce reward > best-fixed's - 0.1":
+            qf["reward"] > best["quality_first"]["reward"] - 0.1,
+        "quality_first argmax_ce refuses < 0.8": qf["refuse"] < 0.8,
+    }
+    say(f"   failure mode: {checks}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"[router] the paper's failure mode does not "
+                             f"show at FULL size: {failed}")
+
+    # the card's training against the host's, from one host-drawn init
+    profile = SLO_PROFILES["quality_first"]
+    rewards = train_log.rewards(profile)
+    init = init_policy(rc.seed, rc, device="cpu")
+    trained = {}
+    for dev in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trained[dev] = MLPPolicy.train(
+            train_log, rewards, rc, init_params=init, device=dev,
+            name="MLPPolicy(trained, quality_first argmax_ce)")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        say(f"   quality_first argmax_ce on {dev}, one host-drawn init: "
+            f"{wall:.3f} s wall, {wall / rc.n_epochs * 1e3:.2f} ms an epoch")
+    card_pol, host_pol = trained["cuda"], trained["cpu"]
+    diff = max((card_pol.params[k].cpu() - host_pol.params[k]).abs().max()
+               .item() for k in init)
+    card_logits = card_pol.logits(eval_log.states)
+    host_logits = host_pol.logits(eval_log.states)
+    card_acts = card_logits.argmax(-1)
+    host_acts = host_logits.argmax(-1)
+    off = np.nonzero(card_acts != host_acts)[0]
+    top2 = np.sort(host_logits, axis=-1)[:, -2:]
+    margins = {int(i): float(top2[i, 1] - top2[i, 0]) for i in off}
+    rep = evaluate_actions(eval_log, card_acts, profile, "card")
+    say(f"   card vs host: largest param difference {diff:.3e}; "
+        f"{len(off)} of {eval_log.n} eval actions disagree (tol "
+        f"{ROUTER_MAX_DISAGREE}), host top-two logit margins there "
+        f"{margins}; the card's policy: {rep.row()}")
+    if len(off) > ROUTER_MAX_DISAGREE:
+        raise AssertionError(f"[router] the card's training disagrees with "
+                             f"the host's on {len(off)} eval actions")
+    us = {n: host_us(lambda n=n: card_pol.route(eval_log.states[:n]),
+                     calls=100) for n in (8, 20)}
+    say(f"   route a micro-batch on the card (host clock, logits back to "
+        f"the host): {us[8]:.1f} us for 8 requests, {us[20]:.1f} us for "
+        f"20 [{card}]")
+
+    # one SLO-conditioned policy for both profiles
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cond = ConditionedPolicy.train(
+        train_log, [SLO_PROFILES["quality_first"], SLO_PROFILES["cheap"]],
+        rc, device="cuda")
+    wall = time.perf_counter() - t0
+    shares = {slo: float(np.mean(cond.route(eval_log.states, slo).actions
+                                 == REFUSE_ACTION))
+              for slo in ("quality_first", "cheap")}
+    say(f"   conditioned policy (state_dim {cond.cfg.state_dim}, "
+        f"{len(cond.train_result.history)} epochs over 5 profiles x "
+        f"{train_log.n}): {wall:.3f} s wall; refuse share {shares}")
+    if not shares["cheap"] > shares["quality_first"]:
+        raise AssertionError(f"[router] the conditioned policy does not "
+                             f"refuse more under cheap: {shares}")
+
+    # the quickstart's serving step
+    data, index, pipe = extras["testbed"]
+    cheap = MLPPolicy.train(train_log,
+                            train_log.rewards(SLO_PROFILES["cheap"]), rc,
+                            objective="argmax_ce", device="cuda")
+    gw = Gateway(cheap, SimulatorBackend(pipe), router_cfg=rc, index=index,
+                 max_batch=20, adaptive_refusal=True, base_refusal_share=0.5)
+    t0 = time.perf_counter()
+    st = gw.serve([Request(qid=q.qid, question=q, slo="cheap")
+                   for q in data.questions[-60:]])
+    say(f"   Gateway + SimulatorBackend under cheap: served {st.served}, "
+        f"avg reward {st.avg_reward:+.4f}, refusal share "
+        f"{gw.refusal_share:.2f} (cap history {st.refusal_cap_history}), "
+        f"{time.perf_counter() - t0:.2f} s host wall")
+    if st.served != 60 or not np.isfinite(st.avg_reward):
+        raise AssertionError(f"[router] the simulator Gateway served "
+                             f"{st.served} of 60: {st}")
+    return card_pol
+
+
 def profile_phase(gw, reqs, plain_wall_s: float) -> None:
     """One more micro-batch, after the counted main path, under the
     profiler (device activity only): device busy time (the kernels' self
@@ -1157,7 +1359,8 @@ def profile_phase(gw, reqs, plain_wall_s: float) -> None:
     window_ms = start.elapsed_time(end)
     avgs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in avgs) / 1e3
-    say(f"== profile: one more MLPPolicy micro-batch of {len(reqs)} requests "
+    say(f"== profile: one more micro-batch of the trained router, "
+        f"{len(reqs)} requests "
         f"(host wall {wall_s:.2f} s profiled vs {plain_wall_s:.2f} s "
         f"unprofiled)")
     if busy_ms <= 0:
@@ -1218,20 +1421,19 @@ def _instrument(engine) -> dict:
     return rec
 
 
-def _gateways(backend, index, served, n: int):
-    """The first ``n`` of: a FixedPolicy(0) gateway, a seeded MLPPolicy
-    gateway (quality_first), both over ``backend``."""
+def _gateways(backend, index, served, n: int, policy):
+    """The first ``n`` of: a FixedPolicy(0) gateway, a gateway routing
+    with ``policy`` (the router trained in the router phase), both over
+    ``backend``."""
     from repro_torch.core.config import RouterConfig
-    from repro_torch.core.policy import init_policy
-    from repro_torch.routing import FixedPolicy, Gateway, MLPPolicy
+    from repro_torch.routing import FixedPolicy, Gateway
     router = RouterConfig()
     gws = [("FixedPolicy(0)", lambda: Gateway(
                 FixedPolicy(0), backend, router_cfg=router, index=index,
                 max_batch=8, adaptive_refusal=False,
                 on_outcome=lambda *a: served.append(a))),
-           ("MLPPolicy(seed 0)", lambda: Gateway(
-               MLPPolicy(init_policy(0, router, device="cuda"), router),
-               backend, router_cfg=router, index=index, max_batch=8,
+           (policy.name, lambda: Gateway(
+               policy, backend, router_cfg=router, index=index, max_batch=8,
                on_outcome=lambda *a: served.append(a)))]
     return [(name, make()) for name, make in gws[:n]]
 
@@ -1265,18 +1467,19 @@ def _check_served(label, served, n_req: int, engine) -> None:
 
 
 def _drive(label, backend, index, qs, n_batches, card, n_layers,
-           counters) -> dict:
+           counters, policy) -> dict:
     """Serve ``n_batches`` micro-batches of 8 through ``Gateway.serve``
     with every kernel launch count set to 0 just before and read just
     after, then check: every request served, every generating request
-    produced its tokens, no slot quarantined.  Returns the launch
-    counts, the decode steps, the engine record and the gateways."""
+    produced its tokens, at least one request of the trained router's
+    batch generated, no slot quarantined.  Returns the launch counts, the
+    decode steps, the engine record and the gateways."""
     import torch
     from repro_torch.models.schema import tree_leaves
     engine = backend.engine
     rec = _instrument(engine)
     served = []
-    gateways = _gateways(backend, index, served, n_batches)
+    gateways = _gateways(backend, index, served, n_batches, policy)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     for fn in counters.values():
@@ -1315,6 +1518,9 @@ def _drive(label, backend, index, qs, n_batches, card, n_layers,
         f"steps")
 
     _check_served(label, served, 8 * n_batches, engine)
+    if n_batches > 1 and all(out.refused for _, _, out, _ in served[8:16]):
+        raise AssertionError(f"[{label}] no request of the trained "
+                             f"router's batch generated")
     return {"launches": launches, "steps": steps, "rec": rec,
             "gateways": gateways}
 
@@ -1400,9 +1606,10 @@ def hybrid_phase(backend, index, data, rec, n_layers, counters) -> None:
                     absent=("paged_flash_decode",))
 
 
-def main_path_phases(card: str) -> dict:
+def main_path_phases(card: str, policy) -> dict:
     """qwen1.5-32b FULL behind Gateway.serve, on the dense slot cache,
-    then the paged pool, then the paged int8 pool.  Returns each
+    then the paged pool, then the paged int8 pool; ``policy`` (the
+    trained router) routes the second batch of each.  Returns each
     kernel's launches on its own path."""
     import torch
     from repro_torch.configs import get_config
@@ -1449,7 +1656,8 @@ def main_path_phases(card: str) -> dict:
     backend = backend_for(model, retrieval=dict(
         retrievers=build_retriever_suite(index, DenseIndex.build(texts)),
         retrieval_cache_size=64))
-    dense = _drive("dense", backend, index, qs, 2, card, L, counters)
+    dense = _drive("dense", backend, index, qs, 2, card, L, counters,
+                   policy)
     _check_launches("dense", dense["launches"], "flash_decode",
                     dense["steps"], L, absent=("paged_flash_decode",))
     profile_phase(dense["gateways"][1][1], _requests(qs, 2),
@@ -1464,7 +1672,8 @@ def main_path_phases(card: str) -> dict:
     # -- paged pool with prefix sharing: K2 -----------------------------
     paged_kw = dict(paged=True, page_size=PAGE_SIZE, num_pages=NUM_PAGES)
     backend = backend_for(model, **paged_kw)
-    paged = _drive("paged", backend, index, qs, 2, card, L, counters)
+    paged = _drive("paged", backend, index, qs, 2, card, L, counters,
+                   policy)
     _check_launches("paged", paged["launches"], "paged_flash_decode",
                     paged["steps"], L, absent=("flash_decode",))
     es = backend.engine.stats
@@ -1497,7 +1706,7 @@ def main_path_phases(card: str) -> dict:
     # -- paged int8 pool: K2 over the dequantized pool ------------------
     model8 = build_model(dataclasses.replace(cfg, kv_quant_int8=True))
     int8 = _drive("paged int8", backend_for(model8, **paged_kw), index, qs,
-                  1, card, L, counters)
+                  1, card, L, counters, policy)
     _check_launches("paged int8", int8["launches"], "paged_flash_decode",
                     int8["steps"], L, absent=("flash_decode",))
     return launches
@@ -1746,11 +1955,12 @@ def _greedy_gaps(model, params, rec) -> tuple:
     return agree, total, worst
 
 
-def mamba_serve_phase(card: str) -> None:
+def mamba_serve_phase(card: str, policy) -> None:
     """``mamba2-130m`` FULL (24 layers, d_model 768, seeded bf16 weights,
     not cut) through ``Gateway.serve`` on the dense slot engine: 8 slots,
     prefill batch 4, prompts of 384 tokens, 8 new tokens; 8 requests
-    under ``FixedPolicy(0)``, 8 under the seeded ``MLPPolicy``, every
+    under ``FixedPolicy(0)``, 8 routed by ``policy`` (the trained
+    router), every
     launch count 0 just before and read just after.  Checks every request
     served with its tokens, no quarantine, no kernel launched (the cached
     prefill and the O(1) decode step never take K6, as in the
@@ -1787,7 +1997,7 @@ def mamba_serve_phase(card: str) -> None:
                 "flash_attention": flash_attention,
                 "ssd_chunk_scan": ssd_chunk_scan}
     run = _drive("mamba dense", backend, index, data.questions[-16:], 2,
-                 card, cfg.n_layers, counters)
+                 card, cfg.n_layers, counters, policy)
     rec = run["rec"]
     admits = [s_.elapsed_time(e) for s_, e in rec["admits"]]
     say(f"   prefill: {len(admits)} admission groups (prefill batch "
@@ -2264,6 +2474,7 @@ def dense_topk_profile() -> None:
 
 
 def main() -> None:
+    t0 = time.perf_counter()
     card = device_phase()
     report = build_phase()
     rows = [kernel_phase(), paged_kernel_phase(),
@@ -2272,12 +2483,13 @@ def main() -> None:
     retrieval_rows, launches = retrieval_kernel_phase()
     rows += retrieval_rows + [k6]
     small_model_phase()
-    launches.update(main_path_phases(card))
+    router = router_phase(card)
+    launches.update(main_path_phases(card, router))
     trained = train_phase(card)
     launches.update(eval_phase(trained, card))
     del trained
     _free_gpu_memory("mamba")
-    mamba_serve_phase(card)
+    mamba_serve_phase(card, router)
     launches.update(mamba_eval_phase(card))
     mamba_train_phase(card)
     _free_gpu_memory("cli")
@@ -2286,6 +2498,8 @@ def main() -> None:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for row in rows:
         row["launches"] = launches[row["name"]]
+    say(f"== total: {time.perf_counter() - t0:.1f} s, every phase passed "
+        f"[{card}]")
     # every row has the keys above, in that order; K5's adds kernel_ms
     print(json.dumps({"kernels": [{**{k: row[k] for k in keys}, **row}
                                   for row in rows]}))

@@ -5,8 +5,11 @@
   GenerationBackend -> reward + error-budget accounting.
 
 Anything that implements :class:`~repro_torch.routing.policy.RoutingPolicy`
-plugs in (fixed baselines, the routing MLP).  The execution side is
-equally pluggable: a backend with ``execute_mixed`` — the
+plugs in (fixed baselines, the trained routing MLP and its constrained
+and SLO-conditioned variants).  The execution side is equally
+pluggable: the simulator pipeline (a raw ``RAGPipeline`` is wrapped in
+a :class:`~repro_torch.routing.backends.SimulatorBackend`), or a
+backend with ``execute_mixed`` — the
 :class:`~repro_torch.routing.engine_backend.ContinuousEngineBackend` —
 serves the whole routed micro-batch as one shared in-flight decode
 stream; see :attr:`Gateway.engine_stats` for the engine-side counters.
@@ -28,7 +31,7 @@ from repro_torch.core.features import state_vector
 from repro_torch.core.serving_types import RequestOutcome
 from repro_torch.data.synthetic_squad import Question
 from repro_torch.obs import NULL_TRACER, MetricsRegistry, Tracer
-from repro_torch.routing.backends import GenerationBackend
+from repro_torch.routing.backends import GenerationBackend, as_backend
 from repro_torch.routing.policy import RoutingContext, RoutingDecision, RoutingPolicy
 from repro_torch.routing.registry import (ActionSpace, get_action_space,
                                     get_slo_profile)
@@ -129,7 +132,7 @@ class Gateway:
         # telemetry plane: a no-op tracer keeps the hot path branchless
         # and allocation-free when tracing is off (see repro_torch.obs.trace)
         self.tracer = tracer if tracer is not None else NULL_TRACER
-        self.backend = backend
+        self.backend = as_backend(backend)
         self.space = action_space or get_action_space()
         if state_fn is None:
             index = index if index is not None else getattr(self.backend,

@@ -3,15 +3,17 @@
 One interface for every way the system can pick an action per request:
 
 * :class:`FixedPolicy` — the paper's fixed baselines (always a_i);
-* :class:`MLPPolicy` — the routing MLP, its forward pass run in torch
-  (``core/policy.py``).
+* :class:`MLPPolicy` — the trained routing MLP (any objective from
+  ``core/policy.py``: argmax_ce, argmax_ce_wt, soft_reward);
+* :class:`ConstrainedPolicy` — the Lagrangian refusal-capped variant;
+* :class:`ConditionedPolicy` — the SLO-conditioned single policy from
+  ``core/conditioned.py`` (profile weights appended to the state).
 
 ``route(states, slo, context) -> RoutingDecision`` is vectorized over
-the batch.  Inference-time constraints (the adaptive refusal cap the
-Gateway derives from error-budget burn) are applied inside ``route`` via
-:func:`apply_refusal_cap` and recorded on the decision.  Training the
-MLP and the constrained / SLO-conditioned variants arrive with the
-router-training slice (``ROADMAP.md`` queue 1, item 6).
+the batch; the MLP's forward pass runs in torch on its params' device.
+Inference-time constraints (the adaptive refusal cap the Gateway
+derives from error-budget burn) are applied inside ``route`` via
+:func:`apply_refusal_cap` and recorded on the decision.
 """
 from __future__ import annotations
 
@@ -19,11 +21,12 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional, Protocol, Sequence, Union, runtime_checkable
 
 import numpy as np
-import torch
 
+from repro_torch.core.conditioned import profile_vector, train_conditioned
 from repro_torch.core.config import RouterConfig, SLOProfile
-from repro_torch.core.policy import policy_logits
-from repro_torch.routing.registry import ActionSpace, get_action_space
+from repro_torch.core.policy import host_logits, train_policy
+from repro_torch.routing.registry import (ActionSpace, get_action_space,
+                                          get_slo_profile)
 
 SLOLike = Union[None, str, SLOProfile, Sequence[Union[str, SLOProfile]]]
 
@@ -127,24 +130,107 @@ class FixedPolicy:
 
 class MLPPolicy:
     """Adapter around the routing MLP.  ``params`` is a dict of torch
-    tensors (from :mod:`repro_torch.bridge` or
+    tensors (from :meth:`train`, :mod:`repro_torch.bridge` or
     :func:`repro_torch.core.policy.init_policy`); the forward pass runs
     on their device."""
 
-    def __init__(self, params, cfg: RouterConfig, *, name: str = "mlp"):
+    def __init__(self, params, cfg: RouterConfig, *, name: str = "mlp",
+                 train_result=None):
         self.params = params
         self.cfg = cfg
         self.name = name
+        self.train_result = train_result
+
+    @classmethod
+    def train(cls, log, rewards, cfg: RouterConfig, *,
+              objective: Optional[str] = None, refusal_cap: float = 1.0,
+              dual_lr: float = 8.0, seed: Optional[int] = None,
+              name: Optional[str] = None, init_params=None,
+              device="cuda") -> "MLPPolicy":
+        tr = train_policy(log, rewards, cfg, objective=objective,
+                          refusal_cap=refusal_cap, dual_lr=dual_lr, seed=seed,
+                          init_params=init_params, device=device)
+        return cls(tr.params, cfg, name=name or (objective or cfg.objective),
+                   train_result=tr)
 
     def logits(self, states: np.ndarray) -> np.ndarray:
-        dev = self.params["w0"].device
-        x = torch.from_numpy(np.ascontiguousarray(states, np.float32)).to(dev)
-        with torch.no_grad():
-            return policy_logits(self.params, x, self.cfg).cpu().numpy()
+        return host_logits(self.params, states, self.cfg)
 
     def actions(self, states: np.ndarray) -> np.ndarray:
         return self.route(states).actions
 
     def route(self, states, slo=None, context=None) -> RoutingDecision:
         return _decision_from_logits(self.logits(np.asarray(states)),
+                                     self.name, context)
+
+
+class ConstrainedPolicy(MLPPolicy):
+    """Lagrangian refusal-capped MLP (the trained §7.1 mitigation)."""
+
+    def __init__(self, params, cfg: RouterConfig, *,
+                 trained_refusal_cap: float = 1.0, lagrange: float = 0.0,
+                 name: str = "constrained", train_result=None):
+        super().__init__(params, cfg, name=name, train_result=train_result)
+        self.trained_refusal_cap = trained_refusal_cap
+        self.lagrange = lagrange
+
+    @classmethod
+    def train(cls, log, rewards, cfg: RouterConfig, *,
+              objective: str = "constrained", refusal_cap: float = 0.45,
+              dual_lr: float = 8.0, seed: Optional[int] = None,
+              name: str = "constrained", init_params=None,
+              device="cuda") -> "ConstrainedPolicy":
+        if objective != "constrained":
+            raise ValueError(
+                f"ConstrainedPolicy trains the 'constrained' objective, "
+                f"got {objective!r}; use MLPPolicy.train for other objectives")
+        tr = train_policy(log, rewards, cfg, objective="constrained",
+                          refusal_cap=refusal_cap, dual_lr=dual_lr, seed=seed,
+                          init_params=init_params, device=device)
+        return cls(tr.params, cfg, trained_refusal_cap=refusal_cap,
+                   lagrange=tr.lagrange, name=name, train_result=tr)
+
+    def route(self, states, slo=None, context=None) -> RoutingDecision:
+        d = super().route(states, slo, context)
+        d.constraints.setdefault("trained_refusal_cap",
+                                 float(self.trained_refusal_cap))
+        d.constraints.setdefault("lagrange", float(self.lagrange))
+        return d
+
+
+class ConditionedPolicy(MLPPolicy):
+    """One policy for every SLO: profile weights appended to the state
+    (``core/conditioned.py``).  ``slo`` is required and may be a single
+    profile/name or one per request."""
+
+    def __init__(self, params, ccfg: RouterConfig, *,
+                 name: str = "conditioned", train_result=None):
+        super().__init__(params, ccfg, name=name, train_result=train_result)
+
+    @classmethod
+    def train(cls, log, profiles: Sequence[SLOProfile], cfg: RouterConfig, *,
+              objective: str = "argmax_ce", n_interp: int = 3,
+              name: str = "conditioned", init_params=None,
+              device="cuda") -> "ConditionedPolicy":
+        tr, ccfg = train_conditioned(log, profiles, cfg,
+                                     objective=objective, n_interp=n_interp,
+                                     init_params=init_params, device=device)
+        return cls(tr.params, ccfg, name=name, train_result=tr)
+
+    def _condition(self, states: np.ndarray, slo: SLOLike) -> np.ndarray:
+        if slo is None:
+            raise ValueError("ConditionedPolicy.route requires an SLO")
+        states = np.asarray(states)
+        if isinstance(slo, (str, SLOProfile)):
+            v = profile_vector(get_slo_profile(slo))
+            cond = np.tile(v[None], (len(states), 1))
+        else:
+            if len(slo) != len(states):
+                raise ValueError(
+                    f"{len(slo)} SLOs for {len(states)} states")
+            cond = np.stack([profile_vector(get_slo_profile(s)) for s in slo])
+        return np.concatenate([states, cond], axis=1)
+
+    def route(self, states, slo=None, context=None) -> RoutingDecision:
+        return _decision_from_logits(self.logits(self._condition(states, slo)),
                                      self.name, context)

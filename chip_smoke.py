@@ -41,7 +41,10 @@ Phases, each on its own lines; any failure exits nonzero:
                beside k = 10), Q = 5 and 200, D < 64, E = 768, and rows
                duplicated into other tiles and blocks (ids exact).
 5. small     — the SMOKE decoder in bf16: prefill + decode on the card
-               against the same weights on the host.
+               against the same weights on the host; then every weight
+               NaN, 2 requests on 2 slots: the executor's isfinite test
+               on the card trips both and the scheduler quarantines them;
+               with ``health_checks=False`` nothing trips.
 6. router    — the paper's router on the FULL testbed
                (``configs/paper_slo_router.py``: 800 / 200 questions over
                600 paragraphs, 30 epochs): ``run_experiment`` builds the
@@ -77,13 +80,44 @@ Phases, each on its own lines; any failure exits nonzero:
                (bm25 + dense fusion), 4 questions twice each; checks
                cache hits, no degraded lookup, K1 launches, and prints
                this phase's decode steps on their own lines.
+9a. open loop — the closed loop's served rate c and request-latency
+               p50 set deadline_ms = 2 x p50 rounded up to 100 ms; seeded
+               Poisson traces (24 requests, quality_first, questions of
+               their own) at 0.5, 0.75, 1.0 and 1.5 x c replayed in real
+               time through ``AsyncGateway`` + the stream protocol on the
+               same engine, served by the gateway's background thread:
+               per rate the nominal, trace and submitted rates, served,
+               shed, forced refusals, depth clamps, goodput, latency
+               p50/p99, first-token p50, K1 launches; the highest rate
+               whose goodput fraction meets the latency objective (0.90).
+               Checks every request resolved, the thread on cuda:0's
+               default stream and stopped, K1 64 times a decode step.
+9b. chaos    — the dense engine freed; ``benchmarks/chaos_bench.py``'s
+               four plans (no faults, retriever brownout, executor fault
+               burst, NaN storm) in virtual time, 24 requests each on a
+               fresh engine of the main path's shape: counters printed;
+               every request resolves, no_faults counts nothing and its
+               tokens equal a features-off run's, the brownout degrades
+               and fails none, the burst's transient completions are
+               retried or counted faulted, the storm quarantines its
+               plan's slots; K1 64 times a decode step.
+9c. padded   — ``Engine.generate`` (per-call cache, K1) against
+               ``ContinuousEngine.generate_many`` on 8 prompts of 384
+               tokens: tokens identical, walls and decode steps; then a
+               batch of 8 through ``Gateway.serve`` over ``EngineBackend``.
 10. paged    — the dense engine's buffers freed, the same 16 requests
                on the paged engine (page size 8, 400 pages, prefix
-               sharing): K2 launched 64 times per decode step, K1 never,
-               every request served, prompt tokens served from shared
-               pages, no deferral; prints the prefix-hit rate, forks,
-               peak pages, ms per decode step and the greedy tokens that
-               agree with the dense phase's.
+               sharing): K2 launched 64 times per decode step, K1 only
+               64 times for each admission group whose suffix is one
+               token (every page of its prompts but the last token a
+               prefix hit: that prefill's single query takes the decode
+               branch over the dense scratch), every request served,
+               prompt tokens served from shared pages, no deferral;
+               prints the prefix-hit rate, forks, peak pages, ms per
+               decode step and the greedy tokens that agree with the
+               dense phase's; then the 1.0 x c trace of 9a on the paged
+               engine (the same launch accounting), with its prefix-hit
+               rate.
 11. int8     — the paged engine with the int8 KV cache, 8 requests under
                ``FixedPolicy(0)``: K2 launches, no quarantine, tokens.
 12. train    — the serving weights freed, ``make_train_step`` (fused
@@ -195,6 +229,15 @@ ROUTER_CAP = 0.45        # the constrained objective's refusal cap
 ROUTER_SEEDS = 20        # draws the constrained objective is held over
 ROUTER_MAX_DISAGREE = 2  # of 200 eval actions, card vs host training: the
 #                          same float32 steps, sums in another order
+# the open loop: Poisson traces at these multiples of the closed loop's
+# served rate, replayed in real time through AsyncGateway's thread
+OPEN_LOOP_RATES, OPEN_LOOP_REQUESTS = (0.5, 0.75, 1.0, 1.5), 24
+# chaos: benchmarks/chaos_bench.py's rate, deadline and pump quantum (all
+# virtual time), retry policy and breaker settings
+CHAOS_REQUESTS, CHAOS_RATE = 24, 120.0
+CHAOS_DEADLINE_MS, CHAOS_QUANTUM_S = 800.0, 0.01
+CHAOS_BREAKER = dict(window=8, min_calls=4, failure_threshold=0.5,
+                     cooldown=4)
 
 
 def say(*a) -> None:
@@ -1159,6 +1202,37 @@ def small_model_phase() -> None:
     if not worst <= 5e-2:
         raise AssertionError(f"SMOKE decoder on the card disagrees with the "
                              f"host: {worst}")
+    nan_phase(model, tree_map(lambda t: t * float("nan"), card))
+
+
+def nan_phase(model, bad) -> None:
+    """A real on-device NaN: with every weight NaN, 2 requests on 2
+    slots; the executor's isfinite test on the card must trip both slots
+    and the scheduler quarantine them (each request failing transiently,
+    nothing hanging); with ``health_checks=False`` nothing trips."""
+    import torch
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.serving.executor import SingleDeviceExecutor
+    for checks in (True, False):
+        ex = SingleDeviceExecutor(model, bad, num_slots=2, max_len=32,
+                                  max_new_cap=8, sync_every=2,
+                                  health_checks=checks)
+        eng = ContinuousEngine(executor=ex)
+        t0 = time.perf_counter()
+        outs = eng.generate_many([[5, 6, 7], [9, 4, 11, 2]],
+                                 max_new_tokens=8)
+        torch.cuda.synchronize()
+        failed = [bool(o.failed and o.transient) for o in outs]
+        say(f"== nan: SMOKE with NaN weights on the card, health checks "
+            f"{'on' if checks else 'off'}: nan trips "
+            f"{eng.stats.n_nan_trips}, quarantined "
+            f"{sorted(eng.quarantined_slots)}, failed transiently "
+            f"{failed}, {time.perf_counter() - t0:.2f} s")
+        want = (2, {0, 1}, [True, True]) if checks else (0, set(),
+                                                         [False, False])
+        if (eng.stats.n_nan_trips, eng.quarantined_slots, failed) != want:
+            raise AssertionError(f"[nan] health checks {checks}: "
+                                 f"{eng.stats}, {eng.quarantined_slots}")
 
 
 def router_phase(card: str):
@@ -1378,9 +1452,11 @@ def _instrument(engine) -> dict:
     """Record, for one engine: CUDA events around each decode chunk and
     each admission (prefill + commit) of the dense executor, the greedy
     tokens of every finished request keyed by its prompt, and (on a
-    paged engine) the peak pages in use after each admission round."""
+    paged engine) the peak pages in use after each admission round and
+    the admission groups whose suffix is one token."""
     import torch
-    rec = {"chunks": [], "admits": [], "tokens": {}, "peak_pages": 0}
+    rec = {"chunks": [], "admits": [], "tokens": {}, "peak_pages": 0,
+           "short_prefills": 0}
     prompts = {}
     ex = engine.executor
     run_chunk, admit_group, submit, run = (ex.decode_chunk, ex.admit,
@@ -1412,6 +1488,12 @@ def _instrument(engine) -> dict:
     engine.submit, engine.run = recording_submit, recording_run
     if engine._pages is not None:
         admit = engine._start_admissions
+        admit_paged = ex.admit_paged
+
+        def counting_admit_paged(tokens, *a):
+            rec["short_prefills"] += tokens.shape[1] == 1
+            return admit_paged(tokens, *a)
+        ex.admit_paged = counting_admit_paged
 
         def counting_admit():
             admit()
@@ -1466,6 +1548,11 @@ def _check_served(label, served, n_req: int, engine) -> None:
                              f"progress)")
 
 
+def _zero(counters) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
 def _drive(label, backend, index, qs, n_batches, card, n_layers,
            counters, policy) -> dict:
     """Serve ``n_batches`` micro-batches of 8 through ``Gateway.serve``
@@ -1482,8 +1569,7 @@ def _drive(label, backend, index, qs, n_batches, card, n_layers,
     gateways = _gateways(backend, index, served, n_batches, policy)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    for fn in counters.values():
-        fn.launches = 0
+    _zero(counters)
     t0 = time.perf_counter()
     for i, (name, gw) in enumerate(gateways):
         t_batch = time.perf_counter()
@@ -1522,7 +1608,7 @@ def _drive(label, backend, index, qs, n_batches, card, n_layers,
         raise AssertionError(f"[{label}] no request of the trained "
                              f"router's batch generated")
     return {"launches": launches, "steps": steps, "rec": rec,
-            "gateways": gateways}
+            "gateways": gateways, "wall": wall}
 
 
 def _check_launches(label, launches, kernel, steps, n_layers,
@@ -1535,6 +1621,20 @@ def _check_launches(label, launches, kernel, steps, n_layers,
         if launches[other]:
             raise AssertionError(f"[{label}] {other} launched "
                                  f"{launches[other]} times on this path")
+
+
+def _check_paged_launches(label, launches, steps, n_layers,
+                          short: int) -> None:
+    """The paged engine: K2 once a layer per decode step; K1 only for
+    admission groups whose suffix is one token (a prompt whose pages but
+    its last token were all prefix hits: that token's prefill has a
+    single query and takes the decode branch over the dense prefill
+    scratch), once a layer each."""
+    _check_launches(label, launches, "paged_flash_decode", steps, n_layers)
+    if launches["flash_decode"] != n_layers * short:
+        raise AssertionError(f"[{label}] flash_decode launched "
+                             f"{launches['flash_decode']} times for {short} "
+                             f"one-token prefills of {n_layers} layers")
 
 
 def _free_gpu_memory(label: str) -> None:
@@ -1565,8 +1665,7 @@ def hybrid_phase(backend, index, data, rec, n_layers, counters) -> None:
     say(f"== hybrid: hybrid9 space on the dense engine, retrievers "
         f"{sorted(backend.retrievers)}, shared retrieval cache of "
         f"{cache.maxsize}")
-    for fn in counters.values():
-        fn.launches = 0
+    _zero(counters)
     t0 = time.perf_counter()
     for idx in (3, 7):
         a = space[idx]
@@ -1606,11 +1705,458 @@ def hybrid_phase(backend, index, data, rec, n_layers, counters) -> None:
                     absent=("paged_flash_decode",))
 
 
+def _closed_loop_rate(dense: dict) -> tuple:
+    """The closed-loop dense run's served requests per second and its
+    request-latency p50 (ms), over both of its gateways."""
+    import numpy as np
+    lat = [v for _, gw in dense["gateways"]
+           for v in gw.stats.latency._samples]
+    return len(lat) / dense["wall"], float(np.percentile(lat, 50))
+
+
+def _open_loop(label, backend, index, qs, policy, rate, deadline_ms,
+               counters) -> dict:
+    """One seeded Poisson trace (seed 0, OPEN_LOOP_REQUESTS requests,
+    quality_first) replayed in real time through ``AsyncGateway`` over
+    ``backend``'s stream protocol, served by the gateway's background
+    thread on the engine's perf_counter clock, every launch count 0 just
+    before and read just after.  Checks: every offered request resolved;
+    the serving thread ran on cuda:0's default stream and was stopped
+    before the engine is freed.  The row carries the run's launches and
+    decode steps for the caller to check."""
+    import threading
+    import torch
+    from repro_torch.core.config import RouterConfig
+    from repro_torch.serving.streaming import AsyncGateway
+    from repro_torch.serving.traffic import (LoadGenerator, PoissonProcess,
+                                             build_trace)
+    engine = backend.engine
+    es = engine.stats
+    gw = AsyncGateway(policy, backend, router_cfg=RouterConfig(),
+                      index=index, deadline_ms=deadline_ms)
+    trace = build_trace(qs, PoissonProcess(rate, seed=0),
+                        OPEN_LOOP_REQUESTS, slo="quality_first",
+                        deadline_ms=deadline_ms)
+    seen, threads = {}, []
+    poll, start = backend.stream_poll, gw.start
+
+    def probing_poll():
+        if not seen:
+            seen.update(thread=threading.current_thread().name,
+                        device=torch.cuda.current_device(),
+                        default=torch.cuda.current_stream()
+                        == torch.cuda.default_stream(0))
+        return poll()
+
+    def recording_start(**kw):
+        out = start(**kw)
+        threads.append(gw._thread)
+        return out
+    backend.stream_poll, gw.start = probing_poll, recording_start
+    steps0, hit0, tok0 = (es.n_decode_steps, es.prefill_tokens_avoided,
+                          es.prompt_tokens_total)
+    torch.cuda.synchronize()
+    _zero(counters)
+    t0 = time.perf_counter()
+    gen = LoadGenerator(gw, trace)
+    try:
+        rep = gen.run_realtime(timeout_s=180.0)
+    finally:
+        del backend.stream_poll
+    # stop(drain=False) has joined the thread; nothing of it may still be
+    # enqueueing when the caller frees the engine
+    if any(t is not None and t.is_alive() for t in threads):
+        raise AssertionError(f"[{label}] the serving thread outlived stop()")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    steps = es.n_decode_steps - steps0
+    handles = gen.last_handles
+    # arrivals are stamped on the gateway's perf_counter clock: each
+    # one's lag behind its trace time, from the replay's start
+    lags = [h.arrival_t - (t0 + a.t) for h, a in zip(handles, trace)]
+    row = {"rate": rate, "trace_rate": rep.offered_rate,
+           "submitted_rate": len(handles) / (handles[-1].arrival_t - t0),
+           "max_lag_ms":
+           max(lags) * 1e3, "rep": rep, "served": gw.stats.served,
+           "steps": steps, "launches": launches, "wall": wall,
+           "prefix_hits": es.prefill_tokens_avoided - hit0,
+           "prompt_tokens": es.prompt_tokens_total - tok0}
+    if rep.completed != rep.offered:
+        raise AssertionError(f"[{label}] {rep.completed} of {rep.offered} "
+                             f"offered requests resolved")
+    if (seen.get("device") != 0 or not seen.get("default")
+            or seen.get("thread") == threading.main_thread().name):
+        raise AssertionError(f"[{label}] serving thread {seen}: not on "
+                             f"cuda:0's default stream off the main thread")
+    return row
+
+
+def _say_open_loop(label, row, deadline_ms, extra="") -> None:
+    rep = row["rep"]
+    lat, ft = rep.latency, rep.first_token
+    say(f"   {label} {row['rate']:6.3f}/s nominal, {row['trace_rate']:6.3f} "
+        f"trace, {row['submitted_rate']:6.3f} submitted (largest arrival "
+        f"lag {row['max_lag_ms']:.1f} ms): served {row['served']}, shed "
+        f"{rep.shed}, forced refusals {rep.forced_refusals}, depth clamps "
+        f"{rep.depth_clamped}, timed out {rep.timed_out}; goodput "
+        f"{rep.goodput:.3f}/s ({rep.goodput_fraction:.4f} within "
+        f"{deadline_ms:.0f} ms); latency p50 {lat.percentile(50):.1f} p99 "
+        f"{lat.percentile(99):.1f} ms, first token p50 "
+        f"{ft.percentile(50):.1f} ms; {row['steps']} decode steps, "
+        f"launches {row['launches']}; wall {row['wall']:.2f} s{extra}")
+
+
+def open_loop_phase(backend, index, qs_per_rate, policy, c, deadline_ms,
+                    card, n_layers, counters) -> list:
+    """The dense engine (K1) under open-loop Poisson traffic at
+    OPEN_LOOP_RATES x ``c`` (each rate over questions of its own, so no
+    rate finds another's lookups in the retrieval cache): one row per
+    rate, then the highest offered rate whose goodput fraction meets the
+    latency target's objective."""
+    from repro_torch.serving.slo_budget import latency_target
+    t0 = time.perf_counter()
+    target = latency_target(deadline_ms).objective
+    say(f"== open loop, dense (K1): {OPEN_LOOP_REQUESTS} requests a rate, "
+        f"Poisson seed 0, deadline {deadline_ms:.0f} ms, goodput target "
+        f"{target:.2f} [{card}]")
+    rows = []
+    for mult, qs in zip(OPEN_LOOP_RATES, qs_per_rate):
+        row = _open_loop("open loop dense", backend, index, qs, policy,
+                         mult * c, deadline_ms, counters)
+        _say_open_loop(f"{mult:4.2f} x c =", row, deadline_ms)
+        _check_launches("open loop dense", row["launches"], "flash_decode",
+                        row["steps"], n_layers,
+                        absent=("paged_flash_decode",))
+        rows.append(row)
+    ok = [r for r in rows if r["rep"].goodput_fraction >= target]
+    best = max(ok, key=lambda r: r["rate"]) if ok else None
+    say(f"   highest offered rate meeting the SLO (goodput fraction >= "
+        f"{target:.2f}): " + (
+            f"{best['rate']:.3f}/s nominal, {best['submitted_rate']:.3f}/s "
+            f"submitted" if best else "none of the rates")
+        + f"; open loop {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def chaos_plans(n_requests: int) -> dict:
+    """``benchmarks/chaos_bench.py``'s four seeded plans (name ->
+    FaultPlan); windows in site-invocation counts."""
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
+    brown = max(4, n_requests // 6)
+    return {
+        "no_faults": FaultPlan(),
+        "retriever_brownout": FaultPlan(specs=(
+            FaultSpec(site="retriever.dense", kind="raise", start=4,
+                      count=brown),), seed=0),
+        "executor_fault_burst": FaultPlan(specs=(
+            FaultSpec(site="executor.decode", kind="raise", start=6,
+                      count=3),), seed=0),
+        "nan_storm": FaultPlan(specs=(
+            FaultSpec(site="executor.decode", kind="nan", start=5, count=2,
+                      slots=(0, 1)),), seed=0),
+    }
+
+
+def _chaos_run(model, params, tok, index, qs, plan, n_layers, counters, *,
+               hardened: bool = True) -> dict:
+    """One seeded Poisson trace through AsyncGateway over a fresh dense
+    engine with ``plan`` armed, entirely in virtual time
+    (``benchmarks/chaos_bench.py::run_scenario`` at the main path's
+    engine shape).  ``hardened=False`` is the features-off twin: an
+    executor without health checks, no breakers, no retries."""
+    import numpy as np
+    import torch
+    from repro_torch.retrieval.hybrid import (IndexRetriever,
+                                              collect_breakers,
+                                              resolve_retrievers)
+    from repro_torch.routing import ContinuousEngineBackend, FixedPolicy
+    from repro_torch.routing.registry import Action, ActionSpace
+    from repro_torch.serving.executor import SingleDeviceExecutor
+    from repro_torch.serving.faults import ChaosInjector, RetryPolicy
+    from repro_torch.serving.streaming import AdmissionConfig, AsyncGateway
+    from repro_torch.serving.traffic import (LoadGenerator, PoissonProcess,
+                                             VirtualClock, build_trace)
+    space = ActionSpace("chaos4", (
+        Action(0, 0, "refuse"), Action(1, 1, "guarded", "dense"),
+        Action(2, 3, "guarded", "dense"), Action(3, 5, "auto", "dense")))
+    clock = VirtualClock()
+    injector = ChaosInjector(plan, clock=clock.now, sleep=clock.advance)
+    retrievers = {"bm25": IndexRetriever("bm25", index),
+                  "dense": IndexRetriever("dense", index)}
+    max_len = MAX_PROMPT_LEN + MAX_NEW_TOKENS
+    executor = None if hardened else SingleDeviceExecutor(
+        model, params, num_slots=NUM_SLOTS, max_len=max_len,
+        max_new_cap=MAX_NEW_TOKENS, sync_every=4,
+        prefill_batch=PREFILL_BATCH, health_checks=False)
+    backend = ContinuousEngineBackend.create(
+        model, params, tok, index, num_slots=NUM_SLOTS,
+        prefill_batch=PREFILL_BATCH, max_prompt_len=MAX_PROMPT_LEN,
+        max_new_tokens=MAX_NEW_TOKENS, sync_every=4, clock=clock.now,
+        retrievers=retrievers, chaos=injector, breaker_kw=CHAOS_BREAKER,
+        executor=executor)
+    if not hardened:
+        backend.retrievers, backend.retrieval_cache = resolve_retrievers(
+            retrievers, index, breakers=False)
+        backend.breakers = collect_breakers(backend.retrievers)
+    engine = backend.engine
+    tokens, prompts, transient = {}, {}, [0]
+    submit, poll, stream_poll = (engine.submit, engine.poll,
+                                 backend.stream_poll)
+
+    def recording_submit(rid, prompt, *a, **kw):
+        prompts[rid] = tuple(prompt)
+        return submit(rid, prompt, *a, **kw)
+
+    def recording_poll():
+        done = poll()
+        for rid, g in done.items():
+            if not g.failed:
+                tokens[prompts[rid]] = [int(t) for t in g.tokens]
+        return done
+
+    def counting_stream_poll():
+        done = stream_poll()
+        transient[0] += sum(c.outcome.transient and not c.outcome.timed_out
+                            for c in done)
+        return done
+    engine.submit, engine.poll = recording_submit, recording_poll
+    backend.stream_poll = counting_stream_poll
+    gw = AsyncGateway(
+        FixedPolicy(2), backend, action_space=space,
+        state_fn=lambda q: np.zeros((len(q), 1)), clock=clock.now,
+        deadline_ms=CHAOS_DEADLINE_MS,
+        admission=AdmissionConfig(max_backlog=4 * NUM_SLOTS),
+        retry=(RetryPolicy(max_retries=2, backoff_s=0.02) if hardened
+               else None))
+    trace = build_trace(qs, PoissonProcess(CHAOS_RATE, seed=0),
+                        CHAOS_REQUESTS, deadline_ms=CHAOS_DEADLINE_MS)
+    gen = LoadGenerator(gw, trace)
+    torch.cuda.synchronize()
+    _zero(counters)
+    t0 = time.perf_counter()
+    rep = gen.run_virtual(clock, service_quantum_s=CHAOS_QUANTUM_S)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    recovery = None
+    last = injector.last_fire_t()
+    if last is not None:
+        after = [h.completed_t for h in gen.last_handles
+                 if h.outcome is not None and not h.outcome.refused
+                 and not getattr(h.outcome, "degraded", False)
+                 and h.completed_t is not None and h.completed_t >= last]
+        recovery = round(min(after) - last, 4) if after else None
+    es = engine.stats
+    row = {"rep": rep, "fired": len(injector.fire_log),
+           "retries": gw.stats.retries, "faulted": gw.stats.faulted,
+           "degraded": gw.stats.degraded, "timed_out": gw.stats.timed_out,
+           "shed": gw.stats.shed, "quarantined": es.n_quarantined,
+           "nan_trips": es.n_nan_trips, "exec_faults": es.n_exec_faults,
+           "watchdog": es.n_watchdog_trips,
+           "breaker_trips": sum(b.n_trips for b in backend.breakers.values()),
+           "recovery_s": recovery, "tokens": tokens,
+           "transient": transient[0], "steps": es.n_decode_steps,
+           "launches": launches, "wall": wall,
+           "handles": gen.last_handles}
+    _check_launches("chaos", launches, "flash_decode", row["steps"],
+                    n_layers, absent=("paged_flash_decode",))
+    del backend, engine, gw, gen
+    return row
+
+
+def chaos_phase(model, params, tok, index, qs, card, n_layers,
+                counters) -> None:
+    """The chaos bench's four scenarios on the dense engine (K1) in
+    virtual time, each on a fresh engine freed after it, plus the
+    features-off twin of ``no_faults``; prints each scenario's counters
+    and holds the invariants."""
+    t0 = time.perf_counter()
+    say(f"== chaos (K1): {CHAOS_REQUESTS} requests a scenario, Poisson "
+        f"{CHAOS_RATE:.0f}/s, deadline {CHAOS_DEADLINE_MS:.0f} ms, pump "
+        f"quantum {CHAOS_QUANTUM_S * 1e3:.0f} ms (virtual time), chaos4 "
+        f"space, FixedPolicy(2), retries 2 x 20 ms, backlog "
+        f"{4 * NUM_SLOTS} [{card}]")
+    rows = {}
+    for name, plan in chaos_plans(CHAOS_REQUESTS).items():
+        r = rows[name] = _chaos_run(model, params, tok, index, qs, plan,
+                                    n_layers, counters)
+        _free_gpu_memory(f"chaos {name}")
+        rep = r["rep"]
+        say(f"   {name:22s} fired {r['fired']}, retries {r['retries']}, "
+            f"faulted {r['faulted']}, degraded {r['degraded']}, quarantined "
+            f"{r['quarantined']}, nan trips {r['nan_trips']}, exec faults "
+            f"{r['exec_faults']}, timed out {r['timed_out']}, breaker trips "
+            f"{r['breaker_trips']}, shed {r['shed']}, recovery "
+            f"{r['recovery_s']} s; goodput {rep.goodput:.2f}/s (virtual), "
+            f"completed {rep.completed}/{rep.offered}; {r['steps']} decode "
+            f"steps, {r['launches']['flash_decode']} K1 launches, wall "
+            f"{r['wall']:.2f} s")
+        if rep.completed != rep.offered:
+            raise AssertionError(f"[chaos {name}] {rep.completed} of "
+                                 f"{rep.offered} requests resolved")
+    base = rows["no_faults"]
+    counts = ("fired", "retries", "faulted", "degraded", "quarantined",
+              "nan_trips", "exec_faults", "timed_out", "breaker_trips",
+              "watchdog")
+    if any(base[k] for k in counts):
+        raise AssertionError(f"[chaos no_faults] counters "
+                             f"{ {k: base[k] for k in counts} }")
+    off = _chaos_run(model, params, tok, index, qs,
+                     chaos_plans(CHAOS_REQUESTS)["no_faults"], n_layers,
+                     counters, hardened=False)
+    _free_gpu_memory("chaos features-off")
+    same = off["tokens"] == base["tokens"] and len(base["tokens"]) > 0
+    say(f"   no_faults vs features off (no health checks, no breakers, no "
+        f"retries): {len(base['tokens'])} requests, greedy tokens "
+        f"{'identical' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("[chaos no_faults] tokens differ from the "
+                             "features-off run")
+    brown = rows["retriever_brownout"]
+    if brown["degraded"] < 1 or brown["faulted"]:
+        raise AssertionError(f"[chaos brownout] degraded "
+                             f"{brown['degraded']}, faulted "
+                             f"{brown['faulted']}")
+    burst = rows["executor_fault_burst"]
+    if burst["exec_faults"] != 3 or burst["fired"] != 3 or \
+            burst["transient"] != burst["retries"] + burst["faulted"] or \
+            not burst["transient"]:
+        raise AssertionError(
+            f"[chaos burst] exec faults {burst['exec_faults']}, fired "
+            f"{burst['fired']}, transient completions {burst['transient']} "
+            f"!= retries {burst['retries']} + faulted {burst['faulted']}")
+    storm = rows["nan_storm"]
+    slots = chaos_plans(CHAOS_REQUESTS)["nan_storm"].specs[0].slots
+    if not storm["quarantined"] == storm["nan_trips"] == len(slots):
+        raise AssertionError(f"[chaos nan storm] quarantined "
+                             f"{storm['quarantined']}, nan trips "
+                             f"{storm['nan_trips']}, plan slots {slots}")
+    say(f"   burst: {burst['transient']} transient completions = "
+        f"{burst['retries']} retried inside the deadline + "
+        f"{burst['faulted']} faulted; chaos {time.perf_counter() - t0:.1f} "
+        f"s")
+
+
+class _TimedDecode:
+    """A model whose ``decode`` calls are bracketed by CUDA events."""
+
+    def __init__(self, model):
+        self.model = model
+        self.events = []
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def decode(self, *a, **kw):
+        import torch
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = self.model.decode(*a, **kw)
+        e.record()
+        self.events.append((s, e))
+        return out
+
+
+def padded_phase(model, params, tok, index, qs, card, n_layers,
+                 counters) -> None:
+    """The padded-bucket ``Engine`` (K1) on the served params: 8 seeded
+    prompts of MAX_PROMPT_LEN tokens, MAX_NEW_TOKENS new, through
+    ``Engine.generate`` and ``ContinuousEngine.generate_many`` (8 slots,
+    prefill batch 8: the same shapes), greedy tokens identical per
+    request trimmed at EOS; then one closed-loop batch of 8 through
+    ``Gateway.serve`` over ``EngineBackend`` (one bucket, one
+    ``generate`` call).  Each run's wall, decode step (device time of the
+    decode calls) and K1 launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core.config import RouterConfig
+    from repro_torch.data.tokenizer import trim_at_eos
+    from repro_torch.routing import EngineBackend, FixedPolicy, Gateway
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.serving.engine import Engine
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(4, model.cfg.vocab_size,
+                                 size=MAX_PROMPT_LEN)) for _ in range(8)]
+    max_len = MAX_PROMPT_LEN + MAX_NEW_TOKENS
+    say(f"== padded (K1): Engine vs ContinuousEngine, 8 prompts of "
+        f"{MAX_PROMPT_LEN} tokens, {MAX_NEW_TOKENS} new [{card}]")
+
+    ce = ContinuousEngine(model, params, num_slots=8, max_len=max_len,
+                          max_new_cap=MAX_NEW_TOKENS, sync_every=4,
+                          prefill_batch=8)
+    rec = _instrument(ce)
+    torch.cuda.synchronize()
+    _zero(counters)
+    t1 = time.perf_counter()
+    outs = ce.generate_many(prompts, max_new_tokens=MAX_NEW_TOKENS)
+    torch.cuda.synchronize()
+    ce_wall = time.perf_counter() - t1
+    ce_k1 = counters["flash_decode"].launches
+    ce_steps = ce.stats.n_decode_steps
+    ce_step_ms = _step_ms(rec["chunks"], ce_steps)
+    del ce, rec
+    _free_gpu_memory("padded")
+
+    timed = _TimedDecode(model)
+    eng = Engine(timed, params, max_len=max_len)
+    _zero(counters)
+    t1 = time.perf_counter()
+    res = eng.generate(prompts, max_new_tokens=MAX_NEW_TOKENS)
+    torch.cuda.synchronize()
+    pad_wall, pad_k1 = time.perf_counter() - t1, \
+        counters["flash_decode"].launches
+    pad_step_ms = _step_ms(timed.events, len(timed.events))
+    agree = sum(trim_at_eos(res.tokens[i]) == trim_at_eos(outs[i].tokens)
+                for i in range(8))
+    say(f"   Engine.generate: {res.n_steps} steps, wall {pad_wall:.2f} s, "
+        f"decode step {pad_step_ms:.2f} ms, {pad_k1} K1 launches; "
+        f"ContinuousEngine.generate_many: {ce_steps} decode steps, wall "
+        f"{ce_wall:.2f} s, decode step {ce_step_ms:.2f} ms, {ce_k1} K1 "
+        f"launches; {agree} of 8 requests' greedy tokens identical")
+    if agree != 8:
+        raise AssertionError(f"[padded] {8 - agree} requests' greedy tokens "
+                             f"differ from the continuous engine's")
+    _check_launches("padded", {"flash_decode": pad_k1}, "flash_decode",
+                    len(timed.events), n_layers)
+
+    timed.events = []
+    served = []
+    gw = Gateway(FixedPolicy(0), EngineBackend(
+        Engine(timed, params, max_len=max_len), tok, index,
+        max_prompt_len=MAX_PROMPT_LEN, max_new_tokens=MAX_NEW_TOKENS),
+        router_cfg=RouterConfig(), index=index, max_batch=8,
+        adaptive_refusal=False, on_outcome=lambda *a: served.append(a))
+    torch.cuda.synchronize()
+    _zero(counters)
+    t1 = time.perf_counter()
+    st = gw.serve(_requests(qs, 0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {name: fn.launches for name, fn in counters.items()}
+    steps = len(timed.events)
+    say(f"   Gateway.serve over EngineBackend: served {st.served}, actions "
+        f"{dict(sorted(st.action_counts.items()))}, wall {wall:.2f} s, "
+        f"{steps} decode steps at {_step_ms(timed.events, steps):.2f} ms, "
+        f"launches {launches}; latency {st.latency_percentiles()}; padded "
+        f"{time.perf_counter() - t0:.1f} s")
+    if st.served != 8 or any(out.refused for _, _, out, _ in served):
+        raise AssertionError(f"[padded] served {st.served}: {served}")
+    _check_launches("padded gateway", launches, "flash_decode", steps,
+                    n_layers, absent=("paged_flash_decode",))
+    del gw, eng, timed
+
+
 def main_path_phases(card: str, policy) -> dict:
-    """qwen1.5-32b FULL behind Gateway.serve, on the dense slot cache,
-    then the paged pool, then the paged int8 pool; ``policy`` (the
-    trained router) routes the second batch of each.  Returns each
-    kernel's launches on its own path."""
+    """qwen1.5-32b FULL behind Gateway.serve, on the dense slot cache
+    (then the same engine under open-loop traffic), the chaos scenarios
+    and the padded engine on engines of their own, then the paged pool
+    (closed and open loop), then the paged int8 pool; ``policy`` (the
+    trained router) routes the second batch of each closed loop and the
+    open loops.  Returns each kernel's launches on its own closed-loop
+    path."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import HashTokenizer, SyntheticSquad
@@ -1660,13 +2206,33 @@ def main_path_phases(card: str, policy) -> dict:
                    policy)
     _check_launches("dense", dense["launches"], "flash_decode",
                     dense["steps"], L, absent=("paged_flash_decode",))
+    # read before the profiled batch adds to the gateways' latencies
+    c, p50 = _closed_loop_rate(dense)
     profile_phase(dense["gateways"][1][1], _requests(qs, 2),
                   dense["rec"]["batch_wall"])
     hybrid_phase(backend, index, data, dense["rec"], L, counters)
     dense_tokens, dense_step_ms = dense["rec"]["tokens"], \
         dense["rec"]["step_ms"]
     launches = {"flash_decode": dense["launches"]["flash_decode"]}
+
+    # -- open loop on the dense engine: K1 ------------------------------
+    deadline_ms = math.ceil(2 * p50 / 100.0) * 100.0
+    say(f"== open loop: the closed loop above served c = {c:.3f} "
+        f"requests/s, request latency p50 {p50:.1f} ms -> deadline_ms = "
+        f"{deadline_ms:.0f} (2 x p50, rounded up to 100 ms)")
+    open_qs = [data.questions[100 + 24 * i: 124 + 24 * i]
+               for i in range(len(OPEN_LOOP_RATES) + 1)]
+    open_loop_phase(backend, index, open_qs[:-1], policy, c, deadline_ms,
+                    card, L, counters)
     del dense, backend
+    _free_gpu_memory("chaos")
+
+    # -- chaos and the padded engine, each on engines of their own: K1 --
+    tok = HashTokenizer(cfg.vocab_size)
+    chaos_phase(model, params, tok, index, data.questions[300:324], card,
+                L, counters)
+    padded_phase(model, params, tok, index, data.questions[400:408], card,
+                 L, counters)
     _free_gpu_memory("paged")
 
     # -- paged pool with prefix sharing: K2 -----------------------------
@@ -1674,8 +2240,8 @@ def main_path_phases(card: str, policy) -> dict:
     backend = backend_for(model, **paged_kw)
     paged = _drive("paged", backend, index, qs, 2, card, L, counters,
                    policy)
-    _check_launches("paged", paged["launches"], "paged_flash_decode",
-                    paged["steps"], L, absent=("flash_decode",))
+    _check_paged_launches("paged", paged["launches"], paged["steps"], L,
+                          paged["rec"]["short_prefills"])
     es = backend.engine.stats
     tokens = paged["rec"]["tokens"]
     common = [k for k in tokens if k in dense_tokens]
@@ -1700,6 +2266,23 @@ def main_path_phases(card: str, policy) -> dict:
         raise AssertionError("[paged] no prompt token was served from a "
                              "shared page")
     launches["paged_flash_decode"] = paged["launches"]["paged_flash_decode"]
+
+    # -- open loop on the paged engine: K2 ------------------------------
+    t0 = time.perf_counter()
+    say(f"== open loop, paged (K2): 1.00 x c, {OPEN_LOOP_REQUESTS} requests, "
+        f"deadline {deadline_ms:.0f} ms [{card}]")
+    short0 = paged["rec"]["short_prefills"]
+    row = _open_loop("open loop paged", backend, index, open_qs[-1], policy,
+                     c, deadline_ms, counters)
+    _say_open_loop("1.00 x c =", row, deadline_ms, extra=(
+        f"; prefix-hit rate {row['prefix_hits']} / {row['prompt_tokens']} = "
+        f"{row['prefix_hits'] / max(row['prompt_tokens'], 1):.4f}; "
+        f"{time.perf_counter() - t0:.1f} s"))
+    short = paged["rec"]["short_prefills"] - short0
+    say(f"   paged open loop: {short} admission group(s) with a one-token "
+        f"suffix (K1 on the prefill scratch)")
+    _check_paged_launches("open loop paged", row["launches"], row["steps"],
+                          L, short)
     del paged, backend
     _free_gpu_memory("int8")
 
@@ -1707,8 +2290,8 @@ def main_path_phases(card: str, policy) -> dict:
     model8 = build_model(dataclasses.replace(cfg, kv_quant_int8=True))
     int8 = _drive("paged int8", backend_for(model8, **paged_kw), index, qs,
                   1, card, L, counters, policy)
-    _check_launches("paged int8", int8["launches"], "paged_flash_decode",
-                    int8["steps"], L, absent=("flash_decode",))
+    _check_paged_launches("paged int8", int8["launches"], int8["steps"], L,
+                          int8["rec"]["short_prefills"])
     return launches
 
 

@@ -493,7 +493,8 @@ def build_retriever_suite(index, dense_index=None, *,
 def resolve_retrievers(retrievers: Optional[Mapping[str, Retriever]],
                        index, *, cache_size: int = 0,
                        breakers: bool = True,
-                       breaker_kw: Optional[Dict] = None
+                       breaker_kw: Optional[Dict] = None,
+                       chaos=None
                        ) -> Tuple[Dict[str, Retriever],
                                   Optional[RetrievalCache]]:
     """Normalize an executor's retriever config.
@@ -504,16 +505,18 @@ def resolve_retrievers(retrievers: Optional[Mapping[str, Retriever]],
     stats can report hit rates.  ``breakers`` (default on — a closed
     breaker is a pass-through, so healthy behaviour is unchanged) adds
     a per-retriever :class:`CircuitBreaker` (``breaker_kw`` forwarded
-    to each).  Recover the breakers afterwards with
+    to each); ``chaos`` (a
+    :class:`~repro_torch.serving.faults.ChaosInjector`) installs fault
+    seams innermost, so injected failures trip breakers and never reach
+    the cache.  Recover the breakers afterwards with
     :func:`collect_breakers`.
-
-    The reference's ``chaos=`` argument (fault seams installed
-    innermost, under the breakers) comes with the port of
-    ``serving/faults.py``, in the fault slice.
     """
     if retrievers is None:
         retrievers = {"bm25": IndexRetriever("bm25", index)}
     retrievers = dict(retrievers)
+    if chaos is not None and getattr(chaos, "armed", False):
+        from repro_torch.serving.faults import chaos_wrap_retrievers
+        retrievers = chaos_wrap_retrievers(retrievers, chaos)
     if breakers:
         retrievers = {
             name: BreakerRetriever(r, CircuitBreaker(**(breaker_kw or {})))

@@ -29,6 +29,7 @@ _LAZY = {
     "GenerationBackend": "repro_torch.routing.backends",
     "SimulatorBackend": "repro_torch.routing.backends",
     "as_backend": "repro_torch.routing.backends",
+    "EngineBackend": "repro_torch.routing.engine_backend",
     "ContinuousEngineBackend": "repro_torch.routing.engine_backend",
     # gateway
     "Gateway": "repro_torch.routing.gateway",

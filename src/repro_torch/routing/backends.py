@@ -1,11 +1,12 @@
 """Generation backends behind one protocol.
 
 The Gateway executes a routed action bucket through a
-:class:`GenerationBackend`; the simulator pipeline and the continuous
-KV-cache engine (``engine_backend.py``) are interchangeable behind
+:class:`GenerationBackend`; the simulator pipeline and the KV-cache
+engines (``engine_backend.py``) are interchangeable behind
 ``execute_batch``.
 
-**Streaming protocol** (for an open-loop gateway): backends that can
+**Streaming protocol** (optional, for the open-loop
+:class:`~repro_torch.serving.streaming.AsyncGateway`): backends that can
 hold requests in flight additionally provide
 
     stream_submit(question, action, *, deadline_at=0.0)
@@ -15,7 +16,10 @@ hold requests in flight additionally provide
         the service stream.  ``deadline_at`` (backend-clock instant,
         0 = none) lets deadline-enforcing backends cancel the request
         mid-stream; the simulator accepts but ignores it (its service
-        model has no mid-service cancellation).
+        model has no mid-service cancellation).  A transient fault at
+        submit raises :class:`~repro_torch.core.errors.TransientFaultError`,
+        which the AsyncGateway turns into a bounded deadline-aware
+        retry.
     stream_poll() -> List[StreamCompletion]
         advance the backend by one scheduling step and return every
         request completed since the last poll.
@@ -23,11 +27,11 @@ hold requests in flight additionally provide
         requests submitted but not yet completed (the queue-depth
         signal admission control sheds on).
 
-:class:`SimulatorBackend` implements it over a deterministic synthetic
-service model (bounded concurrency, fixed polls-per-request) so
-admission-control behaviour is testable without a model in the loop.
-The open-loop gateway and the engine backend's side of the protocol
-come with ``ROADMAP.md`` queue 1, item 5.
+:class:`~repro_torch.routing.engine_backend.ContinuousEngineBackend`
+implements it over the real slot engine; :class:`SimulatorBackend` over
+a deterministic synthetic service model (bounded concurrency, fixed
+polls-per-request) so admission-control behaviour is testable without a
+model in the loop.
 """
 from __future__ import annotations
 

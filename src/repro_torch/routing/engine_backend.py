@@ -1,13 +1,22 @@
-"""Real-model generation backend: retrieval + the continuous engine
+"""Real-model generation backends: retrieval + the KV-cache engines
 behind the :class:`~repro_torch.routing.backends.GenerationBackend`
 protocol.
 
-:class:`ContinuousEngineBackend` implements ``execute_mixed`` so ALL
-routed buckets of a micro-batch feed one shared in-flight decode stream
-of the slot-based :class:`~repro_torch.serving.continuous.ContinuousEngine`.
-Retrieval depth only changes the prompt; generation is unified, so
-deep-k and shallow-k requests decode in the same step and finished
-slots admit queued requests mid-stream.
+Two execution models:
+
+* :class:`EngineBackend` — the padded-bucket
+  :class:`~repro_torch.serving.engine.Engine`: the Gateway buckets
+  requests by routed action and each non-refuse bucket becomes ONE
+  batched prefill+decode call (serial across buckets).
+* :class:`ContinuousEngineBackend` — the slot-based
+  :class:`~repro_torch.serving.continuous.ContinuousEngine`: implements
+  ``execute_mixed`` so ALL routed buckets of a micro-batch feed one
+  shared in-flight decode stream.  Retrieval depth only changes the
+  prompt; generation is unified, so deep-k and shallow-k requests
+  decode in the same step and finished slots admit queued requests
+  mid-stream.  It also implements the streaming protocol
+  (``stream_submit`` / ``stream_poll`` / ``stream_backlog``) the
+  open-loop :class:`~repro_torch.serving.streaming.AsyncGateway` drives.
 
 The local model has no answer scorer, so outcomes carry
 token-accounting truth (cost, refusal) and conservative quality
@@ -22,7 +31,7 @@ to the bm25 fallback as a *degraded* outcome.
 """
 from __future__ import annotations
 
-from typing import List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 from repro_torch.core.errors import TransientFaultError
 from repro_torch.data.synthetic_squad import Question
@@ -34,6 +43,7 @@ from repro_torch.retrieval.hybrid import (Retriever, bind_retrieval_metrics,
                                           collect_breakers,
                                           resolve_retrievers,
                                           retrieve_with_fallback)
+from repro_torch.routing.backends import StreamCompletion
 from repro_torch.routing.registry import Action
 from repro_torch.serving.pipeline import ActionOutcome
 
@@ -42,7 +52,9 @@ REFUSE_COST_TOKENS = 5.0
 
 
 class EngineBackend:
-    """Retrieval + prompt building + outcome accounting over an engine."""
+    """Retrieval + prompt building + outcome accounting over an engine;
+    ``execute_batch`` runs one action bucket as one batched
+    :meth:`~repro_torch.serving.engine.Engine.generate` call."""
 
     # telemetry: the Gateway installs its tracer here so retrieval and
     # engine spans land in the same trace (no-op by default)
@@ -51,7 +63,7 @@ class EngineBackend:
     def __init__(self, engine, tokenizer: HashTokenizer, index: BM25Index,
                  *, max_prompt_len: int = 384, max_new_tokens: int = 8,
                  retrievers: Optional[Mapping[str, Retriever]] = None,
-                 retrieval_cache_size: int = 0,
+                 retrieval_cache_size: int = 0, chaos=None,
                  breaker_kw: Optional[dict] = None):
         self.engine = engine
         self.tok = tokenizer
@@ -60,10 +72,11 @@ class EngineBackend:
         self.max_new_tokens = max_new_tokens
         # named retrievers (None = bm25-only over `index`); a shared
         # bounded LRU fronts them when retrieval_cache_size > 0, and a
-        # per-retriever circuit breaker sits under the cache
+        # per-retriever circuit breaker sits under the cache (chaos
+        # seams, when armed, innermost)
         self.retrievers, self.retrieval_cache = resolve_retrievers(
             retrievers, index, cache_size=retrieval_cache_size,
-            breaker_kw=breaker_kw)
+            chaos=chaos, breaker_kw=breaker_kw)
         self.breakers = collect_breakers(self.retrievers)
 
     def install_tracer(self, tracer) -> None:
@@ -130,8 +143,10 @@ class EngineBackend:
     @staticmethod
     def _transient_outcome(q: Question, action: Action,
                            reason: str) -> ActionOutcome:
-        """A retryable fault (quarantined slot, executor fault):
-        refused for reward/budget purposes, ``transient=True``."""
+        """A retryable fault (quarantined slot, executor fault, dead
+        retrieval path): refused for reward/budget purposes, but
+        ``transient=True`` lets the gateway retry it within the
+        request's deadline before accounting."""
         return ActionOutcome(
             qid=q.qid, action=action.idx, correct=False, refused=True,
             hallucinated=False, cost_tokens=REFUSE_COST_TOKENS,
@@ -169,6 +184,23 @@ class EngineBackend:
             answerable=q.answerable,
             answer=f"<{n_out} generated tokens>", degraded=degraded)
 
+    def execute_batch(self, questions: Sequence[Question],
+                      action: Action) -> List[ActionOutcome]:
+        if action.mode == "refuse":
+            return [self._refusal_outcome(q, action) for q in questions]
+        prompts, hits, degr = [], [], []
+        for q in questions:
+            toks, hit, degraded = self._prep(q, action)
+            prompts.append(toks)
+            hits.append(hit)
+            degr.append(degraded)
+        result = self.engine.generate(prompts,
+                                      max_new_tokens=self.max_new_tokens)
+        n_out = result.tokens.shape[1]
+        return [self._generated_outcome(q, action, len(prompts[i]), n_out,
+                                        hits[i], degr[i])
+                for i, q in enumerate(questions)]
+
 
 class ContinuousEngineBackend(EngineBackend):
     """Cross-bucket in-flight serving over the continuous engine.
@@ -187,23 +219,25 @@ class ContinuousEngineBackend(EngineBackend):
                max_prompt_len: int = 384, max_new_tokens: int = 8,
                sync_every: int = 4, prefill_batch: Optional[int] = None,
                retrievers: Optional[Mapping[str, Retriever]] = None,
-               retrieval_cache_size: int = 0,
+               retrieval_cache_size: int = 0, chaos=None,
                breaker_kw: Optional[dict] = None,
                **engine_kw) -> "ContinuousEngineBackend":
         """Build a :class:`~repro_torch.serving.continuous.ContinuousEngine`
         sized for this backend's prompts (slot caches hold the padded
         prompt plus the generation budget) on the params' device, and
-        wrap it."""
+        wrap it.  An explicit ``executor`` (in ``engine_kw``) replaces
+        the one the engine would build; an armed ``chaos`` injector
+        installs the executor and retriever fault seams."""
         from repro_torch.serving.continuous import ContinuousEngine
         engine = ContinuousEngine(
             model, params, num_slots=num_slots,
             max_len=max_prompt_len + max_new_tokens,
             max_new_cap=max_new_tokens, sync_every=sync_every,
             prefill_batch=(num_slots if prefill_batch is None
-                           else prefill_batch), **engine_kw)
+                           else prefill_batch), chaos=chaos, **engine_kw)
         return cls(engine, tokenizer, index, max_prompt_len=max_prompt_len,
                    max_new_tokens=max_new_tokens, retrievers=retrievers,
-                   retrieval_cache_size=retrieval_cache_size,
+                   retrieval_cache_size=retrieval_cache_size, chaos=chaos,
                    breaker_kw=breaker_kw)
 
     def execute_mixed(self, questions: Sequence[Question],
@@ -249,3 +283,65 @@ class ContinuousEngineBackend(EngineBackend):
                       action: Action) -> List[ActionOutcome]:
         # single-bucket entry point routes through the same shared stream
         return self.execute_mixed(questions, [action] * len(questions))
+
+    # -- streaming protocol (AsyncGateway) -----------------------------
+
+    @property
+    def _stream_pending(self) -> Dict[int, tuple]:
+        # lazily created so the closed-loop construction paths stay
+        # untouched
+        try:
+            return self._stream_pending_map
+        except AttributeError:
+            self._stream_pending_map: Dict[int, tuple] = {}
+            return self._stream_pending_map
+
+    @property
+    def stream_backlog(self) -> int:
+        """Requests submitted into the engine but not yet completed —
+        the queue-depth signal admission control sheds on."""
+        return len(self._stream_pending)
+
+    def stream_submit(self, question: Question, action: Action, *,
+                      deadline_at: float = 0.0
+                      ) -> Tuple[Optional[int], Optional[ActionOutcome]]:
+        """Submit ONE routed request into the shared slot pool without
+        blocking.  Refusals complete immediately (``(None, outcome)``);
+        everything else returns ``(rid, None)`` and resolves through
+        :meth:`stream_poll`.  Over-length prompts reject per-request
+        inside the engine and surface at the next poll.  A nonzero
+        ``deadline_at`` (engine-clock instant) is enforced mid-stream:
+        the engine cancels the request past it.  A dead retrieval path
+        raises ``TransientFaultError`` — the AsyncGateway catches it
+        and schedules a bounded retry."""
+        if action.mode == "refuse":
+            return None, self._refusal_outcome(question, action)
+        toks, hit, degraded = self._prep(question, action)
+        rid = self.engine.reserve_rid()
+        self.engine.submit(rid, toks, self.max_new_tokens, strict=False,
+                           deadline_at=deadline_at)
+        self._stream_pending[rid] = (question, action, hit, len(toks),
+                                     degraded)
+        return rid, None
+
+    def stream_poll(self) -> List[StreamCompletion]:
+        """One engine scheduling step (decode chunk / admissions /
+        harvest); returns completions since the last poll.  Non-
+        blocking with respect to the stream: in-flight requests keep
+        decoding across successive polls.  Reads nothing from the device
+        beyond the engine's own control sync."""
+        done: List[StreamCompletion] = []
+        for rid, gen in self.engine.poll().items():
+            meta = self._stream_pending.pop(rid, None)
+            if meta is None:
+                continue     # a closed-loop rid (modes must not mix)
+            q, action, hit, plen, degraded = meta
+            if gen.failed:
+                out = self._failed_outcome(q, action, gen)
+            else:
+                out = self._generated_outcome(q, action, plen,
+                                              gen.n_steps, hit, degraded)
+            done.append(StreamCompletion(
+                rid=rid, outcome=out, admitted_at=gen.admitted_at,
+                finished_at=gen.finished_at))
+        return done

@@ -13,8 +13,9 @@ backend with ``execute_mixed`` — the
 :class:`~repro_torch.routing.engine_backend.ContinuousEngineBackend` —
 serves the whole routed micro-batch as one shared in-flight decode
 stream; see :attr:`Gateway.engine_stats` for the engine-side counters.
-Deadline-aware retries of transient faults arrive with the fault slice
-(``ROADMAP.md`` queue 1, item 5).
+``retry=`` (a :class:`~repro_torch.serving.faults.RetryPolicy`)
+re-executes transient-fault outcomes with backoff, never past a
+request's deadline.
 """
 from __future__ import annotations
 
@@ -119,7 +120,8 @@ class Gateway:
                  action_space: Optional[ActionSpace] = None,
                  max_batch: int = 16, adaptive_refusal: bool = True,
                  base_refusal_share: float = 0.6, budget_targets=None,
-                 on_outcome: Optional[Callable] = None,
+                 on_outcome: Optional[Callable] = None, retry=None,
+                 sleep: Optional[Callable[[float], None]] = None,
                  clock: Optional[Callable[[], float]] = None,
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None):
@@ -132,6 +134,13 @@ class Gateway:
         # telemetry plane: a no-op tracer keeps the hot path branchless
         # and allocation-free when tracing is off (see repro_torch.obs.trace)
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        # bounded deadline-aware resubmission of transient-fault
+        # outcomes (a repro_torch.serving.faults.RetryPolicy; None
+        # disables — the closed-loop default, keeping pre-fault
+        # behaviour bit-identical).  `sleep` is the backoff sleeper
+        # (injectable for virtual-time tests).
+        self.retry = retry
+        self._sleep = sleep if sleep is not None else time.sleep
         self.backend = as_backend(backend)
         self.space = action_space or get_action_space()
         if state_fn is None:
@@ -248,6 +257,41 @@ class Gateway:
             self.stats.retrieval_cache_hits = cache.hits
             self.stats.retrieval_cache_lookups = cache.lookups
 
+    def _retry_transients(self, batch: List[Request], acts: List[int],
+                          outs: List, execute) -> List:
+        """Closed-loop bounded retries: re-execute the transient-fault
+        subset of a served micro-batch (with backoff), never past a
+        request's ``deadline_ms`` budget.  ``execute(questions,
+        actions)`` runs the subset; healthy outcomes are kept as-is.
+        The deadline test reads the host's perf_counter, as the
+        reference's does, not the injected clock."""
+        if self.retry is None or self.retry.max_retries <= 0:
+            return outs
+        t0 = time.perf_counter()
+        for attempt in range(self.retry.max_retries):
+            idxs = [i for i, o in enumerate(outs)
+                    if getattr(o, "transient", False)
+                    and not getattr(o, "timed_out", False)]
+            if not idxs:
+                break
+            wait = self.retry.backoff(attempt)
+            elig = []
+            for i in idxs:
+                dl = batch[i].deadline_ms
+                if dl > 0 and (time.perf_counter() - t0 + wait) * 1e3 >= dl:
+                    continue     # cannot finish inside the deadline
+                elig.append(i)
+            if not elig:
+                break
+            if wait > 0:
+                self._sleep(wait)
+            self.stats.retries += len(elig)
+            redo = execute([batch[i].question for i in elig],
+                           [self.space[acts[i]] for i in elig])
+            for i, o in zip(elig, redo):
+                outs[i] = o
+        return outs
+
     def _finish_trace(self, r: Request, out, t_disp: float,
                       t_done: float) -> None:
         """Mark engine-stamped stages + close one request's span tree.
@@ -304,6 +348,8 @@ class Gateway:
             outs = self.backend.execute_mixed(
                 [r.question for r in batch],
                 [self.space[a] for a in acts])
+            outs = self._retry_transients(batch, acts, outs,
+                                          self.backend.execute_mixed)
             t_done = self.clock()
             # retrieval notes from batched _prep calls interleave across
             # the micro-batch and cannot be attributed per-request here
@@ -335,6 +381,11 @@ class Gateway:
             t_disp = self.clock()
             outs = self.backend.execute_batch(
                 [batch[i].question for i in idxs], action)
+            if self.retry is not None:
+                outs = self._retry_transients(
+                    [batch[i] for i in idxs], [a] * len(idxs), outs,
+                    lambda qs, actions: self.backend.execute_batch(
+                        qs, actions[0]))
             t_done = self.clock()
             tr.discard_pending()
             # each request in the bucket experienced the full bucket

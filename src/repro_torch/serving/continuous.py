@@ -15,7 +15,11 @@ The engine is split into two layers:
   tables, whose host-side allocator and prefix cache
   (:class:`~repro_torch.serving.paged.PagePool`) the engine owns.
 
-The reference's sharded executors and chaos seams are not ported yet.
+With an armed :class:`~repro_torch.serving.faults.ChaosInjector`
+(``chaos=``) the executor is wrapped in a
+:class:`~repro_torch.serving.faults.ChaosExecutor` fault seam; unarmed,
+nothing is installed.  The reference's sharded executors are not ported
+yet.
 
 **Prefill/decode overlap.**  Executor calls are async dispatch; the
 scheduler exploits that by dispatching the decode chunk for resident
@@ -127,7 +131,9 @@ class ContinuousEngine:
     Construct either from ``(model, params)`` — which builds a
     :class:`~repro_torch.serving.executor.SingleDeviceExecutor` on the
     params' device — or from an explicit ``executor`` (any object
-    implementing the executor protocol).
+    implementing the executor protocol).  An armed ``chaos`` injector
+    wraps the executor in a
+    :class:`~repro_torch.serving.faults.ChaosExecutor`.
     """
 
     # telemetry: the Gateway's tracer lands here via the backend's
@@ -141,7 +147,7 @@ class ContinuousEngine:
                  prefill_batch: int = 1, admission_lookahead: int = 16,
                  executor=None, clock=None,
                  watchdog_syncs: int = 8, max_requeues: int = 0,
-                 paged: bool = False, page_size: int = 16,
+                 chaos=None, paged: bool = False, page_size: int = 16,
                  num_pages: Optional[int] = None,
                  prefix_sharing: bool = True, metrics=None):
         if executor is None:
@@ -153,7 +159,10 @@ class ContinuousEngine:
                 model, params, num_slots=num_slots, max_len=max_len,
                 max_new_cap=max_new_cap, sync_every=sync_every,
                 prefill_batch=prefill_batch, paged=paged,
-                page_size=page_size, num_pages=num_pages)
+                page_size=page_size, num_pages=num_pages, metrics=metrics)
+        if chaos is not None and getattr(chaos, "armed", False):
+            from repro_torch.serving.faults import ChaosExecutor
+            executor = ChaosExecutor(executor, chaos)
         self.executor = executor
         self.model = model
         self.params = params

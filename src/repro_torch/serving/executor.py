@@ -44,9 +44,13 @@ Protocol (duck-typed, the reference's):
     flags (a slot whose decode logits turn NaN/inf is deactivated on the
     device in the same step and stays flagged until cleared);
     ``deactivate(slots)``; ``clear_slot_faults(slots)``.
+
+    Health checks are on by default; ``health_checks=False`` removes
+    the isfinite test from the decode chunk entirely.
 """
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -63,8 +67,9 @@ class SingleDeviceExecutor:
     def __init__(self, model, params, *, num_slots: int = 8,
                  max_len: int = 512, max_new_cap: int = 64,
                  sync_every: int = 4, prefill_batch: int = 1,
-                 paged: bool = False, page_size: int = 16,
-                 num_pages: Optional[int] = None):
+                 health_checks: bool = True, paged: bool = False,
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 metrics=None):
         self.model = model
         self.params = params
         self.device = params["embed"].device
@@ -73,6 +78,7 @@ class SingleDeviceExecutor:
         self.max_new_cap = max_new_cap
         self.sync_every = sync_every
         self.prefill_batch = max(1, min(prefill_batch, num_slots))
+        self.health_checks = health_checks
         self.paged = paged
 
         # the ONLY cache allocations in the executor's lifetime: the
@@ -115,6 +121,27 @@ class SingleDeviceExecutor:
         self._dout = torch.zeros((S, cap), **i32)
         self._dbad = torch.zeros(S, dtype=torch.bool, device=dev)
         self._sidx = torch.arange(S, device=dev)
+
+        # device-dispatch wall histograms (repro_torch.obs) — None keeps
+        # the hot path at a single attribute check per dispatch
+        self._m_admit = None
+        self._m_decode = None
+        if metrics is not None:
+            self.bind_metrics(metrics)
+
+    def bind_metrics(self, registry) -> None:
+        """Register admit / decode-chunk host dispatch walls.  These
+        are wall-clock measurements of the host's enqueueing (not
+        virtual time), hence perf_counter rather than the engine
+        clock."""
+        bounds = (0.05, 0.1, 0.2, 0.5, 1.0, 2.0, 5.0,
+                  10.0, 20.0, 50.0, 100.0)
+        self._m_admit = registry.histogram(
+            "executor_admit_dispatch_ms",
+            "host wall of one prefill+commit dispatch", bounds)
+        self._m_decode = registry.histogram(
+            "executor_decode_dispatch_ms",
+            "host wall of one K-step decode-chunk dispatch", bounds)
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(
@@ -219,11 +246,12 @@ class SingleDeviceExecutor:
     def decode_chunk(self) -> None:
         """`sync_every` decode steps over all slots, done-mask on device.
 
-        Each step tests the step's final logits row for NaN/inf: a
-        poisoned slot is deactivated in the same step (its garbage token
-        is never written, ``gen`` does not advance) and its ``bad`` flag
-        latches until the scheduler clears it — the rest of the batch
-        decodes on untouched."""
+        With ``health_checks`` on, each step tests the step's final
+        logits row for NaN/inf: a poisoned slot is deactivated in the
+        same step (its garbage token is never written, ``gen`` does not
+        advance) and its ``bad`` flag latches until the scheduler clears
+        it — the rest of the batch decodes on untouched."""
+        t0 = time.perf_counter() if self._m_decode is not None else 0.0
         cache, out, sidx, limit = self._cache, self._dout, self._sidx, \
             self._dlimit
         tok, active, gen, bad = self._dtok, self._dactive, self._dgen, \
@@ -241,9 +269,10 @@ class SingleDeviceExecutor:
                                           {"tokens": inp[:, None]}, cache)
             last = logits[:, -1]
             nxt = last.argmax(dim=-1).to(torch.int32)
-            row_bad = active & ~torch.isfinite(last).all(dim=-1)
-            bad = bad | row_bad
-            active = active & ~row_bad
+            if self.health_checks:
+                row_bad = active & ~torch.isfinite(last).all(dim=-1)
+                bad = bad | row_bad
+                active = active & ~row_bad
             # hold position for idle slots (their kv write lands one past
             # their valid length and is masked / overwritten on admit)
             cache["pos"] = torch.where(active, cache["pos"], pos0)
@@ -256,6 +285,8 @@ class SingleDeviceExecutor:
             tok = torch.where(active, nxt, tok)
         self._dtok, self._dactive, self._dgen, self._dbad = \
             tok, active, gen, bad
+        if self._m_decode is not None:
+            self._m_decode.observe((time.perf_counter() - t0) * 1e3)
 
     # -- protocol -------------------------------------------------------
 
@@ -266,8 +297,11 @@ class SingleDeviceExecutor:
         enqueued on the stream behind any decode chunk in flight."""
         if self.paged:
             raise RuntimeError("paged executor: use admit_paged()")
+        t0 = time.perf_counter() if self._m_admit is not None else 0.0
         firsts = self._prefill(self._to_device(tokens.astype(np.int64)))
         self._commit(firsts, np.asarray(slot_idx), np.asarray(limits))
+        if self._m_admit is not None:
+            self._m_admit.observe((time.perf_counter() - t0) * 1e3)
 
     @torch.no_grad()
     def admit_paged(self, tokens: np.ndarray, slot_idx: np.ndarray,
@@ -283,12 +317,15 @@ class SingleDeviceExecutor:
         pool pages (sentinel ``num_pages`` = no gather)."""
         if not self.paged:
             raise RuntimeError("dense executor: use admit()")
+        t0 = time.perf_counter() if self._m_admit is not None else 0.0
         self._gather(np.asarray(gather_src))
         firsts = self._prefill(self._to_device(tokens.astype(np.int64)),
                                self._to_device(np.asarray(pos0, np.int32)))
         self._commit_paged(firsts, np.asarray(slot_idx), np.asarray(limits),
                            np.asarray(tables, np.int32),
                            np.asarray(write_mask, bool))
+        if self._m_admit is not None:
+            self._m_admit.observe((time.perf_counter() - t0) * 1e3)
 
     def sync_control(self):
         """The every-K host sync: only the two tiny control arrays come

@@ -152,11 +152,32 @@ Phases, each on its own lines; any failure exits nonzero:
                launch; ms per step, tokens/s, peak memory; the gradient
                norm at chunk 256 (NaN, as the reference's); a train step
                through K6 raising the gradient guard.
-17. cli      — ``python -m repro_torch.launch.train`` twice at once, in
+17. serve cli — ``repro_torch.launch.serve.main`` in this process,
+               ``--backend continuous --variant full`` (qwen1.5-32b
+               FULL, seeded bf16 weights, 8 slots, prompts of 192, 8 new
+               tokens), each run building the FULL testbed, its router
+               and its engine as the CLI does: the closed loop (16
+               requests, paper5, quality_first, trace and metrics files)
+               and the open loop (24 seeded Poisson arrivals at 40/s,
+               deadline 250 ms, virtual time). Checks: every request
+               served or resolved, the reward finite, prefills and decode
+               chunks, K1 64 times a decode step, the telemetry files
+               non-empty; prints each run's wall, testbed build, router
+               training and decode step (CUDA events).
+18. cli      — ``python -m repro_torch.launch.train`` twice at once, in
                subprocesses on the card: qwen SMOKE and the defaults
                (mamba2-130m SMOKE), 20 steps each: each loss falls, and
                each npz checkpoint loads back equal through
-               ``load_checkpoint``.
+               ``load_checkpoint``.  Beside them, from before they start
+               to after they end (after every timed row above):
+19. paper benches — ``python -m repro_torch.benchmarks.run`` with the
+               paper's ten benches (Table 1, Figures 1-3, mitigation,
+               the objective ablation over paper5 and hybrid9, OPE, the
+               conditioned policy, the Pareto sweep, 5 seeds) ``--device
+               cuda`` in a subprocess: exit 0, ten CSV rows, every
+               artifact written by this run, every number finite; prints
+               Table 1, Figure 1's two shares, the mitigation, both
+               objective grids and the seeds' means +- std.
 
 The kernel checks (phase 3) include K4 flash_attention: first the count
 of HGMMA (wgmma) instructions in its SASS (``cuobjdump -sass``; none is a
@@ -2829,6 +2850,228 @@ def cli_phase(card: str) -> None:
                 f"equal to the saved arrays [{card}]")
 
 
+# the serving CLI at qwen1.5-32b FULL: closed loop, then open loop in
+# virtual time (40 requests a virtual second, the CLI's default deadline)
+SERVE_CLI_REQUESTS, SERVE_CLI_OPEN_REQUESTS = 16, 24
+SERVE_CLI_RATE, SERVE_CLI_DEADLINE_MS = 40.0, 250.0
+# the paper's ten benches: run.py's names and each one's artifact
+PAPER_BENCHES = {"table1": "table1_slo_grid", "fig1": "fig1_action_dist",
+                 "fig2": "fig2_cost_quality", "fig3": "fig3_reward",
+                 "mitigation": "mitigation",
+                 "objectives": "objectives_ablation", "ope": "ope",
+                 "conditioned": "conditioned_policy",
+                 "pareto": "pareto_sweep", "seeds": "seeds_ablation"}
+
+
+def _serve_cli(label, argv, card, n_layers, counters) -> dict:
+    """``repro_torch.launch.serve.main(argv)`` in this process, its
+    engine instrumented as the CLI builds it (CUDA events around each
+    decode chunk), every launch count 0 just before and read just after,
+    the CLI's own lines printed behind ``|``.  Checks the engine
+    prefilled and decoded and K1 ran once a layer per decode step."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.launch import serve
+    rec = {}
+    build = serve._continuous_backend
+
+    def instrumented(*a, **kw):
+        backend = build(*a, **kw)
+        rec.update(_instrument(backend.engine))
+        return backend
+    out = io.StringIO()
+    serve._continuous_backend = instrumented
+    torch.cuda.synchronize()
+    _zero(counters)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            run = serve.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        serve._continuous_backend = build
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    lines = out.getvalue().splitlines()
+    if len(lines) > 40:
+        lines = lines[:20] + [f"... ({len(lines) - 40} lines)"] + lines[-20:]
+    for line in lines:
+        say(f"   | {line}")
+    es = run["gateway"].engine_stats
+    steps, secs = es.n_decode_steps, run["seconds"]
+    step_ms = _step_ms(rec["chunks"], steps)
+    say(f"   [{label}] wall {wall:.1f} s: FULL testbed build "
+        f"{secs['build_testbed']:.2f} s (host), router training "
+        f"{secs['train_router']:.3f} s, engine with seeded FULL weights "
+        f"{secs['build_backend']:.2f} s, serve {secs['serve']:.2f} s")
+    say(f"   [{label}] prefills {es.n_prefills}, decode chunks "
+        f"{es.n_decode_chunks} ({steps} steps), max concurrent "
+        f"{es.max_concurrent}, decode step {step_ms:.2f} ms (device time of "
+        f"the chunks), launches {launches} for {n_layers} layers [{card}]")
+    if not (es.n_prefills and es.n_decode_chunks):
+        raise AssertionError(f"[{label}] {es.n_prefills} prefills, "
+                             f"{es.n_decode_chunks} decode chunks")
+    _check_launches(label, launches, "flash_decode", steps, n_layers,
+                    absent=("paged_flash_decode",))
+    return {"run": run, "launches": launches}
+
+
+def serve_cli_phase(card: str) -> int:
+    """``python -m repro_torch.launch.serve --backend continuous --variant
+    full`` in this process, twice, each building the FULL testbed, its
+    router and its own qwen1.5-32b FULL engine as the CLI does: the
+    closed loop (paper5, quality_first, with the trace and metrics files)
+    and the open loop on the virtual clock.  Checks: every request served
+    (closed) or resolved (open), the reward finite, prefills and decode
+    chunks, K1 64 times a decode step, the telemetry files non-empty.
+    Returns the closed loop's K1 launches."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.paged_flash_decode import paged_flash_decode
+    counters = {"flash_decode": flash_decode,
+                "paged_flash_decode": paged_flash_decode}
+    L = get_config("qwen1.5-32b", "full").n_layers
+    base = ["--backend", "continuous", "--variant", "full",
+            "--device", "cuda"]
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, prom = Path(tmp) / "trace.json", Path(tmp) / "metrics.prom"
+        n = SERVE_CLI_REQUESTS
+        say(f"== serve cli: repro_torch.launch.serve {' '.join(base)} -n {n} "
+            f"--trace-out <tmp> --metrics-out <tmp> (closed loop, paper5, "
+            f"quality_first) [{card}]")
+        closed = _serve_cli("serve cli closed", base + [
+            "-n", str(n), "--trace-out", str(trace),
+            "--metrics-out", str(prom)], card, L, counters)
+        stats = closed["run"]["stats"]
+        sizes = {p.name: p.stat().st_size if p.exists() else 0
+                 for p in (trace, prom)}
+        say(f"   closed loop: served {stats.served}, avg_reward "
+            f"{stats.avg_reward:+.4f}, actions "
+            f"{dict(sorted(stats.action_counts.items()))}, telemetry bytes "
+            f"{sizes}")
+        if stats.served != n or not math.isfinite(stats.avg_reward):
+            raise AssertionError(f"[serve cli closed] served {stats.served} "
+                                 f"of {n}, avg_reward {stats.avg_reward}")
+        if not all(sizes.values()):
+            raise AssertionError(f"[serve cli closed] telemetry files "
+                                 f"{sizes}")
+    k1 = closed["launches"]["flash_decode"]
+    del closed, stats
+    _free_gpu_memory("serve cli, open loop")
+    n = SERVE_CLI_OPEN_REQUESTS
+    flags = ["-n", str(n), "--open-loop", str(SERVE_CLI_RATE),
+             "--deadline-ms", str(SERVE_CLI_DEADLINE_MS)]
+    say(f"== serve cli: repro_torch.launch.serve {' '.join(base + flags)} "
+        f"(virtual time) [{card}]")
+    opened = _serve_cli("serve cli open", base + flags, card, L, counters)
+    rep, st = opened["run"]["report"], opened["run"]["gateway"].stats
+    say(f"   open loop: offered {rep.offered}, resolved {rep.completed}, "
+        f"answered {rep.answered}, refused {rep.refused}, shed {rep.shed}, "
+        f"goodput fraction {rep.goodput_fraction:.4f}, avg_reward "
+        f"{st.avg_reward:+.4f} (virtual clock)")
+    if rep.offered != n or rep.completed != n \
+            or not math.isfinite(st.avg_reward):
+        raise AssertionError(f"[serve cli open] {rep.completed} of "
+                             f"{rep.offered} resolved, avg_reward "
+                             f"{st.avg_reward}")
+    del opened, rep, st
+    _free_gpu_memory("serve cli done")
+    return k1
+
+
+def _finite_numbers(obj, where: str) -> int:
+    """The count of numbers in a JSON value; raises on one not finite."""
+    if obj is None or isinstance(obj, (bool, str)):
+        return 0
+    if isinstance(obj, (int, float)):
+        if not math.isfinite(obj):
+            raise AssertionError(f"[paper benches] {where} = {obj}")
+        return 1
+    items = obj.items() if isinstance(obj, dict) else enumerate(obj)
+    return sum(_finite_numbers(v, f"{where}/{k}") for k, v in items)
+
+
+def _say_paper_headlines(art: dict, derived: dict) -> None:
+    for r in art["table1"]:
+        say(f"   table1 {r['slo']:>13s} {r['method']:>16s} acc "
+            f"{r['acc']:.3f} cost {r['cost']:7.1f} reward {r['reward']:+.4f} "
+            f"refuse {r['refuse']:.3f}")
+    say(f"   fig1: cheap/argmax_ce refuse share "
+        f"{derived['fig1']['cheap_ce_refuse_share']:.3f}, "
+        f"quality_first/argmax_ce a0 share "
+        f"{derived['fig1']['quality_ce_a0_share']:.3f}")
+    m = art["mitigation"]
+    for key in ("cheap_argmax_ce", "cheap_constrained"):
+        say(f"   mitigation {key:16s} " + ", ".join(
+            f"{k} {v:+.4f}" for k, v in m[key].items()))
+    say(f"   mitigation: final lambda {m['lagrange_final']}, "
+        f"{derived['mitigation']}")
+    for r in art["objectives"]:
+        say(f"   objectives {r['space']:>7s} {r['slo']:>13s} "
+            f"{r['method']:>16s} acc {r['acc']:.3f} cost {r['cost']:7.1f} "
+            f"reward {r['reward']:+.4f} refuse {r['refuse']:.3f}")
+    for k, v in art["seeds"].items():
+        say(f"   seeds {k:18s} {v['mean']:+.4f} +- {v['std']:.4f} "
+            f"{v['values']}")
+
+
+def paper_bench_phase(card: str, beside) -> None:
+    """``python -m repro_torch.benchmarks.run`` with the paper's ten
+    benches on the card, in a subprocess started before ``beside()``
+    runs and waited for after it.  Checks: exit 0, the ten CSV rows,
+    each artifact written by this run, every number in the artifacts and
+    the derived values finite; prints the paper's headline numbers."""
+    import os
+    import tempfile
+    art_dir = ROOT / "src" / "repro_torch" / "benchmarks" / "artifacts"
+    cmd = [sys.executable, "-m", "repro_torch.benchmarks.run",
+           *PAPER_BENCHES, "--device", "cuda"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    started, t0 = time.time(), time.perf_counter()
+    with tempfile.TemporaryFile("w+") as out, \
+            tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
+                                stderr=err, text=True)
+        try:
+            beside()
+            rc = proc.wait(timeout=900)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        wall = time.perf_counter() - t0
+        out.seek(0)
+        err.seek(0)
+        text, errors = out.read(), err.read()
+    say(f"== paper benches: {' '.join(cmd[1:])}: exit {rc} in {wall:.1f} s "
+        f"(beside the cli phase) [{card}]")
+    if rc != 0:
+        raise AssertionError(f"[paper benches] exit {rc}: {errors[-4000:]}")
+    lines = text.splitlines()
+    csv = lines[lines.index("name,us_per_call,derived") + 1:]
+    derived, secs = {}, {}
+    for line in csv:
+        name, us, rest = line.split(",", 2)
+        derived[name], secs[name] = json.loads(rest), int(us) / 1e6
+    if list(derived) != list(PAPER_BENCHES):
+        raise AssertionError(f"[paper benches] CSV rows {list(derived)}")
+    art, n = {}, _finite_numbers(derived, "derived")
+    for name, stem in PAPER_BENCHES.items():
+        p = art_dir / f"{stem}.json"
+        if not p.exists() or p.stat().st_mtime < started:
+            raise AssertionError(f"[paper benches] {p} not written by "
+                                 f"this run")
+        art[name] = json.loads(p.read_text())
+        n += _finite_numbers(art[name], stem)
+    say(f"   seconds per bench (the first pays the canonical testbed, "
+        f"objectives the hybrid9 testbed): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    say(f"   {n} numbers in the artifacts and derived values, all finite")
+    _say_paper_headlines(art, derived)
+
+
 K3_PROFILE_SHAPES = (("main path", SQUAD_PARAGRAPHS, TOP_K),
                      ("main path, k = 64", SQUAD_PARAGRAPHS, 64),
                      ("1M docs", BIG_DOCS, TOP_K))
@@ -3075,8 +3318,11 @@ def main() -> None:
     mamba_serve_phase(card, router)
     launches.update(mamba_eval_phase(card))
     mamba_train_phase(card)
-    _free_gpu_memory("cli")
-    cli_phase(card)
+    _free_gpu_memory("serve cli")
+    serve_cli_phase(card)
+    # the paper's benches run beside the training CLI, after every timed
+    # row of the phases above
+    paper_bench_phase(card, beside=lambda: cli_phase(card))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for row in rows:

@@ -45,6 +45,13 @@ class BM25Index:
     _on_device: Dict[torch.device, Tuple[BM25Csr, torch.Tensor,
                                          torch.Tensor]] = field(
         default_factory=dict, init=False, repr=False, compare=False)
+    # the saturated term frequencies (D, V), made on the host once, and
+    # the last query's scores: the offline sweep scores each question
+    # for two state features and once per action
+    _sat: Optional[np.ndarray] = field(default=None, init=False,
+                                       repr=False, compare=False)
+    _last: Tuple[Optional[str], Optional[np.ndarray]] = field(
+        default=(None, None), init=False, repr=False, compare=False)
 
     @classmethod
     def build(cls, docs: Sequence[str], cfg: RetrievalConfig = RetrievalConfig()):
@@ -67,13 +74,27 @@ class BM25Index:
     # ------------------------------------------------------------------
     # scoring
     # ------------------------------------------------------------------
+    def _saturated(self) -> np.ndarray:
+        if self._sat is None:
+            k1, b = self.cfg.k1, self.cfg.b
+            avg = self.doc_len.mean() + 1e-6
+            norm = k1 * (1 - b + b * self.doc_len[:, None] / avg)
+            self._sat = self.tf * (k1 + 1) / (self.tf + norm)
+        return self._sat
+
     def scores_np(self, qv: np.ndarray) -> np.ndarray:
-        """Reference numpy BM25 for one query vector (V,) -> (D,)."""
-        k1, b = self.cfg.k1, self.cfg.b
-        avg = self.doc_len.mean() + 1e-6
-        norm = k1 * (1 - b + b * self.doc_len[:, None] / avg)
-        sat = self.tf * (k1 + 1) / (self.tf + norm)
-        return (sat * (self.idf * qv)[None, :]).sum(axis=1)
+        """Reference numpy BM25 for one query vector (V,) -> (D,): the
+        reference's arithmetic, its (D, V) saturation made once."""
+        return (self._saturated() * (self.idf * qv)[None, :]).sum(axis=1)
+
+    def _query_scores(self, query: str) -> np.ndarray:
+        """``scores_np`` of ``query``, reused while the same query
+        repeats (callers only read it)."""
+        last_query, scores = self._last
+        if last_query != query:
+            scores = self.scores_np(self.query_vector(query))
+            self._last = (query, scores)
+        return scores
 
     def _device_arrays(self, device):
         dev = resolve_device(device)
@@ -109,14 +130,14 @@ class BM25Index:
         """Returns (indices, scores) of the top-k docs for a query."""
         if k <= 0:
             return np.zeros(0, np.int64), np.zeros(0, np.float32)
-        s = self.scores_np(self.query_vector(query))
+        s = self._query_scores(query)
         idx = np.argpartition(-s, min(k, len(s) - 1))[:k]
         idx = idx[np.argsort(-s[idx])]
         return idx, s[idx]
 
     def score_stats(self, query: str, k: int = 5) -> np.ndarray:
         """Uncertainty indicators from retrieval scores (paper §3.3)."""
-        s = self.scores_np(self.query_vector(query))
+        s = self._query_scores(query)
         top = np.sort(s)[::-1][:k]
         gap = top[0] - top[1] if len(top) > 1 else 0.0
         return np.array([top[0], top.mean(), top.std(), gap], np.float32)

@@ -10,6 +10,7 @@ kernel itself runs only on the card, where ``chip_smoke.py`` holds it
 against the plain version.  Tolerance 1e-5: float32, the same sums in
 another order.
 """
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

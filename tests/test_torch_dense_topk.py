@@ -13,6 +13,7 @@ accumulator a 32-column chunk) are emulated against float64, and its
 plan of the work (tiles, slices, merges) and launch arguments are
 checked.
 """
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 from collections import Counter
 
 import jax.numpy as jnp

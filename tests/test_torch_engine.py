@@ -3,6 +3,7 @@ against the reference engine: identical greedy tokens for the same
 prompts, with more prompts than slots (slot reuse), mixed prompt lengths
 (admission grouping) and batched prefill; the one-allocation invariant;
 and per-slot NaN quarantine that leaves the peers untouched."""
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
 
 import jax

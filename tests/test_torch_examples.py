@@ -4,6 +4,7 @@ engines and ``open_loop_serving`` over the simulator and over the
 continuous engine, every arrival resolved and shedding only when
 over-offered; without a card, the default device raises instead of
 falling back."""
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import pytest
 import torch
 

@@ -11,6 +11,7 @@ identical too.  Last, the port's own seeded training (a torch generator)
 shows the paper's failure mode at ``tests/test_paper_core.py``'s size
 and with its assertions.
 """
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import jax
 import numpy as np
 import pytest

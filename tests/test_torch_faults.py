@@ -12,6 +12,7 @@ four scenarios of ``benchmarks/chaos_bench.py`` run at a small size
 through the real continuous engine in virtual time, and every row
 (counters, outcomes, latencies, stage table) is the reference's.
 """
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
 import importlib
 import sys

@@ -7,6 +7,7 @@ The port's wrapper on CPU tensors runs its plain version
 oracle on the same numpy inputs.  The CUDA kernel itself runs only on
 the card, where ``chip_smoke.py`` holds it against the plain version.
 """
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -4,6 +4,7 @@ requests give identical routed actions, answers, rewards and
 ``GatewayStats`` — once under the paper's fixed baseline
 ``FixedPolicy(0)`` (k=2, guarded) and once under the MLP policy trained
 by the reference, its params carried across by the bridge."""
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
 
 import jax

@@ -1,6 +1,7 @@
 """The PyTorch port (``src/repro_torch``), ``chip_smoke.py`` and the
 port's card scripts import neither JAX nor any module of the reference
 package ``repro``."""
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import ast
 import subprocess
 import sys

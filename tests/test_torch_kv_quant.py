@@ -5,6 +5,7 @@
 to even); the dense int8 cache and the paged int8 pool decode the
 reference's logits and serve the reference's int8 engines' tokens.
 """
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
 
 import jax

@@ -8,6 +8,7 @@ attention (``use_flash_decode=False``) and with its Pallas flash-decode
 kernel in interpret mode (``True``); the port always decodes through its
 flash-decode wrapper, the plain version on CPU tensors.
 """
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
 
 import jax

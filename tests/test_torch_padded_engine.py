@@ -11,6 +11,7 @@ the cache allocated per call on the params' device.  Then
 ``Gateway.serve`` over ``EngineBackend`` (the bucketed ``execute_batch``
 path): outcomes, rewards and ``GatewayStats`` identical.
 """
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
 
 import jax

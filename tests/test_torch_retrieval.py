@@ -9,6 +9,7 @@ identical, and ``hybrid9`` served through both packages'
 ``ContinuousEngineBackend`` on qwen SMOKE float32 gives identical
 routed actions, answers, rewards and ``GatewayStats``.
 """
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
 
 import jax
@@ -480,3 +481,29 @@ def test_backend_turns_a_dead_retrieval_path_into_a_transient_outcome():
 
 class _NoEngine:
     """Stands in for an engine no request reaches."""
+
+
+def test_bm25_host_scores_identical_across_repeats():
+    """The host BM25 (``topk``, ``score_stats``, ``cooccurrence_stats``)
+    keeps its (D, V) saturation and the last query's scores: queries
+    repeated, interleaved and new give the reference's numbers bit for
+    bit, and ``scores_np`` stays a fresh array per call."""
+    data = SyntheticSquad(n_paragraphs=96, n_questions=12, seed=5)
+    texts = [p.text for p in data.paragraphs]
+    cfg = dict(vocab_hash_dim=512)
+    ref = RefBM25.build(texts, RefRetrievalConfig(**cfg))
+    idx = BM25Index.build(texts, RetrievalConfig(**cfg))
+    qs = [q.text for q in data.questions]
+    for query in [qs[0], qs[1], qs[0], qs[0], *qs[2:], qs[1]]:
+        for k in (2, 5, 10):
+            got, want = idx.topk(query, k), ref.topk(query, k)
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(idx.score_stats(query),
+                                      ref.score_stats(query))
+        np.testing.assert_array_equal(idx.cooccurrence_stats(query),
+                                      ref.cooccurrence_stats(query))
+    qv = idx.query_vector(qs[3])
+    a, b = idx.scores_np(qv), idx.scores_np(qv)
+    assert a is not b
+    np.testing.assert_array_equal(a, ref.scores_np(qv))

@@ -17,6 +17,7 @@ multiplier within 1e-5 absolute (it integrates dual_lr x (p_refuse -
 cap), a difference that cancels most of p_refuse's digits: observed
 2.4e-7); eval actions identical.
 """
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
 
 import jax

@@ -8,6 +8,7 @@ packages.  Everything here is host code (stdlib and numpy), so every
 comparison is exact: outcomes, sweeps, stream completions, log arrays,
 reward matrices and saved files are identical.
 """
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
 import itertools
 

@@ -13,6 +13,7 @@ here its arithmetic -- every product taken on bf16 parts, as the tensor
 cores take it -- is emulated in torch and held against float64, and its
 wrapper's arguments are checked through a stand-in kernel.
 """
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

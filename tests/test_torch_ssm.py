@@ -15,6 +15,7 @@ entry; one AdamW step 1e-5, every element within ``2 * lr`` (an element
 whose gradient is as small as the summation noise may move by a
 different fraction of ``lr``).
 """
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
 
 import jax

@@ -11,6 +11,7 @@ reference's params bridged) behind ``ContinuousEngineBackend``'s stream
 protocol, dense and paged with mid-stream deadline cancellation, with
 the same identity, and the stream path's host reads counted.
 """
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
 import importlib
 import types

@@ -16,6 +16,7 @@ moments 1e-5, params 1e-5 for all but one in 10,000 elements and within
 element whose gradient is as small as the summation noise can move by
 a different fraction of ``lr``, up to a sign flip, in either package.
 """
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
 
 import jax

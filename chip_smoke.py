@@ -152,6 +152,22 @@ Phases, each on its own lines; any failure exits nonzero:
                launch; ms per step, tokens/s, peak memory; the gradient
                norm at chunk 256 (NaN, as the reference's); a train step
                through K6 raising the gradient guard.
+16a. moe/gqa serve — the mixture-of-experts and GQA families at their
+               published widths through ``Gateway.serve``, one after the
+               other, each after the previous model is freed:
+               ``dbrx-132b`` (16 experts top-4 in the exact capacity
+               form, 48 heads over 8 kv heads: G = 6) cut to 10 of its 40
+               layers, and ``command-r-35b`` FULL (64 over 8: G = 8), on
+               the dense engine (K1) and the paged engine (page 8, 400
+               pages; K2), 8 + 8 requests as in phase 7: K1 / K2 exactly
+               layers x decode steps, every request served, the dense
+               engine's greedy tokens repeating bit for bit when its
+               first batch is served again, a decode chunk under
+               ``torch.cuda.set_sync_debug_mode("error")``; the decode
+               step (median, CUDA events) beside its weight-read bound,
+               each admission group's prefill beside its routed-operation
+               bound, peak memory.  Phase 3 holds K1 and K2 at both
+               models' shapes (H 48 and 64 over 8 kv heads).
 17. serve cli — ``repro_torch.launch.serve.main`` in this process,
                ``--backend continuous --variant full`` (qwen1.5-32b
                FULL, seeded bf16 weights, 8 slots, prompts of 192, 8 new
@@ -259,6 +275,11 @@ CHAOS_REQUESTS, CHAOS_RATE = 24, 120.0
 CHAOS_DEADLINE_MS, CHAOS_QUANTUM_S = 800.0, 0.01
 CHAOS_BREAKER = dict(window=8, min_calls=4, failure_threshold=0.5,
                      cooldown=4)
+# the MoE / GQA phase: each config at its published widths, with the
+# depth it keeps (dbrx-132b's 40 layers are 131 B params, 244 GiB in
+# bf16; 10 of them and the tied embedding are 33.2 B, 61.9 GiB);
+# command-r-35b FULL (30.3 B, 56.4 GiB) is not cut
+MOE_GQA_MODELS = (("dbrx-132b", 10), ("command-r-35b", None))
 
 
 def say(*a) -> None:
@@ -346,7 +367,9 @@ def cuda_ms(fn, iters: int = 100) -> float:
 
 def kernel_phase() -> dict:
     """K1 flash_decode against its plain version at the main path's
-    shape and a GQA shape.  Returns the main-path row of the table."""
+    shape, a GQA shape and the shapes of the MoE / GQA phase's two
+    models (dbrx-132b G = 6, command-r-35b G = 8).  Returns the
+    main-path row of the table."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import (flash_decode,
@@ -356,7 +379,9 @@ def kernel_phase() -> dict:
     rows = []
     for label, B, L, H, Hkv, D in (
             ("main path", 8, 392, 40, 40, 128),
-            ("GQA", 8, 392, 40, 8, 128)):
+            ("GQA", 8, 392, 40, 8, 128),
+            ("dbrx-132b, G=6", 8, 392, 48, 8, 128),
+            ("command-r-35b, G=8", 8, 392, 64, 8, 128)):
         def rnd(*shape):
             return torch.randn(shape, generator=g, device="cuda",
                                dtype=torch.bfloat16)
@@ -425,8 +450,9 @@ def host_us(fn, calls: int = 200) -> float:
 def paged_kernel_phase() -> dict:
     """K2 paged_flash_decode against its plain version at the paged main
     path's shape (page size 8, 50-block tables into 400 pages), a GQA
-    shape, and a long slot (page size 16, 256-block tables, one slot of
-    4096 rows among short ones), through a shuffled table whose entries
+    shape, the MoE / GQA phase's two models' shapes (dbrx-132b H=48,
+    command-r-35b H=64, both Hkv=8), and a long slot (page size 16,
+    256-block tables, one slot of 4096 rows among short ones), through a shuffled table whose entries
     past each slot's length are stale out-of-range ids, with a slot
     parked at max_blocks * page_size + 1 as an idle slot is.  Each case
     is also timed through K1 on the same rows gathered into a dense cache,
@@ -439,12 +465,14 @@ def paged_kernel_phase() -> dict:
         paged_flash_decode, paged_flash_decode_torch, partitions)
     g = torch.Generator(device="cuda").manual_seed(1)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    B, H, D = 8, 40, 128
+    B, D = 8, 128
     rows = []
-    for label, Hkv, ps, MB, NP in (
-            ("main path", 40, PAGE_SIZE, 50, NUM_PAGES),
-            ("GQA", 8, PAGE_SIZE, 50, NUM_PAGES),
-            ("long slot", 8, 16, 256, 2048)):
+    for label, H, Hkv, ps, MB, NP in (
+            ("main path", 40, 40, PAGE_SIZE, 50, NUM_PAGES),
+            ("GQA", 40, 8, PAGE_SIZE, 50, NUM_PAGES),
+            ("dbrx-132b, G=6", 48, 8, PAGE_SIZE, 50, NUM_PAGES),
+            ("command-r-35b, G=8", 64, 8, PAGE_SIZE, 50, NUM_PAGES),
+            ("long slot", 40, 8, 16, 256, 2048)):
         def rnd(*shape):
             return torch.randn(shape, generator=g, device="cuda",
                                dtype=torch.bfloat16)
@@ -1471,13 +1499,14 @@ def profile_phase(gw, reqs, plain_wall_s: float) -> None:
 
 def _instrument(engine) -> dict:
     """Record, for one engine: CUDA events around each decode chunk and
-    each admission (prefill + commit) of the dense executor, the greedy
-    tokens of every finished request keyed by its prompt, and (on a
-    paged engine) the peak pages in use after each admission round and
-    the admission groups whose suffix is one token."""
+    each admission (prefill + commit) of the dense executor with its
+    token rows' shape, the greedy tokens of every finished request keyed
+    by its prompt, and (on a paged engine) the peak pages in use after
+    each admission round and the admission groups whose suffix is one
+    token."""
     import torch
-    rec = {"chunks": [], "admits": [], "tokens": {}, "peak_pages": 0,
-           "short_prefills": 0}
+    rec = {"chunks": [], "admits": [], "admit_shapes": [], "tokens": {},
+           "peak_pages": 0, "short_prefills": 0}
     prompts = {}
     ex = engine.executor
     run_chunk, admit_group, submit, run = (ex.decode_chunk, ex.admit,
@@ -1504,8 +1533,11 @@ def _instrument(engine) -> dict:
             if not gen.failed:
                 rec["tokens"][prompts[rid]] = [int(t) for t in gen.tokens]
         return done
+    def shaped_admit(tokens, *a):
+        rec["admit_shapes"].append(tuple(tokens.shape))
+        return admit_group(tokens, *a)
     ex.decode_chunk = timed(run_chunk, "chunks")
-    ex.admit = timed(admit_group, "admits")
+    ex.admit = timed(shaped_admit, "admits")
     engine.submit, engine.run = recording_submit, recording_run
     if engine._pages is not None:
         admit = engine._start_admissions
@@ -2779,6 +2811,187 @@ def mamba_train_phase(card: str) -> None:
         raise AssertionError("[mamba train] the refused step changed state")
 
 
+def _prefill_flops(cfg, B: int, S: int, every_expert: bool = False) -> int:
+    """The operations one prefill of B prompts of S tokens needs on an
+    attention stack: the weight products of every token (an MoE layer's
+    router and its top-k experts' products; with ``every_expert`` all E
+    experts', as the capacity form computes them), the causal attention
+    scores and values, and the unembedding of the last position."""
+    T = B * S
+    d, H, Hkv, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn = 2 * T * d * D * (2 * H + 2 * Hkv) + 4 * B * H * D * S * (S + 1) // 2
+    ops = 2 * B * d * cfg.padded_vocab
+    for i in range(cfg.n_layers):
+        ops += attn
+        if cfg.is_moe_layer(i):
+            e = cfg.moe
+            rows = T * (e.n_experts if every_expert else e.top_k)
+            ops += 2 * T * d * e.n_experts + 2 * rows * 3 * d * e.d_ff_expert
+        else:
+            ops += 2 * T * 3 * d * cfg.d_ff
+    return ops
+
+
+def _serve_family(arch: str, layers, card: str, policy, data, index) -> None:
+    """One model of the MoE / GQA phase through ``Gateway.serve``: the
+    dense engine (K1), then the paged engine (K2); see
+    :func:`moe_gqa_serve_phase`."""
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import HashTokenizer
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.paged_flash_decode import paged_flash_decode
+    from repro_torch.models import build_model
+    from repro_torch.models.schema import tree_leaves
+    from repro_torch.routing import ContinuousEngineBackend
+    full = get_config(arch, "full")
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    moe = (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff "
+           f"{cfg.moe.d_ff_expert}" if cfg.moe else f", d_ff {cfg.d_ff}")
+    say(f"== moe/gqa serve: {cfg.name} ({cfg.source}), {cfg.n_layers} "
+        f"layers x d_model {cfg.d_model}, {cfg.n_heads} heads over "
+        f"{cfg.n_kv_heads} kv heads (G = {cfg.n_heads // cfg.n_kv_heads}), "
+        f"head_dim {cfg.head_dim}{moe}, vocab {cfg.vocab_size}, rope theta "
+        f"{cfg.rope_theta:g}; {model.n_params() / 1e9:.2f} B params "
+        f"{cfg.dtype}, seeded init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{card}]")
+    if layers is not None:
+        n_full = build_model(full).n_params()
+        say(f"   reduced: n_layers {full.n_layers} -> {layers} (FULL is "
+            f"{n_full / 1e9:.1f} B params, {n_full * 2 / 2**30:.0f} GiB in "
+            f"bf16, beyond one 80 GB card); every width as published")
+    else:
+        say("   reduced: nothing (FULL's own depth)")
+    counters = {"flash_decode": flash_decode,
+                "paged_flash_decode": paged_flash_decode}
+    qs = data.questions[-16:]
+    L = cfg.n_layers
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+
+    def backend_for(**engine_kw):
+        return ContinuousEngineBackend.create(
+            model, params, HashTokenizer(cfg.vocab_size), index,
+            num_slots=NUM_SLOTS, prefill_batch=PREFILL_BATCH,
+            max_prompt_len=MAX_PROMPT_LEN, max_new_tokens=MAX_NEW_TOKENS,
+            **engine_kw)
+
+    # -- dense slot cache: K1 -------------------------------------------
+    backend = backend_for()
+    label = f"{arch} dense"
+    dense = _drive(label, backend, index, qs, 2, card, L, counters, policy)
+    _check_launches(label, dense["launches"], "flash_decode",
+                    dense["steps"], L, absent=("paged_flash_decode",))
+    rec, ex = dense["rec"], backend.engine.executor
+    per_step = [s_.elapsed_time(e) / ex.sync_every for s_, e in rec["chunks"]]
+    step_ms = statistics.median(per_step)
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    say(f"   decode step [{label}]: median {step_ms:.2f} ms over "
+        f"{len(per_step)} chunks of {ex.sync_every} steps (CUDA events; "
+        f"{[round(x, 2) for x in per_step]}) beside its weight-read bound "
+        f"{bound_ms:.2f} ms ({weight_bytes / 1e9:.1f} GB / 3.35 TB/s) = "
+        f"{step_ms / bound_ms:.2f} x [{card}]")
+    admits = {}
+    for shape, (s_, e) in zip(rec["admit_shapes"], rec["admits"]):
+        admits.setdefault(shape, []).append(s_.elapsed_time(e))
+    for (B, S), ms in admits.items():
+        need = _prefill_flops(cfg, B, S)
+        done = _prefill_flops(cfg, B, S, every_expert=True)
+        pre_bound = max(weight_bytes / HBM_BYTES_PER_S,
+                        need / BF16_OPS_PER_S) * 1e3
+        say(f"   prefill [{label}]: {len(ms)} admission groups of {B} x {S} "
+            f"tokens, {statistics.median(ms):.2f} ms each (median device "
+            f"time of prefill + commit; {[round(x, 2) for x in ms]}) beside "
+            f"its bound {pre_bound:.2f} ms ({need / 1e12:.2f} TFLOP routed / "
+            f"989 TFLOP/s, or the weights read once); the capacity form "
+            f"computes {done / 1e12:.2f} TFLOP = {done / need:.2f} x the "
+            f"routed [{card}]")
+    # the same 8 requests again: the greedy tokens repeat bit for bit
+    first = dict(rec["tokens"])
+    rec["tokens"].clear()
+    dense["gateways"][0][1].serve(_requests(qs, 0))
+    torch.cuda.synchronize()
+    again = rec["tokens"]
+    same = sum(first.get(k) == v for k, v in again.items())
+    say(f"   repeat [{label}]: the FixedPolicy(0) batch served again, "
+        f"{same} of {len(again)} requests' greedy tokens identical to the "
+        f"first run's")
+    if len(again) != 8 or same != len(again):
+        raise AssertionError(f"[{label}] the greedy tokens of a repeated "
+                             f"batch differ: {same} of {len(again)} equal")
+    # a decode chunk on the card synchronises with the host nowhere (the
+    # MoE group sizes stay on the device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ex.decode_chunk()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    say(f"   decode chunk under torch.cuda.set_sync_debug_mode('error'): "
+        f"no host sync")
+    dense_tokens = first
+    del dense, backend, rec, ex
+    _free_gpu_memory(f"{arch} paged")
+
+    # -- paged pool with prefix sharing: K2 -----------------------------
+    backend = backend_for(paged=True, page_size=PAGE_SIZE,
+                          num_pages=NUM_PAGES)
+    label = f"{arch} paged"
+    paged = _drive(label, backend, index, qs, 2, card, L, counters, policy)
+    _check_paged_launches(label, paged["launches"], paged["steps"], L,
+                          paged["rec"]["short_prefills"])
+    tokens = paged["rec"]["tokens"]
+    common = [k for k in tokens if k in dense_tokens]
+    agree = sum(a == b for k in common
+                for a, b in zip(tokens[k], dense_tokens[k]))
+    total = sum(min(len(tokens[k]), len(dense_tokens[k])) for k in common)
+    firsts = sum(tokens[k][:1] == dense_tokens[k][:1] for k in common)
+    per_step = [s_.elapsed_time(e) / backend.engine.executor.sync_every
+                for s_, e in paged["rec"]["chunks"]]
+    say(f"   decode step [{label}]: median {statistics.median(per_step):.2f} "
+        f"ms (bound {bound_ms:.2f} ms); {agree} of {total} greedy tokens "
+        f"agree with the dense engine's over {len(common)} common prompts, "
+        f"the first (prefill's) token of {firsts}: bf16 sums in K2's order "
+        f"and K1's part the two runs [{card}]")
+
+
+def moe_gqa_serve_phase(card: str, policy) -> None:
+    """The mixture-of-experts and GQA families at their published widths
+    through ``Gateway.serve``: ``dbrx-132b`` (16 experts top-4, G = 6)
+    cut to 10 of its 40 layers and ``command-r-35b`` FULL (G = 8), seeded
+    bf16 weights, one after the other, each after the previous model's
+    memory is freed.  Each on the dense engine (K1) and the paged engine
+    (page 8, 400 pages; K2) at the main path's settings (8 slots,
+    prefill batch 4, prompts of 384, 8 new tokens): 8 requests under
+    ``FixedPolicy(0)``, 8 routed by ``policy`` (the trained router),
+    every launch count 0 just before and read just after.  Checks every
+    request served, K1 (dense) and K2 (paged) launched exactly layers x
+    decode steps, the dense engine's greedy tokens repeating bit for bit
+    when its first batch is served again, and a dense decode chunk
+    running with no host sync; prints the decode step (median of the
+    chunks' per-step device time) beside its weight-read bound, each
+    admission group's prefill beside its bound over the routed
+    operations, and peak memory."""
+    from repro_torch.data import SyntheticSquad
+    from repro_torch.retrieval import BM25Index
+    t0 = time.perf_counter()
+    data = SyntheticSquad(n_paragraphs=600, n_questions=1000, seed=0)
+    index = BM25Index.build([p.text for p in data.paragraphs])
+    for arch, layers in MOE_GQA_MODELS:
+        _free_gpu_memory(f"{arch} dense")
+        _serve_family(arch, layers, card, policy, data, index)
+    say(f"== moe/gqa serve: both models served, {time.perf_counter() - t0:.1f}"
+        f" s")
+
+
 def cli_phase(card: str) -> None:
     """``python -m repro_torch.launch.train`` on the card, twice at once
     in two subprocesses: qwen SMOKE (``--arch qwen1.5-32b``) and the
@@ -3318,6 +3531,7 @@ def main() -> None:
     mamba_serve_phase(card, router)
     launches.update(mamba_eval_phase(card))
     mamba_train_phase(card)
+    moe_gqa_serve_phase(card, router)
     _free_gpu_memory("serve cli")
     serve_cli_phase(card)
     # the paper's benches run beside the training CLI, after every timed

@@ -2,8 +2,9 @@
 
 Each module exposes ``FULL`` (the exact assigned configuration, cited)
 and ``SMOKE`` (a reduced same-family variant for the CPU tests).  The
-dense-GQA and Mamba2 families are ported so far; the other families of
-the reference registry arrive with their layers.
+dense-GQA, mixture-of-experts, Mamba2 and Jamba (Mamba + attention +
+MoE) families are ported so far; the other families of the reference
+registry arrive with their layers.
 """
 from __future__ import annotations
 
@@ -12,11 +13,12 @@ from typing import Dict, List
 
 from repro_torch.core.config import ModelConfig
 
-ARCH_IDS: List[str] = ["qwen1.5-32b", "mamba2-130m"]
+ARCH_IDS: List[str] = ["qwen1.5-32b", "mamba2-130m", "command-r-35b",
+                       "dbrx-132b", "jamba-1.5-large-398b"]
 # the reference's other architectures, which arrive with their layers
 UNPORTED_ARCH_IDS: List[str] = [
-    "dbrx-132b", "minicpm3-4b", "whisper-large-v3", "jamba-1.5-large-398b",
-    "phi-3-vision-4.2b", "command-r-35b", "deepseek-v3-671b", "gemma3-12b"]
+    "minicpm3-4b", "whisper-large-v3", "phi-3-vision-4.2b",
+    "deepseek-v3-671b", "gemma3-12b"]
 
 _MODULES: Dict[str, str] = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

@@ -4,15 +4,31 @@ An own copy of the reference's ``core/config.py``: the model-zoo
 :class:`ModelConfig` plus the SLO-routing testbed configs
 (:class:`RouterConfig`, :class:`SLOProfile`, :class:`RetrievalConfig`,
 :class:`TestbedConfig`).  Field names and defaults are identical, so a
-config printed by either package reads the same.  The MLA and MoE
-sub-configs are not ported yet: the port serves dense GQA decoders and
-the Mamba2 family (:class:`SSMConfig`), and those two fields stay
-``None``.
+config printed by either package reads the same.  The port serves
+dense GQA decoders, mixture-of-experts layers (:class:`MoEConfig`) and
+the Mamba2 family (:class:`SSMConfig`); the MLA sub-config is not
+ported yet, and that field stays ``None``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block config."""
+
+    n_experts: int = 8
+    top_k: int = 2
+    d_ff_expert: int = 0             # per-expert hidden dim
+    n_shared_experts: int = 0        # DeepSeek-style always-on experts
+    router_jitter: float = 0.0
+    load_balance_coef: float = 0.01  # aux loss weight
+    # Layer indices (mod moe_period) that are MoE; dense otherwise.
+    moe_period: int = 1              # 1 = every layer is MoE
+    moe_offset: int = 0
+    first_k_dense: int = 0           # DeepSeek-V3: first 3 layers dense
 
 
 @dataclass(frozen=True)
@@ -67,7 +83,7 @@ class ModelConfig:
     layer_pattern: Tuple[str, ...] = ()
 
     mla: Optional[Any] = None
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
 
     # encoder-decoder (Whisper)

@@ -20,7 +20,7 @@ Sq % 128 == 0); it has no gradient, as the reference's kernel has none.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -60,8 +60,9 @@ def rope_angles(head_dim: int, theta: float, positions):
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32,
                          device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exps)
+    # theta stays a Python scalar: a tensor made of it on the card would
+    # be a copy from the host that waits for the stream, in every layer
+    freqs = theta ** exps
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 
@@ -317,8 +318,9 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
 # ---------------------------------------------------------------------------
 
 
-def mlp_schema(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_schema(cfg: ModelConfig, d_ff: Optional[int] = None
+               ) -> Dict[str, ParamSpec]:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     s = {
         "w_gate": ParamSpec((d, f), ("d_model", "d_ff")),
         "w_up": ParamSpec((d, f), ("d_model", "d_ff")),

@@ -1,4 +1,5 @@
-"""Decoder assembly for the dense GQA and Mamba2 families.
+"""Decoder assembly for the dense GQA, mixture-of-experts and Mamba2
+families.
 
 Mirrors the reference's ``models/transformer.py``: layers are grouped
 into an optional unrolled prefix followed by ``n_blocks`` repeats of a
@@ -8,16 +9,23 @@ carry across from the reference leaf for leaf.  Where the reference
 scans over the stack, the port loops over it and takes a view of each
 slice.
 
-Scope: full-attention dense GQA decoders (the ``qwen1.5-32b`` family),
-with the dense slot cache or the paged pool, each in the config's dtype
-or int8 (``kv_quant_int8``); Mamba2 stacks (``"M"`` layers, the
-``mamba2-130m`` family: :mod:`repro_torch.models.ssm`) with the dense
-slot cache of conv tails and SSM states (the paged pool raises for
-them, as the reference's does); and the no-cache training forward with
-its losses for both.  Any other family or attention variant (MoE, MLA,
+Scope: full-attention dense GQA decoders (the ``qwen1.5-32b`` and
+``command-r-35b`` families), with the dense slot cache or the paged
+pool, each in the config's dtype or int8 (``kv_quant_int8``);
+mixture-of-experts FFNs (``cfg.moe``: :mod:`repro_torch.models.moe`,
+the ``dbrx-132b`` family) with the reference's ``first_k_dense`` prefix
+and ``moe_period``; Mamba2 stacks (``"M"`` layers, the ``mamba2-130m``
+family: :mod:`repro_torch.models.ssm`) and their mixes with attention
+and MoE (``jamba-1.5-large-398b``) with the dense slot cache of conv
+tails and SSM states (the paged pool raises for them, as the
+reference's does); and the no-cache training forward with its losses
+for all of them, the MoE load-balance loss summed over the layers as
+the reference sums it.  Any other family or attention variant (MLA,
 encoder-decoder, modality frontends, multi-token prediction, sliding
-window, logit softcap; so Jamba too, for its MoE) raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+window, logit softcap) raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item.  The reference's ``moe_fn`` hook exists for its
+expert-parallel path only and is not ported (``ROADMAP.md`` queue 1,
+item 9).
 
 Training: gradients reach the stacked ``blocks`` leaves through the
 per-slice views, so ``.grad`` (or ``torch.autograd.grad``) of a stacked
@@ -35,11 +43,13 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_apply_ragged, moe_schema
 from repro_torch.models.schema import ParamSpec, stack_specs, tree_map
 from repro_torch.models.ssm import ssm_apply, ssm_cache_schema, ssm_schema
 from repro_torch.serving import kv_quant as KQ
@@ -59,14 +69,14 @@ def _lcm(a, b):
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """Raise for anything outside the ported dense-GQA and Mamba2 scope."""
+    """Raise for anything outside the ported dense-GQA, MoE and Mamba2
+    scope."""
     kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
     if "M" in kinds and cfg.ssm is None:
         raise ValueError(f"{cfg.name}: Mamba layers need cfg.ssm")
     unported = [
         ("A" in kinds and cfg.attn_type != "gqa",
          f"attn_type={cfg.attn_type!r}"),
-        (cfg.moe is not None, "mixture of experts"),
         (cfg.is_encoder_decoder, "encoder-decoder"),
         (cfg.modality != "text", f"modality={cfg.modality!r}"),
         (bool(cfg.mtp_depth), "multi-token prediction"),
@@ -77,8 +87,8 @@ def _check_supported(cfg: ModelConfig) -> None:
     found = [what for bad, what in unported if bad]
     if found:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense full-attention GQA "
-            f"decoders and Mamba2 stacks only; {', '.join(found)}: "
+            f"{cfg.name}: the port serves full-attention GQA decoders, "
+            f"MoE and Mamba2 stacks only; {', '.join(found)}: "
             f"ROADMAP.md queue 1, item 8")
 
 
@@ -90,12 +100,21 @@ def layer_structure(cfg: ModelConfig) -> Tuple[List[LayerSig], List[LayerSig], i
         return LayerSig(cfg.layer_kind(i), 0, cfg.is_moe_layer(i),
                         cfg.is_encoder_decoder)
 
-    P = _lcm(len(cfg.layer_pattern) or 1, len(cfg.attn_pattern) or 1)
-    if cfg.n_layers % P:
-        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers not divisible "
-                         f"by period {P}")
-    block = [sig(j) for j in range(P)]
-    return [], block, cfg.n_layers // P
+    prefix_n = cfg.moe.first_k_dense if cfg.moe else 0
+    P = _lcm(_lcm(len(cfg.layer_pattern) or 1, len(cfg.attn_pattern) or 1),
+             cfg.moe.moe_period if cfg.moe else 1)
+    rest = cfg.n_layers - prefix_n
+    if rest % P:
+        raise ValueError(f"{cfg.name}: {rest} layers not divisible by "
+                         f"period {P}")
+    prefix = [sig(i) for i in range(prefix_n)]
+    block = [sig(prefix_n + j) for j in range(P)]
+    for b in range(rest // P):
+        for j in range(P):
+            if sig(prefix_n + b * P + j) != block[j]:
+                raise ValueError(f"{cfg.name}: layer {prefix_n + b * P + j} "
+                                 f"breaks the period of {P}")
+    return prefix, block, rest // P
 
 
 def _layer_schema(cfg: ModelConfig, s: LayerSig) -> Dict[str, Any]:
@@ -107,16 +126,20 @@ def _layer_schema(cfg: ModelConfig, s: LayerSig) -> Dict[str, Any]:
         out["attn"] = L.gqa_schema(cfg)
     # ln2 stays without an MLP (Mamba2: d_ff = 0), as in the reference
     out["ln2"] = L.rmsnorm_schema(d)
-    if s.kind == "A" or cfg.d_ff:
+    if s.is_moe:
+        out["moe"] = moe_schema(cfg)
+    elif s.kind == "A" or cfg.d_ff:
         out["mlp"] = L.mlp_schema(cfg)
     return out
 
 
 def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
                 cache=None, page_table=None):
-    """One residual block.  Returns (x, cache); the cache is updated in
-    place (see :func:`repro_torch.models.layers.gqa_apply` and
-    :func:`repro_torch.models.ssm.ssm_apply`)."""
+    """One residual block.  Returns (x, cache, aux): the cache is updated
+    in place (see :func:`repro_torch.models.layers.gqa_apply` and
+    :func:`repro_torch.models.ssm.ssm_apply`), aux is the MoE layer's
+    load-balance loss (0.0 for any other layer)."""
+    aux = 0.0
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if s.kind == "M":
         out, cache = ssm_apply(p["ssm"], h, cfg, cache=cache)
@@ -125,10 +148,14 @@ def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
                                  cache=cache, window=s.window,
                                  causal=s.causal, page_table=page_table)
     x = x + out
-    if "mlp" in p:
+    if s.is_moe:
+        ff, aux = moe_apply_ragged(p["moe"], L.rmsnorm(p["ln2"], x,
+                                                       cfg.norm_eps), cfg)
+        x = x + ff
+    elif "mlp" in p:
         # the reference adds an FFN term of 0.0 when there is no MLP
         x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
-    return x, cache
+    return x, cache, aux
 
 
 def _layer_cache_schema(cfg: ModelConfig, s: LayerSig, batch: int,
@@ -223,6 +250,11 @@ def paged_cache_schema(cfg: ModelConfig, num_slots: int, num_pages: int,
 
 
 def _embed_lookup(params, cfg: ModelConfig, tokens):
+    """Gather (default) or the one-hot product of the reference's
+    ``embed_one_hot`` (its §Perf H6 option)."""
+    if cfg.embed_one_hot:
+        w = params["embed"]
+        return F.one_hot(tokens.long(), w.shape[0]).to(w.dtype) @ w
     return params["embed"][tokens]
 
 
@@ -280,13 +312,14 @@ def _forward_cached(params, cfg, inputs, cache, *, prefill):
     page_table = None if prefill else cache.get("table")
 
     for lp, lc, s in zip(params["prefix"], cache["prefix"], prefix):
-        x, _ = apply_layer(lp, x, cfg, s, positions=positions, cache=lc,
-                           page_table=page_table)
+        x, _, _ = apply_layer(lp, x, cfg, s, positions=positions,
+                              cache=lc, page_table=page_table)
     for i in range(n_blocks):
         bp, bc = _slice(params["blocks"], i), _slice(cache["blocks"], i)
         for j, s in enumerate(block):
-            x, _ = apply_layer(bp[f"p{j}"], x, cfg, s, positions=positions,
-                               cache=bc[f"p{j}"], page_table=page_table)
+            x, _, _ = apply_layer(bp[f"p{j}"], x, cfg, s,
+                                  positions=positions, cache=bc[f"p{j}"],
+                                  page_table=page_table)
     cache["pos"] = new_pos
 
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -319,17 +352,21 @@ def _save_weight_products(ctx, op, *args, **kwargs):
 
 def _backbone(params, cfg: ModelConfig, inputs):
     """Embedding and every layer, under ``cfg.remat``.  Returns the
-    hidden states before the final norm and the auxiliary loss (0: no
-    MoE layer is ported)."""
+    hidden states before the final norm and the MoE load-balance loss
+    summed over the layers (0 without an MoE layer)."""
     prefix, block, n_blocks = layer_structure(cfg)
     x, positions = _embed_inputs(params, cfg, inputs)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, s in zip(params["prefix"], prefix):
-        x, _ = apply_layer(lp, x, cfg, s, positions=positions)
+        x, _, a = apply_layer(lp, x, cfg, s, positions=positions)
+        aux = aux + a
 
-    def block_body(h, bp):
+    def block_body(h, acc, bp):
         for j, s in enumerate(block):
-            h, _ = apply_layer(bp[f"p{j}"], h, cfg, s, positions=positions)
-        return h
+            h, _, a = apply_layer(bp[f"p{j}"], h, cfg, s,
+                                  positions=positions)
+            acc = acc + a
+        return h, acc
 
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"{cfg.name}: unknown remat {cfg.remat!r}")
@@ -340,15 +377,16 @@ def _backbone(params, cfg: ModelConfig, inputs):
           if cfg.remat == "dots" else {})
     for i in range(n_blocks):
         bp = _slice(params["blocks"], i)
-        x = (checkpoint(block_body, x, bp, use_reentrant=False, **kw)
-             if remat else block_body(x, bp))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = (checkpoint(block_body, x, aux, bp, use_reentrant=False,
+                             **kw)
+                  if remat else block_body(x, aux, bp))
     return x, aux
 
 
 def forward_train(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor]):
     """Full-sequence forward.  Returns (logits (B, S, V) float32, extras)
-    with ``extras["aux_loss"]`` 0 (no MoE layer is ported)."""
+    with ``extras["aux_loss"]`` the MoE load-balance loss (0 without an
+    MoE layer)."""
     x, aux = _backbone(params, cfg, inputs)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _unembed(params, cfg, x), {"aux_loss": aux}
@@ -399,7 +437,8 @@ def chunked_ce(x, w, labels, *, ignore_id: int = -1, z_loss: float = 1e-4,
 
 def forward_train_loss(params, cfg: ModelConfig,
                        batch: Dict[str, torch.Tensor]):
-    """Memory-lean training loss: backbone + chunked CE (+ aux, 0)."""
+    """Memory-lean training loss: backbone + chunked CE + the MoE
+    load-balance loss."""
     inputs = {k: v for k, v in batch.items() if k != "labels"}
     labels = batch["labels"]
     x, aux = _backbone(params, cfg, inputs)

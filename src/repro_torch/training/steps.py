@@ -1,7 +1,8 @@
 """Train / eval steps with optional microbatch gradient accumulation.
 
-An own copy of the reference's ``training/steps.py`` (less ``moe_fn``:
-no MoE layer is ported).  A step reads nothing back to the host: its
+An own copy of the reference's ``training/steps.py`` (less ``moe_fn``,
+the hook of its expert-parallel path: ``ROADMAP.md`` queue 1, item 9;
+the MoE load-balance loss is in ``forward_train_loss``).  A step reads nothing back to the host: its
 metrics are tensors, and the caller decides when to read them.
 """
 from __future__ import annotations

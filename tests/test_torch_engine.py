@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import get_config as ref_config
 from repro.models import build_model as ref_build
@@ -41,6 +42,19 @@ def _prompts(n, lengths, seed=0, vocab=512):
 
 
 KW = dict(num_slots=3, max_len=40, max_new_cap=12, sync_every=4)
+
+
+class _HostData(TorchDispatchMode):
+    """Records the ops that make a tensor of host data."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.lift_fresh.default:
+            self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
 
 
 @pytest.mark.parametrize("prefill_batch", [1, 2])
@@ -111,10 +125,19 @@ def test_nan_quarantine_leaves_peers_token_identical(models):
     assert not ex.slot_faults().any()
 
 
-def test_decode_chunk_issues_no_host_sync(models, monkeypatch):
+@pytest.mark.parametrize("arch", ["qwen1.5-32b", "dbrx-132b"])
+def test_decode_chunk_issues_no_host_sync(arch, request, monkeypatch):
     """A decode chunk's `sync_every` steps never read a device value back
-    to the host: every slot-state update stays a tensor op."""
-    _, _, tm, tp = models
+    to the host: every slot-state update stays a tensor op, and so does
+    an MoE layer's routing (dbrx SMOKE: its group sizes stay on the
+    device).  Nor does a step make a tensor of host data (``torch.tensor``
+    of a number: on the card a copy that waits for the stream)."""
+    if arch == "qwen1.5-32b":
+        _, _, tm, tp = request.getfixturevalue("models")
+    else:
+        tm = build_model(dataclasses.replace(get_config(arch, "smoke"),
+                                             dtype="float32"))
+        tp = tm.init(seed=0, device="cpu")
     eng = ContinuousEngine(tm, tp, prefill_batch=3, **KW)
     for rid, p in enumerate(_prompts(3, [8], seed=2)):
         eng.submit(rid, p, 8)
@@ -127,6 +150,8 @@ def test_decode_chunk_issues_no_host_sync(models, monkeypatch):
             reads.append(_name)
             return _orig(self, *a, **kw)
         monkeypatch.setattr(torch.Tensor, name, spy)
-    eng.executor.decode_chunk()
+    with _HostData() as made:
+        eng.executor.decode_chunk()
     monkeypatch.undo()
     assert reads == []
+    assert made.ops == []

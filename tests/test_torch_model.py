@@ -181,14 +181,19 @@ def test_bridge_carries_bf16_bit_exactly():
                                       a.view(np.int16))
 
 
-@pytest.mark.parametrize("variant", ["full", "smoke"])
-def test_configs_are_the_reference_configs(variant):
+# the qwen cases keep their ids; the MoE and GQA families' are new
+@pytest.mark.parametrize("arch,variant", [
+    pytest.param("qwen1.5-32b", v, id=v) for v in ("full", "smoke")] + [
+    pytest.param(a, v, id=f"{a}-{v}")
+    for a in ("command-r-35b", "dbrx-132b", "jamba-1.5-large-398b")
+    for v in ("full", "smoke")])
+def test_configs_are_the_reference_configs(arch, variant):
     from repro.core import config as ref_cfg
     from repro.routing import registry as ref_registry
     from repro_torch.core import config as port_cfg
     from repro_torch.routing import registry as port_registry
-    assert dataclasses.asdict(get_config("qwen1.5-32b", variant)) == \
-        dataclasses.asdict(ref_config("qwen1.5-32b", variant))
+    assert dataclasses.asdict(get_config(arch, variant)) == \
+        dataclasses.asdict(ref_config(arch, variant))
     for name in ("RouterConfig", "RetrievalConfig", "TestbedConfig"):
         assert dataclasses.asdict(getattr(port_cfg, name)()) == \
             dataclasses.asdict(getattr(ref_cfg, name)()), name

@@ -13,11 +13,16 @@ Phases, each on its own lines; any failure exits nonzero:
 3. kernels   — hold each decode kernel against its plain PyTorch version
                in bf16 at the main path's shapes and time the kernel, the
                plain version, the bound and a library yardstick: K1
-               flash_decode (dense slot cache), K2 paged_flash_decode
+               flash_decode (dense slot cache; G = 1, 5, 6 and 8, and a
+               4096-row slot among short ones at G = 8, each with the
+               partition count it took and also timed with L2 flushed
+               before each call, and its ptxas registers and spills per
+               instantiation), K2 paged_flash_decode
                (block table into a page pool, with a parked slot; the
                main path, GQA and one 4096-row slot among short ones,
-               each also through K1 on the same rows gathered, with each
-               wrapper's host time a call).
+               each also through K1 on the same rows gathered, both
+               also with L2 flushed, with each wrapper's host time a
+               call).
 4. retrieval — the batched retrieval path at the SQuAD scale (20,000
                synthetic paragraphs, 64 questions, k = 10):
                ``DenseIndex.topk_batch`` (K3 dense_topk) and
@@ -226,10 +231,12 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -365,30 +372,61 @@ def cuda_ms(fn, iters: int = 100) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_phase() -> dict:
+def k1_ptxas(build_report: dict) -> list:
+    """K1's registers and spills per instantiation (its head dim and
+    warps a block), from the ``-Xptxas -v`` lines of the build in
+    ``build_report``; empty when this run did not build it."""
+    out = (build_report or {}).get("flash_decode", {}).get(
+        "compiler_output", "")
+    rows, dim = [], None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '.*flash_decode_kernel"
+                      r"ILi(\d+)ELi(\d+)E", line)
+        if m:
+            dim = m.group(1)
+            rows.append([f"D={dim}, {m.group(2)} warps"])
+        elif dim is not None and ("spill" in line or "registers" in line):
+            rows[-1].append(line.split(":", 1)[-1].strip())
+    return [", ".join(r) for r in rows]
+
+
+def kernel_phase(build_report: dict = None) -> dict:
     """K1 flash_decode against its plain version at the main path's
-    shape, a GQA shape and the shapes of the MoE / GQA phase's two
-    models (dbrx-132b G = 6, command-r-35b G = 8).  Returns the
-    main-path row of the table."""
+    shape, a GQA shape, the shapes of the MoE / GQA phase's two models
+    (dbrx-132b G = 6, command-r-35b G = 8) and a long slot at
+    command-r-35b's G = 8 (L = 4096: one slot of 4096 rows, one of 1,
+    the rest short), each beside SDPA, its bound and the partition count
+    the wrapper chose; with ``build_phase``'s report, K1's registers and
+    spills per instantiation.  Returns the main-path row of the table."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import (flash_decode,
-                                                  flash_decode_torch)
+                                                  flash_decode_torch,
+                                                  partitions, wide_blocks)
     tol = KERNEL_TOL
     g = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for line in k1_ptxas(build_report) or ["not built in this run"]:
+        say(f"== K1 ptxas: {line}")
     rows = []
     for label, B, L, H, Hkv, D in (
             ("main path", 8, 392, 40, 40, 128),
             ("GQA", 8, 392, 40, 8, 128),
             ("dbrx-132b, G=6", 8, 392, 48, 8, 128),
-            ("command-r-35b, G=8", 8, 392, 64, 8, 128)):
+            ("command-r-35b, G=8", 8, 392, 64, 8, 128),
+            ("long slot, command-r-35b G=8", 8, 4096, 64, 8, 128)):
         def rnd(*shape):
             return torch.randn(shape, generator=g, device="cuda",
                                dtype=torch.bfloat16)
         q, k, v = rnd(B, H, D), rnd(B, L, Hkv, D), rnd(B, L, Hkv, D)
-        lens = torch.randint(1, L + 1, (B,), generator=g, device="cuda",
-                             dtype=torch.int32)
-        lens[0], lens[1] = 1, L          # ragged, with both extremes
+        if label.startswith("long slot"):
+            lens = torch.randint(1, 300, (B,), generator=g, device="cuda",
+                                 dtype=torch.int32)
+            lens[0], lens[1] = L, 1      # one long slot among short ones
+        else:
+            lens = torch.randint(1, L + 1, (B,), generator=g, device="cuda",
+                                 dtype=torch.int32)
+            lens[0], lens[1] = 1, L      # ragged, with both extremes
         out = flash_decode(q, k, v, lens)
         want = flash_decode_torch(q, k, v, lens)
         torch.cuda.synchronize()
@@ -405,19 +443,30 @@ def kernel_phase() -> dict:
         ms = cuda_ms(lambda: flash_decode(q, k, v, lens))
         plain_ms = cuda_ms(lambda: flash_decode_torch(q, k, v, lens))
         library_ms = cuda_ms(library)
+        # a served step finds each layer's K/V cold in L2
+        cold = [cuda_ms_cold(f) for f in (
+            lambda: flash_decode(q, k, v, lens),
+            lambda: flash_decode_torch(q, k, v, lens), library)]
         n = lens.clamp(1, L).long()
         nbytes = (q.numel() * 2 + int(n.sum()) * Hkv * D * 2 * 2
                   + B * 4 + B * H * D * 2)
         nops = int(n.sum()) * H * D * 4
         bound_ms = max(nbytes / HBM_BYTES_PER_S,
                        nops / BF16_OPS_PER_S) * 1e3
+        parts, part_rows = partitions(L)
+        warps = 8 if wide_blocks(B, Hkv, parts, sms) else 4
         say(f"== kernel flash_decode [{label}: B={B} L={L} H={H} "
-            f"Hkv={Hkv} D={D}, lengths {lens.tolist()}]")
+            f"Hkv={Hkv} D={D}, lengths {lens.tolist()}; {parts} "
+            f"partition(s) of {part_rows} rows, blocks of {warps} warps, "
+            f"on {sms} SMs]")
         say(f"   max_abs_err {err:.3e} (tol {tol:.0e}); library "
             f"max_abs_err {float(lib_err):.3e}")
         say(f"   kernel {ms * 1e3:.2f} us | plain {plain_ms * 1e3:.2f} us | "
             f"library {library_ms * 1e3:.2f} us | bound "
             f"{bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB)")
+        say(f"   L2 flushed before each call: kernel {cold[0] * 1e3:.2f} us "
+            f"| plain {cold[1] * 1e3:.2f} us | library {cold[2] * 1e3:.2f} "
+            f"us")
         if not err <= tol:
             raise AssertionError(f"flash_decode [{label}] disagrees with "
                                  f"its plain version: {err} > {tol}")
@@ -461,6 +510,7 @@ def paged_kernel_phase() -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode import partitions as k1_partitions
     from repro_torch.kernels.paged_flash_decode import (
         paged_flash_decode, paged_flash_decode_torch, partitions)
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -518,9 +568,13 @@ def paged_kernel_phase() -> dict:
             lambda: paged_flash_decode_torch(q, kp, vp, table, lens))
         library_ms = cuda_ms(library)
         k1_ms = cuda_ms(lambda: flash_decode(q, kd, vd, n))
+        k2_cold = cuda_ms_cold(
+            lambda: paged_flash_decode(q, kp, vp, table, lens))
+        k1_cold = cuda_ms_cold(lambda: flash_decode(q, kd, vd, n))
         k2_host = host_us(lambda: paged_flash_decode(q, kp, vp, table, lens))
         k1_host = host_us(lambda: flash_decode(q, kd, vd, n))
         parts, part_pages = partitions(MB, ps, B, Hkv, sms)
+        k1_parts = k1_partitions(MB * ps)[0]
         nbytes = (q.numel() * 2 + int(n.long().sum()) * Hkv * D * 2 * 2
                   + table.numel() * 4 + B * 4 + B * H * D * 2)
         nops = int(n.long().sum()) * H * D * 4
@@ -536,7 +590,10 @@ def paged_kernel_phase() -> dict:
         say(f"   kernel {ms * 1e3:.2f} us | plain {plain_ms * 1e3:.2f} us | "
             f"library (SDPA on pre-gathered rows) {library_ms * 1e3:.2f} us "
             f"| bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB) | K1 "
-            f"on the same rows, gathered {k1_ms * 1e3:.2f} us")
+            f"on the same rows, gathered {k1_ms * 1e3:.2f} us ({k1_parts} "
+            f"partition(s))")
+        say(f"   L2 flushed before each call: kernel {k2_cold * 1e3:.2f} us "
+            f"| K1 on the same rows {k1_cold * 1e3:.2f} us")
         say(f"   host time a call: paged_flash_decode {k2_host:.2f} us, "
             f"flash_decode {k1_host:.2f} us")
         if not (err <= KERNEL_TOL and k1_err <= KERNEL_TOL):
@@ -748,20 +805,34 @@ def ssd_kernel_phase() -> dict:
 
 def cuda_ms_cold(fn, iters: int = 20) -> float:
     """Mean device time of one ``fn()`` call with the 50 MB L2 cache
-    flushed before each (a 64 MiB write between the timed launches)."""
+    flushed before each: a 128 MiB read between the timed launches
+    leaves the cache holding other, clean lines, as a served step's
+    weights leave it for the next layer's attention.  The card first
+    spins for longer than the host takes to issue the flush and the
+    call, so the events time the call on the card and not the host; two
+    untimed rounds first, so that no lazy load of the flush's kernel
+    lands in a timed one."""
     import torch
-    flush = torch.empty(16 << 20, dtype=torch.float32, device="cuda")
+    flush = torch.zeros(32 << 20, dtype=torch.float32, device="cuda")
+    sink = torch.empty((), dtype=torch.float32, device="cuda")
+    torch.sum(flush, dim=0, out=sink)
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    spin = int(min(0.1, 2 * (time.perf_counter() - t0) + 1e-4) * 2e9)
     total = 0.0
-    for _ in range(iters):
-        flush.zero_()
+    for i in range(iters + 2):
+        torch.cuda._sleep(spin)
+        torch.sum(flush, dim=0, out=sink)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
+        total += start.elapsed_time(end) if i >= 2 else 0.0
     return total / iters
 
 
@@ -2841,9 +2912,11 @@ def _serve_family(arch: str, layers, card: str, policy, data, index) -> None:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import HashTokenizer
-    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_torch)
     from repro_torch.kernels.paged_flash_decode import paged_flash_decode
     from repro_torch.models import build_model
+    from repro_torch.models import layers as model_layers
     from repro_torch.models.schema import tree_leaves
     from repro_torch.routing import ContinuousEngineBackend
     full = get_config(arch, "full")
@@ -2937,6 +3010,18 @@ def _serve_family(arch: str, layers, card: str, policy, data, index) -> None:
     torch.cuda.synchronize()
     say(f"   decode chunk under torch.cuda.set_sync_debug_mode('error'): "
         f"no host sync")
+    # a witness for the dense-vs-paged agreement below: the same batch
+    # with K1 swapped for its plain version (float32 throughout)
+    rec["tokens"].clear()
+    with mock.patch.object(model_layers, "flash_decode", flash_decode_torch):
+        dense["gateways"][0][1].serve(_requests(qs, 0))
+    torch.cuda.synchronize()
+    plain = dict(rec["tokens"])
+    agree = sum(a == b for k in plain for a, b in zip(plain[k], first[k]))
+    total = sum(min(len(plain[k]), len(first[k])) for k in plain)
+    say(f"   witness [{label}]: the FixedPolicy(0) batch served again with "
+        f"K1 swapped for flash_decode_torch: {agree} of {total} greedy "
+        f"tokens agree with K1's")
     dense_tokens = first
     del dense, backend, rec, ex
     _free_gpu_memory(f"{arch} paged")
@@ -2979,7 +3064,9 @@ def moe_gqa_serve_phase(card: str, policy) -> None:
     running with no host sync; prints the decode step (median of the
     chunks' per-step device time) beside its weight-read bound, each
     admission group's prefill beside its bound over the routed
-    operations, and peak memory."""
+    operations, peak memory, and how many greedy tokens of the first
+    batch agree when it is served again with K1 swapped for its plain
+    version (a witness for the dense-vs-paged agreement)."""
     from repro_torch.data import SyntheticSquad
     from repro_torch.retrieval import BM25Index
     t0 = time.perf_counter()
@@ -3516,7 +3603,7 @@ def main() -> None:
     t0 = time.perf_counter()
     card = device_phase()
     report = build_phase()
-    rows = [kernel_phase(), paged_kernel_phase(),
+    rows = [kernel_phase(report), paged_kernel_phase(),
             attention_kernel_phase(report)]
     k6 = ssd_kernel_phase()
     retrieval_rows, launches = retrieval_kernel_phase()

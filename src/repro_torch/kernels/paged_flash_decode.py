@@ -16,9 +16,9 @@ stays free of host syncs.
 * :func:`paged_flash_decode` — the wrapper.  CPU tensors take the plain
   version; CUDA tensors launch the kernel or raise (there is no
   fallback).  ``paged_flash_decode.launches`` counts kernel launches
-  (one a call).  The partials and tickets of the merge live in a
-  per-(device, stream) scratch the module keeps (:func:`_scratch`); the
-  kernel leaves the tickets at zero.
+  (one a call).  The partials and tickets of the merge live in the
+  per-(device, stream) scratch that ``flash_decode._scratch`` keeps for
+  both decode kernels; the kernel leaves the tickets at zero.
 * :func:`paged_flash_decode_torch` — the plain PyTorch version, with the
   semantics of the reference's ``kernels/ref.py::paged_flash_decode_ref``
   plus the clamps of its ``ops.paged_flash_decode``.
@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_decode import (HEAD_DIMS, MAX_GROUP,
+                                              _scratch, _sm_count,
                                               flash_decode_torch)
 
 BLOCKS_PER_SM = 2          # split until the card has this many blocks an SM
@@ -137,26 +138,6 @@ def _kernel():
     return fn
 
 
-_num_sms: dict = {}
-_scratches: dict = {}
-
-
-def _scratch(device, stream: int, n_tickets: int, n_floats: int):
-    """The merge's (tickets, partials) for launches on ``stream``: int32
-    zeros that every launch leaves zero, and float32 partials that every
-    launch writes before it reads them.  Kept per (device, stream) --
-    launches on one stream run in order -- and grown when a call needs
-    more."""
-    key = (device, stream)
-    tickets, part = _scratches.get(key, (None, None))
-    if tickets is None or tickets.numel() < n_tickets:
-        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=device)
-    if part is None or part.numel() < n_floats:
-        part = torch.empty(n_floats, dtype=torch.float32, device=device)
-    _scratches[key] = tickets, part
-    return tickets, part
-
-
 def _launch(q, kp, vp, table, lengths):
     _check(q, kp, vp, table, lengths)
     kernel = _kernel()
@@ -164,10 +145,7 @@ def _launch(q, kp, vp, table, lengths):
     NP, ps, Hkv = kp.shape[:3]
     MB = table.shape[1]
     dev = q.device
-    if dev not in _num_sms:
-        _num_sms[dev] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    parts, part_pages = partitions(MB, ps, B, Hkv, _num_sms[dev])
+    parts, part_pages = partitions(MB, ps, B, Hkv, _sm_count(dev))
     out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     part_ptr = tickets_ptr = None

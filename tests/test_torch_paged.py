@@ -42,6 +42,7 @@ from repro.serving.continuous import ContinuousEngine as RefEngine
 from repro.serving.paged import PagePool as RefPagePool
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import paged_flash_decode as pfd
 from repro_torch.models import build_model
 from repro_torch.models.schema import tree_leaves
@@ -272,8 +273,9 @@ def test_launch_arguments_depend_on_shapes_only(monkeypatch, B, Hkv, MB):
         return 0
     monkeypatch.setattr(pfd, "_kernel", lambda: fake_kernel)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
-    monkeypatch.setattr(pfd, "_num_sms", {torch.device("cpu"): 132})
-    monkeypatch.setattr(pfd, "_scratches", {})
+    # the scratch and the SM count are flash_decode's, shared by K1 and K2
+    monkeypatch.setattr(fd, "_num_sms", {torch.device("cpu"): 132})
+    monkeypatch.setattr(fd, "_scratches", {})
     monkeypatch.setattr(pfd.paged_flash_decode, "launches", 0)
     G, D, ps = 2, 128, 8
     q, kp, vp, table, lens = (torch.from_numpy(a) for a in _kernel_inputs(
@@ -292,7 +294,7 @@ def test_launch_arguments_depend_on_shapes_only(monkeypatch, B, Hkv, MB):
     if parts == 1:
         assert a[6] is None and a[7] is None
     else:
-        ((tickets, part),) = pfd._scratches.values()
+        ((tickets, part),) = fd._scratches.values()
         assert a[6] == part.data_ptr() and a[7] == tickets.data_ptr()
         assert tickets.numel() == B * Hkv and not tickets.any()
         assert part.numel() == B * G * Hkv * parts * (D + 2)

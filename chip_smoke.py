@@ -14,12 +14,14 @@ Phases, each on its own lines; any failure exits nonzero:
                in bf16 at the main path's shapes and time the kernel, the
                plain version, the bound and a library yardstick: K1
                flash_decode (dense slot cache; G = 1, 5, 6 and 8, and a
-               4096-row slot among short ones at G = 8, each with the
-               partition count it took and also timed with L2 flushed
-               before each call, and its ptxas registers and spills per
-               instantiation), K2 paged_flash_decode
+               4096-row slot among short ones at G = 8; gemma3-12b's
+               head_dim 256 at G = 2 on 392- and 2048-row slots; each
+               with the partition count it took and also timed with L2
+               flushed before each call, and its ptxas registers and
+               spills per instantiation, K2's too), K2 paged_flash_decode
                (block table into a page pool, with a parked slot; the
-               main path, GQA and one 4096-row slot among short ones,
+               main path, GQA, one 4096-row slot among short ones and
+               gemma3's head_dim 256 through 50- and 256-block tables,
                each also through K1 on the same rows gathered, both
                also with L2 flushed, with each wrapper's host time a
                call).
@@ -173,6 +175,25 @@ Phases, each on its own lines; any failure exits nonzero:
                each admission group's prefill beside its routed-operation
                bound, peak memory.  Phase 3 holds K1 and K2 at both
                models' shapes (H 48 and 64 over 8 kv heads).
+16b. gemma3 serve — ``gemma3-12b`` FULL (48 layers, 5 local with a
+               sliding window of 1024 to 1 global, head_dim 256, G = 2;
+               seeded bf16, not cut) through ``Gateway.serve`` as in
+               16a on the dense engine (K1), the dense engine with the
+               ring cache (``window_ring_cache``) and the paged engine
+               (K2): K1 / K2 exactly 8 global layers x decode steps (the
+               local layers decode through the plain windowed attention,
+               as the reference's gate sends them), every request
+               served, the dense tokens repeating bit for bit, dense and
+               ring decode chunks under ``set_sync_debug_mode("error")``;
+               decode step, prefill and peak memory beside their bounds.
+               Then the long case, where the window binds: 8 seeded
+               prompts of 1280-1536 tokens, max_len 2048, 8 greedy steps
+               with the full-length cache and with the ring (1024 rows a
+               local layer): each step's max |logit gap| and agreeing
+               tokens, both caches' GiB; bf16 prefill logits within
+               2e-2 of max |logit|, and a float32 witness (the weights
+               converted, K1 swapped for its plain version) within 1e-4
+               at every step.
 17. serve cli — ``repro_torch.launch.serve.main`` in this process,
                ``--backend continuous --variant full`` (qwen1.5-32b
                FULL, seeded bf16 weights, 8 slots, prompts of 192, 8 new
@@ -287,6 +308,19 @@ CHAOS_BREAKER = dict(window=8, min_calls=4, failure_threshold=0.5,
 # bf16; 10 of them and the tied embedding are 33.2 B, 61.9 GiB);
 # command-r-35b FULL (30.3 B, 56.4 GiB) is not cut
 MOE_GQA_MODELS = (("dbrx-132b", 10), ("command-r-35b", None))
+# gemma3-12b FULL (11.77 B params, 21.91 GiB in bf16) is not cut; its
+# long case: prompts past the local layers' window of 1024, decoded with
+# the full-length cache and with the ring cache
+GEMMA = "gemma3-12b"
+LONG_MIN, LONG_MAX, LONG_MAX_LEN, LONG_STEPS = 1280, 1536, 2048, 8
+GEMMA_K1 = "gemma3-12b, D=256, G=2"
+GEMMA_K1_LONG = "gemma3-12b 2048-row slot, D=256, G=2"
+RING_LOGIT_RTOL = 2e-2  # of max |logit|: the same function, its float32
+#                         sums over 1024 ring rows or 2048 cache rows (S
+#                         fresh rows or 2048 at prefill) in other orders,
+#                         rounded to bf16 at every layer
+RING_F32_RTOL = 1e-4    # of max |logit|: the float32 witness, the same
+#                         sums in other orders, no bf16 rounding
 
 
 def say(*a) -> None:
@@ -372,32 +406,36 @@ def cuda_ms(fn, iters: int = 100) -> float:
     return start.elapsed_time(end) / iters
 
 
-def k1_ptxas(build_report: dict) -> list:
+def k1_ptxas(build_report: dict, name: str = "flash_decode",
+             second: str = "warps") -> list:
     """K1's registers and spills per instantiation (its head dim and
     warps a block), from the ``-Xptxas -v`` lines of the build in
-    ``build_report``; empty when this run did not build it."""
-    out = (build_report or {}).get("flash_decode", {}).get(
-        "compiler_output", "")
+    ``build_report``; empty when this run did not build it.  With
+    ``name="paged_flash_decode", second="MAXG"`` the same for K2 (its
+    head dim and group bucket)."""
+    out = (build_report or {}).get(name, {}).get("compiler_output", "")
     rows, dim = [], None
     for line in out.splitlines():
-        m = re.search(r"Compiling entry function '.*flash_decode_kernel"
+        m = re.search(rf"Compiling entry function '.*[^_]{name}_kernel"
                       r"ILi(\d+)ELi(\d+)E", line)
         if m:
             dim = m.group(1)
-            rows.append([f"D={dim}, {m.group(2)} warps"])
+            rows.append([f"D={dim}, {second} {m.group(2)}"])
         elif dim is not None and ("spill" in line or "registers" in line):
             rows[-1].append(line.split(":", 1)[-1].strip())
     return [", ".join(r) for r in rows]
 
 
-def kernel_phase(build_report: dict = None) -> dict:
+def kernel_phase(build_report: dict = None) -> list:
     """K1 flash_decode against its plain version at the main path's
     shape, a GQA shape, the shapes of the MoE / GQA phase's two models
     (dbrx-132b G = 6, command-r-35b G = 8) and a long slot at
     command-r-35b's G = 8 (L = 4096: one slot of 4096 rows, one of 1,
     the rest short), each beside SDPA, its bound and the partition count
-    the wrapper chose; with ``build_phase``'s report, K1's registers and
-    spills per instantiation.  Returns the main-path row of the table."""
+    the wrapper chose; gemma3-12b's head_dim 256 at G = 2 on its 392-row
+    slots and on 2048-row ones (4 runs); with ``build_phase``'s report,
+    K1's and K2's registers and spills per instantiation.  Returns the
+    table's rows: the main path's, then the two head-dim-256 rows."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import (flash_decode,
@@ -408,13 +446,17 @@ def kernel_phase(build_report: dict = None) -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for line in k1_ptxas(build_report) or ["not built in this run"]:
         say(f"== K1 ptxas: {line}")
+    for line in k1_ptxas(build_report, "paged_flash_decode", "MAXG"):
+        say(f"== K2 ptxas: {line}")
     rows = []
     for label, B, L, H, Hkv, D in (
             ("main path", 8, 392, 40, 40, 128),
             ("GQA", 8, 392, 40, 8, 128),
             ("dbrx-132b, G=6", 8, 392, 48, 8, 128),
             ("command-r-35b, G=8", 8, 392, 64, 8, 128),
-            ("long slot, command-r-35b G=8", 8, 4096, 64, 8, 128)):
+            ("long slot, command-r-35b G=8", 8, 4096, 64, 8, 128),
+            (GEMMA_K1, 8, 392, 16, 8, 256),
+            (GEMMA_K1_LONG, 8, 2048, 16, 8, 256)):
         def rnd(*shape):
             return torch.randn(shape, generator=g, device="cuda",
                                dtype=torch.bfloat16)
@@ -454,7 +496,7 @@ def kernel_phase(build_report: dict = None) -> dict:
         bound_ms = max(nbytes / HBM_BYTES_PER_S,
                        nops / BF16_OPS_PER_S) * 1e3
         parts, part_rows = partitions(L)
-        warps = 8 if wide_blocks(B, Hkv, parts, sms) else 4
+        warps = 8 if wide_blocks(B, Hkv, parts, sms, D) else 4
         say(f"== kernel flash_decode [{label}: B={B} L={L} H={H} "
             f"Hkv={Hkv} D={D}, lengths {lens.tolist()}; {parts} "
             f"partition(s) of {part_rows} rows, blocks of {warps} warps, "
@@ -475,10 +517,11 @@ def kernel_phase(build_report: dict = None) -> dict:
                          replaces="src/repro/kernels/flash_decode.py:138",
                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by="bytes",
-                         library_ms=library_ms))
+                         library_ms=library_ms, shape=label,
+                         ms_cold=cold[0]))
         del q, k, v, out, want
     torch.cuda.empty_cache()
-    return rows[0]
+    return [rows[0]] + [r for r in rows if r["shape"].startswith("gemma3")]
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -496,7 +539,7 @@ def host_us(fn, calls: int = 200) -> float:
     return us
 
 
-def paged_kernel_phase() -> dict:
+def paged_kernel_phase() -> list:
     """K2 paged_flash_decode against its plain version at the paged main
     path's shape (page size 8, 50-block tables into 400 pages), a GQA
     shape, the MoE / GQA phase's two models' shapes (dbrx-132b H=48,
@@ -505,8 +548,10 @@ def paged_kernel_phase() -> dict:
     past each slot's length are stale out-of-range ids, with a slot
     parked at max_blocks * page_size + 1 as an idle slot is.  Each case
     is also timed through K1 on the same rows gathered into a dense cache,
-    and the wrappers' host time a call is printed.  Returns the main-path
-    row of the table."""
+    and the wrappers' host time a call is printed.  gemma3-12b's head_dim
+    256 (H=16, Hkv=8) goes through 50- and 256-block tables of page 8.
+    Returns the table's rows: the main path's, then the two
+    head-dim-256 rows."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import flash_decode
@@ -515,14 +560,16 @@ def paged_kernel_phase() -> dict:
         paged_flash_decode, paged_flash_decode_torch, partitions)
     g = torch.Generator(device="cuda").manual_seed(1)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    B, D = 8, 128
+    B = 8
     rows = []
-    for label, H, Hkv, ps, MB, NP in (
-            ("main path", 40, 40, PAGE_SIZE, 50, NUM_PAGES),
-            ("GQA", 40, 8, PAGE_SIZE, 50, NUM_PAGES),
-            ("dbrx-132b, G=6", 48, 8, PAGE_SIZE, 50, NUM_PAGES),
-            ("command-r-35b, G=8", 64, 8, PAGE_SIZE, 50, NUM_PAGES),
-            ("long slot", 40, 8, 16, 256, 2048)):
+    for label, H, Hkv, ps, MB, NP, D in (
+            ("main path", 40, 40, PAGE_SIZE, 50, NUM_PAGES, 128),
+            ("GQA", 40, 8, PAGE_SIZE, 50, NUM_PAGES, 128),
+            ("dbrx-132b, G=6", 48, 8, PAGE_SIZE, 50, NUM_PAGES, 128),
+            ("command-r-35b, G=8", 64, 8, PAGE_SIZE, 50, NUM_PAGES, 128),
+            ("long slot", 40, 8, 16, 256, 2048, 128),
+            (GEMMA_K1, 16, 8, PAGE_SIZE, 50, NUM_PAGES, 256),
+            (GEMMA_K1_LONG, 16, 8, PAGE_SIZE, 256, 2048, 256)):
         def rnd(*shape):
             return torch.randn(shape, generator=g, device="cuda",
                                dtype=torch.bfloat16)
@@ -604,10 +651,11 @@ def paged_kernel_phase() -> dict:
             source="src/repro_torch/kernels/csrc/paged_flash_decode.cu",
             replaces="src/repro/kernels/flash_decode.py:84",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by="bytes", library_ms=library_ms, host_us=k2_host))
+            bound_by="bytes", library_ms=library_ms, host_us=k2_host,
+            shape=label, ms_cold=k2_cold))
         del q, kp, vp, out, want, kd, vd, kt, vt
     torch.cuda.empty_cache()
-    return rows[0]
+    return [rows[0]] + [r for r in rows if r["shape"].startswith("gemma3")]
 
 
 def attention_kernel_phase(build_report: dict) -> dict:
@@ -2903,10 +2951,25 @@ def _prefill_flops(cfg, B: int, S: int, every_expert: bool = False) -> int:
     return ops
 
 
-def _serve_family(arch: str, layers, card: str, policy, data, index) -> None:
-    """One model of the MoE / GQA phase through ``Gateway.serve``: the
-    dense engine (K1), then the paged engine (K2); see
-    :func:`moe_gqa_serve_phase`."""
+def _kernel_layers(cfg) -> int:
+    """The layers whose decode takes K1 / K2: attention layers with no
+    window (the reference's gate; no served config sets a softcap)."""
+    from repro_torch.models.transformer import layer_structure
+    prefix, block, n_blocks = layer_structure(cfg)
+    def count(sigs):
+        return sum(s.kind == "A" and not s.window for s in sigs)
+    return count(prefix) + n_blocks * count(block)
+
+
+def _serve_family(arch: str, layers, card: str, policy, data, index,
+                  phase: str = "moe/gqa serve") -> tuple:
+    """One model through ``Gateway.serve``: the dense engine (K1), for a
+    model with sliding-window layers also the dense engine with the ring
+    cache (``window_ring_cache=True``), then the paged engine (K2); see
+    :func:`moe_gqa_serve_phase`.  K1 / K2 launch once a decode step in
+    each layer the reference's gate lets through (no window).  Returns
+    the model, its params and the launches of K1 on the dense engine and
+    of K2 on the paged one."""
     import statistics
 
     import torch
@@ -2928,11 +2991,15 @@ def _serve_family(arch: str, layers, card: str, policy, data, index) -> None:
     torch.cuda.synchronize()
     moe = (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff "
            f"{cfg.moe.d_ff_expert}" if cfg.moe else f", d_ff {cfg.d_ff}")
-    say(f"== moe/gqa serve: {cfg.name} ({cfg.source}), {cfg.n_layers} "
+    L = _kernel_layers(cfg)
+    window = (f", sliding window {cfg.sliding_window} on "
+              f"{cfg.n_layers - L} local layers ({''.join(cfg.attn_pattern)}"
+              f" repeated), {L} global" if cfg.sliding_window else "")
+    say(f"== {phase}: {cfg.name} ({cfg.source}), {cfg.n_layers} "
         f"layers x d_model {cfg.d_model}, {cfg.n_heads} heads over "
         f"{cfg.n_kv_heads} kv heads (G = {cfg.n_heads // cfg.n_kv_heads}), "
         f"head_dim {cfg.head_dim}{moe}, vocab {cfg.vocab_size}, rope theta "
-        f"{cfg.rope_theta:g}; {model.n_params() / 1e9:.2f} B params "
+        f"{cfg.rope_theta:g}{window}; {model.n_params() / 1e9:.2f} B params "
         f"{cfg.dtype}, seeded init {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{card}]")
     if layers is not None:
@@ -2945,13 +3012,12 @@ def _serve_family(arch: str, layers, card: str, policy, data, index) -> None:
     counters = {"flash_decode": flash_decode,
                 "paged_flash_decode": paged_flash_decode}
     qs = data.questions[-16:]
-    L = cfg.n_layers
     weight_bytes = sum(t.numel() * t.element_size()
                        for t in tree_leaves(params))
 
-    def backend_for(**engine_kw):
+    def backend_for(served_model=model, **engine_kw):
         return ContinuousEngineBackend.create(
-            model, params, HashTokenizer(cfg.vocab_size), index,
+            served_model, params, HashTokenizer(cfg.vocab_size), index,
             num_slots=NUM_SLOTS, prefill_batch=PREFILL_BATCH,
             max_prompt_len=MAX_PROMPT_LEN, max_new_tokens=MAX_NEW_TOKENS,
             **engine_kw)
@@ -3022,8 +3088,46 @@ def _serve_family(arch: str, layers, card: str, policy, data, index) -> None:
     say(f"   witness [{label}]: the FixedPolicy(0) batch served again with "
         f"K1 swapped for flash_decode_torch: {agree} of {total} greedy "
         f"tokens agree with K1's")
-    dense_tokens = first
+    dense_tokens, dense_launches = first, dense["launches"]
     del dense, backend, rec, ex
+
+    # -- the ring cache of the windowed layers: K1 on the global ones ----
+    if cfg.sliding_window:
+        _free_gpu_memory(f"{arch} dense ring")
+        ring_model = build_model(dataclasses.replace(
+            cfg, window_ring_cache=True))
+        backend = backend_for(ring_model)
+        label = f"{arch} dense ring"
+        ring = _drive(label, backend, index, qs, 2, card, L, counters,
+                      policy)
+        _check_launches(label, ring["launches"], "flash_decode",
+                        ring["steps"], L, absent=("paged_flash_decode",))
+        ex = backend.engine.executor
+        per_step = [s_.elapsed_time(e) / ex.sync_every
+                    for s_, e in ring["rec"]["chunks"]]
+        tokens = ring["rec"]["tokens"]
+        common = [k for k in tokens if k in dense_tokens]
+        agree = sum(a == b for k in common
+                    for a, b in zip(tokens[k], dense_tokens[k]))
+        total = sum(min(len(tokens[k]), len(dense_tokens[k]))
+                    for k in common)
+        spans = sorted({tuple(c.shape)[2] for c in tree_leaves(
+            ex._cache["blocks"]) if c.dim() == 5})
+        say(f"   decode step [{label}]: median "
+            f"{statistics.median(per_step):.2f} ms (bound {bound_ms:.2f} "
+            f"ms); cache rows a layer {spans} (ring = min(max_len, "
+            f"window)); {agree} of {total} greedy tokens agree with the "
+            f"full cache's over {len(common)} common prompts [{card}]")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ex.decode_chunk()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        say("   ring decode chunk under torch.cuda.set_sync_debug_mode("
+            "'error'): no host sync")
+        del ring, backend, ex, ring_model
     _free_gpu_memory(f"{arch} paged")
 
     # -- paged pool with prefix sharing: K2 -----------------------------
@@ -3046,6 +3150,10 @@ def _serve_family(arch: str, layers, card: str, policy, data, index) -> None:
         f"agree with the dense engine's over {len(common)} common prompts, "
         f"the first (prefill's) token of {firsts}: bf16 sums in K2's order "
         f"and K1's part the two runs [{card}]")
+    launches = {"flash_decode": dense_launches["flash_decode"],
+                "paged_flash_decode": paged["launches"]["paged_flash_decode"]}
+    del paged, backend
+    return model, params, launches
 
 
 def moe_gqa_serve_phase(card: str, policy) -> None:
@@ -3077,6 +3185,172 @@ def moe_gqa_serve_phase(card: str, policy) -> None:
         _serve_family(arch, layers, card, policy, data, index)
     say(f"== moe/gqa serve: both models served, {time.perf_counter() - t0:.1f}"
         f" s")
+
+
+def gemma3_serve_phase(card: str, policy) -> dict:
+    """``gemma3-12b`` FULL (48 layers, 5 local with a window of 1024 to 1
+    global, head_dim 256; seeded bf16, not cut) through ``Gateway.serve``
+    as the MoE / GQA phase serves its models (:func:`_serve_family`): on
+    the dense engine (K1), the dense engine with the ring cache and the
+    paged engine (page 8, 400 pages; K2), 8 + 8 requests each.  K1 / K2
+    launch exactly 8 global layers x decode steps: the local layers take
+    the plain attention, as the reference's gate sends them.  Then
+    :func:`gemma3_long_case` on the same weights.  Returns the launches
+    of K1 (dense engine) and K2 (paged engine), the head-dim-256 rows'
+    counts in the kernel table."""
+    from repro_torch.data import SyntheticSquad
+    from repro_torch.retrieval import BM25Index
+    t0 = time.perf_counter()
+    data = SyntheticSquad(n_paragraphs=600, n_questions=1000, seed=0)
+    index = BM25Index.build([p.text for p in data.paragraphs])
+    _free_gpu_memory(f"{GEMMA} dense")
+    model, params, launches = _serve_family(GEMMA, None, card, policy, data,
+                                            index, phase="gemma3 serve")
+    _free_gpu_memory(f"{GEMMA} long case")
+    gemma3_long_case(card, model, params)
+    del model, params
+    say(f"== gemma3 serve: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _prefill_rows(model, params, prompts, max_len: int) -> tuple:
+    """Each prompt prefilled alone into a one-row cache and its rows
+    copied into slot i of a cache of len(prompts) slots, as the
+    executor commits an admission.  Returns (the prefill logits (B, V)
+    float32, the cache)."""
+    import torch
+    from repro_torch.models.schema import tree_leaves
+    cache = model.init_cache(len(prompts), max_len, device="cuda")
+    firsts = []
+    for i, p in enumerate(prompts):
+        one = model.init_cache(1, max_len, device="cuda")
+        toks = torch.as_tensor(p, dtype=torch.int64,
+                               device=cache["pos"].device)[None]
+        logits, one = model.prefill(params, {"tokens": toks}, one)
+        firsts.append(logits[:, -1].float())
+        cache["pos"][i] = one["pos"][0]
+        for key, lead in (("prefix", 0), ("blocks", 1)):
+            for big, small in zip(tree_leaves(cache[key]),
+                                  tree_leaves(one[key])):
+                big.select(lead, i).copy_(small.select(lead, 0))
+        del one
+    return torch.cat(firsts), cache
+
+
+def _long_run(card, label, model, params, prompts, feed) -> tuple:
+    """One cache of the long case: prefill ``prompts`` into their slots,
+    then ``LONG_STEPS`` decode steps fed ``feed`` (or, when None, the
+    greedy tokens of this run).  Returns (the logits of every step,
+    float32 (B, V) each, and the tokens fed)."""
+    import torch
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models.schema import tree_leaves
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = _prefill_rows(model, params, prompts, LONG_MAX_LEN)
+        steps, tokens = [logits], ([] if feed is None else feed)
+        flash_decode.launches = 0
+        for t in range(LONG_STEPS):
+            if feed is None:
+                tokens.append(steps[-1].argmax(-1).to(torch.int32))
+            logits, cache = model.decode(params,
+                                         {"tokens": tokens[t][:, None]},
+                                         cache)
+            steps.append(logits[:, -1].float())
+    torch.cuda.synchronize()
+    launches = flash_decode.launches
+    gib = sum(t.numel() * t.element_size()
+              for t in tree_leaves(cache)) / 2**30
+    local = (min(LONG_MAX_LEN, cfg.sliding_window) if cfg.window_ring_cache
+             else LONG_MAX_LEN)
+    say(f"   long case [{label}]: cache {gib:.3f} GiB ({LONG_MAX_LEN} rows "
+        f"a global layer, {local} a local one), K1 launched {launches} "
+        f"times for {LONG_STEPS} steps, positions to "
+        f"{int(cache['pos'].max())}, {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+    del cache
+    torch.cuda.empty_cache()
+    return steps, tokens, launches
+
+
+def _long_gaps(label, full, ring, held: int, rtol: float) -> None:
+    """Prints each step's max |logit full - ring| and the greedy tokens
+    the two agree on; the first ``held`` steps must agree within ``rtol``
+    of max |logit|."""
+    for i, (f, r) in enumerate(zip(full, ring)):
+        gap = (f - r).abs().max().item()
+        scale = f.abs().max().item()
+        agree = int((f.argmax(-1) == r.argmax(-1)).sum())
+        say(f"   long case [{label}] step {i} "
+            f"({'prefill' if i == 0 else 'decode'}): max |logit full - "
+            f"ring| {gap:.4e} of max |logit| {scale:.4e} ({gap / scale:.2e})"
+            f"; greedy tokens agree in {agree} of {NUM_SLOTS}")
+        if i < held and not gap <= rtol * scale:
+            raise AssertionError(f"[long case {label}] step {i}: full and "
+                                 f"ring logits differ by {gap} > {rtol} x "
+                                 f"{scale}")
+
+
+def _to_float32(tree) -> None:
+    """Every tensor of a nested dict / list to float32, in place, one
+    leaf at a time (the bf16 leaf is freed as its copy is made)."""
+    import torch
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in list(items):
+        if isinstance(v, torch.Tensor):
+            tree[k] = v.float()
+        else:
+            _to_float32(v)
+
+
+def gemma3_long_case(card: str, model, params) -> None:
+    """Where the window binds: 8 seeded prompts of 1280-1536 tokens,
+    max_len 2048, 8 greedy decode steps, driven through the model's
+    ``prefill`` / ``decode`` with the full-length cache and with the
+    ring cache (W = 1024), both fed the full cache's greedy tokens.
+    Prints, for each step, max |logit difference| and the greedy tokens
+    the two agree on, and both caches' GiB; K1 runs the 8 global layers
+    over 2048-row slots (4 runs of 512 rows, merged in the launch).  In
+    bf16 the prefill's logits must agree within ``RING_LOGIT_RTOL`` of
+    max |logit|; the decode steps' are printed.  Then the witness: the
+    same weights in float32 (the bf16 params converted in place), K1
+    swapped for its plain version (the kernel takes bf16), every step
+    within ``RING_F32_RTOL``."""
+    import numpy as np
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as model_layers
+    from repro_torch.kernels.flash_decode import flash_decode_torch
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    lens = rng.integers(LONG_MIN, LONG_MAX + 1, size=NUM_SLOTS)
+    lens[0], lens[1] = LONG_MIN, LONG_MAX
+    prompts = [rng.integers(4, cfg.vocab_size, size=int(n)) for n in lens]
+    k_layers = _kernel_layers(cfg)
+    say(f"   long case: prompts {sorted(int(n) for n in lens)} past the "
+        f"window {cfg.sliding_window}; the ring holds "
+        f"{min(LONG_MAX_LEN, cfg.sliding_window)} rows in each of the "
+        f"{cfg.n_layers - k_layers} local layers against {LONG_MAX_LEN}")
+    runs, feed = {}, None
+    for name, ring in (("full", False), ("ring", True)):
+        m = build_model(dataclasses.replace(cfg, window_ring_cache=ring))
+        runs[name], feed, launches = _long_run(card, f"bf16, {name} cache",
+                                               m, params, prompts, feed)
+        _check_launches(f"long case, {name} cache",
+                        {"flash_decode": launches}, "flash_decode",
+                        LONG_STEPS, k_layers)
+    _long_gaps("bf16", runs["full"], runs["ring"], 1, RING_LOGIT_RTOL)
+    _to_float32(params)
+    f32 = {}
+    with mock.patch.object(model_layers, "flash_decode", flash_decode_torch):
+        for name, ring in (("full", False), ("ring", True)):
+            m = build_model(dataclasses.replace(
+                cfg, dtype="float32", window_ring_cache=ring))
+            f32[name], _, _ = _long_run(card, f"float32 witness, {name} "
+                                        f"cache, plain K1", m, params,
+                                        prompts, feed)
+    _long_gaps("float32", f32["full"], f32["ring"], LONG_STEPS + 1,
+               RING_F32_RTOL)
 
 
 def cli_phase(card: str) -> None:
@@ -3603,8 +3877,8 @@ def main() -> None:
     t0 = time.perf_counter()
     card = device_phase()
     report = build_phase()
-    rows = [kernel_phase(report), paged_kernel_phase(),
-            attention_kernel_phase(report)]
+    rows = (kernel_phase(report) + paged_kernel_phase()
+            + [attention_kernel_phase(report)])
     k6 = ssd_kernel_phase()
     retrieval_rows, launches = retrieval_kernel_phase()
     rows += retrieval_rows + [k6]
@@ -3619,6 +3893,7 @@ def main() -> None:
     launches.update(mamba_eval_phase(card))
     mamba_train_phase(card)
     moe_gqa_serve_phase(card, router)
+    gemma_launches = gemma3_serve_phase(card, router)
     _free_gpu_memory("serve cli")
     serve_cli_phase(card)
     # the paper's benches run beside the training CLI, after every timed
@@ -3627,7 +3902,9 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        # the head-dim-256 rows count the gemma3 phase's launches
+        row["launches"] = (gemma_launches if row.get("shape", "").startswith(
+            "gemma3") else launches)[row["name"]]
     say(f"== total: {time.perf_counter() - t0:.1f} s, every phase passed "
         f"[{card}]")
     # every row has the keys above, in that order; K5's adds kernel_ms

@@ -2,8 +2,8 @@
 
 Each module exposes ``FULL`` (the exact assigned configuration, cited)
 and ``SMOKE`` (a reduced same-family variant for the CPU tests).  The
-dense-GQA, mixture-of-experts, Mamba2 and Jamba (Mamba + attention +
-MoE) families are ported so far; the other families of the reference
+dense-GQA, mixture-of-experts, Mamba2, Jamba (Mamba + attention +
+MoE) and Gemma3 (sliding-window) families are ported so far; the other families of the reference
 registry arrive with their layers.
 """
 from __future__ import annotations
@@ -14,11 +14,11 @@ from typing import Dict, List
 from repro_torch.core.config import ModelConfig
 
 ARCH_IDS: List[str] = ["qwen1.5-32b", "mamba2-130m", "command-r-35b",
-                       "dbrx-132b", "jamba-1.5-large-398b"]
+                       "dbrx-132b", "jamba-1.5-large-398b", "gemma3-12b"]
 # the reference's other architectures, which arrive with their layers
 UNPORTED_ARCH_IDS: List[str] = [
     "minicpm3-4b", "whisper-large-v3", "phi-3-vision-4.2b",
-    "deepseek-v3-671b", "gemma3-12b"]
+    "deepseek-v3-671b"]
 
 _MODULES: Dict[str, str] = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

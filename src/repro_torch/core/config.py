@@ -68,7 +68,9 @@ class ModelConfig:
     attn_q_chunk: int = 1024
     window_ring_cache: bool = False
     # kernel switches of the reference (its TPU kernels are opt-in); the
-    # port's cached decode always runs the flash-decode kernel on the card
+    # port's cached decode runs the flash-decode kernels on the card
+    # wherever the reference's gate lets them (causal, no window, no
+    # softcap)
     use_pallas_attention: bool = False
     use_pallas_ssd: bool = False
     use_flash_decode: bool = False

@@ -50,6 +50,7 @@ template <class F>
 int dispatch(int D, int G, const F& f) {
   if (D == 128) return dispatch_group<128>(G, f);
   if (D == 64) return dispatch_group<64>(G, f);
+  if (D == 256) return dispatch_group<256>(G, f);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

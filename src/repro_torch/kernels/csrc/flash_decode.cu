@@ -46,6 +46,19 @@
 //     grid has a block an SM or fewer or walks split runs, so more warps
 //     share a block's tiles; narrow ones (kNarrowWarps) where blocks
 //     outnumber the SMs, so that three fit an SM at once.
+//   * Head dim 256 (gemma3) takes the same body with three changes, all
+//     of shape alone.  Registers: a 16 x 8 accumulator is four floats a
+//     lane, two of them rows 8..15 of the tile, which G <= 8 never uses;
+//     at D = 256 those would make o 128 registers.  So there the products
+//     feed rows 8..15's C operands from zero and drop their outputs (the
+//     two-register mma): o is 64 registers, as at D = 128.  The Q
+//     fragments (32 registers at D = 256) are read from Q_j's rows in
+//     shared memory at each product instead of kept: with them the body
+//     took 255 registers and spilled; without, 190 and no spill.  Shared
+//     memory: a 16-row K + V tile is 16 KB, a warp's 2-stage ring 32 KB,
+//     so only narrow blocks fit (128 KB; wide ones would need 256 KB of
+//     the 227 KB a block may have), one block an SM.  D = 64 and 128
+//     compile to the body they had.
 //   * K/V are read in place in the executor's (B, L, Hkv, D) layout
 //     through strides: no per-call transpose (the TPU wrapper transposes
 //     to kv-head-major on every call), no padded tail, no expanded GQA
@@ -75,7 +88,26 @@ constexpr int kTile = 16;       // K/V rows a product takes
 constexpr int kMaxGroup = 8;    // query heads a kv head (rows of A used)
 constexpr int kMaxParts = 256;  // the last block's merge walks them all
 constexpr int kDefaultSmemLimit = 48 * 1024;  // without the attribute
+constexpr int kMaxSmem = 227 * 1024;          // a block's most, with it
 constexpr float kLog2e = 1.4426950408889634f;
+
+// floats a lane keeps of a 16 x 8 product: all four at D <= 128; at D =
+// 256 only rows 0..7's two (the two-register mma), so that o fits the
+// register file
+template <int D>
+constexpr int kAcc = D > 128 ? 2 : 4;
+// where the score products' Q fragments live: registers at D <= 128; at
+// D = 256 shared memory, as the 32 registers they would take there push
+// the body past 255 and into spills
+template <int D>
+constexpr bool kQShared = D > 128;
+constexpr int kQPad = 8;  // bf16 a shared Q row is padded by: rows 4 banks
+                          // apart, so a fragment's reads do not conflict
+
+// the warps' K/V rings: kStages tiles of 16 K and 16 V rows a warp
+constexpr int ring_bytes(int D, int warps) {
+  return warps * kStages * 2 * kTile * D * 2;
+}
 
 template <int D, int kWarps>
 struct Layout {
@@ -83,10 +115,14 @@ struct Layout {
   static constexpr int kTileBytes = kTile * D * 2;  // K or V of one tile
   static constexpr int kStageBytes = 2 * kTileBytes;
   static constexpr int kWarpBytes = kStages * kStageBytes;
-  static constexpr int kRing = kWarps * kWarpBytes;
+  static constexpr int kRing = ring_bytes(D, kWarps);
+  // Q_j's rows (kMaxGroup, rows G.. zero), past the ring, if kQShared
+  static constexpr int kQRow = D + kQPad;
+  static constexpr int kQBytes = kQShared<D> ? 2 * kMaxGroup * kQRow : 0;
   // after the loop: each warp's (m, l, acc) for the merge of the warps
   static constexpr int kMerge = sizeof(float) * kWarps * kMaxGroup * (D + 2);
-  static constexpr int kSmem = kRing > kMerge ? kRing : kMerge;
+  static constexpr int kSmem =
+      kRing + kQBytes > kMerge ? kRing + kQBytes : kMerge;
 };
 
 struct Params {
@@ -140,6 +176,18 @@ __device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a2,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
 }
+// the same for rows 0..7 only: rows 8..15's C operands are zero and their
+// D outputs are dropped, so the accumulator is two registers
+__device__ __forceinline__ void mma(float (&d)[2], uint32_t a0, uint32_t a2,
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "{\n.reg .f32 drop<2>;\n"
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, drop0, drop1}, {%2, %3, %4, %5}, {%6, %7}, "
+      "{%0, %1, %8, %8};\n}\n"
+      : "+f"(d[0]), "+f"(d[1])
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1), "f"(0.f));
+}
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
@@ -177,9 +225,22 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int g = lane / 4, qd = lane % 4;  // fragment row, lane in its quad
 
   // Q_j as the A fragments of the score products, one per 16 dims: row
-  // g is query head j * G + g, rows G..15 zero
-  uint32_t qa[D / 16][2];
-  {
+  // g is query head j * G + g, rows G..15 zero; in registers, or (at D =
+  // 256) read from Q_j's rows in shared memory at each product
+  constexpr bool kQs = kQShared<D>;
+  [[maybe_unused]] uint32_t qa[kQs ? 1 : D / 16][2];
+  if constexpr (kQs) {
+    bf16* const qs = reinterpret_cast<bf16*>(smem + Lay::kRing);
+    for (int t = threadIdx.x; t < kMaxGroup * Lay::kChunks; t += kThreads) {
+      const int r = t / Lay::kChunks, c = t % Lay::kChunks;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (r < G)
+        val = *reinterpret_cast<const uint4*>(
+            p.q + b * p.q_sb + (int64_t)(j * G + r) * p.q_sh + c * 8);
+      *reinterpret_cast<uint4*>(qs + r * Lay::kQRow + c * 8) = val;
+    }
+    __syncthreads();
+  } else {
     const bf16* const qg = p.q + b * p.q_sb + (int64_t)(j * G + g) * p.q_sh;
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks) {
@@ -218,13 +279,16 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   // per head g (this lane's fragment row): running max m and sum l in
   // the log2 domain (l partial to this lane until the end), o[nt] the
-  // head's dims nt * 8 + 2 qd, + 1 (entries 2, 3: the zero rows 8..15)
+  // head's dims nt * 8 + 2 qd, + 1 (entries 2, 3, where kept: the zero
+  // rows 8..15)
+  constexpr int kA = kAcc<D>;
   const float sl2 = p.scale * kLog2e;
   float m = kNegInf, l = 0.f;
-  float o[D / 8][4];
+  float o[D / 8][kA];
 #pragma unroll
   for (int nt = 0; nt < D / 8; ++nt)
-    o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kA; ++e) o[nt][e] = 0.f;
 
   // lane's ldmatrix row address within a tile, for K (B of S: rows
   // 0-7 | 8-15 by matrix bit 1, dims lo | hi 8 by bit 0) and for V (B of
@@ -243,16 +307,26 @@ __global__ void __launch_bounds__(kWarps * 32)
 
     // the even and the odd 16-dim steps in separate sums, so that each
     // chain of dependent products is half as long
-    float s[4][4] = {};
+    float s[4][kA] = {};
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks) {
       uint32_t kf[4];
       ldsm_x4(kf, st + chunk_offset<D>(k_row, 2 * ks + k_half));
-      mma(s[2 * (ks & 1)], qa[ks][0], qa[ks][1], kf[0], kf[1]);
-      mma(s[2 * (ks & 1) + 1], qa[ks][0], qa[ks][1], kf[2], kf[3]);
+      uint32_t a0, a2;
+      if constexpr (kQs) {
+        const bf16* const qr = reinterpret_cast<const bf16*>(
+            smem + Lay::kRing) + g * Lay::kQRow + ks * 16 + 2 * qd;
+        a0 = *reinterpret_cast<const uint32_t*>(qr);
+        a2 = *reinterpret_cast<const uint32_t*>(qr + 8);
+      } else {
+        a0 = qa[ks][0];
+        a2 = qa[ks][1];
+      }
+      mma(s[2 * (ks & 1)], a0, a2, kf[0], kf[1]);
+      mma(s[2 * (ks & 1) + 1], a0, a2, kf[2], kf[3]);
     }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < kA; ++e) {
       s[0][e] += s[2][e];
       s[1][e] += s[3][e];
     }
@@ -386,8 +460,13 @@ int launch_blocks(dim3 grid, cudaStream_t s, const Params& p) {
 
 template <int D>
 int launch(dim3 grid, cudaStream_t s, const Params& p, bool wide) {
-  return wide ? launch_blocks<D, kWideWarps>(grid, s, p)
-              : launch_blocks<D, kNarrowWarps>(grid, s, p);
+  static_assert(Layout<D, kNarrowWarps>::kSmem <= kMaxSmem, "narrow block");
+  if constexpr (ring_bytes(D, kWideWarps) <= kMaxSmem) {
+    if (wide) return launch_blocks<D, kWideWarps>(grid, s, p);
+  } else {
+    if (wide) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_blocks<D, kNarrowWarps>(grid, s, p);
 }
 
 }  // namespace
@@ -399,7 +478,7 @@ int launch(dim3 grid, cudaStream_t s, const Params& p, bool wide) {
 // ((parts - 1) * part_rows < L <= parts * part_rows); with parts > 1,
 // part holds B * Hkv * parts * (H / Hkv) * (D + 2) float32 and tickets
 // B * Hkv int32 zeros, left zero by the launch.  wide: blocks of
-// kWideWarps warps, else kNarrowWarps.
+// kWideWarps warps, else kNarrowWarps; D = 256 takes narrow blocks only.
 extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
                                  const void* lengths, void* out, void* part,
                                  void* tickets, int B, int H, int Hkv, int L,
@@ -431,5 +510,6 @@ extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 128) return launch<128>(grid, s, p, wide);
   if (D == 64) return launch<64>(grid, s, p, wide);
+  if (D == 256) return launch<256>(grid, s, p, wide);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -11,12 +11,12 @@
 //
 // Bound: the K/V bytes -- sum_b n_b * Hkv * D * 2 (K and V) * 2 bytes
 // over the 3.35 TB/s of HBM, plus 4 bytes of table a page; about 4 flops
-// a byte, far under the card's balance.  The dense kernel (K1) walks a
-// slot's rows in one block, 16 rows a step, with one row pair in flight
-// per stream; here each row's address would also wait on its table
-// entry, and the longest slot's block would set the kernel's time (at
-// the GQA shape the grid is only B * Hkv = 64 blocks).  So this kernel
-// has a body of its own (decode_attention.cuh stays K1's):
+// a byte, far under the card's balance.  Here each row's address would
+// also wait on its table entry, and the longest slot's block would set
+// the kernel's time (at the GQA shape the grid is only B * Hkv = 64
+// blocks).  So this kernel has a body of its own, apart from the dense
+// kernel's (K1, flash_decode.cu); its helpers are in
+// decode_attention.cuh:
 //   * Split slots (flash-decoding): each (kv head, slot) is cut into
 //     `parts` partitions of `part_pages` pages, one block each, grid
 //     (Hkv, B, parts).  The wrapper picks the count from shapes alone
@@ -32,11 +32,11 @@
 //   * Whole pages in flight: each thread copies the 16-byte K and V
 //     pieces it will itself read, with cp.async, into its own slots of a
 //     ring of kStages stages in shared memory (a stage is the rows one
-//     pass of the block consumes: 16 at D = 128, 32 at D = 64), kStages -
-//     1 stages ahead of the one it uses.  Its own cp.async.wait_group
-//     orders each copy before its read, so the loop has no block barrier:
-//     warps run apart, as in K1, but with kStages - 1 row pairs in flight
-//     a stream instead of one.
+//     pass of the block consumes: 16 at D = 128, 32 at D = 64, 8 at D =
+//     256, where a row takes a whole warp), kStages - 1 stages ahead of
+//     the one it uses.  Its own cp.async.wait_group orders each copy
+//     before its read, so the loop has no block barrier: warps run apart,
+//     as in K1, with kStages - 1 row pairs in flight a stream.
 //   * Each thread owns 8 dims of one row of a stage; every (warp, row)
 //     stream runs an online softmax (m, l, acc in float32 registers) for
 //     all G query heads of the kv head, so a K/V row is read once for G
@@ -82,6 +82,8 @@ struct Layout {
   static constexpr int kLanesPerRow = D / 8;       // 16-byte pieces a row
   static constexpr int kRowsPerWarp = 32 / kLanesPerRow;
   static constexpr int kStageRows = kWarps * kRowsPerWarp;
+  // a thread owns 8 dims of one row: a row fills a warp or a part of it
+  static_assert(kLanesPerRow <= 32 && 32 % kLanesPerRow == 0, "D");
 };
 
 // The ring: kStages slots of one K and one V piece a thread (8 KB a

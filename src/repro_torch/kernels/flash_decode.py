@@ -38,7 +38,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8          # query heads per kv head the kernel takes
 TILE_ROWS = 16         # rows of a tensor-core tile; runs are whole tiles
 MAX_PARTITION_ROWS = 512  # split until no block walks more rows than this
@@ -60,12 +60,14 @@ def partitions(L: int) -> tuple:
     return -(-tiles // per), per * TILE_ROWS
 
 
-def wide_blocks(B: int, Hkv: int, parts: int, num_sms: int) -> bool:
+def wide_blocks(B: int, Hkv: int, parts: int, num_sms: int, D: int) -> bool:
     """Whether the kernel's blocks take 8 warps (else 4): where the grid
     has a block an SM or fewer, or a block walks a split run
     (``MAX_PARTITION_ROWS`` rows), more warps share a block's tiles; a
-    larger grid takes narrow blocks, so that three fit an SM at once."""
-    return parts > 1 or B * Hkv <= num_sms
+    larger grid takes narrow blocks, so that three fit an SM at once.
+    At head dim 256 every block is narrow: 8 warps' rings of two 16-row
+    K + V tiles would take 256 KB of shared memory, over a block's 227."""
+    return D <= 128 and (parts > 1 or B * Hkv <= num_sms)
 
 
 def flash_decode_torch(q, k, v, lengths):
@@ -179,7 +181,7 @@ def _launch(q, k, v, lengths):
                              if scratch else (None, None))
     rc = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
                 out.data_ptr(), part_ptr, tickets_ptr, B, H, Hkv, L, D,
-                parts, part_rows, wide_blocks(B, Hkv, parts, sms),
+                parts, part_rows, wide_blocks(B, Hkv, parts, sms, D),
                 q.stride(0), q.stride(1), k.stride(0),
                 k.stride(1), k.stride(2), v.stride(0), v.stride(1),
                 v.stride(2), out.stride(0), out.stride(1), 1.0 / D ** 0.5,

@@ -3,15 +3,19 @@
 Plain functions over explicit parameter dicts, mirroring the reference's
 ``models/layers.py`` leaf for leaf.  The GQA path is ported with every
 cache layout the serving engine has: no cache, the dense slot cache and
-the paged pool, each in the config's dtype or int8.  The reference's
-ring-buffer and cross-attention branches raise ``NotImplementedError``
-naming the ``ROADMAP.md`` item that ports them.
+the paged pool, each in the config's dtype or int8, and the ring cache
+of a sliding-window layer; with the window and the logit softcap.  The
+reference's cross-attention branch raises ``NotImplementedError``
+naming the ``ROADMAP.md`` item that ports it.
 
-Cached decode attention always goes through a kernel wrapper:
+Cached decode attention goes through a kernel wrapper under the
+reference's gate (causal, no window, no softcap):
 :func:`repro_torch.kernels.flash_decode.flash_decode` over the dense
 slot cache, :func:`repro_torch.kernels.paged_flash_decode.
 paged_flash_decode` through the block table — the hand-written CUDA
-kernels on the card, their plain PyTorch versions for CPU tensors.
+kernels on the card, their plain PyTorch versions for CPU tensors.  A
+windowed or softcapped layer, and a ring, decode through the plain
+:func:`attention`, the reference's own route for them.
 The no-cache branch takes :func:`repro_torch.kernels.flash_attention.
 flash_attention` under the reference's condition
 (``cfg.use_pallas_attention``, causal, no window or softcap, Sq == Skv,
@@ -221,13 +225,25 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
       ``max_blocks * page_size``) drops its write.
     * int8 leaves: the step's k/v are quantized on the way in and the
       kernels read the dequantized views.
+    * ``ring=True`` with ``window > 0``: the cache holds a ring of W =
+      min(max_len, window) rows; position p lives in row p % W.  Keys
+      carry their absolute-position rope phases, so every resident row
+      lies in the window and decode masks only the rows not yet filled.
+
+    Decode takes K1 / K2 only where the reference takes its kernels:
+    causal, no window, no softcap.  Otherwise it runs the plain
+    :func:`attention` with the window and the softcap — the reference's
+    own route (its windowed decode has no kernel), not a fallback.  The
+    port ignores ``cfg.use_flash_decode``: on the card the kernels run
+    wherever this gate lets them.
     """
     if cross_kv is not None:
         raise NotImplementedError(
             "cross-attention: ROADMAP.md queue 1, item 8 (Whisper)")
-    if ring and window:
-        raise NotImplementedError(
-            "ring-buffer sliding-window cache: ROADMAP.md queue 1, item 8")
+    softcap = cfg.attn_logit_softcap
+    # the reference's kernel gate; past it, the plain attention below is
+    # the reference's own route (its windowed decode has no kernel)
+    kernel = causal and not window and not softcap
 
     B, S, d = x.shape
     q = _proj_heads(x, p["wq"])
@@ -246,8 +262,34 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
             out = flash_attention(q, k, v, causal=True)
         else:
             out = attention(q, k, v, q_pos=positions, causal=causal,
-                            window=window, softcap=cfg.attn_logit_softcap,
+                            window=window, softcap=softcap,
                             q_chunk=cfg.attn_q_chunk)
+    elif ring and window:
+        ck, cv = cache["k"], cache["v"]            # (B, W, Hkv, Dh)
+        W = ck.shape[1]
+        bidx = torch.arange(B, device=x.device)
+        if S == 1:
+            # an idle slot's held position wraps into its ring exactly as
+            # in the reference: the row is replaced at its next commit
+            slot = (positions[:, 0] % W).long()
+            ck[bidx, slot] = k[:, 0].to(ck.dtype)
+            cv[bidx, slot] = v[:, 0].to(cv.dtype)
+            # every resident row is within the window and <= the query's
+            # position: only the rows not yet filled (pos < W) are masked
+            kv_len = (positions[:, -1] + 1).clamp(max=W)
+            out = attention(q, ck, cv, q_pos=positions, kv_len=kv_len,
+                            causal=False, window=0, softcap=softcap,
+                            q_chunk=cfg.attn_q_chunk)
+        else:
+            # prefill attends over the fresh k/v, windowed and causal; the
+            # ring receives only the trailing min(S, W) keys
+            out = attention(q, k, v, q_pos=positions, causal=causal,
+                            window=window, softcap=softcap,
+                            q_chunk=cfg.attn_q_chunk)
+            span = min(S, W)
+            slots = (positions[:, -span:] % W).long()
+            ck[bidx[:, None], slots] = k[:, -span:].to(ck.dtype)
+            cv[bidx[:, None], slots] = v[:, -span:].to(cv.dtype)
     elif S == 1 and page_table is not None:
         # paged decode: write this step's k/v into the page holding
         # `pos`, read back through the block table
@@ -272,8 +314,20 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
             _write_page_step(cache["k"], k[:, 0], page, off, keep)
             _write_page_step(cache["v"], v[:, 0], page, off, keep)
             pk, pv = cache["k"], cache["v"]
-        out = paged_flash_decode(q[:, 0], pk, pv, page_table, pos + 1)
-        out = out[:, None].to(v.dtype)
+        if kernel:
+            out = paged_flash_decode(q[:, 0], pk, pv, page_table, pos + 1)
+            out = out[:, None].to(v.dtype)
+        else:
+            # the reference's read: every block but the last (the
+            # executor's write-overflow block) gathered into a contiguous
+            # row, so the softmax runs over the dense path's length
+            tbl = (page_table[:, :MB - 1] if MB > 1
+                   else page_table).long().clamp(0, NP - 1)
+            ck = pk[tbl].reshape(B, -1, *pk.shape[2:])
+            cv = pv[tbl].reshape(B, -1, *pv.shape[2:])
+            out = attention(q, ck, cv, q_pos=positions, kv_len=pos + 1,
+                            causal=causal, window=window, softcap=softcap,
+                            q_chunk=cfg.attn_q_chunk)
     else:
         quant = "k_q" in cache
         if S == 1:
@@ -298,14 +352,13 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
         ck, cv = (KQ.read(cache, dtype=v.dtype) if quant
                   else (cache["k"], cache["v"]))
         kv_len = positions[:, -1] + 1
-        if S == 1:
+        if S == 1 and kernel:
             # kv_len masking subsumes the causal mask at decode
             out = flash_decode(q[:, 0], ck, cv, kv_len)[:, None]
             out = out.to(v.dtype)
         else:
             out = attention(q, ck, cv, q_pos=positions, kv_len=kv_len,
-                            causal=causal, window=window,
-                            softcap=cfg.attn_logit_softcap,
+                            causal=causal, window=window, softcap=softcap,
                             q_chunk=cfg.attn_q_chunk)
     H, Dh = out.shape[-2:]
     wo = p["wo"]

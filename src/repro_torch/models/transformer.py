@@ -9,9 +9,12 @@ carry across from the reference leaf for leaf.  Where the reference
 scans over the stack, the port loops over it and takes a view of each
 slice.
 
-Scope: full-attention dense GQA decoders (the ``qwen1.5-32b`` and
-``command-r-35b`` families), with the dense slot cache or the paged
-pool, each in the config's dtype or int8 (``kv_quant_int8``);
+Scope: dense GQA decoders (the ``qwen1.5-32b`` and ``command-r-35b``
+families, and ``gemma3-12b``'s sliding-window local layers beside its
+global ones, with the reference's ring cache under
+``window_ring_cache`` and its logit softcap), with the dense slot cache
+or the paged pool, each in the config's dtype or int8
+(``kv_quant_int8``; a ring layer keeps the config's dtype);
 mixture-of-experts FFNs (``cfg.moe``: :mod:`repro_torch.models.moe`,
 the ``dbrx-132b`` family) with the reference's ``first_k_dense`` prefix
 and ``moe_period``; Mamba2 stacks (``"M"`` layers, the ``mamba2-130m``
@@ -21,11 +24,10 @@ tails and SSM states (the paged pool raises for them, as the
 reference's does); and the no-cache training forward with its losses
 for all of them, the MoE load-balance loss summed over the layers as
 the reference sums it.  Any other family or attention variant (MLA,
-encoder-decoder, modality frontends, multi-token prediction, sliding
-window, logit softcap) raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item.  The reference's ``moe_fn`` hook exists for its
-expert-parallel path only and is not ported (``ROADMAP.md`` queue 1,
-item 9).
+encoder-decoder, modality frontends, multi-token prediction) raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item.  The
+reference's ``moe_fn`` hook exists for its expert-parallel path only and
+is not ported (``ROADMAP.md`` queue 1, item 9).
 
 Training: gradients reach the stacked ``blocks`` leaves through the
 per-slice views, so ``.grad`` (or ``torch.autograd.grad``) of a stacked
@@ -69,8 +71,8 @@ def _lcm(a, b):
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """Raise for anything outside the ported dense-GQA, MoE and Mamba2
-    scope."""
+    """Raise for anything outside the ported dense-GQA (sliding window
+    and softcap included), MoE and Mamba2 scope."""
     kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
     if "M" in kinds and cfg.ssm is None:
         raise ValueError(f"{cfg.name}: Mamba layers need cfg.ssm")
@@ -80,15 +82,12 @@ def _check_supported(cfg: ModelConfig) -> None:
         (cfg.is_encoder_decoder, "encoder-decoder"),
         (cfg.modality != "text", f"modality={cfg.modality!r}"),
         (bool(cfg.mtp_depth), "multi-token prediction"),
-        (bool(cfg.sliding_window or cfg.window_ring_cache),
-         "sliding-window attention"),
-        (bool(cfg.attn_logit_softcap), "logit softcap"),
     ]
     found = [what for bad, what in unported if bad]
     if found:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves full-attention GQA decoders, "
-            f"MoE and Mamba2 stacks only; {', '.join(found)}: "
+            f"{cfg.name}: the port serves GQA decoders, MoE and Mamba2 "
+            f"stacks only; {', '.join(found)}: "
             f"ROADMAP.md queue 1, item 8")
 
 
@@ -97,7 +96,11 @@ def layer_structure(cfg: ModelConfig) -> Tuple[List[LayerSig], List[LayerSig], i
     _check_supported(cfg)
 
     def sig(i: int) -> LayerSig:
-        return LayerSig(cfg.layer_kind(i), 0, cfg.is_moe_layer(i),
+        kind = cfg.layer_kind(i)
+        window = 0
+        if kind == "A" and cfg.sliding_window and cfg.attn_kind(i) == "L":
+            window = cfg.sliding_window
+        return LayerSig(kind, window, cfg.is_moe_layer(i),
                         cfg.is_encoder_decoder)
 
     prefix_n = cfg.moe.first_k_dense if cfg.moe else 0
@@ -146,7 +149,10 @@ def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
     else:
         out, cache = L.gqa_apply(p["attn"], h, cfg, positions=positions,
                                  cache=cache, window=s.window,
-                                 causal=s.causal, page_table=page_table)
+                                 causal=s.causal,
+                                 ring=bool(cfg.window_ring_cache
+                                           and s.window),
+                                 page_table=page_table)
     x = x + out
     if s.is_moe:
         ff, aux = moe_apply_ragged(p["moe"], L.rmsnorm(p["ln2"], x,
@@ -162,11 +168,15 @@ def _layer_cache_schema(cfg: ModelConfig, s: LayerSig, batch: int,
                         max_len: int) -> Dict[str, ParamSpec]:
     if s.kind == "M":
         return ssm_cache_schema(cfg, batch)
-    if cfg.kv_quant_int8:
+    # with cfg.window_ring_cache a windowed layer holds a ring of
+    # `window` rows instead of max_len, never quantized
+    ring = bool(cfg.window_ring_cache and s.window)
+    span = min(max_len, s.window) if ring else max_len
+    if cfg.kv_quant_int8 and not ring:
         # int8 payload + float16 per-position scales
-        return KQ.quant_kv_cache_schema(batch, max_len, cfg.n_kv_heads,
+        return KQ.quant_kv_cache_schema(batch, span, cfg.n_kv_heads,
                                         cfg.head_dim)
-    kv = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    kv = (batch, span, cfg.n_kv_heads, cfg.head_dim)
     axes = ("batch", "seq", "kv_heads", "head_dim")
     return {"k": ParamSpec(kv, axes, cfg.dtype, "zeros"),
             "v": ParamSpec(kv, axes, cfg.dtype, "zeros")}
@@ -223,15 +233,18 @@ def paged_cache_schema(cfg: ModelConfig, num_slots: int, num_pages: int,
     positions — :func:`_layer_cache_schema` with ``batch=num_pages,
     max_len=page_size``, int8 included.  On top: a per-slot ``table``
     (num_slots, max_blocks) int32 shared across layers, and the usual
-    per-slot ``pos``.  Only full-attention GQA stacks page.
+    per-slot ``pos``.  Only GQA stacks page, windowed layers included
+    (their rows are position-addressed like a global layer's); a ring
+    layer does not, as in the reference.
     """
     prefix, block, n_blocks = layer_structure(cfg)
     for s in prefix + block:
-        if s.kind != "A" or s.cross or cfg.attn_type == "mla" or s.window:
+        if (s.kind != "A" or s.cross or cfg.attn_type == "mla"
+                or (cfg.window_ring_cache and s.window)):
             raise ValueError(
                 f"{cfg.name}: paged KV cache supports full-attention "
                 f"GQA layers only (got kind={s.kind} cross={s.cross} "
-                f"attn_type={cfg.attn_type} window={s.window})")
+                f"attn_type={cfg.attn_type} ring={bool(s.window)})")
     return {
         "pos": ParamSpec((num_slots,), ("batch",), "int32", "zeros"),
         "table": ParamSpec((num_slots, max_blocks), ("batch", ""),

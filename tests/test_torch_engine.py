@@ -125,23 +125,33 @@ def test_nan_quarantine_leaves_peers_token_identical(models):
     assert not ex.slot_faults().any()
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-32b", "dbrx-132b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-32b", "dbrx-132b", "gemma3-12b",
+                                  "gemma3-12b-ring"])
 def test_decode_chunk_issues_no_host_sync(arch, request, monkeypatch):
     """A decode chunk's `sync_every` steps never read a device value back
     to the host: every slot-state update stays a tensor op, and so does
     an MoE layer's routing (dbrx SMOKE: its group sizes stay on the
-    device).  Nor does a step make a tensor of host data (``torch.tensor``
-    of a number: on the card a copy that waits for the stream)."""
+    device), a sliding-window layer's mask (gemma3 SMOKE) and the ring
+    cache's writes and lengths (its window cut to 8: the chunk's
+    positions 8-11 wrap the ring).  Nor does a step make a tensor of host
+    data (``torch.tensor`` of a number: on the card a copy that waits
+    for the stream)."""
     if arch == "qwen1.5-32b":
         _, _, tm, tp = request.getfixturevalue("models")
     else:
-        tm = build_model(dataclasses.replace(get_config(arch, "smoke"),
-                                             dtype="float32"))
+        cfg = dataclasses.replace(get_config(arch.removesuffix("-ring"),
+                                             "smoke"), dtype="float32")
+        if arch.endswith("-ring"):
+            cfg = dataclasses.replace(cfg, sliding_window=8,
+                                      window_ring_cache=True)
+        tm = build_model(cfg)
         tp = tm.init(seed=0, device="cpu")
     eng = ContinuousEngine(tm, tp, prefill_batch=3, **KW)
     for rid, p in enumerate(_prompts(3, [8], seed=2)):
         eng.submit(rid, p, 8)
     eng.step()                                   # admit + first sync
+    if arch.endswith("-ring"):
+        assert int(eng.executor._cache["pos"].min()) >= 8  # past W
     reads = []
     for name in ("item", "tolist", "numpy", "cpu", "__bool__"):
         orig = getattr(torch.Tensor, name)

@@ -68,6 +68,8 @@ def _port(q, k, v, lengths):
     (2, 100, 8, 2, 128),     # G = 4, head_dim 128, ragged tail
     (3, 64, 6, 1, 128),      # MQA, G = 6
     (2, 80, 64, 8, 64),      # G = 8 (command-r-35b's H 64 over 8)
+    (2, 100, 16, 8, 256),    # gemma3-12b: G = 2, head_dim 256
+    (3, 48, 8, 1, 256),      # head_dim 256 at G = 8
 ])
 def test_plain_version_matches_pallas_and_oracle(B, L, H, Hkv, D):
     q, k, v, lens = _inputs(B, L, H, Hkv, D)
@@ -125,7 +127,8 @@ class _Stream:
     # passes the checks, then cannot build the kernel here
     (torch.bfloat16, 128, RuntimeError, "nvcc"),
     (torch.float32, 128, TypeError, "bfloat16"),     # bf16 only
-    (torch.bfloat16, 96, ValueError, "head_dim"),    # 64 and 128 only
+    (torch.bfloat16, 96, ValueError, "head_dim"),    # 64, 128, 256 only
+    (torch.bfloat16, 256, RuntimeError, "nvcc"),     # gemma3's head_dim
 ])
 def test_cuda_request_launches_or_raises_never_falls_back(
         monkeypatch, dtype, head_dim, error, match, B, L, H, Hkv):
@@ -227,7 +230,7 @@ def _kernel_emulation(q, k, v, lengths, parts, part_rows, num_sms,
     qg, kf, vf = q.float().reshape(B, Hkv, G, D), k.float(), v.float()
     n = lengths.long().clamp(1, L)
     out = torch.empty(B, Hkv, G, D)
-    warps = (WIDE_WARPS if fd.wide_blocks(B, Hkv, parts, num_sms)
+    warps = (WIDE_WARPS if fd.wide_blocks(B, Hkv, parts, num_sms, D)
              else NARROW_WARPS)
 
     def merge(states):
@@ -314,6 +317,50 @@ def test_split_and_merge_match_the_plain_version(L, parts, part_rows, G,
     assert (got.bfloat16().float() - want).abs().max() <= KERNEL_TOL
 
 
+@pytest.mark.parametrize("L", [392, 2048])
+def test_split_and_merge_match_the_plain_version_at_head_dim_256(L):
+    """gemma3-12b's head_dim 256 and G = 2, at the main path's slot and
+    at a 2048-row one (4 runs of 512 rows): the kernel's arithmetic,
+    always in narrow blocks at this head dim, gives the plain version's
+    output, in float32 and on bf16 inputs with P split in two parts."""
+    B, Hkv, G, D = 3, 2, 2, 256
+    parts, part_rows = fd.partitions(L)
+    assert (parts, part_rows) == ((1, 400) if L == 392 else (4, 512))
+    assert not fd.wide_blocks(B, Hkv, parts, 132, D)
+    q, k, v, lens = (torch.from_numpy(a) for a in _inputs(
+        B, L, G * Hkv, Hkv, D, seed=L, lengths=[L, 1, L // 2 + 3]))
+    got = _kernel_emulation(q, k, v, lens, parts, part_rows, 132, False)
+    want = fd.flash_decode_torch(q, k, v, lens)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TOL,
+                               atol=TOL)
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    got = _kernel_emulation(qb, kb, vb, lens, parts, part_rows, 132, True)
+    exact = fd.flash_decode_torch(qb.float(), kb.float(), vb.float(), lens)
+    assert (got - exact).abs().max() <= TOL
+    want = fd.flash_decode_torch(qb, kb, vb, lens).float()
+    assert (got.bfloat16().float() - want).abs().max() <= KERNEL_TOL
+
+
+@pytest.mark.parametrize("D", fd.HEAD_DIMS)
+def test_block_width_fits_shared_memory(D):
+    """Wide blocks are picked only at a head dim where 8 warps' rings of
+    two 16-row K + V tiles fit the shared memory a block may have (the
+    source's kMaxSmem); narrow ones fit at every head dim."""
+    src = KERNEL_SOURCE.read_text()
+    most = eval(re.search(r"constexpr int kMaxSmem = ([\d *]+);",
+                          src).group(1))
+    assert int(re.search(r"constexpr int kStages = (\d+);", src)
+               .group(1)) == 2
+
+    def ring(warps):
+        return warps * 2 * 2 * fd.TILE_ROWS * D * 2
+    assert ring(NARROW_WARPS) <= most
+    can_be_wide = any(fd.wide_blocks(B, Hkv, parts, sms, D)
+                      for B, Hkv, parts, sms in ((1, 1, 1, 132),
+                                                 (8, 8, 4, 132)))
+    assert can_be_wide == (ring(WIDE_WARPS) <= most) == (D <= 128)
+
+
 class _ScalarReads(TorchDispatchMode):
     """Counts device-to-host scalar reads (``aten._local_scalar_dense``)."""
 
@@ -334,6 +381,19 @@ def test_launch_arguments_depend_on_shapes_only(monkeypatch, B, L, H, Hkv):
     sized B * H * parts * (D + 2)) are the same for any lengths -- a
     long slot among short ones, or all of length 1 -- none is read back
     to the host, and one launch is counted a call."""
+    _check_launch_arguments(monkeypatch, B, L, H, Hkv, 128)
+
+
+@pytest.mark.parametrize("B,L,H,Hkv", [(8, 392, 16, 8), (8, 2048, 16, 8),
+                                       (1, 16, 8, 1)])
+def test_launch_arguments_at_head_dim_256(monkeypatch, B, L, H, Hkv):
+    """The same at gemma3-12b's head_dim 256 (its slots of 392 and 2048
+    rows, G = 2): narrow blocks whatever the grid, and partials sized
+    for D + 2 = 258 floats a head."""
+    _check_launch_arguments(monkeypatch, B, L, H, Hkv, 256)
+
+
+def _check_launch_arguments(monkeypatch, B, L, H, Hkv, D):
     calls = []
 
     def fake_kernel(*args):
@@ -344,7 +404,6 @@ def test_launch_arguments_depend_on_shapes_only(monkeypatch, B, L, H, Hkv):
     monkeypatch.setattr(fd, "_num_sms", {torch.device("cpu"): 132})
     monkeypatch.setattr(fd, "_scratches", {})
     monkeypatch.setattr(fd.flash_decode, "launches", 0)
-    D = 128
     q, k, v, lens = (torch.from_numpy(a) for a in _inputs(
         B, L, H, Hkv, D, lengths=[L] + [1] * (B - 1)))
     q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
@@ -358,7 +417,8 @@ def test_launch_arguments_depend_on_shapes_only(monkeypatch, B, L, H, Hkv):
     assert a[:3] == b[:3] and a[5:] == b[5:] and a[3] != b[3]
     parts, part_rows = fd.partitions(L)
     assert a[7:15] == (B, H, Hkv, L, D, parts, part_rows,
-                       fd.wide_blocks(B, Hkv, parts, 132))
+                       fd.wide_blocks(B, Hkv, parts, 132, D))
+    assert a[14] == (D <= 128 and (parts > 1 or B * Hkv <= 132))
     if parts == 1:
         assert a[5] is None and a[6] is None
     else:

@@ -98,6 +98,20 @@ def test_plain_version_matches_pallas_and_oracle(G, ps):
         *args)), rtol=KERNEL_TOL, atol=KERNEL_TOL)
 
 
+@pytest.mark.parametrize("G", [1, 2])
+def test_plain_version_matches_pallas_and_oracle_at_head_dim_256(G):
+    """gemma3-12b's head_dim 256 (its G = 2), page size 8."""
+    Hkv = 2
+    q, kp, vp, table, lens = _kernel_inputs(4, 5, 8, G * Hkv, Hkv, 256,
+                                            seed=G)
+    got = _port_k2(q, kp, vp, table, lens)
+    args = [jnp.asarray(a) for a in (q, kp, vp, table, lens)]
+    pallas = np.asarray(ref_paged_flash_decode(*args))
+    np.testing.assert_allclose(got, pallas, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+    np.testing.assert_allclose(got, np.asarray(ref.paged_flash_decode_ref(
+        *args)), rtol=KERNEL_TOL, atol=KERNEL_TOL)
+
+
 def test_stale_entries_and_unread_pages_change_nothing():
     """Only the pages a slot's length reaches are read: rewriting every
     other page, and out-of-range stale ids past the length (clamped into
@@ -139,8 +153,9 @@ def _fake_cuda(shape, dtype):
     # passes the checks, then cannot build the kernel here
     (torch.bfloat16, 128, torch.int32, RuntimeError, "nvcc"),
     (torch.float32, 128, torch.int32, TypeError, "bfloat16"),   # bf16 only
-    (torch.bfloat16, 96, torch.int32, ValueError, "head_dim"),  # 64 / 128
+    (torch.bfloat16, 96, torch.int32, ValueError, "head_dim"),  # 64-256
     (torch.bfloat16, 128, torch.int64, ValueError, "int32"),    # i32 table
+    (torch.bfloat16, 256, torch.int32, RuntimeError, "nvcc"),   # gemma3
 ])
 def test_cuda_request_launches_or_raises_never_falls_back(
         monkeypatch, dtype, head_dim, table_dtype, error, match):
@@ -234,6 +249,21 @@ def test_partition_merge_matches_the_plain_version(MB, ps, parts, G):
                                atol=KERNEL_TOL)
 
 
+@pytest.mark.parametrize("MB,ps", [(50, 8), (256, 8)])
+def test_partition_merge_matches_the_plain_version_at_head_dim_256(MB, ps):
+    """gemma3-12b's head_dim 256 and G = 2 through the main path's
+    50-block tables and a 2048-row one, split as on a 132-SM card."""
+    Hkv, G = 2, 2
+    q, kp, vp, table, lens = (torch.from_numpy(a) for a in _kernel_inputs(
+        4, MB, ps, G * Hkv, Hkv, 256, seed=MB))
+    parts, part_pages = pfd.partitions(MB, ps, 4, Hkv, 132)
+    assert parts > 1
+    got = _partitioned_decode(q, kp, vp, table, lens, parts, part_pages)
+    want = pfd.paged_flash_decode_torch(q, kp, vp, table, lens)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=KERNEL_TOL,
+                               atol=KERNEL_TOL)
+
+
 def test_partition_count_depends_on_shapes_only():
     """The split is a function of the table's shape, the batch, the kv
     heads and the SM count -- ``lengths`` is not among its inputs, so
@@ -266,6 +296,16 @@ def test_launch_arguments_depend_on_shapes_only(monkeypatch, B, Hkv, MB):
     sized B * H * parts * (D + 2)) are the same for any lengths -- a
     long slot among short ones, or all of length 1 -- none is read back
     to the host, and one launch is counted a call."""
+    _check_launch_arguments(monkeypatch, B, Hkv, MB, 128)
+
+
+@pytest.mark.parametrize("B,Hkv,MB", [(8, 8, 50), (8, 8, 256)])
+def test_launch_arguments_at_head_dim_256(monkeypatch, B, Hkv, MB):
+    """The same at gemma3-12b's head_dim 256 over its 8 kv heads."""
+    _check_launch_arguments(monkeypatch, B, Hkv, MB, 256)
+
+
+def _check_launch_arguments(monkeypatch, B, Hkv, MB, D):
     calls = []
 
     def fake_kernel(*args):
@@ -277,7 +317,7 @@ def test_launch_arguments_depend_on_shapes_only(monkeypatch, B, Hkv, MB):
     monkeypatch.setattr(fd, "_num_sms", {torch.device("cpu"): 132})
     monkeypatch.setattr(fd, "_scratches", {})
     monkeypatch.setattr(pfd.paged_flash_decode, "launches", 0)
-    G, D, ps = 2, 128, 8
+    G, ps = 2, 8
     q, kp, vp, table, lens = (torch.from_numpy(a) for a in _kernel_inputs(
         B, MB, ps, G * Hkv, Hkv, D))
     q, kp, vp = q.bfloat16(), kp.bfloat16(), vp.bfloat16()
@@ -290,7 +330,7 @@ def test_launch_arguments_depend_on_shapes_only(monkeypatch, B, Hkv, MB):
     # the same but for the lengths (and the output, allocated anew)
     assert a[:4] == b[:4] and a[6:] == b[6:] and a[4] != b[4]
     parts, part_pages = pfd.partitions(MB, ps, B, Hkv, 132)
-    assert a[15:17] == (parts, part_pages)
+    assert a[14:17] == (D, parts, part_pages)
     if parts == 1:
         assert a[6] is None and a[7] is None
     else:

@@ -194,6 +194,25 @@ Phases, each on its own lines; any failure exits nonzero:
                2e-2 of max |logit|, and a float32 witness (the weights
                converted, K1 swapped for its plain version) within 1e-4
                at every step.
+16c. mla serve — multi-head latent attention, which reaches no kernel
+               (the reference's MLA has no kernel branch and does not
+               page): ``deepseek-v3-671b`` SMOKE in float32 on the card
+               against the host (naive and absorbed decode, training
+               and MTP logits, 1e-4 of max |logit|); then
+               ``minicpm3-4b`` FULL (62 layers, seeded bf16, not cut)
+               with the naive and the absorbed decode, and
+               ``deepseek-v3-671b`` at full width cut to its first 5 of
+               61 layers (3 dense, 2 MoE of 256 experts top-8 with a
+               shared one) with the naive decode, each through
+               ``Gateway.serve`` on the dense engine as in 16a: K1, K2
+               and K4 launched exactly 0 times, every request served,
+               the tokens repeating bit for bit, a decode chunk under
+               ``set_sync_debug_mode("error")``; decode step, prefill
+               and peak memory beside their bounds.  minicpm3's naive
+               and absorbed runs driven through prefill / decode: their
+               gaps in bf16, and in float32 within 2e-3 at every step.
+               deepseek's ``forward_train_loss`` on 2 x 512 tokens with
+               and without MTP: both finite, different.
 17. serve cli — ``repro_torch.launch.serve.main`` in this process,
                ``--backend continuous --variant full`` (qwen1.5-32b
                FULL, seeded bf16 weights, 8 slots, prompts of 192, 8 new
@@ -321,6 +340,20 @@ RING_LOGIT_RTOL = 2e-2  # of max |logit|: the same function, its float32
 #                         rounded to bf16 at every layer
 RING_F32_RTOL = 1e-4    # of max |logit|: the float32 witness, the same
 #                         sums in other orders, no bf16 rounding
+# the MLA phase: minicpm3-4b FULL (62 layers, 4.07 B params, 7.59 GiB in
+# bf16) is not cut and is served with the naive and the absorbed decode;
+# deepseek-v3-671b (61 layers, 671.7 B params, 1251 GiB) keeps its first
+# 5 layers, the 3 dense ones and 2 MoE layers of 256 experts (27.30 B,
+# 50.86 GiB), and is served with the naive decode, the reference's
+# default; then its training loss with and without MTP
+MLA_MODELS = (("minicpm3-4b", None, (False, True)),
+              ("deepseek-v3-671b", 5, (False,)))
+MTP_BATCH, MTP_SEQ = 2, 512
+MLA_F32_RTOL = 1e-4     # of max |logit|: float32 on the card and on the
+#                         host, the same sums in another order
+MLA_ABSORB_RTOL = 2e-3  # of max |logit|: absorbed vs naive in float32,
+#                         the reference's own tolerance for the pair
+#                         (tests/test_transformer.py)
 
 
 def say(*a) -> None:
@@ -1331,11 +1364,41 @@ def retrieval_kernel_phase() -> tuple:
     return [k3, k5], launches
 
 
+def _card_vs_host(model, host, card, **forward_kw) -> float:
+    """Prefill of 3 x 12 seeded tokens + 4 greedy decode steps of
+    ``model`` on the host (``host`` params) and on the card (``card``
+    params, the same values); the card replays the host's tokens so both
+    decode the same sequence.  Returns the largest max |dlogit| / max
+    |logit| over the steps."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(4, model.cfg.vocab_size,
+                                         size=(3, 12)))
+
+    def run(dev, params, feed=None):
+        cache = model.init_cache(3, 20, device=dev)
+        lg, _ = model.prefill(params, {"tokens": toks.to(dev)}, cache,
+                              **forward_kw)
+        out, fed = [lg.cpu()], []
+        for i in range(4):
+            nxt = (feed[i] if feed is not None
+                   else lg[:, -1].argmax(-1).to(torch.int32).cpu())
+            fed.append(nxt)
+            lg, _ = model.decode(params, {"tokens": nxt[:, None].to(dev)},
+                                 cache, **forward_kw)
+            out.append(lg.cpu())
+        return out, fed
+
+    host_logits, fed = run("cpu", host)
+    card_logits, _ = run("cuda", card, fed)
+    return max(((a - b).abs().max() / a.abs().max()).item()
+               for a, b in zip(host_logits, card_logits))
+
+
 def small_model_phase() -> None:
     """The SMOKE decoder in bf16, prefill + 4 decode steps, card (kernel)
     against host (plain attention) on the same weights and tokens."""
-    import numpy as np
-    import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.schema import tree_map
@@ -1343,28 +1406,7 @@ def small_model_phase() -> None:
     model = build_model(cfg)
     host = model.init(seed=0, device="cpu")
     card = tree_map(lambda t: t.cuda(), host)
-    rng = np.random.default_rng(0)
-    toks = torch.from_numpy(rng.integers(4, cfg.vocab_size, size=(3, 12)))
-
-    def run(dev, params, feed=None):
-        """Prefill + 4 greedy decode steps; ``feed`` replays the host's
-        tokens so both sides decode the same sequence."""
-        cache = model.init_cache(3, 20, device=dev)
-        lg, _ = model.prefill(params, {"tokens": toks.to(dev)}, cache)
-        out, fed = [lg.cpu()], []
-        for i in range(4):
-            nxt = (feed[i] if feed is not None
-                   else lg[:, -1].argmax(-1).to(torch.int32).cpu())
-            fed.append(nxt)
-            lg, _ = model.decode(params, {"tokens": nxt[:, None].to(dev)},
-                                 cache)
-            out.append(lg.cpu())
-        return out, fed
-
-    host_logits, fed = run("cpu", host)
-    card_logits, _ = run("cuda", card, fed)
-    worst = max(((a - b).abs().max() / a.abs().max()).item()
-                for a, b in zip(host_logits, card_logits))
+    worst = _card_vs_host(model, host, card)
     say(f"== small: SMOKE bf16 prefill + 4 decode steps, card vs host: "
         f"max |dlogit| / max |logit| = {worst:.3e} (tol 5e-2)")
     if not worst <= 5e-2:
@@ -1734,7 +1776,6 @@ def _drive(label, backend, index, qs, n_batches, card, n_layers,
     batch generated, no slot quarantined.  Returns the launch counts, the
     decode steps, the engine record and the gateways."""
     import torch
-    from repro_torch.models.schema import tree_leaves
     engine = backend.engine
     rec = _instrument(engine)
     served = []
@@ -1759,8 +1800,7 @@ def _drive(label, backend, index, qs, n_batches, card, n_layers,
     es = engine.stats
     steps = es.n_decode_steps
     step_ms = _step_ms(rec["chunks"], steps)
-    weight_bytes = sum(t.numel() * t.element_size()
-                       for t in tree_leaves(engine.params))
+    weight_bytes = _served_weight_bytes(engine.params)
     bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
     rec["step_ms"] = step_ms
     say(f"   engine: admitted {es.n_admitted}, completed {es.n_completed}, "
@@ -2933,102 +2973,70 @@ def mamba_train_phase(card: str) -> None:
 def _prefill_flops(cfg, B: int, S: int, every_expert: bool = False) -> int:
     """The operations one prefill of B prompts of S tokens needs on an
     attention stack: the weight products of every token (an MoE layer's
-    router and its top-k experts' products; with ``every_expert`` all E
-    experts', as the capacity form computes them), the causal attention
-    scores and values, and the unembedding of the last position."""
+    router, its shared experts' and its top-k experts' products; with
+    ``every_expert`` all E experts', as the capacity form computes them),
+    the causal attention scores and values, and the unembedding of the
+    last position.  An MLA layer's products are its query (through the
+    q-LoRA), latent, key / value expansion and output projections; its
+    scores span the nope and rope dims, its values v_head_dim."""
     T = B * S
     d, H, Hkv, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    attn = 2 * T * d * D * (2 * H + 2 * Hkv) + 4 * B * H * D * S * (S + 1) // 2
+    causal = S * (S + 1) // 2
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        qd, r, rq = (m.qk_nope_head_dim + m.qk_rope_head_dim,
+                     m.kv_lora_rank, m.q_lora_rank)
+        proj = ((d * rq + rq * H * qd) if rq else d * H * qd) \
+            + d * (r + m.qk_rope_head_dim) \
+            + r * H * (m.qk_nope_head_dim + m.v_head_dim) \
+            + H * m.v_head_dim * d
+        attn = 2 * T * proj + 2 * B * H * (qd + m.v_head_dim) * causal
+    else:
+        attn = 2 * T * d * D * (2 * H + 2 * Hkv) + 4 * B * H * D * causal
     ops = 2 * B * d * cfg.padded_vocab
     for i in range(cfg.n_layers):
         ops += attn
         if cfg.is_moe_layer(i):
             e = cfg.moe
             rows = T * (e.n_experts if every_expert else e.top_k)
-            ops += 2 * T * d * e.n_experts + 2 * rows * 3 * d * e.d_ff_expert
+            ops += (2 * T * d * e.n_experts
+                    + 2 * (rows + T * e.n_shared_experts) * 3 * d
+                    * e.d_ff_expert)
         else:
             ops += 2 * T * 3 * d * cfg.d_ff
     return ops
 
 
 def _kernel_layers(cfg) -> int:
-    """The layers whose decode takes K1 / K2: attention layers with no
-    window (the reference's gate; no served config sets a softcap)."""
+    """The layers whose decode takes K1 / K2: GQA attention layers with
+    no window (the reference's gate; no served config sets a softcap).
+    An MLA stack has none: the reference's MLA has no kernel branch."""
     from repro_torch.models.transformer import layer_structure
+    if cfg.attn_type == "mla":
+        return 0
     prefix, block, n_blocks = layer_structure(cfg)
     def count(sigs):
         return sum(s.kind == "A" and not s.window for s in sigs)
     return count(prefix) + n_blocks * count(block)
 
 
-def _serve_family(arch: str, layers, card: str, policy, data, index,
-                  phase: str = "moe/gqa serve") -> tuple:
-    """One model through ``Gateway.serve``: the dense engine (K1), for a
-    model with sliding-window layers also the dense engine with the ring
-    cache (``window_ring_cache=True``), then the paged engine (K2); see
-    :func:`moe_gqa_serve_phase`.  K1 / K2 launch once a decode step in
-    each layer the reference's gate lets through (no window).  Returns
-    the model, its params and the launches of K1 on the dense engine and
-    of K2 on the paged one."""
-    import statistics
-
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.data import HashTokenizer
-    from repro_torch.kernels.flash_decode import (flash_decode,
-                                                  flash_decode_torch)
-    from repro_torch.kernels.paged_flash_decode import paged_flash_decode
-    from repro_torch.models import build_model
-    from repro_torch.models import layers as model_layers
+def _served_weight_bytes(params) -> int:
+    """The bytes a decode step reads once at least: every weight but the
+    multi-token-prediction head's, a training head that serving never
+    runs (the capacity form of an MoE layer reads all its experts)."""
     from repro_torch.models.schema import tree_leaves
-    from repro_torch.routing import ContinuousEngineBackend
-    full = get_config(arch, "full")
-    cfg = full if layers is None else dataclasses.replace(full,
-                                                          n_layers=layers)
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(seed=0, device="cuda")
-    torch.cuda.synchronize()
-    moe = (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff "
-           f"{cfg.moe.d_ff_expert}" if cfg.moe else f", d_ff {cfg.d_ff}")
-    L = _kernel_layers(cfg)
-    window = (f", sliding window {cfg.sliding_window} on "
-              f"{cfg.n_layers - L} local layers ({''.join(cfg.attn_pattern)}"
-              f" repeated), {L} global" if cfg.sliding_window else "")
-    say(f"== {phase}: {cfg.name} ({cfg.source}), {cfg.n_layers} "
-        f"layers x d_model {cfg.d_model}, {cfg.n_heads} heads over "
-        f"{cfg.n_kv_heads} kv heads (G = {cfg.n_heads // cfg.n_kv_heads}), "
-        f"head_dim {cfg.head_dim}{moe}, vocab {cfg.vocab_size}, rope theta "
-        f"{cfg.rope_theta:g}{window}; {model.n_params() / 1e9:.2f} B params "
-        f"{cfg.dtype}, seeded init {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{card}]")
-    if layers is not None:
-        n_full = build_model(full).n_params()
-        say(f"   reduced: n_layers {full.n_layers} -> {layers} (FULL is "
-            f"{n_full / 1e9:.1f} B params, {n_full * 2 / 2**30:.0f} GiB in "
-            f"bf16, beyond one 80 GB card); every width as published")
-    else:
-        say("   reduced: nothing (FULL's own depth)")
-    counters = {"flash_decode": flash_decode,
-                "paged_flash_decode": paged_flash_decode}
-    qs = data.questions[-16:]
-    weight_bytes = sum(t.numel() * t.element_size()
-                       for t in tree_leaves(params))
+    return sum(t.numel() * t.element_size() for t in tree_leaves(
+        {k: v for k, v in params.items() if k != "mtp"}))
 
-    def backend_for(served_model=model, **engine_kw):
-        return ContinuousEngineBackend.create(
-            served_model, params, HashTokenizer(cfg.vocab_size), index,
-            num_slots=NUM_SLOTS, prefill_batch=PREFILL_BATCH,
-            max_prompt_len=MAX_PROMPT_LEN, max_new_tokens=MAX_NEW_TOKENS,
-            **engine_kw)
 
-    # -- dense slot cache: K1 -------------------------------------------
-    backend = backend_for()
-    label = f"{arch} dense"
-    dense = _drive(label, backend, index, qs, 2, card, L, counters, policy)
-    _check_launches(label, dense["launches"], "flash_decode",
-                    dense["steps"], L, absent=("paged_flash_decode",))
-    rec, ex = dense["rec"], backend.engine.executor
+def _say_step_and_prefill(label, rec, ex, cfg, params, card) -> float:
+    """Print the dense engine's decode step (median of the chunks'
+    per-step device time) beside its weight-read bound, and each
+    admission group's prefill (device time of prefill + commit) beside
+    its bound over the routed operations or the weights read once.
+    Returns the decode bound in ms."""
+    import statistics
+    weight_bytes = _served_weight_bytes(params)
     per_step = [s_.elapsed_time(e) / ex.sync_every for s_, e in rec["chunks"]]
     step_ms = statistics.median(per_step)
     bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
@@ -3052,7 +3060,15 @@ def _serve_family(arch: str, layers, card: str, policy, data, index,
             f"989 TFLOP/s, or the weights read once); the capacity form "
             f"computes {done / 1e12:.2f} TFLOP = {done / need:.2f} x the "
             f"routed [{card}]")
-    # the same 8 requests again: the greedy tokens repeat bit for bit
+    return bound_ms
+
+
+def _check_repeat(label, dense, qs) -> dict:
+    """Serve the FixedPolicy(0) batch of a :func:`_drive` run again: its
+    greedy tokens must repeat bit for bit.  Returns the first run's
+    tokens by prompt (the record then holds the repeat's)."""
+    import torch
+    rec = dense["rec"]
     first = dict(rec["tokens"])
     rec["tokens"].clear()
     dense["gateways"][0][1].serve(_requests(qs, 0))
@@ -3065,8 +3081,13 @@ def _serve_family(arch: str, layers, card: str, policy, data, index,
     if len(again) != 8 or same != len(again):
         raise AssertionError(f"[{label}] the greedy tokens of a repeated "
                              f"batch differ: {same} of {len(again)} equal")
-    # a decode chunk on the card synchronises with the host nowhere (the
-    # MoE group sizes stay on the device)
+    return first
+
+
+def _check_no_sync(ex, what: str) -> None:
+    """One more decode chunk of executor ``ex`` under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host sync raises."""
+    import torch
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -3074,8 +3095,100 @@ def _serve_family(arch: str, layers, card: str, policy, data, index,
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    say(f"   decode chunk under torch.cuda.set_sync_debug_mode('error'): "
-        f"no host sync")
+    say(f"   {what} under torch.cuda.set_sync_debug_mode('error'): no host "
+        f"sync")
+
+
+def _build_family(arch: str, layers, card: str, phase: str) -> tuple:
+    """``arch``'s FULL config, its depth cut to ``layers`` (None: not
+    cut), built with seeded weights on the card; prints its widths and
+    its cut.  Returns (cfg, model, params)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    full = get_config(arch, "full")
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    moe = (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff "
+           f"{cfg.moe.d_ff_expert} ({cfg.moe.n_shared_experts} shared, the "
+           f"first {cfg.moe.first_k_dense} layers dense of d_ff {cfg.d_ff})"
+           if cfg.moe else f", d_ff {cfg.d_ff}")
+    L = _kernel_layers(cfg)
+    window = (f", sliding window {cfg.sliding_window} on "
+              f"{cfg.n_layers - L} local layers ({''.join(cfg.attn_pattern)}"
+              f" repeated), {L} global" if cfg.sliding_window else "")
+    m = cfg.mla
+    mla = (f", MLA (kv_lora_rank {m.kv_lora_rank}, q_lora_rank "
+           f"{m.q_lora_rank}, qk_nope {m.qk_nope_head_dim} + qk_rope "
+           f"{m.qk_rope_head_dim}, v {m.v_head_dim})" if m else "")
+    mtp = f", MTP depth {cfg.mtp_depth}" if cfg.mtp_depth else ""
+    say(f"== {phase}: {cfg.name} ({cfg.source}), {cfg.n_layers} "
+        f"layers x d_model {cfg.d_model}, {cfg.n_heads} heads over "
+        f"{cfg.n_kv_heads} kv heads (G = {cfg.n_heads // cfg.n_kv_heads}), "
+        f"head_dim {cfg.head_dim}{mla}{moe}{mtp}, vocab {cfg.vocab_size}, "
+        f"rope theta {cfg.rope_theta:g}{window}; "
+        f"{model.n_params() / 1e9:.2f} B params {cfg.dtype}, seeded init "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{card}]")
+    if layers is not None:
+        n_full = build_model(full).n_params()
+        say(f"   reduced: n_layers {full.n_layers} -> {layers} (FULL is "
+            f"{n_full / 1e9:.1f} B params, {n_full * 2 / 2**30:.0f} GiB in "
+            f"bf16, beyond one 80 GB card); every width as published")
+    else:
+        say("   reduced: nothing (FULL's own depth)")
+    return cfg, model, params
+
+
+def _serve_family(arch: str, layers, card: str, policy, data, index,
+                  phase: str = "moe/gqa serve") -> tuple:
+    """One model through ``Gateway.serve``: the dense engine (K1), for a
+    model with sliding-window layers also the dense engine with the ring
+    cache (``window_ring_cache=True``), then the paged engine (K2); see
+    :func:`moe_gqa_serve_phase`.  K1 / K2 launch once a decode step in
+    each layer the reference's gate lets through (no window).  Returns
+    the model, its params and the launches of K1 on the dense engine and
+    of K2 on the paged one."""
+    import statistics
+
+    import torch
+    from repro_torch.data import HashTokenizer
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_torch)
+    from repro_torch.kernels.paged_flash_decode import paged_flash_decode
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as model_layers
+    from repro_torch.models.schema import tree_leaves
+    from repro_torch.routing import ContinuousEngineBackend
+    cfg, model, params = _build_family(arch, layers, card, phase)
+    L = _kernel_layers(cfg)
+    counters = {"flash_decode": flash_decode,
+                "paged_flash_decode": paged_flash_decode}
+    qs = data.questions[-16:]
+
+    def backend_for(served_model=model, **engine_kw):
+        return ContinuousEngineBackend.create(
+            served_model, params, HashTokenizer(cfg.vocab_size), index,
+            num_slots=NUM_SLOTS, prefill_batch=PREFILL_BATCH,
+            max_prompt_len=MAX_PROMPT_LEN, max_new_tokens=MAX_NEW_TOKENS,
+            **engine_kw)
+
+    # -- dense slot cache: K1 -------------------------------------------
+    backend = backend_for()
+    label = f"{arch} dense"
+    dense = _drive(label, backend, index, qs, 2, card, L, counters, policy)
+    _check_launches(label, dense["launches"], "flash_decode",
+                    dense["steps"], L, absent=("paged_flash_decode",))
+    rec, ex = dense["rec"], backend.engine.executor
+    bound_ms = _say_step_and_prefill(label, rec, ex, cfg, params, card)
+    first = _check_repeat(label, dense, qs)
+    # a decode chunk on the card synchronises with the host nowhere (the
+    # MoE group sizes stay on the device)
+    _check_no_sync(ex, "decode chunk")
     # a witness for the dense-vs-paged agreement below: the same batch
     # with K1 swapped for its plain version (float32 throughout)
     rec["tokens"].clear()
@@ -3118,15 +3231,7 @@ def _serve_family(arch: str, layers, card: str, policy, data, index,
             f"ms); cache rows a layer {spans} (ring = min(max_len, "
             f"window)); {agree} of {total} greedy tokens agree with the "
             f"full cache's over {len(common)} common prompts [{card}]")
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            ex.decode_chunk()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        say("   ring decode chunk under torch.cuda.set_sync_debug_mode("
-            "'error'): no host sync")
+        _check_no_sync(ex, "ring decode chunk")
         del ring, backend, ex, ring_model
     _free_gpu_memory(f"{arch} paged")
 
@@ -3213,6 +3318,223 @@ def gemma3_serve_phase(card: str, policy) -> dict:
     return launches
 
 
+def mla_smoke_check(card: str) -> None:
+    """``deepseek-v3-671b`` SMOKE (MLA with the q-LoRA, a dense first
+    layer, MoE with a shared expert, MTP) in float32 on the card against
+    the host, on the same weights and tokens: prefill + 4 greedy decode
+    steps with the naive and the absorbed decode, and the training
+    forward's logits and MTP logits, each within MLA_F32_RTOL of max
+    |logit|."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.schema import tree_map
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b", "smoke"),
+                              dtype="float32")
+    model = build_model(cfg)
+    host = model.init(seed=0, device="cpu")
+    on_card = tree_map(lambda t: t.cuda(), host)
+    worst = {f"decode {'absorbed' if a else 'naive'}": _card_vs_host(
+        model, host, on_card, mla_absorb=a) for a in (False, True)}
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        4, cfg.vocab_size, size=(2, 16)))
+    want = model.train_logits(host, {"tokens": toks})
+    got = model.train_logits(on_card, {"tokens": toks.cuda()})
+    for name, w, g in (("train logits", want[0], got[0]),
+                       ("MTP logits", want[1]["mtp_logits"],
+                        got[1]["mtp_logits"])):
+        worst[name] = ((w - g.cpu()).abs().max() / w.abs().max()).item()
+    say(f"== mla smoke: {cfg.name} float32, card vs host, max |dlogit| / "
+        f"max |logit|: {', '.join(f'{k} {v:.3e}' for k, v in worst.items())}"
+        f" (tol {MLA_F32_RTOL:g}) [{card}]")
+    bad = {k: v for k, v in worst.items() if not v <= MLA_F32_RTOL}
+    if bad:
+        raise AssertionError(f"[mla smoke] the card disagrees with the "
+                             f"host: {bad}")
+
+
+def _greedy_steps(model, params, logits, cache, n: int, feed,
+                  **forward_kw) -> tuple:
+    """``n`` decode steps after a prefill whose last logits (float32
+    (B, V)) and cache are given, fed ``feed`` (or, when None, this run's
+    greedy tokens).  Returns (the logits of every step, the prefill's
+    first, float32 (B, V) each, the tokens fed, the cache)."""
+    import torch
+    steps, tokens = [logits], ([] if feed is None else feed)
+    for t in range(n):
+        if feed is None:
+            tokens.append(steps[-1].argmax(-1).to(torch.int32))
+        logits, cache = model.decode(params, {"tokens": tokens[t][:, None]},
+                                     cache, **forward_kw)
+        steps.append(logits[:, -1].float())
+    return steps, tokens, cache
+
+
+def _mla_run(model, params, prompts, feed, absorb: bool) -> tuple:
+    """``prompts`` (NUM_SLOTS of MAX_PROMPT_LEN tokens) prefilled
+    together, then MAX_NEW_TOKENS ``_greedy_steps`` with the naive or the
+    absorbed MLA.  Returns (the logits of every step, the tokens fed)."""
+    import numpy as np
+    import torch
+    with torch.no_grad():
+        cache = model.init_cache(len(prompts), MAX_PROMPT_LEN
+                                 + MAX_NEW_TOKENS, device="cuda")
+        toks = torch.as_tensor(np.stack(prompts), device=cache["pos"].device)
+        logits, cache = model.prefill(params, {"tokens": toks}, cache,
+                                      mla_absorb=absorb)
+        steps, tokens, _ = _greedy_steps(model, params,
+                                         logits[:, -1].float(), cache,
+                                         MAX_NEW_TOKENS, feed,
+                                         mla_absorb=absorb)
+    torch.cuda.synchronize()
+    return steps, tokens
+
+
+def mla_absorb_witness(card: str, cfg, params) -> None:
+    """The naive and the absorbed MLA on the served model's weights,
+    driven through ``prefill`` / ``decode``: NUM_SLOTS seeded prompts of
+    MAX_PROMPT_LEN, MAX_NEW_TOKENS greedy steps, both fed the naive
+    run's tokens.  In bf16 each step's max |logit difference| and the
+    greedy tokens the two share are printed; then the witness, the same
+    weights in float32 (the bf16 params converted in place): every step
+    within ``MLA_ABSORB_RTOL`` of max |logit|, so what the bf16 runs
+    show is rounding and not two functions."""
+    import numpy as np
+    from repro_torch.models import build_model
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(4, cfg.vocab_size, size=MAX_PROMPT_LEN)
+               for _ in range(NUM_SLOTS)]
+    for dtype, held in (("bfloat16", 0), ("float32", MAX_NEW_TOKENS + 1)):
+        if dtype == "float32":
+            _to_float32(params)
+        model = build_model(dataclasses.replace(cfg, dtype=dtype))
+        t0 = time.perf_counter()
+        naive, feed = _mla_run(model, params, prompts, None, False)
+        absorbed, _ = _mla_run(model, params, prompts, feed, True)
+        say(f"   absorb witness [{cfg.name}, {dtype}]: {NUM_SLOTS} prompts "
+            f"of {MAX_PROMPT_LEN}, {MAX_NEW_TOKENS} steps each way, "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+        _long_gaps(dtype, naive, absorbed, held, MLA_ABSORB_RTOL,
+                   case="absorb witness", names=("naive", "absorbed"))
+
+
+def _mtp_loss_check(cfg, params, card: str, counters) -> None:
+    """``forward_train_loss`` without autograd on MTP_BATCH x MTP_SEQ
+    seeded tokens (labels the next token), with the config's MTP head and
+    with ``mtp_depth=0``: both losses finite, and different; no kernel
+    launched (the MLA layers take none)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        4, cfg.vocab_size, size=(MTP_BATCH, MTP_SEQ))).cuda()
+    labels = torch.full_like(toks, -1)
+    labels[:, :-1] = toks[:, 1:]
+    batch = {"tokens": toks, "labels": labels}
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    losses = {}
+    with torch.no_grad():
+        for depth in (cfg.mtp_depth, 0):
+            s_ = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s_.record()
+            loss = T.forward_train_loss(
+                params, dataclasses.replace(cfg, mtp_depth=depth), batch)
+            e.record()
+            torch.cuda.synchronize()
+            losses[depth] = (float(loss), s_.elapsed_time(e))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    (l_mtp, ms_mtp), (l_no, ms_no) = losses[cfg.mtp_depth], losses[0]
+    say(f"   mtp loss [{cfg.name}]: forward_train_loss on {MTP_BATCH} x "
+        f"{MTP_SEQ} tokens, no autograd: {l_mtp:.6f} with MTP depth "
+        f"{cfg.mtp_depth} ({ms_mtp:.2f} ms), {l_no:.6f} without "
+        f"({ms_no:.2f} ms); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{launches} [{card}]")
+    if not (np.isfinite(l_mtp) and np.isfinite(l_no)) or l_mtp == l_no:
+        raise AssertionError(f"[mtp loss] losses {l_mtp} (MTP) and {l_no} "
+                             f"(none) must be finite and differ")
+    if any(launches.values()):
+        raise AssertionError(f"[mtp loss] kernels launched: {launches}")
+
+
+def mla_serve_phase(card: str, policy) -> None:
+    """Multi-head latent attention at its published widths through
+    ``Gateway.serve`` on the dense slot engine (the paged pool refuses
+    MLA, as the reference's does): ``minicpm3-4b`` FULL (not cut) with
+    the naive decode (``mla_absorb=False``, the reference's default) and
+    the absorbed one, then ``deepseek-v3-671b`` cut to its first 5
+    layers (3 dense, 2 MoE of 256 experts) with the naive decode and its
+    training loss with and without MTP; seeded bf16 weights, each model
+    after the previous one's memory is freed.  First
+    :func:`mla_smoke_check`.  Each engine at the main path's settings (8
+    slots, prefill batch 4, prompts of 384, 8 new tokens): 8 requests
+    under ``FixedPolicy(0)``, 8 routed by ``policy``, every launch count
+    0 just before and read just after.  Checks every request served, K1,
+    K2 and K4 launched exactly 0 times (the reference's MLA has no
+    kernel branch), the greedy tokens repeating bit for bit when the
+    first batch is served again, and a decode chunk running with no host
+    sync; prints the decode step beside its weight-read bound, each
+    admission group's prefill beside its bound, peak memory, and how
+    many greedy tokens the naive and absorbed runs share."""
+    import torch
+    from repro_torch.data import HashTokenizer, SyntheticSquad
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.paged_flash_decode import paged_flash_decode
+    from repro_torch.retrieval import BM25Index
+    from repro_torch.routing import ContinuousEngineBackend
+    t0 = time.perf_counter()
+    mla_smoke_check(card)
+    data = SyntheticSquad(n_paragraphs=600, n_questions=1000, seed=0)
+    index = BM25Index.build([p.text for p in data.paragraphs])
+    qs = data.questions[-16:]
+    counters = {"flash_decode": flash_decode,
+                "paged_flash_decode": paged_flash_decode,
+                "flash_attention": flash_attention}
+    for arch, layers, modes in MLA_MODELS:
+        _free_gpu_memory(f"{arch} dense")
+        cfg, model, params = _build_family(arch, layers, card, "mla serve")
+        tokens = {}
+        for absorb in modes:
+            label = f"{arch} dense {'absorbed' if absorb else 'naive'}"
+            backend = ContinuousEngineBackend.create(
+                model, params, HashTokenizer(cfg.vocab_size), index,
+                num_slots=NUM_SLOTS, prefill_batch=PREFILL_BATCH,
+                max_prompt_len=MAX_PROMPT_LEN, max_new_tokens=MAX_NEW_TOKENS,
+                mla_absorb=absorb)
+            dense = _drive(label, backend, index, qs, 2, card, 0, counters,
+                           policy)
+            if dense["steps"] == 0 or any(dense["launches"].values()):
+                raise AssertionError(f"[{label}] kernels launched "
+                                     f"{dense['launches']} over "
+                                     f"{dense['steps']} decode steps: MLA "
+                                     f"takes none")
+            ex = backend.engine.executor
+            _say_step_and_prefill(label, dense["rec"], ex, cfg, params, card)
+            tokens[absorb] = _check_repeat(label, dense, qs)
+            _check_no_sync(ex, "decode chunk")
+            del dense, backend, ex
+            gc.collect()
+        if len(tokens) == 2:
+            naive, absorbed = tokens[False], tokens[True]
+            common = [k for k in naive if k in absorbed]
+            agree = sum(a == b for k in common
+                        for a, b in zip(naive[k], absorbed[k]))
+            total = sum(min(len(naive[k]), len(absorbed[k]))
+                        for k in common)
+            say(f"   naive vs absorbed [{arch}]: {agree} of {total} greedy "
+                f"tokens agree over {len(common)} common prompts (bf16 "
+                f"weights; the absorbed attention runs in float32)")
+            mla_absorb_witness(card, cfg, params)
+        if cfg.mtp_depth:
+            _mtp_loss_check(cfg, params, card, counters)
+        del model, params
+    say(f"== mla serve: {time.perf_counter() - t0:.1f} s")
+
+
 def _prefill_rows(model, params, prompts, max_len: int) -> tuple:
     """Each prompt prefilled alone into a one-row cache and its rows
     copied into slot i of a cache of len(prompts) slots, as the
@@ -3239,9 +3561,8 @@ def _prefill_rows(model, params, prompts, max_len: int) -> tuple:
 
 def _long_run(card, label, model, params, prompts, feed) -> tuple:
     """One cache of the long case: prefill ``prompts`` into their slots,
-    then ``LONG_STEPS`` decode steps fed ``feed`` (or, when None, the
-    greedy tokens of this run).  Returns (the logits of every step,
-    float32 (B, V) each, and the tokens fed)."""
+    then ``LONG_STEPS`` ``_greedy_steps``.  Returns (the logits of every
+    step, float32 (B, V) each, the tokens fed, K1's launches)."""
     import torch
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.models.schema import tree_leaves
@@ -3249,15 +3570,9 @@ def _long_run(card, label, model, params, prompts, feed) -> tuple:
     t0 = time.perf_counter()
     with torch.no_grad():
         logits, cache = _prefill_rows(model, params, prompts, LONG_MAX_LEN)
-        steps, tokens = [logits], ([] if feed is None else feed)
         flash_decode.launches = 0
-        for t in range(LONG_STEPS):
-            if feed is None:
-                tokens.append(steps[-1].argmax(-1).to(torch.int32))
-            logits, cache = model.decode(params,
-                                         {"tokens": tokens[t][:, None]},
-                                         cache)
-            steps.append(logits[:, -1].float())
+        steps, tokens, cache = _greedy_steps(model, params, logits, cache,
+                                             LONG_STEPS, feed)
     torch.cuda.synchronize()
     launches = flash_decode.launches
     gib = sum(t.numel() * t.element_size()
@@ -3274,21 +3589,23 @@ def _long_run(card, label, model, params, prompts, feed) -> tuple:
     return steps, tokens, launches
 
 
-def _long_gaps(label, full, ring, held: int, rtol: float) -> None:
-    """Prints each step's max |logit full - ring| and the greedy tokens
-    the two agree on; the first ``held`` steps must agree within ``rtol``
-    of max |logit|."""
+def _long_gaps(label, full, ring, held: int, rtol: float,
+               case: str = "long case", names=("full", "ring")) -> None:
+    """Prints each step's max |logit a - b| (``names``: the two runs)
+    and the greedy tokens the two agree on; the first ``held`` steps
+    must agree within ``rtol`` of max |logit|."""
+    a, b = names
     for i, (f, r) in enumerate(zip(full, ring)):
         gap = (f - r).abs().max().item()
         scale = f.abs().max().item()
         agree = int((f.argmax(-1) == r.argmax(-1)).sum())
-        say(f"   long case [{label}] step {i} "
-            f"({'prefill' if i == 0 else 'decode'}): max |logit full - "
-            f"ring| {gap:.4e} of max |logit| {scale:.4e} ({gap / scale:.2e})"
+        say(f"   {case} [{label}] step {i} "
+            f"({'prefill' if i == 0 else 'decode'}): max |logit {a} - "
+            f"{b}| {gap:.4e} of max |logit| {scale:.4e} ({gap / scale:.2e})"
             f"; greedy tokens agree in {agree} of {NUM_SLOTS}")
         if i < held and not gap <= rtol * scale:
-            raise AssertionError(f"[long case {label}] step {i}: full and "
-                                 f"ring logits differ by {gap} > {rtol} x "
+            raise AssertionError(f"[{case} {label}] step {i}: {a} and {b} "
+                                 f"logits differ by {gap} > {rtol} x "
                                  f"{scale}")
 
 
@@ -3894,6 +4211,7 @@ def main() -> None:
     mamba_train_phase(card)
     moe_gqa_serve_phase(card, router)
     gemma_launches = gemma3_serve_phase(card, router)
+    mla_serve_phase(card, router)
     _free_gpu_memory("serve cli")
     serve_cli_phase(card)
     # the paper's benches run beside the training CLI, after every timed

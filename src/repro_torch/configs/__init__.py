@@ -3,8 +3,10 @@
 Each module exposes ``FULL`` (the exact assigned configuration, cited)
 and ``SMOKE`` (a reduced same-family variant for the CPU tests).  The
 dense-GQA, mixture-of-experts, Mamba2, Jamba (Mamba + attention +
-MoE) and Gemma3 (sliding-window) families are ported so far; the other families of the reference
-registry arrive with their layers.
+MoE), Gemma3 (sliding-window) and multi-head latent attention (MiniCPM3,
+DeepSeek-V3 with MoE and multi-token prediction) families are ported so
+far; the other families of the reference registry arrive with their
+layers.
 """
 from __future__ import annotations
 
@@ -14,11 +16,10 @@ from typing import Dict, List
 from repro_torch.core.config import ModelConfig
 
 ARCH_IDS: List[str] = ["qwen1.5-32b", "mamba2-130m", "command-r-35b",
-                       "dbrx-132b", "jamba-1.5-large-398b", "gemma3-12b"]
+                       "dbrx-132b", "jamba-1.5-large-398b", "gemma3-12b",
+                       "minicpm3-4b", "deepseek-v3-671b"]
 # the reference's other architectures, which arrive with their layers
-UNPORTED_ARCH_IDS: List[str] = [
-    "minicpm3-4b", "whisper-large-v3", "phi-3-vision-4.2b",
-    "deepseek-v3-671b"]
+UNPORTED_ARCH_IDS: List[str] = ["whisper-large-v3", "phi-3-vision-4.2b"]
 
 _MODULES: Dict[str, str] = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

@@ -5,14 +5,25 @@ An own copy of the reference's ``core/config.py``: the model-zoo
 (:class:`RouterConfig`, :class:`SLOProfile`, :class:`RetrievalConfig`,
 :class:`TestbedConfig`).  Field names and defaults are identical, so a
 config printed by either package reads the same.  The port serves
-dense GQA decoders, mixture-of-experts layers (:class:`MoEConfig`) and
-the Mamba2 family (:class:`SSMConfig`); the MLA sub-config is not
-ported yet, and that field stays ``None``.
+dense GQA decoders, multi-head latent attention (:class:`MLAConfig`),
+mixture-of-experts layers (:class:`MoEConfig`) and the Mamba2 family
+(:class:`SSMConfig`).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2/V3, MiniCPM3)."""
+
+    kv_lora_rank: int = 512          # latent dim c_KV
+    q_lora_rank: int = 0             # 0 = no q compression
+    qk_nope_head_dim: int = 128      # non-rope portion of q/k head
+    qk_rope_head_dim: int = 64       # decoupled rope portion
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -84,7 +95,7 @@ class ModelConfig:
     # repeated; empty → homogeneous per arch_type
     layer_pattern: Tuple[str, ...] = ()
 
-    mla: Optional[Any] = None
+    mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
 

@@ -1,4 +1,4 @@
-"""Core layer primitives: norms, rope, GQA attention, MLP.
+"""Core layer primitives: norms, rope, GQA attention, MLA, MLP.
 
 Plain functions over explicit parameter dicts, mirroring the reference's
 ``models/layers.py`` leaf for leaf.  The GQA path is ported with every
@@ -20,6 +20,10 @@ The no-cache branch takes :func:`repro_torch.kernels.flash_attention.
 flash_attention` under the reference's condition
 (``cfg.use_pallas_attention``, causal, no window or softcap, Sq == Skv,
 Sq % 128 == 0); it has no gradient, as the reference's kernel has none.
+
+Multi-head latent attention (:func:`mla_apply`) reaches no kernel, as in
+the reference: its naive decode runs the plain :func:`attention`, its
+absorbed decode plain float32 products.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.core.config import ModelConfig
+from repro_torch.core.config import MLAConfig, ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.paged_flash_decode import paged_flash_decode
@@ -364,6 +368,132 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
     wo = p["wo"]
     out = out.reshape(B, S, H * Dh) @ wo.reshape(H * Dh, wo.shape[-1])
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention): DeepSeek-V2/V3, MiniCPM3
+# ---------------------------------------------------------------------------
+
+
+def mla_schema(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, H = cfg.d_model, cfg.n_heads
+    m: MLAConfig = cfg.mla
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    s = {}
+    if m.q_lora_rank:
+        s["wq_a"] = ParamSpec((d, m.q_lora_rank), ("d_model", ""))
+        s["q_norm"] = ParamSpec((m.q_lora_rank,), ("",), init="ones")
+        s["wq_b"] = ParamSpec((m.q_lora_rank, H, qd), ("", "heads", "head_dim"))
+    else:
+        s["wq_b"] = ParamSpec((d, H, qd), ("d_model", "heads", "head_dim"))
+    s["wkv_a"] = ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                           ("d_model", ""))
+    s["kv_norm"] = ParamSpec((m.kv_lora_rank,), ("",), init="ones")
+    s["wk_b"] = ParamSpec((m.kv_lora_rank, H, m.qk_nope_head_dim),
+                          ("", "heads", "head_dim"))
+    s["wv_b"] = ParamSpec((m.kv_lora_rank, H, m.v_head_dim),
+                          ("", "heads", "head_dim"))
+    s["wo"] = ParamSpec((H, m.v_head_dim, d), ("heads", "head_dim", "d_model"))
+    return s
+
+
+def mla_apply(p, x, cfg: ModelConfig, *, positions, cache=None, causal=True,
+              absorb: bool = False):
+    """MLA forward.  x: (B, S, d), positions: (B, S).  The cache holds
+    the *compressed* pair: ``c_kv`` (B, L, kv_lora_rank) and ``k_rope``
+    (B, L, qk_rope_head_dim), written IN PLACE; returns (out, cache).
+
+    * Prefill (S > 1) writes rows ``[0, S)``, as the reference's
+      ``dynamic_update_slice`` at (0, 0, 0) does (MLA does not page, so
+      no suffix prefill starts past 0), and attends over the cache with
+      the causal mask and ``kv_len = positions[:, -1] + 1``.
+    * Decode (S == 1) writes each row at its own position.
+
+    ``absorb=False`` (the reference's default) expands the latent into
+    per-head keys and values through ``wk_b`` / ``wv_b`` and runs the
+    plain :func:`attention`; ``absorb=True`` folds ``wk_b`` into the
+    queries and ``wv_b`` into the output and attends in the latent
+    space, in float32 throughout as the reference computes it.  Neither
+    reaches a kernel: the reference's MLA has no kernel branch.
+    """
+    B, S, d = x.shape
+    m: MLAConfig = cfg.mla
+    dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
+
+    # --- queries
+    if m.q_lora_rank:
+        cq = rmsnorm(p["q_norm"], x @ p["wq_a"], cfg.norm_eps)
+        q = _proj_heads(cq, p["wq_b"])
+    else:
+        q = _proj_heads(x, p["wq_b"])
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    # --- compressed kv; the rope part is one head shared by all H
+    ckv_full = x @ p["wkv_a"]
+    c_kv = rmsnorm(p["kv_norm"], ckv_full[..., :m.kv_lora_rank],
+                   cfg.norm_eps)
+    k_rope = apply_rope(ckv_full[..., m.kv_lora_rank:][:, :, None, :],
+                        positions, cfg.rope_theta)[:, :, 0]
+
+    if cache is not None:
+        cc, cr = cache["c_kv"], cache["k_rope"]
+        if S == 1:
+            # leaves (B, L, r) and (B, L, dr): the GQA step write serves
+            # them, and drops a held position at L as the reference's
+            # out-of-bounds scatter does (torch indexing would raise)
+            _write_step(cc, c_kv[:, 0], positions[:, 0])
+            _write_step(cr, k_rope[:, 0], positions[:, 0])
+        else:
+            cc[:, :S] = c_kv.to(cc.dtype)
+            cr[:, :S] = k_rope.to(cr.dtype)
+        kv_src, kr_src, kv_len = cc, cr, positions[:, -1] + 1
+    else:
+        kv_src, kr_src, kv_len = c_kv, k_rope, None
+
+    if absorb:
+        out = _mla_absorbed(p, q_nope, q_rope, kv_src, kr_src, positions,
+                            kv_len, causal, 1.0 / math.sqrt(dn + dr))
+        out = out.to(x.dtype)
+    else:
+        # naive: expand the latent into per-head k/v, then plain MHA
+        # (its 1 / sqrt(dn + dr) scale is the query's own width)
+        Skv, H = kv_src.shape[1], q.shape[2]
+        k_nope = _proj_heads(kv_src, p["wk_b"])
+        v = _proj_heads(kv_src, p["wv_b"])
+        k = torch.cat([k_nope, kr_src[:, :, None, :].expand(
+            B, Skv, H, dr).to(k_nope.dtype)], dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        out = attention(qq, k, v, q_pos=positions, kv_len=kv_len,
+                        causal=causal)
+    H, dv = out.shape[-2:]
+    wo = p["wo"]
+    out = out.reshape(B, S, H * dv) @ wo.reshape(H * dv, wo.shape[-1])
+    return out, cache
+
+
+def _mla_absorbed(p, q_nope, q_rope, kv_src, kr_src, positions, kv_len,
+                  causal, scale):
+    """Latent-space attention, float32: scores against the latent rows
+    through ``wk_b`` folded into the queries, the latent output through
+    ``wv_b``.  Returns (B, S, H, dv) float32."""
+    f = torch.float32
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope.to(f), p["wk_b"].to(f))
+    kv = kv_src.to(f)
+    scores = (torch.einsum("bshr,btr->bhst", q_lat, kv)
+              + torch.einsum("bshk,btk->bhst", q_rope.to(f),
+                             kr_src.to(f))) * scale
+    S, Skv = scores.shape[-2:]
+    kv_pos = torch.arange(Skv, dtype=torch.int32, device=kv.device)
+    mask = torch.ones((S, Skv), dtype=torch.bool, device=kv.device)[None]
+    if causal:
+        mask = mask & (kv_pos[None, None, :] <= positions[:, :, None])
+    if kv_len is not None:
+        mask = mask & (kv_pos[None, None, :] < kv_len[:, None, None])
+    scores = scores.masked_fill(~mask[:, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", probs, kv)
+    return torch.einsum("bshr,rhv->bshv", o_lat, p["wv_b"].to(f))
 
 
 # ---------------------------------------------------------------------------

@@ -48,11 +48,13 @@ class Model:
     def train_logits(self, params, inputs):
         return T.forward_train(params, self.cfg, inputs)
 
-    def prefill(self, params, inputs, cache):
-        return T.forward_prefill(params, self.cfg, inputs, cache)
+    def prefill(self, params, inputs, cache, *, mla_absorb=False):
+        return T.forward_prefill(params, self.cfg, inputs, cache,
+                                 mla_absorb=mla_absorb)
 
-    def decode(self, params, inputs, cache):
-        return T.forward_decode(params, self.cfg, inputs, cache)
+    def decode(self, params, inputs, cache, *, mla_absorb=False):
+        return T.forward_decode(params, self.cfg, inputs, cache,
+                                mla_absorb=mla_absorb)
 
 
 def build_model(cfg: ModelConfig) -> Model:

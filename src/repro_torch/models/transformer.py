@@ -1,5 +1,5 @@
-"""Decoder assembly for the dense GQA, mixture-of-experts and Mamba2
-families.
+"""Decoder assembly for the dense GQA, multi-head latent attention,
+mixture-of-experts and Mamba2 families.
 
 Mirrors the reference's ``models/transformer.py``: layers are grouped
 into an optional unrolled prefix followed by ``n_blocks`` repeats of a
@@ -15,6 +15,10 @@ global ones, with the reference's ring cache under
 ``window_ring_cache`` and its logit softcap), with the dense slot cache
 or the paged pool, each in the config's dtype or int8
 (``kv_quant_int8``; a ring layer keeps the config's dtype);
+multi-head latent attention (``attn_type="mla"``: the ``minicpm3-4b``
+and ``deepseek-v3-671b`` families) with its compressed dense slot cache
+(``c_kv``, ``k_rope``; never paged or quantized, as in the reference) and
+the reference's naive and absorbed (``mla_absorb``) decode;
 mixture-of-experts FFNs (``cfg.moe``: :mod:`repro_torch.models.moe`,
 the ``dbrx-132b`` family) with the reference's ``first_k_dense`` prefix
 and ``moe_period``; Mamba2 stacks (``"M"`` layers, the ``mamba2-130m``
@@ -23,9 +27,12 @@ and MoE (``jamba-1.5-large-398b``) with the dense slot cache of conv
 tails and SSM states (the paged pool raises for them, as the
 reference's does); and the no-cache training forward with its losses
 for all of them, the MoE load-balance loss summed over the layers as
-the reference sums it.  Any other family or attention variant (MLA,
-encoder-decoder, modality frontends, multi-token prediction) raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.  The
+the reference sums it, and DeepSeek-V3's multi-token prediction
+(``mtp_depth``: one extra dense layer on the final stream and the next
+token's embedding, its logits in ``forward_train`` and its loss term in
+``forward_train_loss`` / ``loss_fn``).  Encoder-decoder stacks and
+modality frontends raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item.  The
 reference's ``moe_fn`` hook exists for its expert-parallel path only and
 is not ported (``ROADMAP.md`` queue 1, item 9).
 
@@ -66,28 +73,38 @@ class LayerSig:
     causal: bool = True
 
 
+# the multi-token-prediction layer: dense attention with an MLP of d_ff
+MTP_SIG = LayerSig("A", 0, False, False)
+# weight of the MTP cross-entropy in both losses (the reference's default
+# for forward_train_loss and loss_fn, src/repro/models/transformer.py:519,
+# :580, which no caller changes)
+MTP_WEIGHT = 0.3
+
+
 def _lcm(a, b):
     return a * b // math.gcd(a, b)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     """Raise for anything outside the ported dense-GQA (sliding window
-    and softcap included), MoE and Mamba2 scope."""
+    and softcap included), MLA (with multi-token prediction), MoE and
+    Mamba2 scope."""
     kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
     if "M" in kinds and cfg.ssm is None:
         raise ValueError(f"{cfg.name}: Mamba layers need cfg.ssm")
+    if cfg.attn_type == "mla" and cfg.mla is None:
+        raise ValueError(f"{cfg.name}: attn_type='mla' needs cfg.mla")
     unported = [
-        ("A" in kinds and cfg.attn_type != "gqa",
+        ("A" in kinds and cfg.attn_type not in ("gqa", "mla"),
          f"attn_type={cfg.attn_type!r}"),
         (cfg.is_encoder_decoder, "encoder-decoder"),
         (cfg.modality != "text", f"modality={cfg.modality!r}"),
-        (bool(cfg.mtp_depth), "multi-token prediction"),
     ]
     found = [what for bad, what in unported if bad]
     if found:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves GQA decoders, MoE and Mamba2 "
-            f"stacks only; {', '.join(found)}: "
+            f"{cfg.name}: the port serves GQA and MLA decoders, MoE and "
+            f"Mamba2 stacks only; {', '.join(found)}: "
             f"ROADMAP.md queue 1, item 8")
 
 
@@ -125,6 +142,8 @@ def _layer_schema(cfg: ModelConfig, s: LayerSig) -> Dict[str, Any]:
     out: Dict[str, Any] = {"ln1": L.rmsnorm_schema(d)}
     if s.kind == "M":
         out["ssm"] = ssm_schema(cfg)
+    elif cfg.attn_type == "mla":
+        out["attn"] = L.mla_schema(cfg)
     else:
         out["attn"] = L.gqa_schema(cfg)
     # ln2 stays without an MLP (Mamba2: d_ff = 0), as in the reference
@@ -137,15 +156,19 @@ def _layer_schema(cfg: ModelConfig, s: LayerSig) -> Dict[str, Any]:
 
 
 def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
-                cache=None, page_table=None):
+                cache=None, page_table=None, mla_absorb: bool = False):
     """One residual block.  Returns (x, cache, aux): the cache is updated
-    in place (see :func:`repro_torch.models.layers.gqa_apply` and
+    in place (see :func:`repro_torch.models.layers.gqa_apply`,
+    :func:`repro_torch.models.layers.mla_apply` and
     :func:`repro_torch.models.ssm.ssm_apply`), aux is the MoE layer's
     load-balance loss (0.0 for any other layer)."""
     aux = 0.0
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if s.kind == "M":
         out, cache = ssm_apply(p["ssm"], h, cfg, cache=cache)
+    elif cfg.attn_type == "mla":
+        out, cache = L.mla_apply(p["attn"], h, cfg, positions=positions,
+                                 cache=cache, absorb=mla_absorb)
     else:
         out, cache = L.gqa_apply(p["attn"], h, cfg, positions=positions,
                                  cache=cache, window=s.window,
@@ -168,6 +191,16 @@ def _layer_cache_schema(cfg: ModelConfig, s: LayerSig, batch: int,
                         max_len: int) -> Dict[str, ParamSpec]:
     if s.kind == "M":
         return ssm_cache_schema(cfg, batch)
+    if cfg.attn_type == "mla":
+        # the compressed pair, in the config's dtype: kv_quant_int8 does
+        # not reach it, as in the reference
+        m = cfg.mla
+        return {"c_kv": ParamSpec((batch, max_len, m.kv_lora_rank),
+                                  ("batch", "seq", "kv_lora"), cfg.dtype,
+                                  "zeros"),
+                "k_rope": ParamSpec((batch, max_len, m.qk_rope_head_dim),
+                                    ("batch", "seq", ""), cfg.dtype,
+                                    "zeros")}
     # with cfg.window_ring_cache a windowed layer holds a ring of
     # `window` rows instead of max_len, never quantized
     ring = bool(cfg.window_ring_cache and s.window)
@@ -210,6 +243,14 @@ def decoder_param_schema(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         schema["lm_head"] = ParamSpec((V, d), ("vocab", "d_model"))
+    if cfg.mtp_depth:
+        schema["mtp"] = {
+            "norm_h": L.rmsnorm_schema(d),
+            "norm_e": L.rmsnorm_schema(d),
+            "w_comb": ParamSpec((2 * d, d), ("", "d_model")),
+            "layer": _layer_schema(cfg, MTP_SIG),
+            "final_norm": L.rmsnorm_schema(d),
+        }
     return _retag_dtype(schema, cfg.dtype)
 
 
@@ -283,21 +324,26 @@ def _slice(tree, i: int):
             for k, v in tree.items()}
 
 
-def forward_prefill(params, cfg: ModelConfig, inputs, cache):
+def forward_prefill(params, cfg: ModelConfig, inputs, cache, *,
+                    mla_absorb: bool = False):
     """Prefill: run the full prompt, fill the cache, return last logits."""
-    return _forward_cached(params, cfg, inputs, cache, prefill=True)
+    return _forward_cached(params, cfg, inputs, cache, prefill=True,
+                           mla_absorb=mla_absorb)
 
 
-def forward_decode(params, cfg: ModelConfig, inputs, cache):
+def forward_decode(params, cfg: ModelConfig, inputs, cache, *,
+                   mla_absorb: bool = False):
     """One decode step: inputs["tokens"] is (B, 1)."""
-    return _forward_cached(params, cfg, inputs, cache, prefill=False)
+    return _forward_cached(params, cfg, inputs, cache, prefill=False,
+                           mla_absorb=mla_absorb)
 
 
-def _forward_cached(params, cfg, inputs, cache, *, prefill):
+def _forward_cached(params, cfg, inputs, cache, *, prefill, mla_absorb):
     """Returns (logits (B, 1, V) float32 of the last position, cache).
     The cache dict is updated in place and returned: its k/v leaves are
     written where they lie, and ``cache["pos"]`` is replaced by the
-    advanced positions."""
+    advanced positions.  ``mla_absorb`` picks the MLA layers' absorbed
+    attention (it changes nothing elsewhere)."""
     prefix, block, n_blocks = layer_structure(cfg)
     tokens = inputs["tokens"]
     B, S = tokens.shape
@@ -326,13 +372,15 @@ def _forward_cached(params, cfg, inputs, cache, *, prefill):
 
     for lp, lc, s in zip(params["prefix"], cache["prefix"], prefix):
         x, _, _ = apply_layer(lp, x, cfg, s, positions=positions,
-                              cache=lc, page_table=page_table)
+                              cache=lc, page_table=page_table,
+                              mla_absorb=mla_absorb)
     for i in range(n_blocks):
         bp, bc = _slice(params["blocks"], i), _slice(cache["blocks"], i)
         for j, s in enumerate(block):
             x, _, _ = apply_layer(bp[f"p{j}"], x, cfg, s,
                                   positions=positions, cache=bc[f"p{j}"],
-                                  page_table=page_table)
+                                  page_table=page_table,
+                                  mla_absorb=mla_absorb)
     cache["pos"] = new_pos
 
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -396,13 +444,37 @@ def _backbone(params, cfg: ModelConfig, inputs):
     return x, aux
 
 
+def _mtp_hidden(params, cfg: ModelConfig, h_final, tokens):
+    """DeepSeek-V3's multi-token prediction (depth 1): the final stream
+    at t (before the final norm) beside the embedding of token t + 1,
+    combined and run through one extra dense layer, then its own final
+    norm.  Returns (B, S - 1, d): position t predicts token t + 2 through
+    the shared head.  No remat, as in the reference."""
+    mp = params["mtp"]
+    tok_emb = params["embed"][tokens]
+    h_in = torch.cat(
+        [L.rmsnorm(mp["norm_h"], h_final[:, :-1], cfg.norm_eps),
+         L.rmsnorm(mp["norm_e"], tok_emb[:, 1:], cfg.norm_eps)], dim=-1)
+    h = h_in @ mp["w_comb"]
+    B, S = h.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=h.device)[None].expand(B, S)
+    h, _, _ = apply_layer(mp["layer"], h, cfg, MTP_SIG, positions=positions)
+    return L.rmsnorm(mp["final_norm"], h, cfg.norm_eps)
+
+
 def forward_train(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor]):
     """Full-sequence forward.  Returns (logits (B, S, V) float32, extras)
     with ``extras["aux_loss"]`` the MoE load-balance loss (0 without an
-    MoE layer)."""
-    x, aux = _backbone(params, cfg, inputs)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _unembed(params, cfg, x), {"aux_loss": aux}
+    MoE layer) and, with ``cfg.mtp_depth``, ``extras["mtp_logits"]``
+    (B, S - 1, V) float32."""
+    h_final, aux = _backbone(params, cfg, inputs)
+    x = L.rmsnorm(params["final_norm"], h_final, cfg.norm_eps)
+    extras = {"aux_loss": aux}
+    if cfg.mtp_depth:
+        extras["mtp_logits"] = _unembed(params, cfg, _mtp_hidden(
+            params, cfg, h_final, inputs["tokens"]))
+    return _unembed(params, cfg, x), extras
 
 
 def _masked_nll(logits, labels, ignore_id: int, z_loss: float):
@@ -451,7 +523,8 @@ def chunked_ce(x, w, labels, *, ignore_id: int = -1, z_loss: float = 1e-4,
 def forward_train_loss(params, cfg: ModelConfig,
                        batch: Dict[str, torch.Tensor]):
     """Memory-lean training loss: backbone + chunked CE + the MoE
-    load-balance loss."""
+    load-balance loss (+ ``MTP_WEIGHT`` x the multi-token-prediction
+    CE, whose labels are shifted by one)."""
     inputs = {k: v for k, v in batch.items() if k != "labels"}
     labels = batch["labels"]
     x, aux = _backbone(params, cfg, inputs)
@@ -459,16 +532,27 @@ def forward_train_loss(params, cfg: ModelConfig,
     w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     S_txt = labels.shape[1]
     tot, nvalid = chunked_ce(xn[:, -S_txt:], w, labels)
-    return tot / nvalid.clamp(min=1) + aux
+    loss = tot / nvalid.clamp(min=1) + aux
+    if cfg.mtp_depth:
+        h_mtp = _mtp_hidden(params, cfg, x[:, -S_txt:], inputs["tokens"])
+        mtot, mn = chunked_ce(h_mtp, w, labels[:, 1:])
+        loss = loss + MTP_WEIGHT * mtot / mn.clamp(min=1)
+    return loss
 
 
 def loss_fn(logits, labels, *, extras=None, ignore_id: int = -1,
             z_loss: float = 1e-4):
-    """Next-token CE with ignore mask, z-loss and the aux loss."""
+    """Next-token CE with ignore mask, z-loss and the aux loss; with
+    ``extras["mtp_logits"]`` also ``MTP_WEIGHT`` x the MTP CE (token t +
+    2 from position t; no z-loss, as in the reference)."""
     S = labels.shape[1]
     # logits[:, -S:] drops modality positions
     tot, nvalid = _masked_nll(logits[:, -S:], labels, ignore_id, z_loss)
     loss = tot / nvalid.clamp(min=1)
     if extras:
         loss = loss + extras.get("aux_loss", 0.0)
+        if "mtp_logits" in extras:
+            mtot, mn = _masked_nll(extras["mtp_logits"], labels[:, 1:],
+                                   ignore_id, 0.0)
+            loss = loss + MTP_WEIGHT * mtot / mn.clamp(min=1)
     return loss

@@ -145,7 +145,7 @@ class ContinuousEngine:
                  max_len: int = 512, max_new_cap: int = 64,
                  sync_every: int = 4, prefill_pad_multiple: int = 1,
                  prefill_batch: int = 1, admission_lookahead: int = 16,
-                 executor=None, clock=None,
+                 mla_absorb: bool = False, executor=None, clock=None,
                  watchdog_syncs: int = 8, max_requeues: int = 0,
                  chaos=None, paged: bool = False, page_size: int = 16,
                  num_pages: Optional[int] = None,
@@ -158,8 +158,9 @@ class ContinuousEngine:
             executor = SingleDeviceExecutor(
                 model, params, num_slots=num_slots, max_len=max_len,
                 max_new_cap=max_new_cap, sync_every=sync_every,
-                prefill_batch=prefill_batch, paged=paged,
-                page_size=page_size, num_pages=num_pages, metrics=metrics)
+                prefill_batch=prefill_batch, mla_absorb=mla_absorb,
+                paged=paged, page_size=page_size, num_pages=num_pages,
+                metrics=metrics)
         if chaos is not None and getattr(chaos, "armed", False):
             from repro_torch.serving.faults import ChaosExecutor
             executor = ChaosExecutor(executor, chaos)

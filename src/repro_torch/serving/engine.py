@@ -29,10 +29,12 @@ class Engine:
     """Greedy generation for one bucket of prompts a call, on the device
     holding ``params``."""
 
-    def __init__(self, model, params, *, max_len: int = 512):
+    def __init__(self, model, params, *, max_len: int = 512,
+                 mla_absorb: bool = False):
         self.model = model
         self.params = params
         self.max_len = max_len
+        self.mla_absorb = mla_absorb
         leaves = tree_leaves(params)
         if not leaves:
             raise ValueError("Engine needs params (their device is where "
@@ -55,7 +57,7 @@ class Engine:
                                       device=self.device)
         logits, cache = self.model.prefill(
             self.params, {"tokens": torch.from_numpy(toks).to(self.device)},
-            cache)
+            cache, mla_absorb=self.mla_absorb)
         nxt = self._argmax(logits)
         out = [nxt.cpu().numpy()]
         # per-sequence finished flags: a sequence is done once it has
@@ -66,7 +68,8 @@ class Engine:
             if done.all():
                 break
             logits, cache = self.model.decode(
-                self.params, {"tokens": nxt[:, None]}, cache)
+                self.params, {"tokens": nxt[:, None]}, cache,
+                mla_absorb=self.mla_absorb)
             nxt = self._argmax(logits)
             out.append(nxt.cpu().numpy())
             done |= out[-1] == EOS

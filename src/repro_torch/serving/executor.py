@@ -67,11 +67,14 @@ class SingleDeviceExecutor:
     def __init__(self, model, params, *, num_slots: int = 8,
                  max_len: int = 512, max_new_cap: int = 64,
                  sync_every: int = 4, prefill_batch: int = 1,
+                 mla_absorb: bool = False,
                  health_checks: bool = True, paged: bool = False,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  metrics=None):
         self.model = model
         self.params = params
+        # the MLA layers' absorbed attention, for every prefill and decode
+        self.mla_absorb = mla_absorb
         self.device = params["embed"].device
         self.num_slots = num_slots
         self.max_len = max_len
@@ -153,7 +156,8 @@ class SingleDeviceExecutor:
         inputs = {"tokens": tokens}
         if pos0 is not None:
             inputs["pos0"] = pos0
-        logits, _ = self.model.prefill(self.params, inputs, self._pcache)
+        logits, _ = self.model.prefill(self.params, inputs, self._pcache,
+                                       mla_absorb=self.mla_absorb)
         return logits[:, -1].argmax(dim=-1).to(torch.int32)
 
     def _commit(self, firsts, slot_idx: np.ndarray, limits: np.ndarray):
@@ -266,7 +270,8 @@ class SingleDeviceExecutor:
                     active, pos0, self.max_blocks * self.page_size)
             inp = torch.where(active, tok, PAD)
             logits, _ = self.model.decode(self.params,
-                                          {"tokens": inp[:, None]}, cache)
+                                          {"tokens": inp[:, None]}, cache,
+                                          mla_absorb=self.mla_absorb)
             last = logits[:, -1]
             nxt = last.argmax(dim=-1).to(torch.int32)
             if self.health_checks:

@@ -126,27 +126,32 @@ def test_nan_quarantine_leaves_peers_token_identical(models):
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-32b", "dbrx-132b", "gemma3-12b",
-                                  "gemma3-12b-ring"])
+                                  "gemma3-12b-ring", "minicpm3-4b",
+                                  "minicpm3-4b-absorb", "deepseek-v3-671b"])
 def test_decode_chunk_issues_no_host_sync(arch, request, monkeypatch):
     """A decode chunk's `sync_every` steps never read a device value back
     to the host: every slot-state update stays a tensor op, and so does
     an MoE layer's routing (dbrx SMOKE: its group sizes stay on the
-    device), a sliding-window layer's mask (gemma3 SMOKE) and the ring
+    device), a sliding-window layer's mask (gemma3 SMOKE), the ring
     cache's writes and lengths (its window cut to 8: the chunk's
-    positions 8-11 wrap the ring).  Nor does a step make a tensor of host
-    data (``torch.tensor`` of a number: on the card a copy that waits
-    for the stream)."""
+    positions 8-11 wrap the ring) and an MLA layer's compressed-cache
+    writes and masks, naive and absorbed (minicpm3 and deepseek SMOKE;
+    MTP is a training head and does not decode).  Nor does a step make a
+    tensor of host data (``torch.tensor`` of a number: on the card a
+    copy that waits for the stream)."""
+    engine_kw = {}
     if arch == "qwen1.5-32b":
         _, _, tm, tp = request.getfixturevalue("models")
     else:
-        cfg = dataclasses.replace(get_config(arch.removesuffix("-ring"),
-                                             "smoke"), dtype="float32")
+        base = arch.removesuffix("-ring").removesuffix("-absorb")
+        cfg = dataclasses.replace(get_config(base, "smoke"), dtype="float32")
         if arch.endswith("-ring"):
             cfg = dataclasses.replace(cfg, sliding_window=8,
                                       window_ring_cache=True)
+        engine_kw["mla_absorb"] = arch.endswith("-absorb")
         tm = build_model(cfg)
         tp = tm.init(seed=0, device="cpu")
-    eng = ContinuousEngine(tm, tp, prefill_batch=3, **KW)
+    eng = ContinuousEngine(tm, tp, prefill_batch=3, **KW, **engine_kw)
     for rid, p in enumerate(_prompts(3, [8], seed=2)):
         eng.submit(rid, p, 8)
     eng.step()                                   # admit + first sync

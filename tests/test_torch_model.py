@@ -10,6 +10,7 @@ flash-decode wrapper, the plain version on CPU tensors.
 """
 import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -47,9 +48,11 @@ def _ref_params(model, seed=0):
                    ).astype(a.dtype), params)
 
 
-def _run_both(rc, tc, *, B=3, S=9, max_len=24, steps=8, seed=0):
+def _run_both(rc, tc, *, B=3, S=9, max_len=24, steps=8, seed=0,
+              **forward_kw):
     """(ref logits, port logits) per step, both fed the reference's
-    greedy tokens."""
+    greedy tokens; ``forward_kw`` (``mla_absorb``) goes to both packages'
+    prefill and decode."""
     rm, tm = ref_build(rc), build_model(tc)
     np_params = _ref_params(rm, seed)
     rp = jax.tree_util.tree_map(jnp.asarray, np_params)
@@ -58,15 +61,17 @@ def _run_both(rc, tc, *, B=3, S=9, max_len=24, steps=8, seed=0):
         4, rc.vocab_size, size=(B, S)).astype(np.int32)
     rcache, tcache = rm.init_cache(B, max_len), tm.init_cache(B, max_len,
                                                               device="cpu")
-    rl, rcache = jax.jit(rm.prefill)(rp, {"tokens": jnp.asarray(toks)}, rcache)
-    tl, tcache = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, tcache)
+    rl, rcache = jax.jit(functools.partial(rm.prefill, **forward_kw))(
+        rp, {"tokens": jnp.asarray(toks)}, rcache)
+    tl, tcache = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, tcache,
+                            **forward_kw)
     out = [(np.asarray(rl, np.float32), tl.float().numpy())]
-    decode = jax.jit(rm.decode)
+    decode = jax.jit(functools.partial(rm.decode, **forward_kw))
     for _ in range(steps):
         nxt = np.asarray(rl[:, -1], np.float32).argmax(-1).astype(np.int32)
         rl, rcache = decode(rp, {"tokens": jnp.asarray(nxt)[:, None]}, rcache)
         tl, tcache = tm.decode(tp, {"tokens": torch.from_numpy(nxt)[:, None]},
-                               tcache)
+                               tcache, **forward_kw)
         out.append((np.asarray(rl, np.float32), tl.float().numpy()))
     assert np.array_equal(np.asarray(rcache["pos"]), tcache["pos"].numpy())
     return out
@@ -139,7 +144,9 @@ def test_unported_attention_branches_raise(kw):
                     cache={"k": None, "v": None}, **kw)
 
 
-@pytest.mark.parametrize("kw", [dict(attn_type="mla")], ids=["mla"])
+@pytest.mark.parametrize("kw", [dict(is_encoder_decoder=True),
+                                dict(modality="vision")],
+                         ids=["encoder-decoder", "vision"])
 def test_unported_model_families_raise(kw):
     _, tc = _configs(**kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -183,7 +190,7 @@ def test_bridge_carries_bf16_bit_exactly():
     pytest.param("qwen1.5-32b", v, id=v) for v in ("full", "smoke")] + [
     pytest.param(a, v, id=f"{a}-{v}")
     for a in ("command-r-35b", "dbrx-132b", "jamba-1.5-large-398b",
-              "gemma3-12b")
+              "gemma3-12b", "minicpm3-4b", "deepseek-v3-671b")
     for v in ("full", "smoke")])
 def test_configs_are_the_reference_configs(arch, variant):
     from repro.core import config as ref_cfg

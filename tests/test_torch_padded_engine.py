@@ -127,10 +127,10 @@ class _ConstModel:
         return torch.nn.functional.one_hot(
             torch.full((B, T), tok), self.vocab).float()
 
-    def prefill(self, params, batch, cache):
+    def prefill(self, params, batch, cache, *, mla_absorb=False):
         return self._logits(batch["tokens"], self.prefill_tok), cache
 
-    def decode(self, params, batch, cache):
+    def decode(self, params, batch, cache, *, mla_absorb=False):
         return self._logits(batch["tokens"], self.decode_tok), cache
 
 

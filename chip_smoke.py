@@ -15,13 +15,17 @@ Phases, each on its own lines; any failure exits nonzero:
                plain version, the bound and a library yardstick: K1
                flash_decode (dense slot cache; G = 1, 5, 6 and 8, and a
                4096-row slot among short ones at G = 8; gemma3-12b's
-               head_dim 256 at G = 2 on 392- and 2048-row slots; each
+               head_dim 256 at G = 2 on 392- and 2048-row slots;
+               phi-3-vision's head_dim 96 and whisper's 64, both G = 1
+               (H = Hkv = 32 and 20); each
                with the partition count it took and also timed with L2
                flushed before each call, and its ptxas registers and
                spills per instantiation, K2's too), K2 paged_flash_decode
                (block table into a page pool, with a parked slot; the
-               main path, GQA, one 4096-row slot among short ones and
+               main path, GQA, one 4096-row slot among short ones,
                gemma3's head_dim 256 through 50- and 256-block tables,
+               phi-3-vision's and whisper's shapes through 50-block
+               tables (whisper's row printed only: it never pages),
                each also through K1 on the same rows gathered, both
                also with L2 flushed, with each wrapper's host time a
                call).
@@ -213,6 +217,22 @@ Phases, each on its own lines; any failure exits nonzero:
                gaps in bf16, and in float32 within 2e-3 at every step.
                deepseek's ``forward_train_loss`` on 2 x 512 tokens with
                and without MTP: both finite, different.
+16d. vision / audio serve — phi-3-vision and whisper SMOKE in float32 on
+               the card against the host (with the image or the frames;
+               phi-3 also at head_dim 96); then ``phi-3-vision-4.2b``
+               FULL (32 layers, head_dim 96, seeded bf16, not cut)
+               through ``Gateway.serve`` as in 16a on the dense (K1),
+               paged (K2) and paged int8 (K2) engines, K1 / K2 exactly 32
+               x decode steps, and an image prefill (4 x 576 patches +
+               384 tokens) beside its operations bound, then 8 greedy
+               steps through K1 at D = 96 beside a run with K1 swapped
+               for its plain version; ``whisper-large-v3`` FULL (32
+               encoder + 32 decoder layers, not cut) on the dense engine
+               only (K1 exactly 32 x steps, K2 never; the paged pool's
+               refusal shown), its decode step beside the decoder's
+               weights plus the cross cache, then an audio prefill (4 x
+               1500 frames + 384 tokens) beside the encoder's operations
+               bound and 8 steps that read the cross cache.
 17. serve cli — ``repro_torch.launch.serve.main`` in this process,
                ``--backend continuous --variant full`` (qwen1.5-32b
                FULL, seeded bf16 weights, 8 slots, prompts of 192, 8 new
@@ -334,6 +354,16 @@ GEMMA = "gemma3-12b"
 LONG_MIN, LONG_MAX, LONG_MAX_LEN, LONG_STEPS = 1280, 1536, 2048, 8
 GEMMA_K1 = "gemma3-12b, D=256, G=2"
 GEMMA_K1_LONG = "gemma3-12b 2048-row slot, D=256, G=2"
+# the vision and audio families, FULL and not cut: phi-3-vision-4.2b (3.74
+# B params, 7.47 GB in bf16; 32 layers of 32 heads = kv heads at head_dim
+# 96) and whisper-large-v3 (1.96 B; 32 encoder and 32 decoder layers of
+# 20 heads at head_dim 64); their stub frontends' embeddings are seeded
+PHI3, WHISPER = "phi-3-vision-4.2b", "whisper-large-v3"
+PHI3_K1 = "phi-3-vision-4.2b, D=96, G=1"
+WHISPER_K1 = "whisper-large-v3, D=64, G=1"
+MODALITY_BATCH, IMAGE_TEXT_TOKENS, MODALITY_STEPS = 4, 384, 8
+MODALITY_F32_RTOL = 1e-4  # of max |logit|: SMOKE float32 on the card and
+#                           on the host, the same sums in another order
 RING_LOGIT_RTOL = 2e-2  # of max |logit|: the same function, its float32
 #                         sums over 1024 ring rows or 2048 cache rows (S
 #                         fresh rows or 2048 at prefill) in other orders,
@@ -489,7 +519,9 @@ def kernel_phase(build_report: dict = None) -> list:
             ("command-r-35b, G=8", 8, 392, 64, 8, 128),
             ("long slot, command-r-35b G=8", 8, 4096, 64, 8, 128),
             (GEMMA_K1, 8, 392, 16, 8, 256),
-            (GEMMA_K1_LONG, 8, 2048, 16, 8, 256)):
+            (GEMMA_K1_LONG, 8, 2048, 16, 8, 256),
+            (PHI3_K1, 8, 392, 32, 32, 96),
+            (WHISPER_K1, 8, 392, 20, 20, 64)):
         def rnd(*shape):
             return torch.randn(shape, generator=g, device="cuda",
                                dtype=torch.bfloat16)
@@ -554,7 +586,8 @@ def kernel_phase(build_report: dict = None) -> list:
                          ms_cold=cold[0]))
         del q, k, v, out, want
     torch.cuda.empty_cache()
-    return [rows[0]] + [r for r in rows if r["shape"].startswith("gemma3")]
+    return [rows[0]] + [r for r in rows if r["shape"].startswith(
+        ("gemma3", "phi-3", "whisper"))]
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -602,7 +635,9 @@ def paged_kernel_phase() -> list:
             ("command-r-35b, G=8", 64, 8, PAGE_SIZE, 50, NUM_PAGES, 128),
             ("long slot", 40, 8, 16, 256, 2048, 128),
             (GEMMA_K1, 16, 8, PAGE_SIZE, 50, NUM_PAGES, 256),
-            (GEMMA_K1_LONG, 16, 8, PAGE_SIZE, 256, 2048, 256)):
+            (GEMMA_K1_LONG, 16, 8, PAGE_SIZE, 256, 2048, 256),
+            (PHI3_K1, 32, 32, PAGE_SIZE, 50, NUM_PAGES, 96),
+            (WHISPER_K1, 20, 20, PAGE_SIZE, 50, NUM_PAGES, 64)):
         def rnd(*shape):
             return torch.randn(shape, generator=g, device="cuda",
                                dtype=torch.bfloat16)
@@ -688,7 +723,10 @@ def paged_kernel_phase() -> list:
             shape=label, ms_cold=k2_cold))
         del q, kp, vp, out, want, kd, vd, kt, vt
     torch.cuda.empty_cache()
-    return [rows[0]] + [r for r in rows if r["shape"].startswith("gemma3")]
+    # whisper's row is measured and printed, not returned: whisper's
+    # cross-attention layers never page, so K2 is not on its path
+    return [rows[0]] + [r for r in rows if r["shape"].startswith(
+        ("gemma3", "phi-3"))]
 
 
 def attention_kernel_phase(build_report: dict) -> dict:
@@ -2978,7 +3016,10 @@ def _prefill_flops(cfg, B: int, S: int, every_expert: bool = False) -> int:
     the causal attention scores and values, and the unembedding of the
     last position.  An MLA layer's products are its query (through the
     q-LoRA), latent, key / value expansion and output projections; its
-    scores span the nope and rope dims, its values v_head_dim."""
+    scores span the nope and rope dims, its values v_head_dim.  A
+    decoder layer of an encoder-decoder adds its cross sublayer, as a
+    served prefill runs it (no encoder: keys and values from the
+    cache)."""
     T = B * S
     d, H, Hkv, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     causal = S * (S + 1) // 2
@@ -2993,6 +3034,10 @@ def _prefill_flops(cfg, B: int, S: int, every_expert: bool = False) -> int:
         attn = 2 * T * proj + 2 * B * H * (qd + m.v_head_dim) * causal
     else:
         attn = 2 * T * d * D * (2 * H + 2 * Hkv) + 4 * B * H * D * causal
+    if cfg.is_encoder_decoder:
+        # the cross sublayer: its query and output products, scores and
+        # values over every encoder row (keys and values from the cache)
+        attn += 2 * T * d * D * 2 * H + 4 * B * H * D * S * cfg.encoder_seq_len
     ops = 2 * B * d * cfg.padded_vocab
     for i in range(cfg.n_layers):
         ops += attn
@@ -3020,30 +3065,49 @@ def _kernel_layers(cfg) -> int:
     return count(prefix) + n_blocks * count(block)
 
 
+# parameter subtrees a served decode step never reads: the
+# multi-token-prediction head (training only), the image projector and
+# the encoder (prefill only)
+NOT_DECODED = ("mtp", "projector", "encoder", "enc_pos", "enc_final_norm")
+
+
 def _served_weight_bytes(params) -> int:
-    """The bytes a decode step reads once at least: every weight but the
-    multi-token-prediction head's, a training head that serving never
-    runs (the capacity form of an MoE layer reads all its experts)."""
+    """The bytes a decode step reads once at least: every weight but
+    those of ``NOT_DECODED`` (the capacity form of an MoE layer reads all
+    its experts)."""
     from repro_torch.models.schema import tree_leaves
     return sum(t.numel() * t.element_size() for t in tree_leaves(
-        {k: v for k, v in params.items() if k != "mtp"}))
+        {k: v for k, v in params.items() if k not in NOT_DECODED}))
+
+
+def _cross_cache_bytes(cfg, slots: int) -> int:
+    """The encoder keys and values a decode step of ``slots`` slots reads
+    in every decoder layer (0 without cross-attention)."""
+    if not cfg.is_encoder_decoder:
+        return 0
+    return (slots * cfg.n_layers * cfg.encoder_seq_len * cfg.n_kv_heads
+            * cfg.head_dim * 2 * 2)
 
 
 def _say_step_and_prefill(label, rec, ex, cfg, params, card) -> float:
     """Print the dense engine's decode step (median of the chunks'
-    per-step device time) beside its weight-read bound, and each
+    per-step device time) beside its bound, the weights read once (and,
+    for an encoder-decoder, every slot's cross cache), and each
     admission group's prefill (device time of prefill + commit) beside
     its bound over the routed operations or the weights read once.
     Returns the decode bound in ms."""
     import statistics
     weight_bytes = _served_weight_bytes(params)
+    cross = _cross_cache_bytes(cfg, ex.num_slots)
     per_step = [s_.elapsed_time(e) / ex.sync_every for s_, e in rec["chunks"]]
     step_ms = statistics.median(per_step)
-    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = (weight_bytes + cross) / HBM_BYTES_PER_S * 1e3
+    what = (f"weight-read bound {bound_ms:.2f} ms ({weight_bytes / 1e9:.1f}"
+            f" GB" + (f" + {cross / 1e9:.2f} GB of cross cache" if cross
+                      else "") + " / 3.35 TB/s)")
     say(f"   decode step [{label}]: median {step_ms:.2f} ms over "
         f"{len(per_step)} chunks of {ex.sync_every} steps (CUDA events; "
-        f"{[round(x, 2) for x in per_step]}) beside its weight-read bound "
-        f"{bound_ms:.2f} ms ({weight_bytes / 1e9:.1f} GB / 3.35 TB/s) = "
+        f"{[round(x, 2) for x in per_step]}) beside its {what} = "
         f"{step_ms / bound_ms:.2f} x [{card}]")
     admits = {}
     for shape, (s_, e) in zip(rec["admit_shapes"], rec["admits"]):
@@ -3535,6 +3599,277 @@ def mla_serve_phase(card: str, policy) -> None:
     say(f"== mla serve: {time.perf_counter() - t0:.1f} s")
 
 
+def _modality_inputs(cfg, B: int, S_txt: int, dev, dtype=None) -> dict:
+    """Seeded prefill inputs of a vision or audio config: ``B`` x
+    ``S_txt`` text tokens and the stub frontend's embeddings (numpy's
+    generator, so the host and the card get the same values), image
+    (B, n_modality_tokens, modality_embed_dim) or frames (B,
+    encoder_seq_len, d_model) at 0.02, in ``dtype`` (float32 when
+    None)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    inputs = {"tokens": torch.from_numpy(rng.integers(
+        4, cfg.vocab_size, size=(B, S_txt)).astype(np.int32))}
+    if cfg.modality == "vision":
+        shape = (B, cfg.n_modality_tokens, cfg.modality_embed_dim)
+        name = "image_emb"
+    else:
+        shape = (B, cfg.encoder_seq_len, cfg.d_model)
+        name = "audio_emb"
+    inputs[name] = torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32) * 0.02)
+    out = {k: v.to(dev) for k, v in inputs.items()}
+    if dtype is not None:
+        out[name] = out[name].to(dtype)
+    return out
+
+
+def modality_smoke_check(card: str) -> None:
+    """phi-3-vision and whisper SMOKE in float32 on the card against the
+    host, on the same weights and inputs: ``forward_train`` logits with
+    the image / frames, then a prefill with them and 4 greedy decode
+    steps (the card fed the host's tokens), each within
+    MODALITY_F32_RTOL of max |logit|.  K1 takes bf16 only, so both sides
+    decode through its plain version here; the served phases hold K1
+    itself."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_decode import flash_decode_torch
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as model_layers
+    from repro_torch.models.schema import tree_map
+    worst = {}
+    for arch, kw in ((PHI3, {}), (PHI3, {"head_dim": 96}), (WHISPER, {})):
+        cfg = dataclasses.replace(get_config(arch, "smoke"), dtype="float32",
+                                  **kw)
+        model = build_model(cfg)
+        host = model.init(seed=0, device="cpu")
+        on_card = tree_map(lambda t: t.cuda(), host)
+        hi, ci = (_modality_inputs(cfg, 3, 12, d) for d in ("cpu", "cuda"))
+        extra = cfg.n_modality_tokens if cfg.modality == "vision" else 0
+        with mock.patch.object(model_layers, "flash_decode",
+                               flash_decode_torch):
+            want = model.train_logits(host, hi)[0]
+            got = model.train_logits(on_card, ci)[0].cpu()
+            name = f"{cfg.name} D={cfg.head_dim}"
+            worst[f"{name} train"] = ((want - got).abs().max()
+                                      / want.abs().max()).item()
+            runs = {}
+            for dev, params, inputs in (("cpu", host, hi),
+                                        ("cuda", on_card, ci)):
+                cache = model.init_cache(3, 12 + extra + 4, device=dev)
+                lg, cache = model.prefill(params, inputs, cache)
+                # the card is fed the host's greedy tokens
+                feed = (None if dev == "cpu"
+                        else [t.cuda() for t in runs["cpu"][1]])
+                runs[dev] = _greedy_steps(model, params, lg[:, -1].float(),
+                                          cache, 4, feed)
+            worst[f"{name} prefill + decode"] = max(
+                ((a - b.cpu()).abs().max() / a.abs().max()).item()
+                for a, b in zip(runs["cpu"][0], runs["cuda"][0]))
+    say(f"== modality smoke: float32, card vs host, max |dlogit| / max "
+        f"|logit|: {', '.join(f'{k} {v:.3e}' for k, v in worst.items())} "
+        f"(tol {MODALITY_F32_RTOL:g}) [{card}]")
+    bad = {k: v for k, v in worst.items() if not v <= MODALITY_F32_RTOL}
+    if bad:
+        raise AssertionError(f"[modality smoke] the card disagrees with the "
+                             f"host: {bad}")
+
+
+def _modality_prefill_case(card: str, cfg, model, params, counters) -> None:
+    """One prefill of MODALITY_BATCH rows of IMAGE_TEXT_TOKENS text tokens
+    with the stub frontend's seeded embeddings (phi-3: the image's 576
+    positions before the text; whisper: 1500 frames through the encoder,
+    whose keys and values fill every decoder layer's cross cache), then
+    MODALITY_STEPS greedy decode steps from that cache (whisper's read
+    the cross cache, with no frames), each launch count 0 just before.
+    Checks K1 launched layers x steps and K2 never, the cache's
+    positions, every logit finite, whisper's cross cache written; prints
+    the prefill beside its operations bound, the decode step, peak
+    memory, and each step's gap to the same run with K1 swapped for its
+    plain version, fed the same tokens (the prefill's within
+    TOKEN_GAP_RTOL)."""
+    import torch
+    from repro_torch.kernels.flash_decode import flash_decode_torch
+    from repro_torch.models import layers as model_layers
+    from repro_torch.models.schema import tree_leaves
+    B, S_txt, n = MODALITY_BATCH, IMAGE_TEXT_TOKENS, MODALITY_STEPS
+    inputs = _modality_inputs(cfg, B, S_txt, "cuda", torch.bfloat16)
+    vision = cfg.modality == "vision"
+    S = S_txt + (cfg.n_modality_tokens if vision else 0)
+    L = _kernel_layers(cfg)
+    d = cfg.d_model
+
+    def run(feed):
+        cache = model.init_cache(B, S + n, device="cuda")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        with torch.no_grad():
+            ev[0].record()
+            logits, cache = model.prefill(params, inputs, cache)
+            ev[1].record()
+            steps, tokens, cache = _greedy_steps(
+                model, params, logits[:, -1].float(), cache, n, feed)
+            ev[2].record()
+        torch.cuda.synchronize()
+        return steps, tokens, cache, ev
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    steps, tokens, cache, ev = run(None)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with mock.patch.object(model_layers, "flash_decode", flash_decode_torch):
+        plain, _, _, _ = run(tokens)
+    prefill_ms, step_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(
+        ev[2]) / n
+    ops = _prefill_flops(cfg, B, S)
+    if vision:
+        what = (f"{B} x ({cfg.n_modality_tokens} image + {S_txt} text) = "
+                f"{B} x {S} positions")
+        ops += 2 * B * cfg.n_modality_tokens * (cfg.modality_embed_dim * d
+                                                + d * d)
+    else:
+        T = cfg.encoder_seq_len
+        enc_layer = (2 * d * cfg.head_dim * (2 * cfg.n_heads
+                                             + 2 * cfg.n_kv_heads)
+                     + 2 * 3 * d * cfg.d_ff)
+        ops += (cfg.n_encoder_layers * (B * T * enc_layer
+                                        + 4 * B * cfg.n_heads
+                                        * cfg.head_dim * T * T)
+                + cfg.n_layers * 2 * B * T * d * cfg.head_dim * 2
+                * cfg.n_kv_heads)
+        what = f"{B} x {T} frames through the encoder, {B} x {S} text tokens"
+    bound_ms = ops / BF16_OPS_PER_S * 1e3
+    step_bound = (_served_weight_bytes(params) + _cross_cache_bytes(cfg, B)
+                  ) / HBM_BYTES_PER_S * 1e3
+    finite = all(bool(torch.isfinite(x).all()) for x in steps)
+    pos = cache["pos"].tolist()
+    say(f"   {cfg.modality} prefill [{cfg.name}]: {what}, "
+        f"{prefill_ms:.2f} ms (CUDA events) beside its bound "
+        f"{bound_ms:.2f} ms ({ops / 1e12:.2f} TFLOP / 989 TFLOP/s) = "
+        f"{prefill_ms / bound_ms:.2f} x; then {n} greedy steps at "
+        f"{step_ms:.2f} ms a step beside {step_bound:.2f} ms; positions "
+        f"{pos}; peak memory {peak:.2f} GiB; launches {launches} [{card}]")
+    # the same run with K1 swapped for its plain version, fed the same
+    # tokens: the prefill (no K1) must agree; each decode step's gap is
+    # K1's bf16 rounding against the plain version's, carried through
+    # every layer of random weights, printed and not held
+    _long_gaps(f"{cfg.name} {cfg.modality} prefill", steps, plain, 1,
+               TOKEN_GAP_RTOL, case="K1 witness", names=("K1", "plain"))
+    if pos != [S + n] * B or not finite:
+        raise AssertionError(f"[{cfg.name} {cfg.modality} prefill] "
+                             f"positions {pos}, finite {finite}")
+    if (launches["flash_decode"] != L * n
+            or launches["paged_flash_decode"]):
+        raise AssertionError(f"[{cfg.name} {cfg.modality} prefill] "
+                             f"launches {launches} for {n} steps of {L} "
+                             f"layers")
+    if not vision:
+        cross = [t for t in tree_leaves(cache["blocks"]) if t.dim() == 5
+                 and t.shape[2] == cfg.encoder_seq_len]
+        if len(cross) != 2 or not all(bool(c.abs().sum() > 0)
+                                      for c in cross):
+            raise AssertionError(f"[{cfg.name} audio prefill] the cross "
+                                 f"cache was not written")
+    del cache, steps, plain
+
+
+def modality_serve_phase(card: str, policy) -> dict:
+    """The vision and audio families at their published widths, not cut,
+    seeded bf16 weights, each after the previous model is freed; first
+    :func:`modality_smoke_check`.  ``phi-3-vision-4.2b`` FULL (head_dim
+    96) through ``Gateway.serve`` as the MoE / GQA phase serves its
+    models (:func:`_serve_family`: the dense engine, K1, and the paged
+    one, K2, 8 + 8 requests) and on the paged int8 engine (8 requests);
+    prompts are text only, as a served request is.  Then its image
+    prefill and decode (:func:`_modality_prefill_case`).
+    ``whisper-large-v3`` FULL on the dense engine only (8 + 8 requests;
+    the reference's executor passes no frames, so a served request
+    attends over the zero cross cache, as there): K1 exactly 32 decoder
+    layers x decode steps, K2 never; the paged pool's refusal shown; the
+    tokens repeating bit for bit, a decode chunk with no host sync; then
+    its audio prefill and decode.  Returns the launches of K1 and K2 by
+    model, for the kernel table's phi-3 and whisper rows."""
+    import torch
+    from repro_torch.data import HashTokenizer, SyntheticSquad
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.paged_flash_decode import paged_flash_decode
+    from repro_torch.models import build_model
+    from repro_torch.retrieval import BM25Index
+    from repro_torch.routing import ContinuousEngineBackend
+    t0 = time.perf_counter()
+    modality_smoke_check(card)
+    data = SyntheticSquad(n_paragraphs=600, n_questions=1000, seed=0)
+    index = BM25Index.build([p.text for p in data.paragraphs])
+    qs = data.questions[-16:]
+    counters = {"flash_decode": flash_decode,
+                "paged_flash_decode": paged_flash_decode}
+    out = {}
+
+    # -- phi-3-vision: dense (K1), paged (K2), paged int8 (K2) -----------
+    _free_gpu_memory(f"{PHI3} dense")
+    model, params, out[PHI3] = _serve_family(PHI3, None, card, policy, data,
+                                             index, phase="vision serve")
+    cfg = model.cfg
+    L = _kernel_layers(cfg)
+    _free_gpu_memory(f"{PHI3} paged int8")
+    label = f"{PHI3} paged int8"
+    backend = ContinuousEngineBackend.create(
+        build_model(dataclasses.replace(cfg, kv_quant_int8=True)), params,
+        HashTokenizer(cfg.vocab_size), index, num_slots=NUM_SLOTS,
+        prefill_batch=PREFILL_BATCH, max_prompt_len=MAX_PROMPT_LEN,
+        max_new_tokens=MAX_NEW_TOKENS, paged=True, page_size=PAGE_SIZE,
+        num_pages=NUM_PAGES)
+    int8 = _drive(label, backend, index, qs, 1, card, L, counters, policy)
+    _check_paged_launches(label, int8["launches"], int8["steps"], L,
+                          int8["rec"]["short_prefills"])
+    del int8, backend
+    _free_gpu_memory(f"{PHI3} image prefill")
+    _modality_prefill_case(card, cfg, model, params, counters)
+    del model, params
+
+    # -- whisper: the dense engine (K1); the paged pool refuses ----------
+    _free_gpu_memory(f"{WHISPER} dense")
+    cfg, model, params = _build_family(WHISPER, None, card, "audio serve")
+    say(f"   encoder: {cfg.n_encoder_layers} layers over "
+        f"{cfg.encoder_seq_len} frames (non-causal, the plain attention as "
+        f"the reference routes it); decoder: {cfg.n_layers} layers with "
+        f"cross-attention")
+    L = _kernel_layers(cfg)
+
+    def backend_for(**kw):
+        return ContinuousEngineBackend.create(
+            model, params, HashTokenizer(cfg.vocab_size), index,
+            num_slots=NUM_SLOTS, prefill_batch=PREFILL_BATCH,
+            max_prompt_len=MAX_PROMPT_LEN, max_new_tokens=MAX_NEW_TOKENS,
+            **kw)
+    label = f"{WHISPER} dense"
+    backend = backend_for()
+    dense = _drive(label, backend, index, qs, 2, card, L, counters, policy)
+    _check_launches(label, dense["launches"], "flash_decode",
+                    dense["steps"], L, absent=("paged_flash_decode",))
+    ex = backend.engine.executor
+    _say_step_and_prefill(label, dense["rec"], ex, cfg, params, card)
+    _check_repeat(label, dense, qs)
+    _check_no_sync(ex, "decode chunk")
+    out[WHISPER] = dense["launches"]
+    del dense, backend, ex
+    _free_gpu_memory(f"{WHISPER} paged")
+    try:
+        backend_for(paged=True, page_size=PAGE_SIZE, num_pages=NUM_PAGES)
+    except ValueError as e:
+        say(f"   paged [{WHISPER}]: refused, as in the reference: {e}")
+    else:
+        raise AssertionError(f"[{WHISPER} paged] the paged pool took "
+                             f"cross-attention layers")
+    _free_gpu_memory(f"{WHISPER} audio prefill")
+    _modality_prefill_case(card, cfg, model, params, counters)
+    del model, params
+    say(f"== modality serve: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _prefill_rows(model, params, prompts, max_len: int) -> tuple:
     """Each prompt prefilled alone into a one-row cache and its rows
     copied into slot i of a cache of len(prompts) slots, as the
@@ -3602,7 +3937,7 @@ def _long_gaps(label, full, ring, held: int, rtol: float,
         say(f"   {case} [{label}] step {i} "
             f"({'prefill' if i == 0 else 'decode'}): max |logit {a} - "
             f"{b}| {gap:.4e} of max |logit| {scale:.4e} ({gap / scale:.2e})"
-            f"; greedy tokens agree in {agree} of {NUM_SLOTS}")
+            f"; greedy tokens agree in {agree} of {f.shape[0]}")
         if i < held and not gap <= rtol * scale:
             raise AssertionError(f"[{case} {label}] step {i}: {a} and {b} "
                                  f"logits differ by {gap} > {rtol} x "
@@ -4212,6 +4547,8 @@ def main() -> None:
     moe_gqa_serve_phase(card, router)
     gemma_launches = gemma3_serve_phase(card, router)
     mla_serve_phase(card, router)
+    family_launches = modality_serve_phase(card, router)
+    family_launches["gemma3"] = gemma_launches
     _free_gpu_memory("serve cli")
     serve_cli_phase(card)
     # the paper's benches run beside the training CLI, after every timed
@@ -4220,9 +4557,12 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for row in rows:
-        # the head-dim-256 rows count the gemma3 phase's launches
-        row["launches"] = (gemma_launches if row.get("shape", "").startswith(
-            "gemma3") else launches)[row["name"]]
+        # the rows at a family's shape count that family's phase's
+        # launches (gemma3: head_dim 256; phi-3: 96; whisper: 64, G = 1)
+        fam = [f for f in family_launches
+               if row.get("shape", "").startswith(f)]
+        row["launches"] = (family_launches[fam[0]] if fam
+                           else launches)[row["name"]]
     say(f"== total: {time.perf_counter() - t0:.1f} s, every phase passed "
         f"[{card}]")
     # every row has the keys above, in that order; K5's adds kernel_ms

@@ -51,6 +51,7 @@ int dispatch(int D, int G, const F& f) {
   if (D == 128) return dispatch_group<128>(G, f);
   if (D == 64) return dispatch_group<64>(G, f);
   if (D == 256) return dispatch_group<256>(G, f);
+  if (D == 96) return dispatch_group<96>(G, f);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

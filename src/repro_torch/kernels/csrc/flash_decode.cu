@@ -30,8 +30,8 @@
 //     rows past the slot's length are never read) kStages - 1 tiles ahead
 //     of the one it multiplies.  The warps run apart; no block barrier in
 //     the loop.  Tiles are stored with the 16-byte chunk index XORed by
-//     the row (mod 8), so the ldmatrix reads that build the fragments
-//     are free of bank conflicts.
+//     the row (mod 8) (at D = 96 in padded rows, below), so the ldmatrix
+//     reads that build the fragments are free of bank conflicts.
 //   * One block a (kv head, slot) and, for a slot longer than the
 //     wrapper's run (512 rows), a run: each (slot, kv head) is cut into
 //     `parts` runs of `part_rows` rows (a multiple of the tile), one block
@@ -59,6 +59,17 @@
 //     so only narrow blocks fit (128 KB; wide ones would need 256 KB of
 //     the 227 KB a block may have), one block an SM.  D = 64 and 128
 //     compile to the body they had.
+//   * Head dim 96 (phi-3-vision) takes the D = 128 body: 6 k-steps of
+//     Q K^T and 12 n-tiles of P V, 12 16-byte chunks a row, 6 cp.async a
+//     lane a tile.  Only the shared rows change.  The XOR swizzle needs a
+//     power-of-two count of chunks a row (c ^ (r & 7) maps chunks 8..11
+//     past the row's 12), so a row is padded to 13 chunks (208 bytes)
+//     instead: 8 consecutive rows at one chunk index then fall at 13 r + c
+//     = 5 r + c (mod 8) 16-byte bank groups, all different, and each
+//     8-row phase of an ldmatrix reads every bank once.  The pad is in
+//     shared memory only: K/V stay in the executor's (B, L, Hkv, 96)
+//     layout, read in place.  A tile is 3.25 KB of K and as much of V, so
+//     wide blocks fit (104 KB).
 //   * K/V are read in place in the executor's (B, L, Hkv, D) layout
 //     through strides: no per-call transpose (the TPU wrapper transposes
 //     to kv-head-major on every call), no padded tail, no expanded GQA
@@ -104,15 +115,27 @@ constexpr bool kQShared = D > 128;
 constexpr int kQPad = 8;  // bf16 a shared Q row is padded by: rows 4 banks
                           // apart, so a fragment's reads do not conflict
 
+// 16-byte chunks a shared K/V row takes: D / 8, swizzled, where that is
+// a power of two; else one more, a pad chunk that spreads the rows over
+// the banks (D = 96: 13)
+__host__ __device__ constexpr bool swizzled(int D) {
+  return ((D / 8) & (D / 8 - 1)) == 0;
+}
+__host__ __device__ constexpr int row_chunks(int D) {
+  return swizzled(D) ? D / 8 : D / 8 + 1;
+}
+
 // the warps' K/V rings: kStages tiles of 16 K and 16 V rows a warp
-constexpr int ring_bytes(int D, int warps) {
-  return warps * kStages * 2 * kTile * D * 2;
+__host__ __device__ constexpr int ring_bytes(int D, int warps) {
+  return warps * kStages * 2 * kTile * row_chunks(D) * 16;
 }
 
 template <int D, int kWarps>
 struct Layout {
+  // whole 16-dim k-steps, and a tile's chunks spread evenly over a warp
+  static_assert(D % 16 == 0 && kTile * (D / 8) % 32 == 0, "D");
   static constexpr int kChunks = D / 8;             // 16-byte chunks a row
-  static constexpr int kTileBytes = kTile * D * 2;  // K or V of one tile
+  static constexpr int kTileBytes = kTile * row_chunks(D) * 16;  // K or V
   static constexpr int kStageBytes = 2 * kTileBytes;
   static constexpr int kWarpBytes = kStages * kStageBytes;
   static constexpr int kRing = ring_bytes(D, kWarps);
@@ -200,10 +223,15 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(x0 - hf.x, x1 - hf.y);
 }
-// byte offset of 16-byte chunk c of row r in a tile of D / 8 chunks a row
+// byte offset of 16-byte chunk c of row r in a tile: swizzled (chunk
+// index XOR the row mod 8) or, at a row of row_chunks(D) padded chunks,
+// in place
 template <int D>
 __device__ __forceinline__ int chunk_offset(int r, int c) {
-  return (r * (D / 8) + (c ^ (r & 7))) * 16;
+  if constexpr (swizzled(D))
+    return (r * (D / 8) + (c ^ (r & 7))) * 16;
+  else
+    return (r * row_chunks(D) + c) * 16;
 }
 
 template <int D, int kWarps>
@@ -511,5 +539,6 @@ extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
   if (D == 128) return launch<128>(grid, s, p, wide);
   if (D == 64) return launch<64>(grid, s, p, wide);
   if (D == 256) return launch<256>(grid, s, p, wide);
+  if (D == 96) return launch<96>(grid, s, p, wide);
   return static_cast<int>(cudaErrorInvalidValue);
 }

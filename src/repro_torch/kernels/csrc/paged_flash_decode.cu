@@ -32,9 +32,9 @@
 //   * Whole pages in flight: each thread copies the 16-byte K and V
 //     pieces it will itself read, with cp.async, into its own slots of a
 //     ring of kStages stages in shared memory (a stage is the rows one
-//     pass of the block consumes: 16 at D = 128, 32 at D = 64, 8 at D =
-//     256, where a row takes a whole warp), kStages - 1 stages ahead of
-//     the one it uses.  Its own cp.async.wait_group orders each copy
+//     pass of the block consumes: 16 at D = 128 and 96, 32 at D = 64, 8
+//     at D = 256, where a row takes a whole warp), kStages - 1 stages
+//     ahead of the one it uses.  Its own cp.async.wait_group orders each copy
 //     before its read, so the loop has no block barrier: warps run apart,
 //     as in K1, with kStages - 1 row pairs in flight a stream.
 //   * Each thread owns 8 dims of one row of a stage; every (warp, row)
@@ -44,6 +44,14 @@
 //     which keeps G <= 8 within two blocks an SM's registers); the streams
 //     merge by shuffles, then across warps through shared memory (reusing
 //     the drained ring).
+//   * Head dim 96 (phi-3-vision): a row is 12 pieces of 16 bytes, which
+//     do not divide a warp.  A row takes 16 lanes, 4 of them idle (no
+//     copy, no load, zero K and V, so they add nothing to the shuffled
+//     sums), rather than 8 lanes of 12 dims each (a 16-byte and an 8-byte
+//     copy a lane): the body, its shuffle trees over a power of two of
+//     lanes and each thread's own 16-byte ring slots stay as they are.
+//     The kernel waits on the bytes of the rows, not on its lanes, and
+//     those bytes are the same either way.
 //   * The merge of the partitions runs in the same launch: each block
 //     writes its (m, l, acc) to a float32 scratch, and the last block of
 //     a (slot, kv head) to take a ticket (an atomic counter) merges all
@@ -77,13 +85,20 @@ constexpr int kStages = 4;
 constexpr int kMaxParts = 256;  // the last block's weights fit the ring
 constexpr int kDefaultSmemLimit = 48 * 1024;  // without the attribute
 
+// lanes a row takes: its D / 8 16-byte pieces, rounded up to a power of
+// two that divides the warp (D = 96: 12 pieces on 16 lanes, 4 idle)
+__host__ __device__ constexpr int lanes_per_row(int pieces) {
+  return pieces <= 8 ? 8 : (pieces <= 16 ? 16 : 32);
+}
+
 template <int D>
 struct Layout {
-  static constexpr int kLanesPerRow = D / 8;       // 16-byte pieces a row
+  static constexpr int kPieces = D / 8;            // 16-byte pieces a row
+  static constexpr int kLanesPerRow = lanes_per_row(kPieces);
   static constexpr int kRowsPerWarp = 32 / kLanesPerRow;
   static constexpr int kStageRows = kWarps * kRowsPerWarp;
   // a thread owns 8 dims of one row: a row fills a warp or a part of it
-  static_assert(kLanesPerRow <= 32 && 32 % kLanesPerRow == 0, "D");
+  static_assert(D % 8 == 0 && kPieces <= kLanesPerRow, "D");
 };
 
 // The ring: kStages slots of one K and one V piece a thread (8 KB a
@@ -186,7 +201,11 @@ __global__ void __launch_bounds__(kThreads)
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int sub = lane / L::kLanesPerRow;  // row of this warp's share
-  const int dl = lane % L::kLanesPerRow;   // 8-wide piece of the head dim
+  // 8-wide piece of the head dim; a lane past the row's pieces (D = 96)
+  // is idle: it copies and reads nothing, holds zero K and V, and takes
+  // piece 0's addresses so that none points past a row
+  const bool live = lane % L::kLanesPerRow < L::kPieces;
+  const int dl = live ? lane % L::kLanesPerRow : 0;
   const int row = warp * L::kRowsPerWarp + sub;  // row within a stage
 
   // Each thread copies the K and V pieces it will read itself into its
@@ -198,7 +217,7 @@ __global__ void __launch_bounds__(kThreads)
   bf16* const slot0 = ring + threadIdx.x * 8;
   auto issue = [&](int st) {
     const int pos = lo + st * L::kStageRows + row;
-    if (st < nstages && pos < hi) {
+    if (st < nstages && pos < hi && live) {
       const int page = tab[(pos - lo) / ps], off = pos % ps;
       bf16* const slot = slot0 + (st % kStages) * 2 * kThreads * 8;
       cp_async16(slot, kj + page * p.k_sp + off * p.k_so);
@@ -232,7 +251,7 @@ __global__ void __launch_bounds__(kThreads)
     const bf16* const slot = slot0 + (st % kStages) * 2 * kThreads * 8;
     const bool valid = lo + st * L::kStageRows + row < hi;
     float kf[8] = {}, vf[8] = {};
-    if (valid) {
+    if (valid && live) {
       load8(slot, kf);
       load8(slot + kThreads * 8, vf);
     }
@@ -294,7 +313,7 @@ __global__ void __launch_bounds__(kThreads)
 
   // merge the warps through shared memory (the ring is drained)
   __syncthreads();
-  if (sub == 0) {
+  if (sub == 0 && live) {
 #pragma unroll
     for (int g = 0; g < MAXG; ++g) {
       if (g < G) {

@@ -38,7 +38,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 96, 128, 256)
 MAX_GROUP = 8          # query heads per kv head the kernel takes
 TILE_ROWS = 16         # rows of a tensor-core tile; runs are whole tiles
 MAX_PARTITION_ROWS = 512  # split until no block walks more rows than this

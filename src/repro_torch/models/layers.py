@@ -4,9 +4,10 @@ Plain functions over explicit parameter dicts, mirroring the reference's
 ``models/layers.py`` leaf for leaf.  The GQA path is ported with every
 cache layout the serving engine has: no cache, the dense slot cache and
 the paged pool, each in the config's dtype or int8, and the ring cache
-of a sliding-window layer; with the window and the logit softcap.  The
-reference's cross-attention branch raises ``NotImplementedError``
-naming the ``ROADMAP.md`` item that ports it.
+of a sliding-window layer; with the window and the logit softcap; and
+Whisper's cross-attention (``cross_kv``): the query alone, no rope,
+the plain non-causal :func:`attention` over every encoder row, as in
+the reference, which has no kernel for it.
 
 Cached decode attention goes through a kernel wrapper under the
 reference's gate (causal, no window, no softcap):
@@ -167,7 +168,7 @@ def gqa_schema(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     return s
 
 
-def _proj_heads(x, w):
+def proj_heads(x, w):
     """(B, S, d) @ (d, H, Dh) -> (B, S, H, Dh) as one matrix product."""
     d, H, Dh = w.shape
     return (x @ w.reshape(d, H * Dh)).reshape(*x.shape[:-1], H, Dh)
@@ -240,21 +241,27 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
     own route (its windowed decode has no kernel), not a fallback.  The
     port ignores ``cfg.use_flash_decode``: on the card the kernels run
     wherever this gate lets them.
+
+    ``cross_kv=(k, v)`` (B, T, Hkv, Dh) makes this Whisper's
+    cross-attention: only the query is projected (with its bias), no
+    rope on either side, no mask, and the cache is returned untouched.
     """
+    B, S, d = x.shape
+    q = proj_heads(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
     if cross_kv is not None:
-        raise NotImplementedError(
-            "cross-attention: ROADMAP.md queue 1, item 8 (Whisper)")
+        k, v = cross_kv
+        out = attention(q, k, v, q_pos=positions, causal=False)
+        return _out_proj(p, out), cache
+
     softcap = cfg.attn_logit_softcap
     # the reference's kernel gate; past it, the plain attention below is
     # the reference's own route (its windowed decode has no kernel)
     kernel = causal and not window and not softcap
-
-    B, S, d = x.shape
-    q = _proj_heads(x, p["wq"])
-    k = _proj_heads(x, p["wk"])
-    v = _proj_heads(x, p["wv"])
-    if "bq" in p:
-        q = q + p["bq"]
+    k = proj_heads(x, p["wk"])
+    v = proj_heads(x, p["wv"])
+    if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -364,10 +371,14 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
             out = attention(q, ck, cv, q_pos=positions, kv_len=kv_len,
                             causal=causal, window=window, softcap=softcap,
                             q_chunk=cfg.attn_q_chunk)
-    H, Dh = out.shape[-2:]
+    return _out_proj(p, out), cache
+
+
+def _out_proj(p, out):
+    """(B, S, H, Dh) @ wo (H, Dh, d) -> (B, S, d) as one matrix product."""
+    B, S, H, Dh = out.shape
     wo = p["wo"]
-    out = out.reshape(B, S, H * Dh) @ wo.reshape(H * Dh, wo.shape[-1])
-    return out, cache
+    return out.reshape(B, S, H * Dh) @ wo.reshape(H * Dh, wo.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -423,9 +434,9 @@ def mla_apply(p, x, cfg: ModelConfig, *, positions, cache=None, causal=True,
     # --- queries
     if m.q_lora_rank:
         cq = rmsnorm(p["q_norm"], x @ p["wq_a"], cfg.norm_eps)
-        q = _proj_heads(cq, p["wq_b"])
+        q = proj_heads(cq, p["wq_b"])
     else:
-        q = _proj_heads(x, p["wq_b"])
+        q = proj_heads(x, p["wq_b"])
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -459,8 +470,8 @@ def mla_apply(p, x, cfg: ModelConfig, *, positions, cache=None, causal=True,
         # naive: expand the latent into per-head k/v, then plain MHA
         # (its 1 / sqrt(dn + dr) scale is the query's own width)
         Skv, H = kv_src.shape[1], q.shape[2]
-        k_nope = _proj_heads(kv_src, p["wk_b"])
-        v = _proj_heads(kv_src, p["wv_b"])
+        k_nope = proj_heads(kv_src, p["wk_b"])
+        v = proj_heads(kv_src, p["wv_b"])
         k = torch.cat([k_nope, kr_src[:, :, None, :].expand(
             B, Skv, H, dr).to(k_nope.dtype)], dim=-1)
         qq = torch.cat([q_nope, q_rope], dim=-1)

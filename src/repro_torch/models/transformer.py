@@ -1,5 +1,6 @@
-"""Decoder assembly for the dense GQA, multi-head latent attention,
-mixture-of-experts and Mamba2 families.
+"""Model assembly for the dense GQA, multi-head latent attention,
+mixture-of-experts, Mamba2, vision-language and encoder-decoder
+families.
 
 Mirrors the reference's ``models/transformer.py``: layers are grouped
 into an optional unrolled prefix followed by ``n_blocks`` repeats of a
@@ -30,9 +31,20 @@ for all of them, the MoE load-balance loss summed over the layers as
 the reference sums it, and DeepSeek-V3's multi-token prediction
 (``mtp_depth``: one extra dense layer on the final stream and the next
 token's embedding, its logits in ``forward_train`` and its loss term in
-``forward_train_loss`` / ``loss_fn``).  Encoder-decoder stacks and
-modality frontends raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.  The
+``forward_train_loss`` / ``loss_fn``); Phi-3-vision's patch projector
+(``modality="vision"``: ``gelu(image_emb @ w1) @ w2``, tanh gelu as
+``jax.nn.gelu``'s default, prepended to the token embeddings, in the
+no-cache forward and at prefill, so positions and the cache count the
+576 image positions; the losses keep the last ``S_txt`` positions);
+Whisper's encoder-decoder (``is_encoder_decoder``: ``_encode`` runs
+``n_encoder_layers`` non-causal layers over the stub frame embeddings
+plus ``enc_pos``; each decoder layer has a cross-attention sublayer
+whose keys and values are projected from the encoder's output, or,
+without ``audio_emb``, read from the cache's ``cross_k`` / ``cross_v``,
+as the reference's served decode reads them).  The stub embeddings are
+cast to the weights' dtype on the way in (the reference casts the
+image's, and promotes a float32 frame embedding's sums past bf16
+weights; the port's matrix products take one dtype).  The
 reference's ``moe_fn`` hook exists for its expert-parallel path only and
 is not ported (``ROADMAP.md`` queue 1, item 9).
 
@@ -75,6 +87,8 @@ class LayerSig:
 
 # the multi-token-prediction layer: dense attention with an MLP of d_ff
 MTP_SIG = LayerSig("A", 0, False, False)
+# a Whisper encoder layer: non-causal self-attention, no cross sublayer
+ENC_SIG = LayerSig("A", 0, False, False, causal=False)
 # weight of the MTP cross-entropy in both losses (the reference's default
 # for forward_train_loss and loss_fn, src/repro/models/transformer.py:519,
 # :580, which no caller changes)
@@ -86,26 +100,15 @@ def _lcm(a, b):
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """Raise for anything outside the ported dense-GQA (sliding window
-    and softcap included), MLA (with multi-token prediction), MoE and
-    Mamba2 scope."""
+    """Raise for a config the layers cannot build."""
     kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
     if "M" in kinds and cfg.ssm is None:
         raise ValueError(f"{cfg.name}: Mamba layers need cfg.ssm")
     if cfg.attn_type == "mla" and cfg.mla is None:
         raise ValueError(f"{cfg.name}: attn_type='mla' needs cfg.mla")
-    unported = [
-        ("A" in kinds and cfg.attn_type not in ("gqa", "mla"),
-         f"attn_type={cfg.attn_type!r}"),
-        (cfg.is_encoder_decoder, "encoder-decoder"),
-        (cfg.modality != "text", f"modality={cfg.modality!r}"),
-    ]
-    found = [what for bad, what in unported if bad]
-    if found:
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves GQA and MLA decoders, MoE and "
-            f"Mamba2 stacks only; {', '.join(found)}: "
-            f"ROADMAP.md queue 1, item 8")
+    if "A" in kinds and cfg.attn_type not in ("gqa", "mla"):
+        raise ValueError(f"{cfg.name}: attention layers with "
+                         f"attn_type={cfg.attn_type!r}; gqa or mla")
 
 
 def layer_structure(cfg: ModelConfig) -> Tuple[List[LayerSig], List[LayerSig], int]:
@@ -146,6 +149,9 @@ def _layer_schema(cfg: ModelConfig, s: LayerSig) -> Dict[str, Any]:
         out["attn"] = L.mla_schema(cfg)
     else:
         out["attn"] = L.gqa_schema(cfg)
+    if s.cross and s.kind == "A":
+        out["ln_cross"] = L.rmsnorm_schema(d)
+        out["cross"] = L.gqa_schema(cfg)
     # ln2 stays without an MLP (Mamba2: d_ff = 0), as in the reference
     out["ln2"] = L.rmsnorm_schema(d)
     if s.is_moe:
@@ -156,12 +162,19 @@ def _layer_schema(cfg: ModelConfig, s: LayerSig) -> Dict[str, Any]:
 
 
 def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
-                cache=None, page_table=None, mla_absorb: bool = False):
+                cache=None, page_table=None, mla_absorb: bool = False,
+                enc_out=None):
     """One residual block.  Returns (x, cache, aux): the cache is updated
     in place (see :func:`repro_torch.models.layers.gqa_apply`,
     :func:`repro_torch.models.layers.mla_apply` and
     :func:`repro_torch.models.ssm.ssm_apply`), aux is the MoE layer's
-    load-balance loss (0.0 for any other layer)."""
+    load-balance loss (0.0 for any other layer).
+
+    A decoder layer of an encoder-decoder (``s.cross``) adds the
+    cross-attention sublayer after the self-attention: with ``enc_out``
+    (B, T, d) its keys and values are projected from it, and written
+    over the cache's ``cross_k`` / ``cross_v`` when there is a cache;
+    without, they are read from the cache."""
     aux = 0.0
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if s.kind == "M":
@@ -177,6 +190,19 @@ def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
                                            and s.window),
                                  page_table=page_table)
     x = x + out
+    if s.cross and s.kind == "A":
+        hc = L.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
+        if enc_out is not None:
+            ck = L.proj_heads(enc_out, p["cross"]["wk"])
+            cv = L.proj_heads(enc_out, p["cross"]["wv"])
+            if cache is not None:
+                cache["cross_k"].copy_(ck)
+                cache["cross_v"].copy_(cv)
+        else:
+            ck, cv = cache["cross_k"], cache["cross_v"]
+        out, _ = L.gqa_apply(p["cross"], hc, cfg, positions=positions,
+                             cross_kv=(ck, cv))
+        x = x + out
     if s.is_moe:
         ff, aux = moe_apply_ragged(p["moe"], L.rmsnorm(p["ln2"], x,
                                                        cfg.norm_eps), cfg)
@@ -189,6 +215,19 @@ def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
 
 def _layer_cache_schema(cfg: ModelConfig, s: LayerSig, batch: int,
                         max_len: int) -> Dict[str, ParamSpec]:
+    out = _self_cache_schema(cfg, s, batch, max_len)
+    if s.cross and s.kind == "A":
+        # the encoder's keys and values, written at prefill with
+        # audio_emb (zeros until then), in the config's dtype
+        ckv = (batch, cfg.encoder_seq_len, cfg.n_kv_heads, cfg.head_dim)
+        axes = ("batch", "", "kv_heads", "head_dim")
+        out["cross_k"] = ParamSpec(ckv, axes, cfg.dtype, "zeros")
+        out["cross_v"] = ParamSpec(ckv, axes, cfg.dtype, "zeros")
+    return out
+
+
+def _self_cache_schema(cfg: ModelConfig, s: LayerSig, batch: int,
+                       max_len: int) -> Dict[str, ParamSpec]:
     if s.kind == "M":
         return ssm_cache_schema(cfg, batch)
     if cfg.attn_type == "mla":
@@ -243,6 +282,18 @@ def decoder_param_schema(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         schema["lm_head"] = ParamSpec((V, d), ("vocab", "d_model"))
+    if cfg.modality == "vision":
+        me = cfg.modality_embed_dim
+        schema["projector"] = {
+            "w1": ParamSpec((me, d), ("", "d_model")),
+            "w2": ParamSpec((d, d), ("d_model", "d_model2")),
+        }
+    if cfg.is_encoder_decoder:
+        schema["enc_pos"] = ParamSpec((cfg.encoder_seq_len, d),
+                                      ("", "d_model"), init="small")
+        schema["encoder"] = stack_specs(_layer_schema(cfg, ENC_SIG),
+                                        cfg.n_encoder_layers)
+        schema["enc_final_norm"] = L.rmsnorm_schema(d)
     if cfg.mtp_depth:
         schema["mtp"] = {
             "norm_h": L.rmsnorm_schema(d),
@@ -324,6 +375,39 @@ def _slice(tree, i: int):
             for k, v in tree.items()}
 
 
+def _project_image(params, image_emb, dtype):
+    """Phi-3-vision's projector over the stub patch embeddings (B, P,
+    modality_embed_dim): ``gelu(image_emb @ w1) @ w2``, with the tanh
+    gelu of ``jax.nn.gelu``'s default."""
+    pj = params["projector"]
+    h = F.gelu(image_emb.to(dtype) @ pj["w1"], approximate="tanh")
+    return h @ pj["w2"]
+
+
+def _prepend_image(params, cfg: ModelConfig, inputs, x):
+    """The token embeddings ``x`` after the projected image, where the
+    config takes one and ``inputs`` has ``image_emb``."""
+    if cfg.modality != "vision" or "image_emb" not in inputs:
+        return x
+    return torch.cat([_project_image(params, inputs["image_emb"], x.dtype),
+                      x], dim=1)
+
+
+def _encode(params, cfg: ModelConfig, audio_emb):
+    """Whisper's encoder over the stub frame embeddings (B, T, d), T =
+    ``encoder_seq_len``: ``enc_pos`` added, ``n_encoder_layers``
+    non-causal layers (rope on, as in the reference), the final norm."""
+    w = params["enc_pos"]
+    x = audio_emb.to(w.dtype) + w[None]
+    B, T, _ = x.shape
+    positions = torch.arange(T, dtype=torch.int32,
+                             device=x.device)[None].expand(B, T)
+    for i in range(cfg.n_encoder_layers):
+        x, _, _ = apply_layer(_slice(params["encoder"], i), x, cfg, ENC_SIG,
+                              positions=positions)
+    return L.rmsnorm(params["enc_final_norm"], x, cfg.norm_eps)
+
+
 def forward_prefill(params, cfg: ModelConfig, inputs, cache, *,
                     mla_absorb: bool = False):
     """Prefill: run the full prompt, fill the cache, return last logits."""
@@ -348,6 +432,14 @@ def _forward_cached(params, cfg, inputs, cache, *, prefill, mla_absorb):
     tokens = inputs["tokens"]
     B, S = tokens.shape
     x = _embed_lookup(params, cfg, tokens)
+    if prefill:
+        # the image's positions come first and are cached with the text's
+        x = _prepend_image(params, cfg, inputs, x)
+        S = x.shape[1]
+    # with audio_emb the decoder's cross caches are written from the
+    # encoder; without (a served request) they are read as they are
+    enc_out = (_encode(params, cfg, inputs["audio_emb"])
+               if cfg.is_encoder_decoder and "audio_emb" in inputs else None)
 
     if prefill:
         # "pos0" (B,) shifts each row's positions: a paged suffix
@@ -373,14 +465,14 @@ def _forward_cached(params, cfg, inputs, cache, *, prefill, mla_absorb):
     for lp, lc, s in zip(params["prefix"], cache["prefix"], prefix):
         x, _, _ = apply_layer(lp, x, cfg, s, positions=positions,
                               cache=lc, page_table=page_table,
-                              mla_absorb=mla_absorb)
+                              mla_absorb=mla_absorb, enc_out=enc_out)
     for i in range(n_blocks):
         bp, bc = _slice(params["blocks"], i), _slice(cache["blocks"], i)
         for j, s in enumerate(block):
             x, _, _ = apply_layer(bp[f"p{j}"], x, cfg, s,
                                   positions=positions, cache=bc[f"p{j}"],
                                   page_table=page_table,
-                                  mla_absorb=mla_absorb)
+                                  mla_absorb=mla_absorb, enc_out=enc_out)
     cache["pos"] = new_pos
 
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -393,11 +485,11 @@ def _forward_cached(params, cfg, inputs, cache, *, prefill, mla_absorb):
 
 
 def _embed_inputs(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor]):
-    """Token embedding.  Returns (x, positions); text only (the modality
-    frontends raise in ``layer_structure``)."""
+    """Token embedding, after the projected image where there is one.
+    Returns (x, positions)."""
     tokens = inputs["tokens"]
-    B, S = tokens.shape
-    x = _embed_lookup(params, cfg, tokens)
+    x = _prepend_image(params, cfg, inputs, _embed_lookup(params, cfg, tokens))
+    B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
     return x, positions
@@ -412,20 +504,25 @@ def _save_weight_products(ctx, op, *args, **kwargs):
 
 
 def _backbone(params, cfg: ModelConfig, inputs):
-    """Embedding and every layer, under ``cfg.remat``.  Returns the
-    hidden states before the final norm and the MoE load-balance loss
-    summed over the layers (0 without an MoE layer)."""
+    """Embedding (and the encoder, for an encoder-decoder: not
+    rematerialized, as in the reference) and every decoder layer, under
+    ``cfg.remat``.  Returns the hidden states before the final norm and
+    the MoE load-balance loss summed over the layers (0 without an MoE
+    layer)."""
     prefix, block, n_blocks = layer_structure(cfg)
     x, positions = _embed_inputs(params, cfg, inputs)
+    enc_out = (_encode(params, cfg, inputs["audio_emb"])
+               if cfg.is_encoder_decoder else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, s in zip(params["prefix"], prefix):
-        x, _, a = apply_layer(lp, x, cfg, s, positions=positions)
+        x, _, a = apply_layer(lp, x, cfg, s, positions=positions,
+                              enc_out=enc_out)
         aux = aux + a
 
-    def block_body(h, acc, bp):
+    def block_body(h, acc, bp, enc):
         for j, s in enumerate(block):
             h, _, a = apply_layer(bp[f"p{j}"], h, cfg, s,
-                                  positions=positions)
+                                  positions=positions, enc_out=enc)
             acc = acc + a
         return h, acc
 
@@ -438,9 +535,9 @@ def _backbone(params, cfg: ModelConfig, inputs):
           if cfg.remat == "dots" else {})
     for i in range(n_blocks):
         bp = _slice(params["blocks"], i)
-        x, aux = (checkpoint(block_body, x, aux, bp, use_reentrant=False,
-                             **kw)
-                  if remat else block_body(x, aux, bp))
+        x, aux = (checkpoint(block_body, x, aux, bp, enc_out,
+                             use_reentrant=False, **kw)
+                  if remat else block_body(x, aux, bp, enc_out))
     return x, aux
 
 
@@ -472,8 +569,10 @@ def forward_train(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor]):
     x = L.rmsnorm(params["final_norm"], h_final, cfg.norm_eps)
     extras = {"aux_loss": aux}
     if cfg.mtp_depth:
+        # the text positions only, after an image's
+        tokens = inputs["tokens"]
         extras["mtp_logits"] = _unembed(params, cfg, _mtp_hidden(
-            params, cfg, h_final, inputs["tokens"]))
+            params, cfg, h_final[:, -tokens.shape[1]:], tokens))
     return _unembed(params, cfg, x), extras
 
 

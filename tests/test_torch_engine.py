@@ -127,7 +127,8 @@ def test_nan_quarantine_leaves_peers_token_identical(models):
 
 @pytest.mark.parametrize("arch", ["qwen1.5-32b", "dbrx-132b", "gemma3-12b",
                                   "gemma3-12b-ring", "minicpm3-4b",
-                                  "minicpm3-4b-absorb", "deepseek-v3-671b"])
+                                  "minicpm3-4b-absorb", "deepseek-v3-671b",
+                                  "phi-3-vision-4.2b", "whisper-large-v3"])
 def test_decode_chunk_issues_no_host_sync(arch, request, monkeypatch):
     """A decode chunk's `sync_every` steps never read a device value back
     to the host: every slot-state update stays a tensor op, and so does
@@ -136,7 +137,9 @@ def test_decode_chunk_issues_no_host_sync(arch, request, monkeypatch):
     cache's writes and lengths (its window cut to 8: the chunk's
     positions 8-11 wrap the ring) and an MLA layer's compressed-cache
     writes and masks, naive and absorbed (minicpm3 and deepseek SMOKE;
-    MTP is a training head and does not decode).  Nor does a step make a
+    MTP is a training head and does not decode), phi-3-vision's decoder
+    and whisper's cross-attention over its cache (their SMOKE).  Nor
+    does a step make a
     tensor of host data (``torch.tensor`` of a number: on the card a
     copy that waits for the stream)."""
     engine_kw = {}

@@ -70,6 +70,8 @@ def _port(q, k, v, lengths):
     (2, 80, 64, 8, 64),      # G = 8 (command-r-35b's H 64 over 8)
     (2, 100, 16, 8, 256),    # gemma3-12b: G = 2, head_dim 256
     (3, 48, 8, 1, 256),      # head_dim 256 at G = 8
+    (3, 100, 8, 8, 96),      # phi-3-vision: G = 1, head_dim 96
+    (2, 64, 8, 2, 96),       # head_dim 96 at G = 4
 ])
 def test_plain_version_matches_pallas_and_oracle(B, L, H, Hkv, D):
     q, k, v, lens = _inputs(B, L, H, Hkv, D)
@@ -127,8 +129,9 @@ class _Stream:
     # passes the checks, then cannot build the kernel here
     (torch.bfloat16, 128, RuntimeError, "nvcc"),
     (torch.float32, 128, TypeError, "bfloat16"),     # bf16 only
-    (torch.bfloat16, 96, ValueError, "head_dim"),    # 64, 128, 256 only
+    (torch.bfloat16, 96, RuntimeError, "nvcc"),      # phi-3's head_dim
     (torch.bfloat16, 256, RuntimeError, "nvcc"),     # gemma3's head_dim
+    (torch.bfloat16, 80, ValueError, "head_dim"),    # 64, 96, 128, 256 only
 ])
 def test_cuda_request_launches_or_raises_never_falls_back(
         monkeypatch, dtype, head_dim, error, match, B, L, H, Hkv):
@@ -341,19 +344,53 @@ def test_split_and_merge_match_the_plain_version_at_head_dim_256(L):
     assert (got.bfloat16().float() - want).abs().max() <= KERNEL_TOL
 
 
+def _row_chunks(D):
+    """16-byte chunks a shared K/V row of K1 takes: D / 8 where that is a
+    power of two (rows swizzled), else one pad chunk more (D = 96: 13)."""
+    n = D // 8
+    return n if n & (n - 1) == 0 else n + 1
+
+
+@pytest.mark.parametrize("num_sms", [132, 8])  # narrow blocks, wide ones
+def test_split_and_merge_match_the_plain_version_at_head_dim_96(num_sms):
+    """phi-3-vision's head_dim 96 at G = 1 on the main path's 392-row
+    slots (one run): the kernel's arithmetic, over 6 k-steps and 12
+    n-tiles, gives the plain version's output, in float32 and on bf16
+    inputs with P split in two parts."""
+    B, Hkv, G, D, L = 3, 2, 1, 96, 392
+    parts, part_rows = fd.partitions(L)
+    assert parts == 1
+    q, k, v, lens = (torch.from_numpy(a) for a in _inputs(
+        B, L, G * Hkv, Hkv, D, seed=96, lengths=[L, 1, 173]))
+    got = _kernel_emulation(q, k, v, lens, parts, part_rows, num_sms, False)
+    want = fd.flash_decode_torch(q, k, v, lens)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TOL,
+                               atol=TOL)
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    got = _kernel_emulation(qb, kb, vb, lens, parts, part_rows, num_sms,
+                            True)
+    exact = fd.flash_decode_torch(qb.float(), kb.float(), vb.float(), lens)
+    assert (got - exact).abs().max() <= TOL
+    want = fd.flash_decode_torch(qb, kb, vb, lens).float()
+    assert (got.bfloat16().float() - want).abs().max() <= KERNEL_TOL
+
+
 @pytest.mark.parametrize("D", fd.HEAD_DIMS)
 def test_block_width_fits_shared_memory(D):
     """Wide blocks are picked only at a head dim where 8 warps' rings of
-    two 16-row K + V tiles fit the shared memory a block may have (the
-    source's kMaxSmem); narrow ones fit at every head dim."""
+    two 16-row K + V tiles (rows padded at D = 96) fit the shared memory
+    a block may have (the source's kMaxSmem); narrow ones fit at every
+    head dim."""
     src = KERNEL_SOURCE.read_text()
     most = eval(re.search(r"constexpr int kMaxSmem = ([\d *]+);",
                           src).group(1))
     assert int(re.search(r"constexpr int kStages = (\d+);", src)
                .group(1)) == 2
+    assert f"if (D == {D}) return launch<{D}>" in src
+    assert "return swizzled(D) ? D / 8 : D / 8 + 1;" in src
 
     def ring(warps):
-        return warps * 2 * 2 * fd.TILE_ROWS * D * 2
+        return warps * 2 * 2 * fd.TILE_ROWS * _row_chunks(D) * 16
     assert ring(NARROW_WARPS) <= most
     can_be_wide = any(fd.wide_blocks(B, Hkv, parts, sms, D)
                       for B, Hkv, parts, sms in ((1, 1, 1, 132),
@@ -391,6 +428,14 @@ def test_launch_arguments_at_head_dim_256(monkeypatch, B, L, H, Hkv):
     rows, G = 2): narrow blocks whatever the grid, and partials sized
     for D + 2 = 258 floats a head."""
     _check_launch_arguments(monkeypatch, B, L, H, Hkv, 256)
+
+
+@pytest.mark.parametrize("B,L,H,Hkv", [(8, 392, 32, 32), (3, 16, 4, 4)])
+def test_launch_arguments_at_head_dim_96(monkeypatch, B, L, H, Hkv):
+    """The same at phi-3-vision's head_dim 96 (its 32 heads = kv heads
+    on the main path's slots): blocks as wide as the grid allows, and
+    partials sized for D + 2 = 98 floats a head."""
+    _check_launch_arguments(monkeypatch, B, L, H, Hkv, 96)
 
 
 def _check_launch_arguments(monkeypatch, B, L, H, Hkv, D):

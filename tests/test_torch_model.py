@@ -1,4 +1,6 @@
-"""The port's dense GQA decoder against the reference, on qwen SMOKE.
+"""The port's dense GQA decoder against the reference, on qwen SMOKE;
+and every port config against the reference's (its fields, its SMOKE
+forward logits), with no architecture of the reference left unported.
 
 Weights come from the reference's ``Model.init`` plus seeded numpy
 noise (so biases and norm weights are not trivially 0 and 1), carried
@@ -48,11 +50,12 @@ def _ref_params(model, seed=0):
                    ).astype(a.dtype), params)
 
 
-def _run_both(rc, tc, *, B=3, S=9, max_len=24, steps=8, seed=0,
+def _run_both(rc, tc, *, B=3, S=9, max_len=24, steps=8, seed=0, extra=None,
               **forward_kw):
     """(ref logits, port logits) per step, both fed the reference's
-    greedy tokens; ``forward_kw`` (``mla_absorb``) goes to both packages'
-    prefill and decode."""
+    greedy tokens; ``extra`` (numpy arrays: ``image_emb``, ``audio_emb``)
+    joins the prefill's inputs; ``forward_kw`` (``mla_absorb``) goes to
+    both packages' prefill and decode."""
     rm, tm = ref_build(rc), build_model(tc)
     np_params = _ref_params(rm, seed)
     rp = jax.tree_util.tree_map(jnp.asarray, np_params)
@@ -61,9 +64,11 @@ def _run_both(rc, tc, *, B=3, S=9, max_len=24, steps=8, seed=0,
         4, rc.vocab_size, size=(B, S)).astype(np.int32)
     rcache, tcache = rm.init_cache(B, max_len), tm.init_cache(B, max_len,
                                                               device="cpu")
+    inputs = {"tokens": toks, **(extra or {})}
     rl, rcache = jax.jit(functools.partial(rm.prefill, **forward_kw))(
-        rp, {"tokens": jnp.asarray(toks)}, rcache)
-    tl, tcache = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, tcache,
+        rp, {k: jnp.asarray(v) for k, v in inputs.items()}, rcache)
+    tl, tcache = tm.prefill(tp, {k: torch.from_numpy(v)
+                                 for k, v in inputs.items()}, tcache,
                             **forward_kw)
     out = [(np.asarray(rl, np.float32), tl.float().numpy())]
     decode = jax.jit(functools.partial(rm.decode, **forward_kw))
@@ -130,27 +135,56 @@ def test_decode_write_past_the_row_is_dropped():
     assert cache[0, 1:].abs().sum() == 0 and cache[1, :3].abs().sum() == 0
 
 
-@pytest.mark.parametrize("kw", [
-    dict(cross_kv=(None, None)),
-], ids=["cross"])
-def test_unported_attention_branches_raise(kw):
-    _, tc = _configs()
-    tm = build_model(tc)
-    p = tm.init(device="cpu")["blocks"]["p0"]["attn"]
-    p = {k: v[0] for k, v in p.items()}
-    x = torch.zeros(1, 1, tc.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        L.gqa_apply(p, x, tc, positions=torch.zeros(1, 1, dtype=torch.int32),
-                    cache={"k": None, "v": None}, **kw)
+def test_every_reference_architecture_is_ported():
+    """The port's registry is the reference's: no architecture left to
+    port, and every one builds."""
+    from repro.configs import ARCH_IDS as REF_ARCH_IDS
+    from repro_torch.configs import ARCH_IDS, UNPORTED_ARCH_IDS
+    assert UNPORTED_ARCH_IDS == []
+    assert sorted(ARCH_IDS) == sorted(REF_ARCH_IDS)
+    for arch in ARCH_IDS:
+        build_model(get_config(arch, "smoke"))
 
 
-@pytest.mark.parametrize("kw", [dict(is_encoder_decoder=True),
-                                dict(modality="vision")],
-                         ids=["encoder-decoder", "vision"])
-def test_unported_model_families_raise(kw):
-    _, tc = _configs(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(tc)
+def _smoke_inputs(rc, seed=0):
+    """Seeded tokens, and the stub frontend's embeddings for a vision or
+    audio config (numpy arrays)."""
+    rng = np.random.default_rng(seed)
+    inputs = {"tokens": rng.integers(4, rc.vocab_size, size=(2, 12)
+                                     ).astype(np.int32)}
+    if rc.modality == "vision":
+        inputs["image_emb"] = rng.standard_normal(
+            (2, rc.n_modality_tokens, rc.modality_embed_dim)
+        ).astype(np.float32)
+    if rc.is_encoder_decoder:
+        inputs["audio_emb"] = rng.standard_normal(
+            (2, rc.encoder_seq_len, rc.d_model)).astype(np.float32)
+    return inputs
+
+
+@pytest.mark.parametrize("arch", [
+    "qwen1.5-32b", "mamba2-130m", "command-r-35b", "dbrx-132b",
+    "jamba-1.5-large-398b", "gemma3-12b", "minicpm3-4b", "deepseek-v3-671b",
+    "phi-3-vision-4.2b", "whisper-large-v3"])
+def test_every_smoke_config_forward_matches_reference(arch):
+    """Every port config at SMOKE size, float32, the reference's weights
+    carried across: ``forward_train`` logits within 1e-4 (with an image
+    or audio frames where the family takes them)."""
+    from repro.models import transformer as RT
+    from repro_torch.models import transformer as T
+    rc = dataclasses.replace(ref_config(arch, "smoke"), dtype="float32")
+    tc = dataclasses.replace(get_config(arch, "smoke"), dtype="float32")
+    p = _ref_params(ref_build(rc))
+    inputs = _smoke_inputs(rc)
+    want, _ = jax.jit(lambda p, x: RT.forward_train(p, rc, x))(
+        jax.tree_util.tree_map(jnp.asarray, p),
+        {k: jnp.asarray(v) for k, v in inputs.items()})
+    got, _ = T.forward_train(params_from_numpy(p, device="cpu"), tc,
+                             {k: torch.from_numpy(v)
+                              for k, v in inputs.items()})
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL,
+                               atol=F32_TOL)
 
 
 def test_seeded_init_in_config_dtype_on_requested_device():
@@ -190,7 +224,8 @@ def test_bridge_carries_bf16_bit_exactly():
     pytest.param("qwen1.5-32b", v, id=v) for v in ("full", "smoke")] + [
     pytest.param(a, v, id=f"{a}-{v}")
     for a in ("command-r-35b", "dbrx-132b", "jamba-1.5-large-398b",
-              "gemma3-12b", "minicpm3-4b", "deepseek-v3-671b")
+              "gemma3-12b", "minicpm3-4b", "deepseek-v3-671b",
+              "phi-3-vision-4.2b", "whisper-large-v3")
     for v in ("full", "smoke")])
 def test_configs_are_the_reference_configs(arch, variant):
     from repro.core import config as ref_cfg

@@ -101,8 +101,18 @@ def test_plain_version_matches_pallas_and_oracle(G, ps):
 @pytest.mark.parametrize("G", [1, 2])
 def test_plain_version_matches_pallas_and_oracle_at_head_dim_256(G):
     """gemma3-12b's head_dim 256 (its G = 2), page size 8."""
+    _check_plain_version(G, 256)
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_plain_version_matches_pallas_and_oracle_at_head_dim_96(G):
+    """phi-3-vision's head_dim 96 (its G = 1), page size 8."""
+    _check_plain_version(G, 96)
+
+
+def _check_plain_version(G, D):
     Hkv = 2
-    q, kp, vp, table, lens = _kernel_inputs(4, 5, 8, G * Hkv, Hkv, 256,
+    q, kp, vp, table, lens = _kernel_inputs(4, 5, 8, G * Hkv, Hkv, D,
                                             seed=G)
     got = _port_k2(q, kp, vp, table, lens)
     args = [jnp.asarray(a) for a in (q, kp, vp, table, lens)]
@@ -153,9 +163,10 @@ def _fake_cuda(shape, dtype):
     # passes the checks, then cannot build the kernel here
     (torch.bfloat16, 128, torch.int32, RuntimeError, "nvcc"),
     (torch.float32, 128, torch.int32, TypeError, "bfloat16"),   # bf16 only
-    (torch.bfloat16, 96, torch.int32, ValueError, "head_dim"),  # 64-256
+    (torch.bfloat16, 96, torch.int32, RuntimeError, "nvcc"),    # phi-3
     (torch.bfloat16, 128, torch.int64, ValueError, "int32"),    # i32 table
     (torch.bfloat16, 256, torch.int32, RuntimeError, "nvcc"),   # gemma3
+    (torch.bfloat16, 80, torch.int32, ValueError, "head_dim"),  # none
 ])
 def test_cuda_request_launches_or_raises_never_falls_back(
         monkeypatch, dtype, head_dim, table_dtype, error, match):
@@ -253,9 +264,19 @@ def test_partition_merge_matches_the_plain_version(MB, ps, parts, G):
 def test_partition_merge_matches_the_plain_version_at_head_dim_256(MB, ps):
     """gemma3-12b's head_dim 256 and G = 2 through the main path's
     50-block tables and a 2048-row one, split as on a 132-SM card."""
-    Hkv, G = 2, 2
+    _check_partition_merge(MB, ps, 2, 256)
+
+
+def test_partition_merge_matches_the_plain_version_at_head_dim_96():
+    """phi-3-vision's head_dim 96 and G = 1 through the main path's
+    50-block tables, split as on a 132-SM card."""
+    _check_partition_merge(50, 8, 1, 96)
+
+
+def _check_partition_merge(MB, ps, G, D):
+    Hkv = 2
     q, kp, vp, table, lens = (torch.from_numpy(a) for a in _kernel_inputs(
-        4, MB, ps, G * Hkv, Hkv, 256, seed=MB))
+        4, MB, ps, G * Hkv, Hkv, D, seed=MB))
     parts, part_pages = pfd.partitions(MB, ps, 4, Hkv, 132)
     assert parts > 1
     got = _partitioned_decode(q, kp, vp, table, lens, parts, part_pages)
@@ -303,6 +324,12 @@ def test_launch_arguments_depend_on_shapes_only(monkeypatch, B, Hkv, MB):
 def test_launch_arguments_at_head_dim_256(monkeypatch, B, Hkv, MB):
     """The same at gemma3-12b's head_dim 256 over its 8 kv heads."""
     _check_launch_arguments(monkeypatch, B, Hkv, MB, 256)
+
+
+@pytest.mark.parametrize("B,Hkv,MB", [(8, 32, 50)])
+def test_launch_arguments_at_head_dim_96(monkeypatch, B, Hkv, MB):
+    """The same at phi-3-vision's head_dim 96 over its 32 kv heads."""
+    _check_launch_arguments(monkeypatch, B, Hkv, MB, 96)
 
 
 def _check_launch_arguments(monkeypatch, B, Hkv, MB, D):

@@ -136,12 +136,14 @@ Phases, each on its own lines; any failure exits nonzero:
                ``qwen1.5-32b`` at full width with its depth cut 64 -> 4
                (seeded bf16 weights, ``remat="full"``), over the port's
                ``LMDataset`` at batch 4 x seq 1024: finite loss and
-               gradient norm, params moved, the loss falling, no K4
-               launch; ms per step, tokens/s, model FLOPs/s, peak
-               memory, the AdamW update and the forward timed alone, the
-               device time of one step by kernel, and one loss and
-               gradient under each of remat none / full / dots (the
-               same numbers, each mode's peak memory).
+               gradient norm, step 0's loss equal to
+               ``forward_train_loss`` under ``no_grad``, params moved,
+               the loss falling, no K4 launch; ms per step, tokens/s,
+               model FLOPs/s, peak memory, the AdamW update and the
+               forward timed alone, the device time of one step by
+               kernel, and one loss and gradient under each of remat
+               none / full / dots (the same numbers, each mode's peak
+               memory).
 13. eval     — on the trained params, a held batch through
                ``make_eval_step`` with K4 and with the plain attention:
                K4 launched 4 times (once a layer), the losses agreeing;
@@ -163,6 +165,24 @@ Phases, each on its own lines; any failure exits nonzero:
                launch; ms per step, tokens/s, peak memory; the gradient
                norm at chunk 256 (NaN, as the reference's); a train step
                through K6 raising the gradient guard.
+16a0. train families — phase 12's checks and phase 13's eval for every
+               other family, each after the previous model is freed
+               (``TRAIN_FAMILIES``, lr 1e-4, 8 steps): ``dbrx-132b`` cut
+               to 1 of 40 layers (one MoE layer, 16 experts top-4) at 4
+               x 1024, ``minicpm3-4b`` FULL (MLA) at 4 x 1024,
+               ``deepseek-v3-671b`` cut to its 3 dense layers plus the
+               MTP layer (autograd through MLA and MTP) at 4 x 1024,
+               ``gemma3-12b`` cut to 12 of 48 layers (2 global) at 2 x
+               2048 (the window of 1024 masks), ``phi-3-vision-4.2b``
+               FULL at 4 x (576 image patches + 448 tokens) and
+               ``whisper-large-v3`` FULL at 4 x 384 tokens with 4 x
+               1500 frames; model FLOPs/s over the active parameters;
+               each eval launching K4 once for each layer the
+               reference's gate lets through (1, 0, 0, 2, 32, 32).  Then
+               qwen at 4 layers, one step at microbatches 1, 2 and 4 from
+               the same seeded init: loss, gradient norm and the updated
+               leaves agreeing, the activations beside the float32
+               accumulators falling.
 16a. moe/gqa serve — the mixture-of-experts and GQA families at their
                published widths through ``Gateway.serve``, one after the
                other, each after the previous model is freed:
@@ -262,10 +282,13 @@ Phases, each on its own lines; any failure exits nonzero:
 
 The kernel checks (phase 3) include K4 flash_attention: first the count
 of HGMMA (wgmma) instructions in its SASS (``cuobjdump -sass``; none is a
-failure) and its ``-Xptxas -v`` lines; then the training shape (B=4,
-S=1024, H=Hkv=40, D=128, causal), GQA G=2, a non-causal ragged case,
-D=64 and a causal Sq != Skv case, each against its plain version; the
-training shape is timed beside its bound and SDPA.  Kernel times are
+failure) and its ``-Xptxas -v`` lines (registers and spills per head
+dim); then the training shape (B=4, S=1024, H=Hkv=40, D=128, causal),
+phi-3-vision-4.2b's eval shape (B=4, S=1024, H=Hkv=32, D=96) and
+gemma3-12b's (B=2, S=2048, H=16, Hkv=8, D=256), GQA G=2, a non-causal
+ragged case, D=64, a causal Sq != Skv case and D=96 / 256 ragged and
+causal, each against its plain version; the first three are timed warm
+and with L2 flushed beside their bounds and SDPA.  Kernel times are
 CUDA-event means of back-to-back calls after the card has been given a
 head start (a spin longer than the host's enqueueing), so that they time
 the card and not the host's launch rate.  And K6
@@ -316,7 +339,46 @@ BIG_DOCS = 1 << 20    # 1 GiB of float32 rows at E = 256
 BM25_HOST_QUESTIONS = 8  # BM25Index.topk saturates all of tf per question
 # training: full width, depth cut so params, gradients and AdamW moments
 # (12 B a param) fit one 80 GB card beside the activations
+QWEN = "qwen1.5-32b"
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4, 1024, 4, 8
+# bf16 weights of ~0.02 move by more than half a rounding step; the
+# norms' ones would not (3e-4 against 2^-8)
+QWEN_WATCHED = ("blocks/p0/mlp/w_down/0", "blocks/p0/attn/bq",
+                "embed/:4096")
+MICROBATCHES = (1, 2, 4)
+# the families' learning rate (qwen's phase keeps 3e-4): at 3e-4 after a
+# warmup of 2 steps deepseek-v3-671b's 7168-wide seeded stack overshoots
+# (loss 17.0 -> 33.0 at step 2, 21.0 at step 8 on an H100); the
+# reference's own schedule warms up over 100 steps
+FAMILY_LR = 1e-4
+# every served family trained on the card: (arch, layers kept (None:
+# FULL, not cut), batch, seq, watched leaves).  Each train state is 12 B
+# a param: dbrx-132b's one MoE layer of 16 experts (3.88 B params, 46.5
+# GB), minicpm3-4b FULL (4.07 B, 48.9 GB), deepseek-v3-671b's 3 dense
+# layers and its MTP layer (4.29 B, 51.5 GB: one of its MoE layers is
+# 11.5 B, 138 GB), gemma3-12b's first 12 layers (two global; 3.70 B,
+# 44.4 GB) at 2 x 2048 so that the local layers' window of 1024 masks,
+# phi-3-vision-4.2b FULL (3.74 B, 44.8 GB; 576 image patches + 448
+# tokens a row) and whisper-large-v3 FULL (1.96 B, 23.5 GB; 384 tokens
+# and 1500 frames a row, its encoder not rematerialized, as the
+# reference's)
+TRAIN_FAMILIES = (
+    ("dbrx-132b", 1, 4, 1024, ("blocks/p0/moe/w_down/0/0",
+                               "blocks/p0/moe/router/0",
+                               "blocks/p0/attn/wq/0")),
+    ("minicpm3-4b", None, 4, 1024, ("blocks/p0/attn/wkv_a/0",
+                                    "blocks/p0/attn/wq_a/0",
+                                    "blocks/p0/mlp/w_down/0")),
+    ("deepseek-v3-671b", 3, 4, 1024, ("prefix/0/attn/wkv_a", "mtp/w_comb",
+                                      "mtp/layer/attn/wkv_a")),
+    ("gemma3-12b", 12, 2, 2048, ("blocks/p0/attn/wq/0",
+                                 "blocks/p5/attn/wq/0",
+                                 "blocks/p5/mlp/w_down/0")),
+    ("phi-3-vision-4.2b", None, 4, 1024, ("projector/w1", "projector/w2",
+                                          "blocks/p0/attn/wq/0")),
+    ("whisper-large-v3", None, 4, 384, ("encoder/attn/wq/0", "enc_pos",
+                                        "blocks/p0/cross/wq/0")),
+)
 EVAL_RTOL = 5e-3  # bf16 activations: K4 rounds P to bf16 and sums in
 #                   another order than the plain float32 attention
 REMAT_RTOL = 1e-3  # the same forward; bf16 gradients summed by atomics in
@@ -361,6 +423,9 @@ GEMMA_K1_LONG = "gemma3-12b 2048-row slot, D=256, G=2"
 PHI3, WHISPER = "phi-3-vision-4.2b", "whisper-large-v3"
 PHI3_K1 = "phi-3-vision-4.2b, D=96, G=1"
 WHISPER_K1 = "whisper-large-v3, D=64, G=1"
+# K4 at the eval shapes of the two families past D = 64 / 128
+PHI3_K4 = "phi-3-vision-4.2b eval, D=96, G=1"
+GEMMA_K4 = "gemma3-12b eval, D=256, G=2"
 MODALITY_BATCH, IMAGE_TEXT_TOKENS, MODALITY_STEPS = 4, 384, 8
 MODALITY_F32_RTOL = 1e-4  # of max |logit|: SMOKE float32 on the card and
 #                           on the host, the same sums in another order
@@ -475,15 +540,17 @@ def k1_ptxas(build_report: dict, name: str = "flash_decode",
     warps a block), from the ``-Xptxas -v`` lines of the build in
     ``build_report``; empty when this run did not build it.  With
     ``name="paged_flash_decode", second="MAXG"`` the same for K2 (its
-    head dim and group bucket)."""
+    head dim and group bucket); with ``name="flash_attention"`` for K4
+    (its head dim only: ``second`` is not read)."""
     out = (build_report or {}).get(name, {}).get("compiler_output", "")
     rows, dim = [], None
     for line in out.splitlines():
         m = re.search(rf"Compiling entry function '.*[^_]{name}_kernel"
-                      r"ILi(\d+)ELi(\d+)E", line)
+                      r"ILi(\d+)E(?:Li(\d+)E)?", line)
         if m:
             dim = m.group(1)
-            rows.append([f"D={dim}, {second} {m.group(2)}"])
+            rows.append([f"D={dim}" + (f", {second} {m.group(2)}"
+                                       if m.group(2) else "")])
         elif dim is not None and ("spill" in line or "registers" in line):
             rows[-1].append(line.split(":", 1)[-1].strip())
     return [", ".join(r) for r in rows]
@@ -729,14 +796,17 @@ def paged_kernel_phase() -> list:
         ("gemma3", "phi-3"))]
 
 
-def attention_kernel_phase(build_report: dict) -> dict:
+def attention_kernel_phase(build_report: dict) -> list:
     """K4 flash_attention against its plain version in bf16: the training
-    shape (B=4, S=1024, H=Hkv=40, D=128, causal), then GQA G=2, a
-    non-causal case with Sq != Skv and ragged tiles, D=64 (SMOKE), and a
-    causal Sq != Skv case.  The training shape is timed beside its bound
-    and SDPA; its HGMMA count and its ptxas lines (from ``build_report``,
-    ``build_phase``'s) are printed first.  Returns the training shape's
-    row of the table."""
+    shape (B=4, S=1024, H=Hkv=40, D=128, causal), phi-3-vision-4.2b's
+    eval shape (B=4, S=1024, H=Hkv=32, D=96) and gemma3-12b's global
+    layers' (B=2, S=2048, H=16, Hkv=8, D=256), then GQA G=2, a non-causal
+    case with Sq != Skv and ragged tiles, D=64 (SMOKE), a causal Sq !=
+    Skv case, and D=96 / 256 on ragged tiles.  The first three are timed
+    warm and with L2 flushed, beside their bound, the plain version and
+    SDPA; K4's HGMMA count and its ptxas lines (from ``build_report``,
+    ``build_phase``'s) are printed first, with its registers and spills
+    per head dim.  Returns the three timed rows of the table."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -745,17 +815,24 @@ def attention_kernel_phase(build_report: dict) -> dict:
     ptxas = ptxas_lines(build_report["flash_attention"]["compiler_output"])
     say(f"== kernel flash_attention: {hgmma} HGMMA instruction(s) in its "
         f"SASS; ptxas: {' | '.join(ptxas)}")
+    for line in k1_ptxas(build_report, "flash_attention"):
+        say(f"== K4 ptxas: {line}")
     if not hgmma:
         raise AssertionError("flash_attention's SASS has no HGMMA: the "
                              "products do not run on wgmma")
     g = torch.Generator(device="cuda").manual_seed(2)
-    row = None
+    rows = []
     for label, B, Sq, Skv, H, Hkv, D, causal in (
             ("training shape", 4, 1024, 1024, 40, 40, 128, True),
+            (PHI3_K4, 4, 1024, 1024, 32, 32, 96, True),
+            (GEMMA_K4, 2, 2048, 2048, 16, 8, 256, True),
             ("GQA G=2", 2, 512, 512, 16, 8, 128, True),
             ("non-causal, G=4, ragged", 2, 320, 448, 8, 2, 128, False),
             ("SMOKE D=64", 2, 256, 256, 4, 4, 64, True),
-            ("causal Sq != Skv", 1, 200, 136, 4, 4, 64, True)):
+            ("causal Sq != Skv", 1, 200, 136, 4, 4, 64, True),
+            ("D=96 non-causal, G=2, ragged", 2, 200, 328, 8, 4, 96, False),
+            ("D=256 non-causal, G=2, ragged", 2, 200, 328, 8, 4, 256, False),
+            ("D=256 causal Sq != Skv", 1, 300, 136, 4, 4, 256, True)):
         def rnd(*shape):
             return torch.randn(shape, generator=g, device="cuda",
                                dtype=torch.bfloat16)
@@ -771,20 +848,26 @@ def attention_kernel_phase(build_report: dict) -> dict:
         if not err <= KERNEL_TOL:
             raise AssertionError(f"flash_attention [{label}] disagrees with "
                                  f"its plain version: {err}")
-        if row is None:
+        if len(rows) < 3:
             # the yardstick: SDPA on (B, H, S, D) views of the same tensors
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
             def library():
-                return F.scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=True)
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+
+            def kernel():
+                return flash_attention(q, k, v)
+
+            def plain():
+                return flash_attention_torch(q, k, v)
             lib_err = (library().transpose(1, 2).float()
                        - want.float()).abs().max().item()
             with torch.no_grad():
-                ms = cuda_ms(lambda: flash_attention(q, k, v))
-                plain_ms = cuda_ms(lambda: flash_attention_torch(q, k, v),
-                                   10)
-            library_ms = cuda_ms(library)
+                ms = cuda_ms(kernel)
+                plain_ms = cuda_ms(plain, 10)
+                library_ms = cuda_ms(library)
+                cold = [cuda_ms_cold(f) for f in (kernel, plain, library)]
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
             pairs = Sq * (Sq + 1) // 2          # (q, kv) pairs attended
             nops = 4 * B * H * D * pairs
@@ -794,18 +877,22 @@ def attention_kernel_phase(build_report: dict) -> dict:
             say(f"   kernel {ms * 1e3:.2f} us | plain {plain_ms * 1e3:.2f} us"
                 f" | library (SDPA, is_causal) {library_ms * 1e3:.2f} us, "
                 f"max_abs_err {lib_err:.3e} | bound {bound_ms * 1e3:.2f} us "
-                f"({nbytes / 1e6:.1f} MB: {t_bytes * 1e6:.2f} us; "
+                f"({nbytes / 1e6:.2f} MB: {t_bytes * 1e6:.2f} us; "
                 f"{nops / 1e9:.2f} GFLOP: {t_ops * 1e6:.2f} us; {bound_by}); "
                 f"kernel at {nops / ms / 1e9:.1f} TFLOP/s")
-            row = dict(
+            say(f"   L2 flushed before each call: kernel {cold[0] * 1e3:.2f} "
+                f"us | plain {cold[1] * 1e3:.2f} us | library "
+                f"{cold[2] * 1e3:.2f} us")
+            rows.append(dict(
                 name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:63",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by=bound_by, library_ms=library_ms, shape=label,
+                ms_cold=cold[0]))
         del q, k, v, out, want
     torch.cuda.empty_cache()
-    return row
+    return rows
 
 
 def ssd_ops(B, S, H, hd, N, c) -> int:
@@ -2545,101 +2632,234 @@ def main_path_phases(card: str, policy) -> dict:
     return launches
 
 
-def train_phase(card: str) -> dict:
+def _leaf(params, path: str):
+    """The tensor at ``path`` in a params tree: "/"-separated keys, a
+    number indexes a list or a stacked leaf, ":n" takes its first n
+    rows."""
+    t = params
+    for part in path.split("/"):
+        if part.startswith(":"):
+            t = t[:int(part[1:])]
+        elif part.isdigit():
+            t = t[int(part)]
+        else:
+            t = t[part]
+    return t
+
+
+def _model_flops(model, positions: int, text: int) -> tuple:
+    """(FLOPs of one train step by 6 N tokens, a note of the N used).  N
+    counts the active parameters: an MoE layer's router and shared
+    experts and k / E of its routed experts.  An encoder-decoder's
+    encoder parameters run over its frames (``positions`` - ``text``
+    of them), the rest over the ``text`` tokens."""
+    from repro_torch.models.schema import n_params
+    cfg = model.cfg
+    n = model.n_params()
+    note = "N = every parameter"
+    n_moe = (sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+             if cfg.moe else 0)
+    if n_moe:
+        e = cfg.moe
+        routed = n_moe * 3 * cfg.d_model * e.d_ff_expert * e.n_experts
+        n = n - routed + routed * e.top_k // e.n_experts
+        note = (f"N = {n / 1e9:.3f} B active (router, shared experts and "
+                f"{e.top_k} / {e.n_experts} of the routed experts of "
+                f"{n_moe} MoE layer(s); {model.n_params() / 1e9:.3f} B in "
+                f"all)")
+    if cfg.is_encoder_decoder:
+        n_enc = sum(n_params(model.schema[k])
+                    for k in ("encoder", "enc_pos", "enc_final_norm"))
+        note = (f"N = {n_enc / 1e9:.3f} B encoder over {positions - text} "
+                f"frames + {(n - n_enc) / 1e9:.3f} B decoder over {text} "
+                f"tokens")
+        return 6 * (n_enc * (positions - text) + (n - n_enc) * text), note
+    return 6 * n * positions, note
+
+
+def _train_family(arch: str, layers, batch: int, seq: int, card: str,
+                  watched, *, label: str = None,
+                  lr: float = FAMILY_LR) -> dict:
     """``make_train_step`` (fused loss, the plain attention: the
-    reference's only trainable setting) on qwen1.5-32b at full width, 4
-    layers, bf16, ``remat="full"``, over the port's ``LMDataset`` at seq
-    1024 and batch 4.  Checks finite loss and gradient norm every step,
-    params moved, the loss falling, and no K4 launch; prints ms per step
-    (CUDA events), tokens/s, peak memory and model FLOPs/s.  Returns the
-    trained params and the model."""
+    reference's only trainable setting; AdamW at ``lr``, warmup 2) for
+    TRAIN_STEPS steps on ``arch`` at full width with its depth cut to
+    ``layers`` (None: FULL, not cut), seeded weights, over the port's
+    ``LMDataset`` at ``batch`` x ``seq`` (a vision config's image patches
+    and an audio config's frames drawn by it too).  Checks every loss
+    and gradient norm finite, the step-0 loss equal to
+    ``forward_train_loss`` under ``no_grad`` on the same params and
+    batch, the loss falling, the ``watched`` leaves ("/"-paths, see
+    :func:`_leaf`) moving, no K4 launch and no param left requiring
+    grad; prints ms per step (CUDA events), positions / s, model FLOPs /
+    s, peak memory and the device time of one more step by kernel.
+    Returns the trained params, the model, the optimizer state, the last
+    batch and the steady step's ms."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.data.lm_dataset import LMDataset
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.models import build_model
     from repro_torch.models.schema import tree_leaves, zeros_from_schema
     from repro_torch.models.transformer import forward_train_loss
     from repro_torch.training import (OptConfig, adamw_init_schema,
-                                      adamw_update, make_train_step)
-    full = get_config("qwen1.5-32b", "full")
-    model = build_model(dataclasses.replace(full, n_layers=TRAIN_LAYERS))
-    cfg = model.cfg
+                                      make_train_step)
+    label = label or f"train {arch}"
+    _free_gpu_memory(label)
+    cfg, model, params = _build_family(arch, layers, card, label)
     n = model.n_params()
-    say(f"== train: {cfg.name} at full width (d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads = {cfg.n_kv_heads} kv heads, head_dim "
-        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, QKV bias, "
-        f"tied embeddings, {cfg.dtype}, remat={cfg.remat!r}), "
-        f"{n / 1e9:.3f} B params")
-    n_full = build_model(full).n_params()
-    say(f"   reduced: n_layers {full.n_layers} -> {cfg.n_layers} (params, "
-        f"gradients and AdamW moments of the {full.n_layers}-layer model "
-        f"need {n_full / 1e9:.1f} B x 12 B = {n_full * 12 / 1e9:.0f} GB)")
-    _free_gpu_memory("train")
-    params = model.init(seed=0, device="cuda")
     opt_state = zeros_from_schema(adamw_init_schema(model.schema),
                                   device="cuda")
-    ds = LMDataset(cfg, TRAIN_SEQ)
-    batches = ds.batches(TRAIN_BATCH)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    say(f"   data: LMDataset stream of {len(ds.stream)} tokens, batch "
-        f"{TRAIN_BATCH} x seq {TRAIN_SEQ} = {tokens} tokens a step; "
-        f"{TRAIN_STEPS} steps, lr 3e-4, warmup 2")
-    step_fn = make_train_step(model, OptConfig(lr=3e-4, warmup_steps=2,
+    ds = LMDataset(cfg, seq)
+    batches = ds.batches(batch)
+    text = seq - (cfg.n_modality_tokens if cfg.modality == "vision" else 0)
+    positions = batch * seq + (batch * cfg.encoder_seq_len
+                               if cfg.is_encoder_decoder else 0)
+    flops, n_note = _model_flops(model, positions, batch * text)
+    extra = {"vision": f" ({cfg.n_modality_tokens} image patches + {text} "
+                       f"text tokens a row)",
+             "audio": f" text tokens, + {cfg.encoder_seq_len} frames a row "
+                      f"through the encoder"}.get(cfg.modality, " tokens")
+    say(f"   train state: {n / 1e9:.3f} B params x 12 B (params, "
+        f"gradients, float32 AdamW moments) = {n * 12 / 1e9:.1f} GB; data: "
+        f"LMDataset, batch {batch} x seq {seq}{extra}; {TRAIN_STEPS} steps, "
+        f"lr {lr:g}, warmup 2, remat {cfg.remat!r}")
+    step_fn = make_train_step(model, OptConfig(lr=lr, warmup_steps=2,
                                                total_steps=TRAIN_STEPS))
-    def watched():
-        # bf16 weights of ~0.02 move by more than half a rounding step;
-        # the norms' ones would not (3e-4 against 2^-8)
-        return (params["blocks"]["p0"]["mlp"]["w_down"][0],
-                params["blocks"]["p0"]["attn"]["bq"], params["embed"][:4096])
-    before = [t.float().clone() for t in watched()]
+
+    def leaves():
+        return [_leaf(params, w) for w in watched]
+    before = [t.float().clone() for t in leaves()]
+    first = {k: torch.from_numpy(v).cuda() for k, v in next(batches).items()}
+    with torch.no_grad():
+        loss0 = float(forward_train_loss(params, cfg, first))
     events, metrics = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0
-    for _ in range(TRAIN_STEPS):
-        batch = {k: torch.from_numpy(v).cuda() for k, v in
-                 next(batches).items()}
+    for i in range(TRAIN_STEPS):
+        b = first if i == 0 else {k: torch.from_numpy(v).cuda() for k, v in
+                                  next(batches).items()}
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        params, opt_state, m = step_fn(params, opt_state, batch)
+        params, opt_state, m = step_fn(params, opt_state, b)
         end.record()
         events.append((start, end))
         metrics.append(m)
     torch.cuda.synchronize()
     k4_launches = flash_attention.launches
     peak = torch.cuda.max_memory_allocated()
-    ms = [s.elapsed_time(e) for s, e in events]
+    ms = [s_.elapsed_time(e) for s_, e in events]
     losses = [float(m["loss"]) for m in metrics]
     gnorms = [float(m["grad_norm"]) for m in metrics]
-    say(f"   losses {[round(x, 4) for x in losses]}")
+    say(f"   losses {[round(x, 4) for x in losses]}; step 0 under no_grad "
+        f"{loss0:.6f} (relative gap {abs(losses[0] - loss0) / abs(loss0):.2e}"
+        f", tol {REMAT_RTOL:.0e})")
     say(f"   grad_norm {[round(x, 4) for x in gnorms]}")
     say(f"   lr {[float(m['lr']) for m in metrics]}")
     steady = ms[1:]
     step_ms = sum(steady) / len(steady)
-    mfu = 6 * n * tokens / (step_ms / 1e3)
+    mfu = flops / (step_ms / 1e3)
     say(f"   ms per step {[round(x, 2) for x in ms]} (CUDA events); steady "
         f"(steps 2..{TRAIN_STEPS}) {step_ms:.2f} ms = "
-        f"{tokens / step_ms * 1e3:.0f} tokens/s; model FLOPs/s "
-        f"(6 N tokens / step) {mfu / 1e12:.1f} T = {mfu / BF16_OPS_PER_S:.3f}"
-        f" of 989 TFLOP/s; peak memory {peak / 2**30:.2f} GiB [{card}]")
-    moved = [(t.float() - b).abs().max().item()
-             for t, b in zip(watched(), before)]
-    say(f"   params moved (max |delta| of w_down[0, 0], bq[0], embed[:4096]): "
-        f"{moved}; K4 launches during the train steps: {k4_launches}")
-    if not all(math.isfinite(x) for x in losses + gnorms):
-        raise AssertionError(f"[train] non-finite loss or grad_norm: "
-                             f"{losses}, {gnorms}")
+        f"{positions / step_ms * 1e3:.0f} positions/s; model FLOPs/s "
+        f"(6 N positions / step; {n_note}) {mfu / 1e12:.1f} T = "
+        f"{mfu / BF16_OPS_PER_S:.3f} of 989 TFLOP/s; peak memory "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    moved = [(t.float() - b_).abs().max().item()
+             for t, b_ in zip(leaves(), before)]
+    say(f"   params moved (max |delta| of {', '.join(watched)}): {moved}; "
+        f"K4 launches during the train steps: {k4_launches}")
+    if not all(math.isfinite(x) for x in losses + gnorms + [loss0]):
+        raise AssertionError(f"[{label}] non-finite loss or grad_norm: "
+                             f"{losses}, {gnorms}, step 0 {loss0}")
+    if abs(losses[0] - loss0) > REMAT_RTOL * abs(loss0):
+        raise AssertionError(f"[{label}] step 0's loss {losses[0]} is not "
+                             f"forward_train_loss's {loss0}")
     if not all(x > 0 for x in moved):
-        raise AssertionError(f"[train] params did not move: {moved}")
+        raise AssertionError(f"[{label}] params did not move: {moved}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"[train] the loss did not fall: {losses}")
+        raise AssertionError(f"[{label}] the loss did not fall: {losses}")
     if k4_launches:
-        raise AssertionError(f"[train] K4 launched {k4_launches} times in "
+        raise AssertionError(f"[{label}] K4 launched {k4_launches} times in "
                              f"train steps")
     if any(t.requires_grad for t in tree_leaves(params)):
-        raise AssertionError("[train] params left requiring grad")
+        raise AssertionError(f"[{label}] params left requiring grad")
+    del before, metrics
+    say(f"   device time by kernel, one more step (top 10): "
+        f"{device_split(lambda: step_fn(params, opt_state, b), 10)}")
+    return {"params": params, "model": model, "opt_state": opt_state,
+            "batch": b, "step_ms": step_ms, "seq": seq, "rows": batch}
+
+
+def _eval_family(trained: dict, card: str, label: str) -> tuple:
+    """On the trained params, one held batch (``LMDataset`` seed 1, the
+    training shape): ``make_eval_step`` with K4
+    (``use_pallas_attention=True``) and with the plain attention, by
+    CUDA events.  K4 must launch once for each layer the
+    reference's gate lets through (GQA, causal, no window, S % 128 ==
+    0: :func:`_kernel_layers`) and the two losses agree within
+    EVAL_RTOL; each eval is timed on a second call.  Returns (K4's
+    launches, the held batch, the K4 model)."""
+    import torch
+    from repro_torch.data.lm_dataset import LMDataset
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import build_model
+    from repro_torch.training import make_eval_step
+    params, model = trained["params"], trained["model"]
+    cfg = model.cfg
+    k4_model = build_model(dataclasses.replace(cfg,
+                                               use_pallas_attention=True))
+    want = _kernel_layers(cfg)
+    held = {k: torch.from_numpy(v).cuda() for k, v in next(
+        LMDataset(cfg, trained["seq"], seed=1).batches(
+            trained["rows"])).items()}
+    out = {}
+    for name, m in (("K4", k4_model), ("plain", model)):
+        step = make_eval_step(m)
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        loss = float(step(params, held))
+        launches = flash_attention.launches
+        # timed on a second call: the first pays for the shapes' first
+        # library calls
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(params, held)
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = (loss, start.elapsed_time(end), launches)
+    (a, k4_ms, launches), (b, plain_ms, plain_launches) = (out["K4"],
+                                                           out["plain"])
+    rel = abs(a - b) / abs(b)
+    say(f"== eval [{label}]: held batch {trained['rows']} x "
+        f"{trained['seq']} (LMDataset seed 1): loss with K4 {a:.6f}, plain "
+        f"attention {b:.6f}, relative difference {rel:.2e} (tol "
+        f"{EVAL_RTOL:.0e}); K4 launches {launches} for the {want} layer(s) "
+        f"the gate lets through; eval step {k4_ms:.2f} ms with K4, "
+        f"{plain_ms:.2f} ms plain (one warm call each) [{card}]")
+    if launches != want or plain_launches:
+        raise AssertionError(f"[eval {label}] K4 launched {launches} times "
+                             f"(plain: {plain_launches}) for {want} layers")
+    if not (math.isfinite(a) and rel <= EVAL_RTOL):
+        raise AssertionError(f"[eval {label}] losses disagree: K4 {a}, "
+                             f"plain {b}")
+    return launches, held, k4_model
+
+
+def train_phase(card: str) -> dict:
+    """:func:`_train_family` on qwen1.5-32b at full width, its depth cut
+    64 -> 4, bf16, ``remat="full"``, batch 4 x seq 1024; then, on the
+    trained params, the AdamW update and the forward timed alone, and
+    :func:`remat_check`.  Returns the trained params and the model."""
+    from repro_torch.models.schema import tree_leaves
+    from repro_torch.models.transformer import forward_train_loss
+    from repro_torch.training import OptConfig, adamw_update
+    import torch
+    trained = _train_family(QWEN, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, card,
+                            QWEN_WATCHED, label="train", lr=3e-4)
+    params, opt_state, batch = (trained["params"], trained["opt_state"],
+                                trained["batch"])
+    cfg, step_ms = trained["model"].cfg, trained["step_ms"]
     # where a step's time goes: the optimizer alone (on zero gradients:
     # the same arithmetic) and the forward alone, against the whole step
     zero = [torch.zeros_like(p) for p in tree_leaves(params)]
@@ -2652,11 +2872,9 @@ def train_phase(card: str) -> dict:
         f"without autograd {fwd_ms:.2f} ms, so forward + backward with the "
         f"recompute about {step_ms - opt_ms:.2f} ms of the {step_ms:.2f} ms "
         f"step")
-    say(f"   device time by kernel, one more step (top 10): "
-        f"{device_split(lambda: step_fn(params, opt_state, batch), 10)}")
-    del opt_state, metrics, before
+    del trained["opt_state"], opt_state
     remat_check(params, cfg, batch)
-    return {"params": params, "model": model, "step_ms": step_ms}
+    return trained
 
 
 def remat_check(params, cfg, batch) -> None:
@@ -2697,56 +2915,39 @@ def remat_check(params, cfg, batch) -> None:
 
 
 def eval_phase(trained: dict, card: str) -> dict:
-    """On the trained params, one held batch: ``make_eval_step`` with K4
-    (``use_pallas_attention=True``) and with the plain attention, counted
-    and timed; ``forward_train_loss`` under ``torch.no_grad()`` with K4;
-    a train step with K4 raises the gradient guard.  Returns K4's
+    """On the trained params: :func:`_eval_family` (K4 once a layer, the
+    losses agreeing), ``forward_train_loss`` under ``torch.no_grad()``
+    with K4 (K4 once a layer, the same loss), both eval steps timed; a
+    train step with K4 raises the gradient guard.  Returns K4's
     launches on this path."""
     import torch
-    from repro_torch.data.lm_dataset import LMDataset
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.models import build_model
     from repro_torch.models.schema import zeros_from_schema
     from repro_torch.models.transformer import forward_train_loss
     from repro_torch.training import (OptConfig, adamw_init_schema,
                                       make_eval_step, make_train_step)
     params, model = trained["params"], trained["model"]
-    k4_model = build_model(dataclasses.replace(model.cfg,
-                                               use_pallas_attention=True))
     L = model.cfg.n_layers
-    held = {k: torch.from_numpy(v).cuda() for k, v in next(
-        LMDataset(model.cfg, TRAIN_SEQ, seed=1).batches(TRAIN_BATCH)).items()}
+    launches, held, k4_model = _eval_family(trained, card, model.cfg.name)
     plain_eval, k4_eval = make_eval_step(model), make_eval_step(k4_model)
-    say(f"== eval: held batch {TRAIN_BATCH} x {TRAIN_SEQ} (LMDataset seed "
-        f"1) on the trained params")
-    torch.cuda.synchronize()
-    flash_attention.launches = 0
-    k4_loss = k4_eval(params, held)
-    torch.cuda.synchronize()
-    launches = flash_attention.launches
-    plain_loss = plain_eval(params, held)
+    plain_loss = float(plain_eval(params, held))
     flash_attention.launches = 0
     with torch.no_grad():
-        fused = forward_train_loss(params, k4_model.cfg, held)
+        fused = float(forward_train_loss(params, k4_model.cfg, held))
     torch.cuda.synchronize()
     fused_launches = flash_attention.launches
     k4_ms = cuda_ms(lambda: k4_eval(params, held), 5)
     plain_ms = cuda_ms(lambda: plain_eval(params, held), 5)
-    a, b, c = float(k4_loss), float(plain_loss), float(fused)
-    rel = abs(a - b) / abs(b)
-    say(f"   eval loss with K4 {a:.6f}, plain attention {b:.6f}: relative "
-        f"difference {rel:.2e} (tol {EVAL_RTOL:.0e}); forward_train_loss "
-        f"under no_grad with K4 {c:.6f}")
-    say(f"   K4 launches: {launches} per eval call, {fused_launches} per "
-        f"forward_train_loss, for {L} layers; eval step {k4_ms:.2f} ms "
-        f"with K4, {plain_ms:.2f} ms plain [{card}]")
-    if launches != L or fused_launches != L:
-        raise AssertionError(f"[eval] K4 launched {launches} / "
-                             f"{fused_launches} times for {L} layers")
-    if not (math.isfinite(a) and math.isfinite(c) and rel <= EVAL_RTOL
-            and abs(c - b) / abs(b) <= EVAL_RTOL):
-        raise AssertionError(f"[eval] losses disagree: K4 {a}, plain {b}, "
-                             f"fused {c}")
+    say(f"   forward_train_loss under no_grad with K4 {fused:.6f} "
+        f"({fused_launches} K4 launches for {L} layers); eval step "
+        f"{k4_ms:.2f} ms with K4, {plain_ms:.2f} ms plain (warm) [{card}]")
+    if fused_launches != L:
+        raise AssertionError(f"[eval] K4 launched {fused_launches} times in "
+                             f"forward_train_loss for {L} layers")
+    if not (math.isfinite(fused)
+            and abs(fused - plain_loss) / abs(plain_loss) <= EVAL_RTOL):
+        raise AssertionError(f"[eval] losses disagree: plain {plain_loss}, "
+                             f"fused {fused}")
     opt_state = zeros_from_schema(adamw_init_schema(model.schema),
                                   device="cuda")
     flash_attention.launches = 0
@@ -2761,6 +2962,129 @@ def eval_phase(trained: dict, card: str) -> dict:
     if int(opt_state["step"]) != 0 or flash_attention.launches:
         raise AssertionError("[eval] the refused train step changed state")
     return {"flash_attention": launches}
+
+
+def train_families_phase(card: str) -> dict:
+    """Every served family trained and evaluated on the card, each after
+    the previous model is freed (TRAIN_FAMILIES: dbrx-132b's MoE,
+    minicpm3-4b's MLA, deepseek-v3-671b's MLA + MTP, gemma3-12b's sliding
+    window, phi-3-vision-4.2b's image projector, whisper-large-v3's
+    encoder): :func:`_train_family`, then :func:`_eval_family`; then
+    :func:`microbatch_phase`.  Returns K4's launches in each family's
+    eval, keyed by arch, for the kernel table's rows at their shapes."""
+    t0 = time.perf_counter()
+    out = {}
+    for arch, layers, batch, seq, watched in TRAIN_FAMILIES:
+        trained = _train_family(arch, layers, batch, seq, card, watched)
+        del trained["opt_state"], trained["batch"]
+        out[arch] = {"flash_attention": _eval_family(trained, card, arch)[0]}
+        del trained
+    microbatch_phase(card)
+    say(f"== train families: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def microbatch_phase(card: str) -> None:
+    """One train step of qwen1.5-32b cut to TRAIN_LAYERS at batch
+    TRAIN_BATCH x TRAIN_SEQ with ``microbatches`` 1, 2 and 4, each from
+    its own ``model.init(seed=0)`` and on the same batch: the loss and the
+    gradient norm within REMAT_RTOL of the single batch's, the watched
+    leaves after the update within one AdamW sign flip (2 lr: a first
+    step moves each element by lr x g / (|g| + eps)) plus one bf16 step
+    at the leaf's largest entry; the share of elements that differ is
+    printed.
+    Microbatching bounds the saved activations to one microbatch's and
+    adds float32 accumulators (4 B a param): the peak of the gradient
+    computation (read just before the update) less the memory the step
+    starts with and less the accumulators must fall as microbatches
+    grow.  Prints each run's step ms, whole-step peak and that split."""
+    import torch
+    from repro_torch.data.lm_dataset import LMDataset
+    from repro_torch.models import build_model
+    from repro_torch.models.schema import tree_leaves, zeros_from_schema
+    from repro_torch.training import (OptConfig, adamw_init_schema,
+                                      make_train_step)
+    from repro_torch.training import steps as train_steps
+    _free_gpu_memory("train microbatched")
+    from repro_torch.configs import get_config
+    model = build_model(dataclasses.replace(get_config(QWEN, "full"),
+                                            n_layers=TRAIN_LAYERS))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(
+        LMDataset(model.cfg, TRAIN_SEQ).batches(TRAIN_BATCH)).items()}
+    opt_cfg = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    real_update = train_steps.adamw_update
+    runs = {}
+    for mb in MICROBATCHES:
+        params = model.init(seed=0, device="cuda")
+        opt_state = zeros_from_schema(adamw_init_schema(model.schema),
+                                      device="cuda")
+        accum = (sum(p.numel() for p in tree_leaves(params)) * 4
+                 if mb > 1 else 0)
+        step_fn = make_train_step(model, opt_cfg, microbatches=mb)
+        grad_peak = []
+
+        def update(*a, **kw):
+            grad_peak.append(torch.cuda.max_memory_allocated())
+            return real_update(*a, **kw)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with mock.patch.object(train_steps, "adamw_update", update):
+            start.record()
+            params, opt_state, m = step_fn(params, opt_state, batch)
+            end.record()
+        torch.cuda.synchronize()
+        acts = grad_peak[0] - base - accum
+        runs[mb] = dict(
+            loss=float(m["loss"]), gnorm=float(m["grad_norm"]),
+            lr=float(m["lr"]), ms=start.elapsed_time(end),
+            peak=torch.cuda.max_memory_allocated() / 2**30,
+            grad_peak=(grad_peak[0] - base) / 2**30, accum=accum / 2**30,
+            acts=acts / 2**30,
+            leaves=[_leaf(params, w).float().clone() for w in QWEN_WATCHED])
+        say(f"== train microbatched [{QWEN}, {TRAIN_LAYERS} layers, "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ}, microbatches {mb}]: loss "
+            f"{runs[mb]['loss']:.6f}, grad_norm {runs[mb]['gnorm']:.6f}, "
+            f"step {runs[mb]['ms']:.2f} ms (CUDA events, the first step); "
+            f"peak {runs[mb]['peak']:.2f} GiB; gradient computation "
+            f"{runs[mb]['grad_peak']:.2f} GiB above the "
+            f"{base / 2**30:.2f} GiB of params, moments and batch, of which "
+            f"{runs[mb]['accum']:.2f} GiB float32 accumulators and "
+            f"{runs[mb]['acts']:.2f} GiB activations and gradients [{card}]")
+        del params, opt_state, m, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    one = runs[MICROBATCHES[0]]
+    bound = 2 * one["lr"]
+    for mb, r in runs.items():
+        gaps, share = [], []
+        for a, b in zip(r["leaves"], one["leaves"]):
+            ulp = 2.0 ** (math.floor(math.log2(b.abs().max().item())) - 7)
+            gap = (a - b).abs()
+            gaps.append(gap.max().item())
+            share.append((gap > 0).float().mean().item())
+            if gap.max().item() > bound + ulp:
+                raise AssertionError(f"[microbatched {mb}] a leaf moved "
+                                     f"{gap.max().item()} from the single "
+                                     f"batch's: over {bound + ulp}")
+        say(f"   microbatches {mb} against 1: loss gap "
+            f"{abs(r['loss'] - one['loss']) / abs(one['loss']):.2e}, "
+            f"grad_norm gap {abs(r['gnorm'] - one['gnorm']) / one['gnorm']:.2e}"
+            f" (tol {REMAT_RTOL:.0e}); leaves' max gaps {gaps} (bound 2 lr "
+            f"= {bound:.1e} + one bf16 step), share of elements that differ "
+            f"{share}")
+        if (abs(r["loss"] - one["loss"]) > REMAT_RTOL * abs(one["loss"])
+                or abs(r["gnorm"] - one["gnorm"]) > REMAT_RTOL * one["gnorm"]):
+            raise AssertionError(f"[microbatched {mb}] loss / grad_norm "
+                                 f"{r['loss']}, {r['gnorm']} against "
+                                 f"{one['loss']}, {one['gnorm']}")
+    acts = [runs[mb]["acts"] for mb in MICROBATCHES]
+    if not all(x > y for x, y in zip(acts, acts[1:])):
+        raise AssertionError(f"[microbatched] the gradient computation's "
+                             f"memory beside the accumulators did not fall: "
+                             f"{acts} GiB for microbatches {MICROBATCHES}")
 
 
 def _greedy_gaps(model, params, rec) -> tuple:
@@ -3166,7 +3490,8 @@ def _check_no_sync(ex, what: str) -> None:
 def _build_family(arch: str, layers, card: str, phase: str) -> tuple:
     """``arch``'s FULL config, its depth cut to ``layers`` (None: not
     cut), built with seeded weights on the card; prints its widths and
-    its cut.  Returns (cfg, model, params)."""
+    its cut (for a ``phase`` that trains, against the 12 B a param of a
+    train state).  Returns (cfg, model, params)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -3200,9 +3525,12 @@ def _build_family(arch: str, layers, card: str, phase: str) -> tuple:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{card}]")
     if layers is not None:
         n_full = build_model(full).n_params()
+        held = (f"{n_full * 12 / 1e9:.0f} GB of params, gradients and "
+                f"AdamW moments at 12 B a param" if "train" in phase else
+                f"{n_full * 2 / 2**30:.0f} GiB in bf16")
         say(f"   reduced: n_layers {full.n_layers} -> {layers} (FULL is "
-            f"{n_full / 1e9:.1f} B params, {n_full * 2 / 2**30:.0f} GiB in "
-            f"bf16, beyond one 80 GB card); every width as published")
+            f"{n_full / 1e9:.1f} B params, {held}, beyond one 80 GB "
+            f"card); every width as published")
     else:
         say("   reduced: nothing (FULL's own depth)")
     return cfg, model, params
@@ -4530,7 +4858,7 @@ def main() -> None:
     card = device_phase()
     report = build_phase()
     rows = (kernel_phase(report) + paged_kernel_phase()
-            + [attention_kernel_phase(report)])
+            + attention_kernel_phase(report))
     k6 = ssd_kernel_phase()
     retrieval_rows, launches = retrieval_kernel_phase()
     rows += retrieval_rows + [k6]
@@ -4544,11 +4872,15 @@ def main() -> None:
     mamba_serve_phase(card, router)
     launches.update(mamba_eval_phase(card))
     mamba_train_phase(card)
+    train_launches = train_families_phase(card)
     moe_gqa_serve_phase(card, router)
     gemma_launches = gemma3_serve_phase(card, router)
     mla_serve_phase(card, router)
     family_launches = modality_serve_phase(card, router)
-    family_launches["gemma3"] = gemma_launches
+    family_launches[GEMMA] = gemma_launches
+    # K4's rows at a family's eval shape count that family's eval
+    for arch, counts in train_launches.items():
+        family_launches.setdefault(arch, {}).update(counts)
     _free_gpu_memory("serve cli")
     serve_cli_phase(card)
     # the paper's benches run beside the training CLI, after every timed
@@ -4558,7 +4890,8 @@ def main() -> None:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for row in rows:
         # the rows at a family's shape count that family's phase's
-        # launches (gemma3: head_dim 256; phi-3: 96; whisper: 64, G = 1)
+        # launches (gemma3: head_dim 256; phi-3: 96; whisper: 64, G = 1;
+        # K4's at phi-3's and gemma3's eval shapes, their evals')
         fam = [f for f in family_launches
                if row.get("shape", "").startswith(f)]
         row["launches"] = (family_launches[fam[0]] if fam

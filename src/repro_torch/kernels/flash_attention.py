@@ -10,7 +10,8 @@ the model's ``(B, S, H, D)`` layout through TMA tensor maps (no
 transpose, no GQA copy) by a producer warpgroup, and two consumer
 warpgroups run both products by ``wgmma`` with the softmax in registers;
 a persistent grid walks the (q tile, head) items head by head; under
-``causal`` the kv loop stops at the diagonal tile.
+``causal`` the kv loop stops at the diagonal tile.  Head dims 64, 96
+(a zero-padded 128-column tile), 128 and 256 (64-row kv tiles).
 
 * :func:`flash_attention` — the wrapper.  CPU tensors take the plain
   version; CUDA tensors launch the kernel or raise (there is no
@@ -38,7 +39,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 96, 128, 256)
 
 
 def flash_attention_torch(q, k, v, *, causal: bool = True):

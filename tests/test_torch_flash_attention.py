@@ -68,6 +68,14 @@ def _port(q, k, v, causal, dtype=torch.float32):
     (128, 4, 4, 128, False),
     (256, 8, 4, 64, False),
     (128, 8, 2, 128, False),
+    (128, 4, 4, 96, True),      # phi-3-vision's head_dim
+    (256, 8, 4, 96, True),
+    (128, 4, 4, 96, False),
+    (256, 8, 4, 96, False),
+    (128, 4, 4, 256, True),     # gemma3's global layers
+    (256, 8, 4, 256, True),
+    (128, 4, 4, 256, False),
+    (256, 8, 4, 256, False),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_version_matches_pallas_and_oracle(S, H, Hkv, D, causal,
@@ -128,7 +136,9 @@ def _fake_cuda(shape, dtype):
     # passes the checks, then cannot build the kernel here
     (torch.bfloat16, 128, RuntimeError, "nvcc"),
     (torch.float32, 128, TypeError, "bfloat16"),     # bf16 only
-    (torch.bfloat16, 96, ValueError, "head_dim"),    # 64 and 128 only
+    (torch.bfloat16, 96, RuntimeError, "nvcc"),      # phi-3-vision's
+    (torch.bfloat16, 256, RuntimeError, "nvcc"),     # gemma3's
+    (torch.bfloat16, 80, ValueError, "head_dim"),    # 64, 96, 128, 256
 ])
 def test_cuda_request_launches_or_raises_never_falls_back(
         monkeypatch, dtype, head_dim, error, match):
@@ -230,3 +240,60 @@ def test_layers_take_flash_attention_under_the_reference_condition(
     _, _, tm, tp = _model_pair(use_pallas_attention=use_pallas_attention)
     tm.train_logits(tp, {"tokens": torch.ones(1, S, dtype=torch.int64)})
     assert len(seen) == calls and all(c for _, c in seen)
+
+
+def _family_pair(arch, **kw):
+    """The reference's and the port's SMOKE ``arch`` in float32 with
+    ``kw`` replaced, on the same params (``Model.init`` plus seeded
+    noise)."""
+    rc = dataclasses.replace(ref_config(arch, "smoke"), dtype="float32",
+                             **kw)
+    tc = dataclasses.replace(get_config(arch, "smoke"), dtype="float32",
+                             **kw)
+    rng = np.random.default_rng(0)
+    params = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + rng.normal(0, 0.02, a.shape).astype(
+            np.float32), ref_build(rc).init(jax.random.PRNGKey(0)))
+    return (ref_build(rc), jax.tree_util.tree_map(jnp.asarray, params),
+            build_model(tc), params_from_numpy(params, device="cpu"))
+
+
+@pytest.mark.parametrize("arch,head_dim,calls", [
+    ("gemma3-12b", 256, 1),         # ("L", "G"): the global layer only
+    ("phi-3-vision-4.2b", 96, 2),   # every layer, image positions and all
+])
+def test_eval_step_at_the_new_head_dims_matches_reference(
+        monkeypatch, arch, head_dim, calls):
+    """``make_eval_step`` with ``use_pallas_attention`` at head_dim 256
+    (gemma3 SMOKE, whose local layer keeps its window) and 96 (phi-3
+    SMOKE with 16 image patches + 112 tokens): the loss within 1e-5 of
+    the reference's (its Pallas kernel in interpret mode), and K4's
+    wrapper called once for each layer the reference's gate lets
+    through."""
+    from repro.training import steps as ref_steps
+    from repro_torch.training import steps
+    rm, rp, tm, tp = _family_pair(arch, head_dim=head_dim,
+                                  use_pallas_attention=True)
+    rc = rm.cfg
+    rng = np.random.default_rng(3)
+    S = 128 - (rc.n_modality_tokens if rc.modality == "vision" else 0)
+    batch = {"tokens": rng.integers(4, rc.vocab_size, (2, S)).astype(np.int32),
+             "labels": rng.integers(4, rc.vocab_size, (2, S)).astype(np.int32)}
+    if rc.modality == "vision":
+        batch["image_emb"] = 0.02 * rng.standard_normal(
+            (2, rc.n_modality_tokens, rc.modality_embed_dim)
+        ).astype(np.float32)
+    seen = []
+    real = L.flash_attention
+
+    def spy(q, k, v, *, causal=True):
+        seen.append(q.shape)
+        return real(q, k, v, causal=causal)
+    monkeypatch.setattr(L, "flash_attention", spy)
+    want = jax.jit(ref_steps.make_eval_step(rm))(
+        rp, {k: jnp.asarray(v) for k, v in batch.items()})
+    got = steps.make_eval_step(tm)(
+        tp, {k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    assert len(seen) == calls
+    assert all(sh == (2, 128, rc.n_heads, head_dim) for sh in seen)

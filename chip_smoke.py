@@ -51,6 +51,11 @@ Phases, each on its own lines; any failure exits nonzero:
                its contract against the plain version: k = 64 (timed
                beside k = 10), Q = 5 and 200, D < 64, E = 768, and rows
                duplicated into other tiles and blocks (ids exact).
+               Distributed retrieval over a serving mesh of one NCCL
+               rank: ``DistributedDenseIndex`` and ``DistributedBM25``
+               over the same corpus and questions, one K3 and one K5
+               launch, the ids of ``topk_batch`` and of the stable top-k
+               of ``scores_batch`` (but for ties within 1e-5).
 5. small     — the SMOKE decoder in bf16: prefill + decode on the card
                against the same weights on the host; then every weight
                NaN, 2 requests on 2 slots: the executor's isfinite test
@@ -131,6 +136,19 @@ Phases, each on its own lines; any failure exits nonzero:
                rate.
 11. int8     — the paged engine with the int8 KV cache, 8 requests under
                ``FixedPolicy(0)``: K2 launches, no quarantine, tokens.
+11a. sharded — ``make_serving_mesh("dp=1")`` over an NCCL process group
+               of one rank (its version printed): the first 8 requests
+               of phase 7 through ``ShardedExecutor`` on the dense slot
+               cache, then the paged pool, on phase 7's weights (views,
+               no second draw), each in turns with the single-device
+               executor (single, sharded, sharded, single): tokens
+               identical to phase 7's, K1 / K2 64 times a decode step,
+               the decode steps of the turns, the collectives of a decode
+               step counted, a decode chunk under
+               ``set_sync_debug_mode("error")``; then ``--mesh dp=1`` on
+               the serve CLI (``--variant smoke``) printing the lines of
+               the run without it.  The process group is destroyed at
+               the end.
 12. train    — the serving weights freed, ``make_train_step`` (fused
                loss, plain attention, AdamW) for 8 steps on
                ``qwen1.5-32b`` at full width with its depth cut 64 -> 4
@@ -309,6 +327,7 @@ record.  Imports nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -1391,8 +1410,10 @@ def retrieval_kernel_phase() -> tuple:
     ``BM25Index.scores_batch``) run once with the launch counts set to 0
     just before and read just after; then each kernel is held against its plain version and the
     host's numpy retrieval, and timed.  K3 is held and timed again on
-    1,048,576 seeded random unit rows (1 GiB).  Returns the table's
-    main-path rows and the path's launch counts."""
+    1,048,576 seeded random unit rows (1 GiB).  Between the two, the
+    distributed retrieval over a serving mesh of one NCCL rank
+    (``distributed_retrieval_phase``).  Returns the table's main-path
+    rows, the path's launch counts and the distributed retrieval's."""
     import numpy as np
     import torch
     from repro_torch.data import SyntheticSquad
@@ -1450,6 +1471,8 @@ def retrieval_kernel_phase() -> tuple:
     if launches != {"dense_topk": 1, "bm25_scores": 1}:
         raise AssertionError(f"[retrieval] launches {launches}: want one "
                              f"of each kernel")
+    dist_launches = distributed_retrieval_phase(dense, bm25, questions, qtf,
+                                                ids, bm)
 
     # -- K3: against the plain version and DenseIndex.topk ---------------
     qe = torch.from_numpy(np.stack([dense.encode(t) for t in questions]))
@@ -1486,7 +1509,86 @@ def retrieval_kernel_phase() -> tuple:
     del docs, qb
     torch.cuda.empty_cache()
     k3_contract_phase(hgmma)
-    return [k3, k5], launches
+    return [k3, k5], launches, dist_launches
+
+
+@contextlib.contextmanager
+def _serving_mesh(cfg=None):
+    """``make_serving_mesh("dp=1")`` on the card: with no process group
+    it makes an NCCL world of one rank; the group is destroyed on the
+    way out, pass or fail, so no later phase inherits it."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_serving_mesh
+    if dist.is_initialized():
+        raise AssertionError("a process group is already initialized")
+    try:
+        mesh = make_serving_mesh("dp=1", cfg, device="cuda")
+        want = "nccl" if mesh.device.type == "cuda" else "gloo"
+        if dist.get_backend() != want:
+            raise AssertionError(f"process group backend "
+                                 f"{dist.get_backend()}, want {want}")
+        say(f"   serving mesh dp=1 over NCCL "
+            f"{'.'.join(map(str, torch.cuda.nccl.version()))}, world size "
+            f"{dist.get_world_size()}, rank device {mesh.device}")
+        yield mesh
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def distributed_retrieval_phase(dense, bm25, questions, qtf, ids,
+                                bm) -> dict:
+    """``DistributedDenseIndex`` and ``DistributedBM25`` over a serving
+    mesh of one NCCL rank (dp = 1), on the retrieval phase's corpus and
+    questions: one K3 and one K5 launch, counted from 0; the ids of
+    ``topk_batch`` (``ids``) and of the stable top-k of
+    ``scores_batch``'s scores (``bm``), but for swaps of ids whose scores
+    tie within ``RETRIEVAL_TOL``.  Returns the launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.bm25 import bm25_scores
+    from repro_torch.kernels.dense_topk import dense_topk
+    from repro_torch.retrieval import DistributedBM25, DistributedDenseIndex
+    qe = np.stack([dense.encode(t) for t in questions])
+    qtf = qtf.cpu().numpy()
+    say(f"== distributed retrieval: {len(dense.texts)} paragraphs, "
+        f"{len(questions)} questions, k = {TOP_K}")
+    with _serving_mesh() as mesh:
+        dist_dense = DistributedDenseIndex(mesh, dense.emb)
+        dist_bm25 = DistributedBM25(mesh, bm25.tf, bm25.doc_len, bm25.idf)
+        torch.cuda.synchronize()
+        counters = (dense_topk, bm25_scores)
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        d_ids, d_s = dist_dense.topk(qe, TOP_K)
+        t1 = time.perf_counter()
+        b_ids, b_s = dist_bm25.topk(qtf, TOP_K)
+        t2 = time.perf_counter()
+        launches = {fn.__name__: fn.launches for fn in counters}
+    say(f"   DistributedDenseIndex.topk {1e3 * (t1 - t0):.3f} ms, "
+        f"DistributedBM25.topk {1e3 * (t2 - t1):.3f} ms (host clock, the "
+        f"first call each, ids back on the host): launches {launches}")
+    if launches != {"dense_topk": 1, "bm25_scores": 1}:
+        raise AssertionError(f"[distributed retrieval] launches {launches}: "
+                             f"want one of each kernel")
+    rows = qe @ dense.emb.T
+    d_swaps = _tie_swaps(d_ids, ids, rows, RETRIEVAL_TOL,
+                         "distributed dense")
+    bm = bm.cpu().numpy()
+    want = np.argsort(-bm, axis=1, kind="stable")[:, :TOP_K]
+    b_swaps = _tie_swaps(b_ids, want, bm, RETRIEVAL_TOL, "distributed bm25")
+    d_err = float(np.abs(d_s - np.take_along_axis(rows, d_ids, 1)).max())
+    b_err = float(np.abs(b_s - np.take_along_axis(bm, b_ids, 1)).max()
+                  / np.abs(bm).max())
+    say(f"   ids as topk_batch's ({d_swaps} swap(s) of tied scores) and "
+        f"scores_batch's stable top-k ({b_swaps}); scores within "
+        f"{d_err:.2e} (dense, absolute) and {b_err:.2e} (bm25, of max)")
+    if not (d_err <= RETRIEVAL_TOL and b_err <= RETRIEVAL_TOL):
+        raise AssertionError(f"[distributed retrieval] scores {d_err}, "
+                             f"{b_err}")
+    return launches
 
 
 def _card_vs_host(model, host, card, **forward_kw) -> float:
@@ -2486,14 +2588,16 @@ def padded_phase(model, params, tok, index, qs, card, n_layers,
     del gw, eng, timed
 
 
-def main_path_phases(card: str, policy) -> dict:
+def main_path_phases(card: str, policy, dist_launches: dict) -> dict:
     """qwen1.5-32b FULL behind Gateway.serve, on the dense slot cache
     (then the same engine under open-loop traffic), the chaos scenarios
     and the padded engine on engines of their own, then the paged pool
-    (closed and open loop), then the paged int8 pool; ``policy`` (the
-    trained router) routes the second batch of each closed loop and the
-    open loops.  Returns each kernel's launches on its own closed-loop
-    path."""
+    (closed and open loop), then the paged int8 pool, then both again
+    through ``ShardedExecutor`` (``sharded_serve_phase``, which also
+    reports ``dist_launches``, the distributed retrieval's); ``policy``
+    (the trained router) routes the second batch of each closed loop and
+    the open loops.  Returns each kernel's launches on its own
+    closed-loop path."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import HashTokenizer, SyntheticSquad
@@ -2603,6 +2707,8 @@ def main_path_phases(card: str, policy) -> dict:
         raise AssertionError("[paged] no prompt token was served from a "
                              "shared page")
     launches["paged_flash_decode"] = paged["launches"]["paged_flash_decode"]
+    single = {"dense": (dense_tokens, dense_step_ms),
+              "paged": (tokens, paged["rec"]["step_ms"])}
 
     # -- open loop on the paged engine: K2 ------------------------------
     t0 = time.perf_counter()
@@ -2629,7 +2735,147 @@ def main_path_phases(card: str, policy) -> dict:
                   1, card, L, counters, policy)
     _check_paged_launches("paged int8", int8["launches"], int8["steps"], L,
                           int8["rec"]["short_prefills"])
+    del int8
+    _free_gpu_memory("sharded")
+    sharded_serve_phase(card, model, params, index, qs, policy, single,
+                        paged_kw, dist_launches)
     return launches
+
+
+def _count_collectives(fn) -> dict:
+    """The ``torch.distributed`` collectives ``fn()`` issues, by name."""
+    import torch.distributed as dist
+    counts = {"all_reduce": 0, "all_gather": 0}
+    real = {name: getattr(dist, name) for name in counts}
+
+    def counting(name):
+        def call(*a, **kw):
+            counts[name] += 1
+            return real[name](*a, **kw)
+        return call
+    with mock.patch.multiple(dist, **{n: counting(n) for n in counts}):
+        fn()
+    return counts
+
+
+def sharded_serve_phase(card: str, model, params, index, qs, policy,
+                        single: dict, paged_kw: dict,
+                        dist_launches: dict) -> None:
+    """qwen1.5-32b FULL through ``ShardedExecutor`` over a serving mesh
+    of one NCCL rank (dp = 1): the main path's first 8 requests
+    (``FixedPolicy(0)``) on the dense slot cache, then on the paged pool,
+    each engine on ``params`` as they are (views: no second init) and
+    freed before the next.  The decode step is a host-bound time that
+    drifts over a run, so each pool serves in turns, single-device,
+    sharded, sharded, single-device, and the two are compared over the
+    turns.  Checks: every run's tokens identical to the main path's
+    single-device runs' (``single[kind] = (tokens by prompt, decode
+    step)``), K1 / K2 64 times a decode step, the collectives of one
+    decode step (an all-reduce for the embedding and two a layer, one
+    all-gather of the logits), no host sync in a sharded decode chunk.
+    Then ``--mesh dp=1`` on the serve CLI (SMOKE: the engines above are
+    FULL) prints the lines of the run without it.  The process group is
+    destroyed at the end."""
+    import io
+    import torch
+    from repro_torch.data import HashTokenizer
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.paged_flash_decode import paged_flash_decode
+    from repro_torch.launch import serve
+    from repro_torch.models.schema import tree_leaves
+    from repro_torch.routing import ContinuousEngineBackend
+    cfg = model.cfg
+    L = cfg.n_layers
+    counters = {"flash_decode": flash_decode,
+                "paged_flash_decode": paged_flash_decode}
+    say(f"== sharded: {cfg.name} FULL through ShardedExecutor, "
+        f"{NUM_SLOTS} slots, in turns with the single-device executor "
+        f"[{card}]")
+    sharded = {}
+    with _serving_mesh(cfg) as mesh:
+        for kind, engine_kw in (("dense", {}), ("paged", paged_kw)):
+            want, main_ms = single[kind]
+            steps_ms = []
+            for turn in (None, mesh, mesh, None):
+                label = f"{'sharded' if turn else 'single'} {kind}"
+                backend = ContinuousEngineBackend.create(
+                    model, params, HashTokenizer(cfg.vocab_size), index,
+                    num_slots=NUM_SLOTS, prefill_batch=PREFILL_BATCH,
+                    max_prompt_len=MAX_PROMPT_LEN,
+                    max_new_tokens=MAX_NEW_TOKENS, mesh=turn, **engine_kw)
+                ex = backend.engine.executor
+                if turn is not None:
+                    if any(a is not b for a, b in zip(
+                            tree_leaves(ex.params), tree_leaves(params))):
+                        raise AssertionError(f"[{label}] the executor "
+                                             f"copied a weight at mp = 1")
+                    say(f"   {label}: {type(ex).__name__} on {ex.device}, "
+                        f"slots [{ex.slot_base}, "
+                        f"{ex.slot_base + ex._dactive.shape[0]}), the "
+                        f"weights' own tensors, "
+                        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+                        f"allocated")
+                run = _drive(label, backend, index, qs, 1, card, L,
+                             counters, policy)
+                rec, steps = run["rec"], run["steps"]
+                if kind == "dense":
+                    _check_launches(label, run["launches"], "flash_decode",
+                                    steps, L, absent=("paged_flash_decode",))
+                else:
+                    _check_paged_launches(label, run["launches"], steps, L,
+                                          rec["short_prefills"])
+                differ = [p for p in rec["tokens"]
+                          if rec["tokens"][p] != want.get(p)]
+                if differ or not rec["tokens"]:
+                    raise AssertionError(f"[{label}] {len(differ)} of "
+                                         f"{len(rec['tokens'])} requests' "
+                                         f"tokens differ from the main "
+                                         f"path's")
+                steps_ms.append(rec["step_ms"])
+                served = len(rec["tokens"])
+                if turn is not None:
+                    sharded[kind] = run["launches"]
+                    torch.cuda.synchronize()
+                    counts = _count_collectives(ex.decode_chunk)
+                    torch.cuda.synchronize()
+                    k = ex.sync_every
+                    if counts != {"all_reduce": (2 * L + 1) * k,
+                                  "all_gather": k}:
+                        raise AssertionError(f"[{label}] collectives "
+                                             f"{counts}")
+                    _check_no_sync(ex, f"{label} decode chunk")
+                del backend, ex, run, rec
+                _free_gpu_memory(f"{label} done")
+            ratio = (steps_ms[1] + steps_ms[2]) / (steps_ms[0] + steps_ms[3])
+            say(f"   {kind}: {served} requests' tokens identical to the "
+                f"main path's in every turn; decode step in turns single / "
+                f"sharded / sharded / single "
+                f"{' / '.join(f'{t:.2f}' for t in steps_ms)} ms (the main "
+                f"path's {main_ms:.2f}): sharded = {ratio:.3f} x single; "
+                f"{counts['all_reduce'] // k} all-reduces and "
+                f"{counts['all_gather'] // k} all-gather a step [{card}]")
+        say(f"   sharded path launches: K1 {sharded['dense']['flash_decode']}"
+            f" (dense), K2 {sharded['paged']['paged_flash_decode']} (paged), "
+            f"{L} layers x decode steps, each turn; K3 "
+            f"{dist_launches['dense_topk']}, K5 "
+            f"{dist_launches['bm25_scores']} (distributed retrieval)")
+
+        base = ["--backend", "continuous", "--variant", "smoke", "-n", "8",
+                "--device", "cuda"]
+        outs = []
+        for argv in (base, base + ["--mesh", "dp=1"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                serve.main(argv)
+            outs.append(buf.getvalue().splitlines())
+        differ = [(a, b) for a, b in zip(*outs) if a != b]
+        say(f"   serve cli --variant smoke -n 8 --mesh dp=1: "
+            f"{len(outs[1])} lines, {len(differ)} differ from the run "
+            f"without --mesh")
+        for line in outs[1][:12]:
+            say(f"   | {line}")
+        if differ or len(outs[0]) != len(outs[1]):
+            raise AssertionError(f"[sharded cli] lines differ: {differ[:4]}")
 
 
 def _leaf(params, path: str):
@@ -4860,11 +5106,11 @@ def main() -> None:
     rows = (kernel_phase(report) + paged_kernel_phase()
             + attention_kernel_phase(report))
     k6 = ssd_kernel_phase()
-    retrieval_rows, launches = retrieval_kernel_phase()
+    retrieval_rows, launches, dist_launches = retrieval_kernel_phase()
     rows += retrieval_rows + [k6]
     small_model_phase()
     router = router_phase(card)
-    launches.update(main_path_phases(card, router))
+    launches.update(main_path_phases(card, router, dist_launches))
     trained = train_phase(card)
     launches.update(eval_phase(trained, card))
     del trained

@@ -12,10 +12,14 @@
 
 The generation quality of the small local model is irrelevant — the
 point is the full serving path through the one ``Gateway`` entry point.
-Runs on the card unless ``--device cpu``.
+Runs on the card unless ``--device cpu``.  ``--mesh dp=N[,mp=M]`` shards
+the continuous engine over N x M processes started by ``torchrun``
+(slots on ``dp``, params on ``mp``); rank 0 prints.
 
     PYTHONPATH=src python -m repro_torch.examples.serve_rag_slo \\
         --slo quality_first [--engine padded] [--device cpu]
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m \\
+        repro_torch.examples.serve_rag_slo --mesh dp=2
 """
 from __future__ import annotations
 
@@ -27,7 +31,10 @@ from repro_torch.core.config import TestbedConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.offline_log import build_testbed
 from repro_torch.data.tokenizer import HashTokenizer
+from repro_torch.launch.mesh import (make_serving_mesh, rank0_prints,
+                                     share_from_rank0)
 from repro_torch.models import build_model
+from repro_torch.models.schema import tree_leaves
 from repro_torch.routing import (ContinuousEngineBackend, EngineBackend,
                                  Gateway, MLPPolicy, Request,
                                  get_slo_profile, list_slo_profiles)
@@ -45,9 +52,26 @@ def main(argv=None):
                     choices=("continuous", "padded"),
                     help="continuous = slot-based shared decode stream; "
                          "padded = serial per-bucket engine")
+    ap.add_argument("--mesh", default=None, metavar="dp=N[,mp=M]",
+                    help="shard the continuous engine over a mesh of "
+                         "processes, one a card (dp=N slots on data, "
+                         "mp=M params tensor-parallel on model)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.mesh and args.engine != "continuous":
+        ap.error("--mesh requires --engine continuous")
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        mesh = make_serving_mesh(args.mesh, get_config("qwen1.5-32b",
+                                                       "smoke"),
+                                 device=device)
+        device = mesh.device
+    with rank0_prints():
+        return _serve(args, device, mesh)
+
+
+def _serve(args, device, mesh):
     profile = get_slo_profile(args.slo)
 
     print("# building testbed + routing policy ...")
@@ -56,6 +80,8 @@ def main(argv=None):
     policy = MLPPolicy.train(train_log, train_log.rewards(profile),
                              cfg.router, objective="argmax_ce",
                              device=device)
+    if mesh is not None:
+        share_from_rank0(tree_leaves(policy.params))
 
     print(f"# loading the generation backend (qwen SMOKE) on {device}")
     mcfg = get_config("qwen1.5-32b", "smoke")
@@ -67,10 +93,14 @@ def main(argv=None):
     max_prompt_len = 384
     max_len = max_prompt_len + args.max_new_tokens
     if args.engine == "continuous":
+        if mesh is not None:
+            print(f"# sharded executor over mesh {args.mesh} "
+                  f"({mesh.dp * mesh.mp} processes; slots on data, "
+                  f"params on model)")
         engine = ContinuousEngine(model, params, num_slots=args.batch,
                                   max_len=max_len,
                                   max_new_cap=args.max_new_tokens,
-                                  prefill_batch=args.batch)
+                                  prefill_batch=args.batch, mesh=mesh)
         backend_cls = ContinuousEngineBackend
     else:
         engine = Engine(model, params, max_len=max_len)

@@ -23,7 +23,10 @@ Contract (that of the reference's ``ops.bm25_scores``): query_tf
 that shape), doc_len ``(D,)``, idf ``(V,)``.  The prep stays in torch,
 outside the kernel, as the reference's wrapper does it:
 ``avg = doc_len.mean() + 1e-6``, ``norm = k1 * (1 - b + b * doc_len /
-avg)`` and ``wq = query_tf * idf``.  Returns ``(Q, D)`` float32 scores.
+avg)`` and ``wq = query_tf * idf``.  A shard of a corpus passes the
+whole corpus's ``avg_len=`` (the reference's distributed BM25 does: its
+``retrieval/distributed.py`` normalizes every shard by the global mean
+plus 1e-6).  Returns ``(Q, D)`` float32 scores.
 """
 from __future__ import annotations
 
@@ -73,18 +76,21 @@ def compact_tf(tf: torch.Tensor) -> BM25Csr:
     return BM25Csr(row_ptr, cols, tf[mask].float(), (D, V))
 
 
-def _norm(doc_len, k1: float, b: float):
-    """``norm (D,)`` in float32."""
-    avg = doc_len.mean() + 1e-6
+def _norm(doc_len, k1: float, b: float, avg_len=None):
+    """``norm (D,)`` in float32, over ``avg_len`` (default: the mean of
+    ``doc_len`` + 1e-6)."""
+    avg = doc_len.mean() + 1e-6 if avg_len is None else avg_len
     return (k1 * (1 - b + b * doc_len / avg)).float()
 
 
-def _prep(query_tf, doc_len, idf, k1: float, b: float):
+def _prep(query_tf, doc_len, idf, k1: float, b: float, avg_len=None):
     """``(wq (Q, V), norm (D,))`` in float32."""
-    return (query_tf * idf[None, :]).float(), _norm(doc_len, k1, b)
+    return ((query_tf * idf[None, :]).float(),
+            _norm(doc_len, k1, b, avg_len))
 
 
-def _kernel_prep(query_tf, doc_len, idf, k1: float, b: float):
+def _kernel_prep(query_tf, doc_len, idf, k1: float, b: float,
+                 avg_len=None):
     """The kernel's inputs beside the index: ``wqT (V, Q)``, so that a
     term's weights for every query lie together, the ``(V,)`` byte flag
     ``used[v] = any_q wq[q, v] != 0`` (bool, one byte) and ``norm (D,)``.
@@ -94,7 +100,8 @@ def _kernel_prep(query_tf, doc_len, idf, k1: float, b: float):
     wqT = torch.empty((query_tf.shape[1], query_tf.shape[0]),
                       dtype=torch.float32, device=query_tf.device)
     torch.mul(query_tf.t(), idf[:, None], out=wqT)
-    return wqT, torch.any(wqT, 1), _norm(doc_len, k1, b).contiguous()
+    return wqT, torch.any(wqT, 1), _norm(doc_len, k1, b,
+                                         avg_len).contiguous()
 
 
 def _csr_rows(csr: BM25Csr) -> torch.Tensor:
@@ -106,12 +113,12 @@ def _csr_rows(csr: BM25Csr) -> torch.Tensor:
 
 
 def bm25_scores_torch(query_tf, tf, doc_len, idf, *, k1: float = 1.2,
-                      b: float = 0.75):
+                      b: float = 0.75, avg_len=None):
     """Plain PyTorch version.  Dense ``tf``: the saturated ``(D, V)``
     matrix, then one float32 product.  :class:`BM25Csr`: the saturation
     of each nonzero, times the queries' weights of its term, summed into
     its document with ``index_add_`` in the order of the nonzeros."""
-    wq, norm = _prep(query_tf, doc_len, idf, k1, b)
+    wq, norm = _prep(query_tf, doc_len, idf, k1, b, avg_len)
     if isinstance(tf, BM25Csr):
         rows = _csr_rows(tf)
         vals = tf.vals.float()
@@ -125,21 +132,22 @@ def bm25_scores_torch(query_tf, tf, doc_len, idf, *, k1: float = 1.2,
 
 
 def bm25_scores(query_tf, tf, doc_len, idf, *, k1: float = 1.2,
-                b: float = 0.75):
+                b: float = 0.75, avg_len=None):
     """BM25 scores ``(Q, D)``: the plain version for CPU tensors, the
     CUDA kernel for CUDA tensors.  ``tf`` is a dense ``(D, V)`` tensor or
     a :class:`BM25Csr`.  On the card a :class:`BM25Csr` is scored with
     no host sync; a dense ``tf`` is compacted first (:func:`compact_tf`),
     which syncs once to size the index."""
     if tf.device.type == "cpu":
-        return bm25_scores_torch(query_tf, tf, doc_len, idf, k1=k1, b=b)
+        return bm25_scores_torch(query_tf, tf, doc_len, idf, k1=k1, b=b,
+                                 avg_len=avg_len)
     if tf.device.type != "cuda":
         raise ValueError(f"bm25_scores: unsupported device {tf.device}")
     _check(query_tf, tf, doc_len, idf)
     kernel = _kernel()
     if not isinstance(tf, BM25Csr):
         tf = compact_tf(tf)
-    wqT, used, norm = _kernel_prep(query_tf, doc_len, idf, k1, b)
+    wqT, used, norm = _kernel_prep(query_tf, doc_len, idf, k1, b, avg_len)
     return _launch(kernel, wqT, used, tf, norm, k1)
 
 

@@ -10,12 +10,20 @@ paper's cost model), or ``--backend continuous`` for the continuous
 batching engine over ``qwen1.5-32b`` (seeded weights): ``--variant
 smoke`` (the default) or ``--variant full``, the published widths.
 Everything runs on ``--device`` (the card unless ``--device cpu``).
+``--mesh dp=N[,mp=M]`` shards the engine over N x M processes, one a
+card (:class:`repro_torch.serving.executor.ShardedExecutor`): slots
+over ``dp``, params over ``mp``.  Start it under ``torchrun``: every
+rank serves the same requests and rank 0 alone prints and writes the
+trace and metrics files.  Without ``torchrun``, ``--mesh dp=1`` serves
+in one process.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --slo quality_first -n 50
     PYTHONPATH=src python -m repro_torch.launch.serve --backend continuous \\
         --variant full -n 16
     PYTHONPATH=src python -m repro_torch.launch.serve --backend continuous \\
         --open-loop 4 --deadline-ms 3000 -n 24 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.serve \\
+        --backend continuous --variant full --mesh dp=4,mp=2 -n 16
 
 The flags, printed lines and defaults are those of the JAX package's
 serving CLI, plus ``--device`` and ``--variant``.  ``main`` returns the
@@ -31,11 +39,15 @@ import json
 import time
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.core.config import TestbedConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.metrics import evaluate_actions
 from repro_torch.core.offline_log import build_testbed
+from repro_torch.launch.mesh import (make_serving_mesh, rank0_prints,
+                                     share_from_rank0)
+from repro_torch.models.schema import tree_leaves
 from repro_torch.routing import (ConstrainedPolicy, Gateway, MLPPolicy,
                                  Request, SimulatorBackend, get_action_space,
                                  get_slo_profile, list_slo_profiles)
@@ -43,23 +55,32 @@ from repro_torch.routing.registry import DEFAULT_SPACE, list_action_spaces
 
 
 def _continuous_backend(index, num_slots, device, variant="smoke",
-                        retrievers=None, cache_size: int = 0, clock=None):
-    """Real-model generation: a ContinuousEngine on ``device``."""
+                        retrievers=None, cache_size: int = 0, clock=None,
+                        mesh=None):
+    """Real-model generation: a ContinuousEngine on ``device``, or over
+    ``mesh`` with each rank drawing only its shards of the weights."""
     from repro_torch.configs import get_config
     from repro_torch.data.tokenizer import HashTokenizer
     from repro_torch.models import build_model
     from repro_torch.routing import ContinuousEngineBackend
+    from repro_torch.sharding import init_local_params, specs_for_schema
 
     # the JAX package's CLI serves SMOKE only; ``--variant full`` runs
     # the front door at the published widths on the card
     mcfg = get_config("qwen1.5-32b", variant)
     model = build_model(mcfg)
-    params = model.init(seed=0, device=device)
+    if mesh is None:
+        params = model.init(seed=0, device=device)
+    else:
+        params = init_local_params(
+            model.schema, mesh,
+            specs_for_schema(model.schema, mesh, fsdp=False), seed=0)
     kw = {} if clock is None else {"clock": clock}
     return ContinuousEngineBackend.create(
         model, params, HashTokenizer(mcfg.vocab_size), index,
         num_slots=num_slots, max_prompt_len=192, max_new_tokens=8,
-        retrievers=retrievers, retrieval_cache_size=cache_size, **kw)
+        retrievers=retrievers, retrieval_cache_size=cache_size, mesh=mesh,
+        **kw)
 
 
 def _dump_telemetry(args, tracer, metrics) -> None:
@@ -137,8 +158,10 @@ def main(argv=None, *, init_params=None) -> dict:
     ap.add_argument("--variant", default="smoke", choices=("smoke", "full"),
                     help="qwen1.5-32b variant of --backend continuous")
     ap.add_argument("--mesh", default=None, metavar="dp=N[,mp=M]",
-                    help="multi-GPU serving: not ported yet "
-                         "(ROADMAP.md queue 1, item 9)")
+                    help="shard the continuous engine over a dp x mp "
+                         "mesh of processes, one a card (torchrun): "
+                         "slots on the dp (data) axis, params on the "
+                         "mp (model) axis")
     ap.add_argument("--num-slots", type=int, default=8)
     ap.add_argument("--space", default=DEFAULT_SPACE,
                     choices=list_action_spaces(),
@@ -164,13 +187,23 @@ def main(argv=None, *, init_params=None) -> dict:
                          "run's metrics registry at exit")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.mesh:
-        # the device mesh (slots over dp, params over mp) is multi-GPU
-        # serving, ROADMAP.md queue 1, item 9; one card serves unsharded
-        ap.error("--mesh: multi-GPU serving is not ported yet "
-                 "(ROADMAP.md queue 1, item 9)")
+    if args.mesh and args.backend != "continuous":
+        ap.error("--mesh requires --backend continuous")
     device = resolve_device(args.device)
+    if args.mesh:
+        from repro_torch.configs import get_config
+        mesh = make_serving_mesh(
+            args.mesh, model_cfg=get_config("qwen1.5-32b", args.variant),
+            device=device)
+        # every rank serves the same requests; rank 0 alone reports
+        with rank0_prints():
+            return _serve(args, mesh.device, mesh, init_params)
+    return _serve(args, device, None, init_params)
 
+
+def _serve(args, device, mesh, init_params) -> dict:
+    """The CLI's run on parsed ``args``; over a ``mesh`` only rank 0
+    writes the trace and metrics files."""
     space = get_action_space(args.space)
     cfg = TestbedConfig()
     if space.n_actions != cfg.router.n_actions:
@@ -193,6 +226,8 @@ def main(argv=None, *, init_params=None) -> dict:
                                  cfg.router, objective=args.objective,
                                  refusal_cap=args.refusal_cap,
                                  init_params=init, device=device)
+    if mesh is not None:
+        share_from_rank0(tree_leaves(policy.params))
     seconds["train_router"] = time.perf_counter() - t0
 
     shown = [0]
@@ -211,7 +246,8 @@ def main(argv=None, *, init_params=None) -> dict:
         from repro_torch.serving.traffic import VirtualClock
         clock = VirtualClock()
     tracer = metrics = None
-    if args.trace_out or args.metrics_out:
+    rank0 = mesh is None or dist.get_rank() == 0
+    if rank0 and (args.trace_out or args.metrics_out):
         from repro_torch.obs import MetricsRegistry, Tracer
         obs_clock = clock.now if clock is not None else time.perf_counter
         tracer = Tracer(obs_clock)
@@ -226,7 +262,8 @@ def main(argv=None, *, init_params=None) -> dict:
         backend = _continuous_backend(index, args.num_slots, device,
                                       variant=args.variant, retrievers=suite,
                                       cache_size=args.retrieval_cache,
-                                      clock=clock.now if clock else None)
+                                      clock=clock.now if clock else None,
+                                      mesh=mesh)
         seconds["build_backend"] = time.perf_counter() - t0
     else:
         if args.retrieval_cache and pipe.retrieval_cache is None:

@@ -22,6 +22,13 @@ flash_attention` under the reference's condition
 (``cfg.use_pallas_attention``, causal, no window or softcap, Sq == Skv,
 Sq % 128 == 0); it has no gradient, as the reference's kernel has none.
 
+Tensor parallel (``tp``, a model-axis process group, or ``None``): the
+attention layer gets its local heads and kv heads (every head count
+here comes from a weight's or a tensor's shape, so G = H / Hkv is
+mp-invariant), the MLP its local ``d_ff`` columns; each all-reduces its
+partial output projection over ``tp`` before any output bias.  With
+``None`` nothing changes.
+
 Multi-head latent attention (:func:`mla_apply`) reaches no kernel, as in
 the reference: its naive decode runs the plain :func:`attention`, its
 absorbed decode plain float32 products.
@@ -32,6 +39,7 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.config import MLAConfig, ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
@@ -207,8 +215,17 @@ def _write_page_step(pool, rows, page, off, keep):
     pool[page, off] = vals
 
 
+def all_reduce(x, tp):
+    """Sum ``x`` over the model-axis group ``tp`` in place (``tp=None``:
+    ``x`` as it is)."""
+    if tp is not None:
+        dist.all_reduce(x, group=tp)
+    return x
+
+
 def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
-              causal=True, cross_kv=None, ring=False, page_table=None):
+              causal=True, cross_kv=None, ring=False, page_table=None,
+              tp=None):
     """x: (B, S, d).  cache: None, a dense slot cache {"k", "v"} or its
     int8 form {"k_q", "v_q", "k_s", "v_s"}; with ``page_table`` the
     same leaves are page pools (num_pages, page_size, Hkv, Dh).
@@ -245,6 +262,9 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
     ``cross_kv=(k, v)`` (B, T, Hkv, Dh) makes this Whisper's
     cross-attention: only the query is projected (with its bias), no
     rope on either side, no mask, and the cache is returned untouched.
+
+    With ``tp`` the weights, biases and cache hold this rank's heads and
+    kv heads, and the output projection is all-reduced over ``tp``.
     """
     B, S, d = x.shape
     q = proj_heads(x, p["wq"])
@@ -253,7 +273,7 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
     if cross_kv is not None:
         k, v = cross_kv
         out = attention(q, k, v, q_pos=positions, causal=False)
-        return _out_proj(p, out), cache
+        return _out_proj(p, out, tp), cache
 
     softcap = cfg.attn_logit_softcap
     # the reference's kernel gate; past it, the plain attention below is
@@ -371,14 +391,16 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
             out = attention(q, ck, cv, q_pos=positions, kv_len=kv_len,
                             causal=causal, window=window, softcap=softcap,
                             q_chunk=cfg.attn_q_chunk)
-    return _out_proj(p, out), cache
+    return _out_proj(p, out, tp), cache
 
 
-def _out_proj(p, out):
-    """(B, S, H, Dh) @ wo (H, Dh, d) -> (B, S, d) as one matrix product."""
+def _out_proj(p, out, tp=None):
+    """(B, S, H, Dh) @ wo (H, Dh, d) -> (B, S, d) as one matrix product,
+    summed over the heads of every rank of ``tp``."""
     B, S, H, Dh = out.shape
     wo = p["wo"]
-    return out.reshape(B, S, H * Dh) @ wo.reshape(H * Dh, wo.shape[-1])
+    return all_reduce(out.reshape(B, S, H * Dh)
+                      @ wo.reshape(H * Dh, wo.shape[-1]), tp)
 
 
 # ---------------------------------------------------------------------------
@@ -526,11 +548,13 @@ def mlp_schema(cfg: ModelConfig, d_ff: Optional[int] = None
     return s
 
 
-def mlp_apply(p, x):
+def mlp_apply(p, x, tp=None):
+    """SwiGLU; with ``tp`` over this rank's ``d_ff`` columns, the down
+    projection summed over ``tp`` before ``b_out``."""
     h = torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     if "b_ff" in p:
         h = h + p["b_ff"]
-    out = h @ p["w_down"]
+    out = all_reduce(h @ p["w_down"], tp)
     if "b_out" in p:
         out = out + p["b_out"]
     return out

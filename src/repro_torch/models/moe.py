@@ -1,8 +1,10 @@
 """Mixture-of-experts blocks.
 
 An own copy of the reference's ``models/moe.py`` less its expert-parallel
-path (``moe_apply_ep``, ``shard_map`` with ``all_to_all``:
-``ROADMAP.md`` queue 1, item 9).  Expert weights live as ``(E, d, f)``
+path (``moe_apply_ep``, ``shard_map`` with ``all_to_all``: the training
+half of ``ROADMAP.md`` queue 1, item 9).  Serving shards the experts'
+``d_ff_expert`` over the model axis instead, as the reference's serving
+executor does (``tp``).  Expert weights live as ``(E, d, f)``
 and ``(E, f, d)``, the reference's leaves, so parameters carry across
 leaf for leaf.
 
@@ -28,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.config import ModelConfig, MoEConfig
-from repro_torch.models.layers import mlp_apply, mlp_schema
+from repro_torch.models.layers import all_reduce, mlp_apply, mlp_schema
 from repro_torch.models.schema import ParamSpec
 
 
@@ -69,13 +71,17 @@ def router_probs(p, xf, e: MoEConfig):
     return top_vals, top_idx, aux
 
 
-def _shared_out(p, x):
-    return mlp_apply(p["shared"], x) if "shared" in p else 0.0
+def _shared_out(p, x, tp=None):
+    return mlp_apply(p["shared"], x, tp) if "shared" in p else 0.0
 
 
-def moe_apply_ragged(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
-                                                       torch.Tensor]:
-    """x: (B, S, d) -> (out (B, S, d), aux_loss)."""
+def moe_apply_ragged(p, x, cfg: ModelConfig, tp=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (out (B, S, d), aux_loss).  With ``tp`` the
+    experts (and the shared expert) hold this rank's ``d_ff_expert``
+    columns: the router runs whole on every rank, and the routed
+    partial output is summed over ``tp`` (the shared expert's in its own
+    MLP, before its output bias)."""
     B, S, d = x.shape
     e = cfg.moe
     T = B * S
@@ -100,5 +106,5 @@ def moe_apply_ragged(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
     y = rows[:, 0]
     for j in range(1, e.top_k):
         y = y + rows[:, j]
-    y = y.reshape(B, S, d) + _shared_out(p, x)
+    y = all_reduce(y.reshape(B, S, d), tp) + _shared_out(p, x, tp)
     return y.to(x.dtype), aux

@@ -48,13 +48,13 @@ class Model:
     def train_logits(self, params, inputs):
         return T.forward_train(params, self.cfg, inputs)
 
-    def prefill(self, params, inputs, cache, *, mla_absorb=False):
+    def prefill(self, params, inputs, cache, *, mla_absorb=False, tp=None):
         return T.forward_prefill(params, self.cfg, inputs, cache,
-                                 mla_absorb=mla_absorb)
+                                 mla_absorb=mla_absorb, tp=tp)
 
-    def decode(self, params, inputs, cache, *, mla_absorb=False):
+    def decode(self, params, inputs, cache, *, mla_absorb=False, tp=None):
         return T.forward_decode(params, self.cfg, inputs, cache,
-                                mla_absorb=mla_absorb)
+                                mla_absorb=mla_absorb, tp=tp)
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -53,14 +53,24 @@ class ParamSpec:
             raise ValueError(f"shape {self.shape} vs axes {self.axes}")
 
 
-def tree_map(fn: Callable, tree) -> Any:
-    """Map ``fn`` over the leaves of a dict/list tree.  Dict keys are
-    visited in sorted order, the order JAX flattens a dict in."""
+def tree_map_with_path(fn: Callable, tree, path: Tuple = ()) -> Any:
+    """Map ``fn(path, leaf)`` over the leaves of a dict/list tree; a
+    leaf's path holds the dict keys and list indices from the root.
+    Dict keys are visited in sorted order, the order JAX flattens a dict
+    in."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+        return {k: tree_map_with_path(fn, tree[k], path + (k,))
+                for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, t) for t in tree]
-    return fn(tree)
+        return [tree_map_with_path(fn, t, path + (i,))
+                for i, t in enumerate(tree)]
+    return fn(path, tree)
+
+
+def tree_map(fn: Callable, tree) -> Any:
+    """Map ``fn`` over the leaves of a dict/list tree, in
+    :func:`tree_map_with_path`'s order."""
+    return tree_map_with_path(lambda _, leaf: fn(leaf), tree)
 
 
 def tree_leaves(tree) -> list:
@@ -80,12 +90,19 @@ def _init_leaf(spec: ParamSpec, device, gen: torch.Generator) -> torch.Tensor:
     return t.normal_(0.0, scale, generator=gen)
 
 
-def init_from_schema(schema, *, seed: int, device) -> Any:
+def init_from_schema(schema, *, seed: int, device, keep=None) -> Any:
     """Materialize a parameter tree, leaf by leaf, from one generator
-    seeded with ``seed`` on ``device``."""
+    seeded with ``seed`` on ``device``.  ``keep(path, spec, leaf)``, if
+    given, replaces each leaf as soon as it is drawn (a tensor-parallel
+    rank keeps its shard), so at most one whole leaf exists at a time;
+    the draws are the same either way."""
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
-    return tree_map(lambda s: _init_leaf(s, dev, gen), schema)
+
+    def draw(path, s):
+        leaf = _init_leaf(s, dev, gen)
+        return leaf if keep is None else keep(path, s, leaf)
+    return tree_map_with_path(draw, schema)
 
 
 def zeros_from_schema(schema, *, device) -> Any:

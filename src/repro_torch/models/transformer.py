@@ -46,7 +46,19 @@ cast to the weights' dtype on the way in (the reference casts the
 image's, and promotes a float32 frame embedding's sums past bf16
 weights; the port's matrix products take one dtype).  The
 reference's ``moe_fn`` hook exists for its expert-parallel path only and
-is not ported (``ROADMAP.md`` queue 1, item 9).
+is not ported yet (the training half of ``ROADMAP.md`` queue 1, item 9).
+
+Tensor-parallel serving: the cached forward takes ``tp``, the model
+axis's process group (``None``: one device, unchanged), and threads it
+through :func:`apply_layer` as the reference threads ``moe_fn``.  Each
+rank holds the shards :data:`TP_AXES` names — the vocab rows of the
+embedding, its heads and kv heads, its ``d_ff`` / ``d_ff_expert``
+columns — and four collectives make the whole function: the embedding
+lookup masks the ids outside the rank's rows and all-reduces, the
+attention and FFN output projections all-reduce, and the logits are
+all-gathered over the vocab in rank order (so argmax ties resolve as
+on one device).  :func:`check_tensor_parallel` refuses any other
+placement.
 
 Training: gradients reach the stacked ``blocks`` leaves through the
 per-slice views, so ``.grad`` (or ``torch.autograd.grad``) of a stacked
@@ -64,6 +76,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -163,7 +176,7 @@ def _layer_schema(cfg: ModelConfig, s: LayerSig) -> Dict[str, Any]:
 
 def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
                 cache=None, page_table=None, mla_absorb: bool = False,
-                enc_out=None):
+                enc_out=None, tp=None):
     """One residual block.  Returns (x, cache, aux): the cache is updated
     in place (see :func:`repro_torch.models.layers.gqa_apply`,
     :func:`repro_torch.models.layers.mla_apply` and
@@ -174,7 +187,11 @@ def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
     cross-attention sublayer after the self-attention: with ``enc_out``
     (B, T, d) its keys and values are projected from it, and written
     over the cache's ``cross_k`` / ``cross_v`` when there is a cache;
-    without, they are read from the cache."""
+    without, they are read from the cache.
+
+    ``tp``: the tensor-parallel group of the GQA and FFN sublayers (see
+    the module docstring); MLA and Mamba2 layers take none
+    (:func:`check_tensor_parallel` keeps them whole on every rank)."""
     aux = 0.0
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if s.kind == "M":
@@ -188,7 +205,7 @@ def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
                                  causal=s.causal,
                                  ring=bool(cfg.window_ring_cache
                                            and s.window),
-                                 page_table=page_table)
+                                 page_table=page_table, tp=tp)
     x = x + out
     if s.cross and s.kind == "A":
         hc = L.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
@@ -201,16 +218,59 @@ def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
         else:
             ck, cv = cache["cross_k"], cache["cross_v"]
         out, _ = L.gqa_apply(p["cross"], hc, cfg, positions=positions,
-                             cross_kv=(ck, cv))
+                             cross_kv=(ck, cv), tp=tp)
         x = x + out
     if s.is_moe:
         ff, aux = moe_apply_ragged(p["moe"], L.rmsnorm(p["ln2"], x,
-                                                       cfg.norm_eps), cfg)
+                                                       cfg.norm_eps), cfg,
+                                   tp=tp)
         x = x + ff
     elif "mlp" in p:
         # the reference adds an FFN term of 0.0 when there is no MLP
-        x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+        x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps),
+                            tp)
     return x, cache, aux
+
+
+# The leaves the tensor-parallel apply splits over the model axis, by
+# the end of their path, with the logical axis each one splits there:
+# the weights of the GQA and FFN sublayers and the GQA caches (the
+# dense slot cache or page pool, int8 or not).  Every other leaf stays
+# whole on each rank.
+TP_AXES = {
+    "embed": "vocab", "lm_head": "vocab",
+    **{f"attn/{w}": "heads" for w in ("wq", "bq", "wo")},
+    **{f"attn/{w}": "kv_heads" for w in ("wk", "wv", "bk", "bv")},
+    **{f"{m}/{w}": "d_ff" for m in ("mlp", "shared")
+       for w in ("w_gate", "w_up", "w_down", "b_ff")},
+    **{f"moe/{w}": "d_ff_expert" for w in ("w_gate", "w_up", "w_down")},
+    **{c: "kv_heads" for c in ("k", "v", "k_q", "v_q", "k_s", "v_s")},
+}
+
+
+def check_tensor_parallel(named, mp: int) -> None:
+    """Refuse a placement the tensor-parallel apply has no collective
+    for.  ``named`` holds ``(leaf name, ParamSpec, spec)`` of every
+    parameter and cache leaf; at ``mp > 1`` each leaf of :data:`TP_AXES`
+    must split on its axis there, and no other leaf may split over
+    ``model``: MLA's latent, Mamba2's ``d_inner``, Whisper's cross
+    layers, a head_dim fallback, and Whisper's encoder and the MTP
+    layer, which run without ``tp``."""
+    if mp <= 1:
+        return
+    for name, ps, spec in named:
+        whole = name.startswith(("encoder/", "mtp/"))
+        want = None if whole else next(
+            (ax for key, ax in TP_AXES.items()
+             if name == key or name.endswith("/" + key)), None)
+        got = next((ps.axes[i] for i, e in enumerate(spec)
+                    if e == "model"), None)
+        if want != got:
+            raise ValueError(
+                f"tensor-parallel serving at mp={mp} has no collective "
+                f"for {name} {ps.shape} {ps.axes} resolved to {spec} "
+                f"(the apply splits it on {want or 'no axis'}): serving "
+                f"this family at mp > 1 is ROADMAP.md queue 1, item 9")
 
 
 def _layer_cache_schema(cfg: ModelConfig, s: LayerSig, batch: int,
@@ -354,18 +414,34 @@ def paged_cache_schema(cfg: ModelConfig, num_slots: int, num_pages: int,
 # ---------------------------------------------------------------------------
 
 
-def _embed_lookup(params, cfg: ModelConfig, tokens):
+def _embed_lookup(params, cfg: ModelConfig, tokens, tp=None):
     """Gather (default) or the one-hot product of the reference's
-    ``embed_one_hot`` (its §Perf H6 option)."""
+    ``embed_one_hot`` (its §Perf H6 option).  With ``tp`` the rank holds
+    a block of vocab rows: ids outside it gather zeros, and the sum over
+    ``tp`` gives each id its row (the one-hot product's exact value)."""
+    if tp is not None:
+        w = params["embed"]
+        rows = w.shape[0]
+        local = tokens.long() - dist.get_rank(tp) * rows
+        inside = (local >= 0) & (local < rows)
+        x = w[local.clamp(0, rows - 1)].masked_fill(~inside[..., None], 0)
+        return L.all_reduce(x, tp)
     if cfg.embed_one_hot:
         w = params["embed"]
         return F.one_hot(tokens.long(), w.shape[0]).to(w.dtype) @ w
     return params["embed"][tokens]
 
 
-def _unembed(params, cfg: ModelConfig, x):
+def _unembed(params, cfg: ModelConfig, x, tp=None):
+    """Logits in float32; with ``tp`` the rank's vocab block, gathered
+    over ``tp`` in rank order into the whole vocab."""
     w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return (x @ w.T).float()
+    logits = (x @ w.T).float()
+    if tp is None:
+        return logits
+    parts = [torch.empty_like(logits) for _ in range(dist.get_world_size(tp))]
+    dist.all_gather(parts, logits.contiguous(), group=tp)
+    return torch.cat(parts, dim=-1)
 
 
 def _slice(tree, i: int):
@@ -409,29 +485,31 @@ def _encode(params, cfg: ModelConfig, audio_emb):
 
 
 def forward_prefill(params, cfg: ModelConfig, inputs, cache, *,
-                    mla_absorb: bool = False):
+                    mla_absorb: bool = False, tp=None):
     """Prefill: run the full prompt, fill the cache, return last logits."""
     return _forward_cached(params, cfg, inputs, cache, prefill=True,
-                           mla_absorb=mla_absorb)
+                           mla_absorb=mla_absorb, tp=tp)
 
 
 def forward_decode(params, cfg: ModelConfig, inputs, cache, *,
-                   mla_absorb: bool = False):
+                   mla_absorb: bool = False, tp=None):
     """One decode step: inputs["tokens"] is (B, 1)."""
     return _forward_cached(params, cfg, inputs, cache, prefill=False,
-                           mla_absorb=mla_absorb)
+                           mla_absorb=mla_absorb, tp=tp)
 
 
-def _forward_cached(params, cfg, inputs, cache, *, prefill, mla_absorb):
+def _forward_cached(params, cfg, inputs, cache, *, prefill, mla_absorb,
+                    tp=None):
     """Returns (logits (B, 1, V) float32 of the last position, cache).
     The cache dict is updated in place and returned: its k/v leaves are
     written where they lie, and ``cache["pos"]`` is replaced by the
     advanced positions.  ``mla_absorb`` picks the MLA layers' absorbed
-    attention (it changes nothing elsewhere)."""
+    attention (it changes nothing elsewhere); ``tp`` is the
+    tensor-parallel group (module docstring)."""
     prefix, block, n_blocks = layer_structure(cfg)
     tokens = inputs["tokens"]
     B, S = tokens.shape
-    x = _embed_lookup(params, cfg, tokens)
+    x = _embed_lookup(params, cfg, tokens, tp)
     if prefill:
         # the image's positions come first and are cached with the text's
         x = _prepend_image(params, cfg, inputs, x)
@@ -465,18 +543,19 @@ def _forward_cached(params, cfg, inputs, cache, *, prefill, mla_absorb):
     for lp, lc, s in zip(params["prefix"], cache["prefix"], prefix):
         x, _, _ = apply_layer(lp, x, cfg, s, positions=positions,
                               cache=lc, page_table=page_table,
-                              mla_absorb=mla_absorb, enc_out=enc_out)
+                              mla_absorb=mla_absorb, enc_out=enc_out, tp=tp)
     for i in range(n_blocks):
         bp, bc = _slice(params["blocks"], i), _slice(cache["blocks"], i)
         for j, s in enumerate(block):
             x, _, _ = apply_layer(bp[f"p{j}"], x, cfg, s,
                                   positions=positions, cache=bc[f"p{j}"],
                                   page_table=page_table,
-                                  mla_absorb=mla_absorb, enc_out=enc_out)
+                                  mla_absorb=mla_absorb, enc_out=enc_out,
+                                  tp=tp)
     cache["pos"] = new_pos
 
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _unembed(params, cfg, x[:, -1:]), cache
+    return _unembed(params, cfg, x[:, -1:], tp), cache
 
 
 # ---------------------------------------------------------------------------

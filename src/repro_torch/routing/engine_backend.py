@@ -220,12 +220,15 @@ class ContinuousEngineBackend(EngineBackend):
                sync_every: int = 4, prefill_batch: Optional[int] = None,
                retrievers: Optional[Mapping[str, Retriever]] = None,
                retrieval_cache_size: int = 0, chaos=None,
-               breaker_kw: Optional[dict] = None,
+               breaker_kw: Optional[dict] = None, mesh=None,
                **engine_kw) -> "ContinuousEngineBackend":
         """Build a :class:`~repro_torch.serving.continuous.ContinuousEngine`
         sized for this backend's prompts (slot caches hold the padded
         prompt plus the generation budget) on the params' device, and
-        wrap it.  An explicit ``executor`` (in ``engine_kw``) replaces
+        wrap it.  ``mesh=None`` gives the single-device executor; a
+        serving mesh (:func:`repro_torch.launch.mesh.make_serving_mesh`)
+        gives the :class:`~repro_torch.serving.executor.ShardedExecutor`
+        on it.  An explicit ``executor`` (in ``engine_kw``) replaces
         the one the engine would build; an armed ``chaos`` injector
         installs the executor and retriever fault seams."""
         from repro_torch.serving.continuous import ContinuousEngine
@@ -234,7 +237,8 @@ class ContinuousEngineBackend(EngineBackend):
             max_len=max_prompt_len + max_new_tokens,
             max_new_cap=max_new_tokens, sync_every=sync_every,
             prefill_batch=(num_slots if prefill_batch is None
-                           else prefill_batch), chaos=chaos, **engine_kw)
+                           else prefill_batch), chaos=chaos, mesh=mesh,
+            **engine_kw)
         return cls(engine, tokenizer, index, max_prompt_len=max_prompt_len,
                    max_new_tokens=max_new_tokens, retrievers=retrievers,
                    retrieval_cache_size=retrieval_cache_size, chaos=chaos,

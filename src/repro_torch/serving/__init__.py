@@ -19,6 +19,7 @@ _LAZY = {
     "CompletedGeneration": "repro_torch.serving.continuous",
     "EngineStats": "repro_torch.serving.continuous",
     "SingleDeviceExecutor": "repro_torch.serving.executor",
+    "ShardedExecutor": "repro_torch.serving.executor",
     "PagePool": "repro_torch.serving.paged",
     "PagePlan": "repro_torch.serving.paged",
     "hash_prefix_pages": "repro_torch.serving.paged",

@@ -18,8 +18,10 @@ The engine is split into two layers:
 With an armed :class:`~repro_torch.serving.faults.ChaosInjector`
 (``chaos=``) the executor is wrapped in a
 :class:`~repro_torch.serving.faults.ChaosExecutor` fault seam; unarmed,
-nothing is installed.  The reference's sharded executors are not ported
-yet.
+nothing is installed.  With a ``mesh`` (:func:`repro_torch.launch.mesh.
+make_serving_mesh`) the executor is a
+:class:`~repro_torch.serving.executor.ShardedExecutor`: every process
+of the mesh runs this scheduler on the same inputs.
 
 **Prefill/decode overlap.**  Executor calls are async dispatch; the
 scheduler exploits that by dispatching the decode chunk for resident
@@ -130,8 +132,9 @@ class ContinuousEngine:
 
     Construct either from ``(model, params)`` — which builds a
     :class:`~repro_torch.serving.executor.SingleDeviceExecutor` on the
-    params' device — or from an explicit ``executor`` (any object
-    implementing the executor protocol).  An armed ``chaos`` injector
+    params' device, or a :class:`~repro_torch.serving.executor.
+    ShardedExecutor` when ``mesh`` is given — or from an explicit
+    ``executor`` (any object implementing the executor protocol).  An armed ``chaos`` injector
     wraps the executor in a
     :class:`~repro_torch.serving.faults.ChaosExecutor`.
     """
@@ -145,7 +148,8 @@ class ContinuousEngine:
                  max_len: int = 512, max_new_cap: int = 64,
                  sync_every: int = 4, prefill_pad_multiple: int = 1,
                  prefill_batch: int = 1, admission_lookahead: int = 16,
-                 mla_absorb: bool = False, executor=None, clock=None,
+                 mla_absorb: bool = False, mesh=None, executor=None,
+                 clock=None,
                  watchdog_syncs: int = 8, max_requeues: int = 0,
                  chaos=None, paged: bool = False, page_size: int = 16,
                  num_pages: Optional[int] = None,
@@ -154,19 +158,24 @@ class ContinuousEngine:
             if model is None:
                 raise ValueError("ContinuousEngine needs model+params or "
                                  "an explicit executor")
-            from repro_torch.serving.executor import SingleDeviceExecutor
-            executor = SingleDeviceExecutor(
-                model, params, num_slots=num_slots, max_len=max_len,
-                max_new_cap=max_new_cap, sync_every=sync_every,
-                prefill_batch=prefill_batch, mla_absorb=mla_absorb,
-                paged=paged, page_size=page_size, num_pages=num_pages,
-                metrics=metrics)
+            from repro_torch.serving.executor import (ShardedExecutor,
+                                                      SingleDeviceExecutor)
+            kw = dict(num_slots=num_slots, max_len=max_len,
+                      max_new_cap=max_new_cap, sync_every=sync_every,
+                      prefill_batch=prefill_batch, mla_absorb=mla_absorb,
+                      paged=paged, page_size=page_size, num_pages=num_pages,
+                      metrics=metrics)
+            executor = (ShardedExecutor(model, params, mesh=mesh, **kw)
+                        if mesh is not None
+                        else SingleDeviceExecutor(model, params, **kw))
         if chaos is not None and getattr(chaos, "armed", False):
             from repro_torch.serving.faults import ChaosExecutor
             executor = ChaosExecutor(executor, chaos)
         self.executor = executor
         self.model = model
-        self.params = params
+        # the weights the executor holds: a sharded executor's own shards
+        # (so the engine keeps no whole copy alive beside them)
+        self.params = getattr(executor, "params", params)
         self.num_slots = executor.num_slots
         self.max_len = executor.max_len
         self.max_new_cap = executor.max_new_cap
@@ -196,8 +205,10 @@ class ContinuousEngine:
         self._pages = None
         self._slot_plan: List[Optional[PagePlan]] = [None] * self.num_slots
         if getattr(executor, "paged", False):
-            self._pages = PagePool(executor.num_pages, executor.page_size,
-                                   prefix_sharing=prefix_sharing)
+            self._pages = PagePool(
+                executor.num_pages, executor.page_size,
+                partitions=getattr(executor, "page_partitions", 1),
+                prefix_sharing=prefix_sharing)
 
         S = self.num_slots
         # host mirrors of the device control arrays (refreshed at sync)
@@ -316,8 +327,9 @@ class ContinuousEngine:
     # -- admission planning --------------------------------------------
 
     def _partition(self, slot: int) -> int:
-        """Page-pool partition owning ``slot``'s pages (one partition on
-        a single device)."""
+        """Page-pool partition owning ``slot``'s pages: slots and pages
+        both shard contiguously over the mesh data axis (one partition
+        on a single device)."""
         return slot * self._pages.partitions // self.num_slots
 
     def _preview_p0(self, req: SlotRequest, slot: int, plen: int) -> int:

@@ -8,7 +8,9 @@ device buffers lives behind the executor protocol implemented here by
 :class:`SingleDeviceExecutor`: the slot cache (dense per-slot rows, or
 the global page pool + block tables) and the dense prefill scratch,
 allocated once, plus prefill, insert+state-commit and the K-step decode
-chunk.
+chunk; and by :class:`ShardedExecutor`, the same over a
+``torch.distributed`` mesh of one process per card (slots on ``data``,
+params on ``model``).
 
 PyTorch runs eagerly on the card's current stream: ``admit`` and
 ``decode_chunk`` enqueue their kernels and return without waiting, and
@@ -55,14 +57,25 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.data.tokenizer import EOS, PAD
-from repro_torch.models.schema import tree_leaves
+from repro_torch.models.schema import tree_leaves, zeros_from_schema
+from repro_torch.models.transformer import check_tensor_parallel
+from repro_torch.sharding import (local_params, local_schema, named_specs,
+                                  specs_for_schema)
 
 
 class SingleDeviceExecutor:
     """Slot cache + prefill/commit/decode on the device holding the
     params (``params["embed"].device``)."""
+
+    # the slots and pool pages this executor holds are the global ones
+    # from slot_base / page_base on (all of them on one device); the
+    # host allocator partitions its pages page_partitions ways
+    slot_base = 0
+    page_base = 0
+    page_partitions = 1
 
     def __init__(self, model, params, *, num_slots: int = 8,
                  max_len: int = 512, max_new_cap: int = 64,
@@ -99,23 +112,15 @@ class SingleDeviceExecutor:
             self.max_blocks = self.mb_scratch + 1
             self.num_pages = (num_pages if num_pages is not None
                               else num_slots * self.max_blocks)
-            if self.num_pages < self.max_blocks:
-                raise ValueError(
-                    f"num_pages={self.num_pages} leaves {self.num_pages} "
-                    f"pages per partition — fewer than the "
-                    f"{self.max_blocks} blocks one max_len request needs; "
-                    f"admission could never make progress")
-            self._cache = model.init_paged_cache(
-                num_slots, self.num_pages, page_size, self.max_blocks,
-                device=self.device)
-        else:
-            self._cache = model.init_cache(num_slots, max_len,
-                                           device=self.device)
-        self._pcache = model.init_cache(self.prefill_batch, max_len,
-                                        device=self.device)
+            self._validate_pages()
+            # slots and pages shard contiguously, in lockstep
+            self._pages_here = self.num_pages // self.page_partitions
+            self.page_base = self.slot_base * self.num_pages // num_slots
+        self._cache, self._pcache = self._alloc_caches()
         self.cache_allocations = 2
 
-        S, cap, dev = num_slots, max_new_cap, self.device
+        # the control arrays cover the slots this executor holds
+        S, cap, dev = self._cache["pos"].shape[0], max_new_cap, self.device
         i32 = dict(dtype=torch.int32, device=dev)
         self._dtok = torch.zeros(S, **i32)      # next input token
         self._dactive = torch.zeros(S, dtype=torch.bool, device=dev)
@@ -131,6 +136,45 @@ class SingleDeviceExecutor:
         self._m_decode = None
         if metrics is not None:
             self.bind_metrics(metrics)
+
+    def _validate_pages(self) -> None:
+        per = self.num_pages // self.page_partitions
+        if per < self.max_blocks:
+            raise ValueError(
+                f"num_pages={self.num_pages} over {self.page_partitions} "
+                f"partition(s) leaves {per} pages per partition — fewer "
+                f"than the {self.max_blocks} blocks one max_len request "
+                f"needs; admission could never make progress")
+
+    def _alloc_caches(self):
+        """The slot cache (dense rows or page pool) and the prefill
+        scratch."""
+        m, dev = self.model, self.device
+        if self.paged:
+            cache = m.init_paged_cache(self.num_slots, self.num_pages,
+                                       self.page_size, self.max_blocks,
+                                       device=dev)
+        else:
+            cache = m.init_cache(self.num_slots, self.max_len, device=dev)
+        return cache, m.init_cache(self.prefill_batch, self.max_len,
+                                   device=dev)
+
+    def _model_kw(self) -> dict:
+        return {"mla_absorb": self.mla_absorb}
+
+    def _local_rows(self, slot_idx: np.ndarray):
+        """The rows of an admission group whose slots this executor
+        holds, and those slots' indices into its slot arrays; rows of
+        other slots (``num_slots``: unused scratch rows) are dropped."""
+        loc = slot_idx - self.slot_base
+        rows = np.flatnonzero((loc >= 0) & (loc < self._dactive.shape[0]))
+        return rows, loc[rows]
+
+    def _local_pages(self, pages: np.ndarray):
+        """Global pool page ids -> (ids in this executor's pool, whether
+        it holds them); the ``num_pages`` sentinel is never held."""
+        loc = pages - self.page_base
+        return loc, (loc >= 0) & (loc < self._pages_here)
 
     def bind_metrics(self, registry) -> None:
         """Register admit / decode-chunk host dispatch walls.  These
@@ -157,7 +201,7 @@ class SingleDeviceExecutor:
         if pos0 is not None:
             inputs["pos0"] = pos0
         logits, _ = self.model.prefill(self.params, inputs, self._pcache,
-                                       mla_absorb=self.mla_absorb)
+                                       **self._model_kw())
         return logits[:, -1].argmax(dim=-1).to(torch.int32)
 
     def _commit(self, firsts, slot_idx: np.ndarray, limits: np.ndarray):
@@ -165,11 +209,11 @@ class SingleDeviceExecutor:
         the admission group's slot state, in place.  Unused scratch rows
         carry slot index ``num_slots`` and are dropped — here on the
         host, where the indices come from."""
-        rows = np.flatnonzero(slot_idx < self.num_slots)
+        rows, loc = self._local_rows(slot_idx)
         if rows.size == 0:
             return
         r = self._to_device(rows)
-        s = self._to_device(slot_idx[rows].astype(np.int64))
+        s = self._to_device(loc.astype(np.int64))
         cache, pc = self._cache, self._pcache
         cache["pos"][s] = pc["pos"][r]
         # prefix leaves are (B, ...); block leaves are (n_blocks, B, ...)
@@ -212,8 +256,8 @@ class SingleDeviceExecutor:
         that scratch block untouched — filtered here, on the host.  The
         copies queue on the stream behind any decode chunk in flight, so
         shared pages are never read mid-write."""
-        flat = src.reshape(-1)
-        blocks = np.flatnonzero(flat < self.num_pages)
+        flat, held = self._local_pages(src.reshape(-1))
+        blocks = np.flatnonzero(held)
         if blocks.size == 0:
             return
         dst = self._to_device(blocks)
@@ -229,16 +273,20 @@ class SingleDeviceExecutor:
         tables.  ``wmask`` marks the freshly written blocks: shared
         (borrowed) blocks and unused rows go to the ``num_pages``
         sentinel and are dropped — here on the host."""
-        rows = np.flatnonzero(slot_idx < self.num_slots)
+        rows, loc = self._local_rows(slot_idx)
         if rows.size == 0:
             return
         r = self._to_device(rows)
-        s = self._to_device(slot_idx[rows].astype(np.int64))
+        s = self._to_device(loc.astype(np.int64))
         self._cache["pos"][s] = self._pcache["pos"][r]
-        self._cache["table"][s] = self._to_device(tables[rows])
-        pages = np.where(wmask, tables[:, :self.mb_scratch],
-                         self.num_pages).reshape(-1)
-        blocks = np.flatnonzero(pages < self.num_pages)
+        # a slot's pages all lie in its own partition; a table's unused
+        # entries (0) keep pointing at page 0 of the pool held here
+        tbl, held = self._local_pages(tables[rows])
+        self._cache["table"][s] = self._to_device(
+            np.where(held, tbl, 0).astype(np.int32))
+        pages, held = self._local_pages(np.where(
+            wmask, tables[:, :self.mb_scratch], self.num_pages).reshape(-1))
+        blocks = np.flatnonzero(held)
         if blocks.size:
             src = self._to_device(blocks)
             dst = self._to_device(pages[blocks].astype(np.int64))
@@ -271,7 +319,7 @@ class SingleDeviceExecutor:
             inp = torch.where(active, tok, PAD)
             logits, _ = self.model.decode(self.params,
                                           {"tokens": inp[:, None]}, cache,
-                                          mla_absorb=self.mla_absorb)
+                                          **self._model_kw())
             last = logits[:, -1]
             nxt = last.argmax(dim=-1).to(torch.int32)
             if self.health_checks:
@@ -332,24 +380,29 @@ class SingleDeviceExecutor:
         if self._m_admit is not None:
             self._m_admit.observe((time.perf_counter() - t0) * 1e3)
 
+    def _host(self, t: torch.Tensor) -> np.ndarray:
+        """A host copy of a per-slot array."""
+        return np.array(t.cpu())
+
     def sync_control(self):
         """The every-K host sync: only the two tiny control arrays come
         back (host copies)."""
-        return np.array(self._dactive.cpu()), np.array(self._dgen.cpu())
+        return self._host(self._dactive), self._host(self._dgen)
 
     def fetch_outputs(self) -> np.ndarray:
-        return np.array(self._dout.cpu())
+        return self._host(self._dout)
 
     # -- health / quarantine control ------------------------------------
 
     def slot_faults(self) -> np.ndarray:
         """Per-slot NaN/inf poison flags (host copy)."""
-        return np.array(self._dbad.cpu())
+        return self._host(self._dbad)
 
     def _clear(self, flags: torch.Tensor, slots) -> None:
-        idx = [int(s) for s in slots if 0 <= int(s) < self.num_slots]
-        if idx:
-            flags[self._to_device(np.asarray(idx, np.int64))] = False
+        loc = np.asarray([int(s) for s in slots], np.int64) - self.slot_base
+        idx = loc[(loc >= 0) & (loc < flags.shape[0])]
+        if idx.size:
+            flags[self._to_device(idx)] = False
 
     def deactivate(self, slots) -> None:
         """Clear active bits for the given slots (quarantine or
@@ -358,3 +411,109 @@ class SingleDeviceExecutor:
 
     def clear_slot_faults(self, slots) -> None:
         self._clear(self._dbad, slots)
+
+
+class ShardedExecutor(SingleDeviceExecutor):
+    """dp x mp executor: slots on ``data``, params on ``model``.
+
+    SPMD, one process per card over ``torch.distributed``: the
+    counterpart of the reference's single-controller GSPMD executor
+    (``serving/executor.py::ShardedExecutor``, which lays one program's
+    arrays out over the mesh and lets the compiler insert the
+    collectives).  Here every rank runs the same host plane — Gateway,
+    router, retrieval and the :class:`~repro_torch.serving.continuous.
+    ContinuousEngine` scheduler — on the same inputs; deterministic
+    under the same seeds, the ranks make the same host decisions and
+    call this executor the same way.  Ranks talk only through
+    collectives: the model apply's over ``model`` and the gathers of the
+    slot state over ``data`` here.
+
+    * **Slots** split contiguously over ``data``: the rank at data
+      coordinate ``d`` holds slots ``[d * S / dp, (d + 1) * S / dp)`` of
+      the slot cache (or, paged, the page partition ``d`` of
+      ``num_pages / dp`` pages, which the engine's
+      :class:`~repro_torch.serving.paged.PagePool` allocates from with
+      ``page_partitions = dp``), and decodes them through K1 / K2.
+    * **Weights** resolve through ``specs_for_schema(schema, mesh,
+      fsdp=False)``: the attention heads and kv heads, the FFN and
+      expert columns and the vocab split over ``model``
+      (:data:`repro_torch.models.transformer.TP_AXES`); the apply takes
+      the model axis's group as ``tp``.  A placement the apply has no
+      collective for raises here (:func:`~repro_torch.models.
+      transformer.check_tensor_parallel`).  ``params`` may come whole —
+      at mp = 1 each leaf is kept as it is, a view; at mp > 1 the rank
+      copies its shard — or already as this rank's shards
+      (:func:`repro_torch.sharding.init_local_params`).
+    * **Host reads** (``sync_control``, ``fetch_outputs``,
+      ``slot_faults``) all-gather the per-slot arrays over ``data`` in
+      rank order, so they return every slot, as on one device; the
+      decode chunk itself has no host sync.
+
+    Greedy decode is row-independent, so every layout gives the
+    single-device executor's tokens (the same sums, in float32 up to
+    the order of the tensor-parallel partial sums).
+    """
+
+    def __init__(self, model, params, *, mesh, num_slots: int = 8,
+                 **kw):
+        dp = mesh.dp
+        if num_slots % dp != 0:
+            raise ValueError(
+                f"num_slots={num_slots} must be divisible by the mesh "
+                f"data-axis size {dp} to shard the slot dimension")
+        self.mesh = mesh
+        self.tp = mesh.group("model")
+        self.slot_base = mesh.coord("data") * (num_slots // dp)
+        if kw.get("paged"):
+            # the pool's page dim shards over data with the slots: a
+            # slot's pages stay on the rank that holds its row
+            self.page_partitions = dp
+        specs = specs_for_schema(model.schema, mesh, fsdp=False)
+        check_tensor_parallel(named_specs(model.schema, specs), mesh.mp)
+        super().__init__(model, local_params(model.schema, params, mesh,
+                                             specs),
+                         num_slots=num_slots, **kw)
+
+    def _validate_pages(self) -> None:
+        if self.num_pages % self.mesh.dp != 0:
+            raise ValueError(
+                f"num_pages={self.num_pages} must be divisible by the mesh "
+                f"data-axis size {self.mesh.dp} to shard the pool")
+        super()._validate_pages()
+
+    def _alloc_caches(self):
+        """This rank's slots (or page partition) and kv heads of the slot
+        cache; the prefill scratch holds every row of an admission
+        group and this rank's kv heads."""
+        m, mesh = self.model, self.mesh
+        if self.paged:
+            schema = m.paged_cache_schema(self.num_slots, self.num_pages,
+                                          self.page_size, self.max_blocks)
+        else:
+            schema = m.cache_schema(self.num_slots, self.max_len)
+        scratch = m.cache_schema(self.prefill_batch, self.max_len)
+        specs = specs_for_schema(schema, mesh)
+        sspecs = specs_for_schema(scratch, mesh)
+        check_tensor_parallel(named_specs(schema, specs)
+                              + named_specs(scratch, sspecs), mesh.mp)
+        # The prefill is replicated over data: every rank of a model
+        # group prefills the whole admission group and commits only its
+        # own slots' rows (_commit, _commit_paged).  The reference shards
+        # the scratch rows over data when prefill_batch divides dp and
+        # all-gathers them for the insert (ROADMAP.md queue 1, item 9).
+        return (zeros_from_schema(local_schema(schema, specs, mesh),
+                                  device=self.device),
+                zeros_from_schema(local_schema(scratch, sspecs, mesh,
+                                               axes=("model",)),
+                                  device=self.device))
+
+    def _model_kw(self) -> dict:
+        return {"mla_absorb": self.mla_absorb, "tp": self.tp}
+
+    def _host(self, t: torch.Tensor) -> np.ndarray:
+        """Every slot's value, gathered over ``data`` in rank order (the
+        slots' order), then copied to the host."""
+        x = t.to(torch.int32)
+        parts = [torch.empty_like(x) for _ in range(self.mesh.dp)]
+        dist.all_gather(parts, x, group=self.mesh.group("data"))
+        return np.array(torch.cat(parts).to(t.dtype).cpu())

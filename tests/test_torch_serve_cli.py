@@ -156,15 +156,88 @@ def test_continuous_cli_at_qwen_smoke(sized, monkeypatch, capsys, dtype):
 
 
 def test_mesh_is_refused_with_the_roadmap_item(capsys):
+    """Multi-GPU serving (ROADMAP.md queue 1, item 9) now serves, so
+    what is refused is what the reference refuses: a mesh without the
+    continuous backend; and a mesh wider than the world, before any
+    weight is drawn."""
     with pytest.raises(SystemExit) as exc:
+        serve.main(["--mesh", "dp=2", "--device", "cpu"])
+    assert exc.value.code == 2
+    assert "--mesh requires --backend continuous" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="needs 2 processes but the world "
+                                         "has 1"):
         serve.main(["--mesh", "dp=2", "--backend", "continuous",
                     "--device", "cpu"])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "multi-GPU" in err and "queue 1, item 9" in err
+
+
+CLI_ARGV = ["--backend", "continuous", "-n", "8", "--num-slots", "4",
+            "--device", "cpu"]
+
+
+def test_mesh_of_one_in_process_prints_the_unsharded_lines(sized, capsys):
+    """``--mesh dp=1`` without torchrun: a world of one in this process,
+    the same lines as the run without ``--mesh``."""
+    import torch.distributed as dist
+    serve.main(CLI_ARGV)
+    want = capsys.readouterr().out
+    try:
+        run = serve.main(CLI_ARGV + ["--mesh", "dp=1"])
+        assert dist.get_world_size() == 1
+    finally:
+        dist.destroy_process_group()
+    assert capsys.readouterr().out == want
+    assert type(run["backend"].engine.executor).__name__ == "ShardedExecutor"
+
+
+@pytest.mark.parametrize("mesh", ["dp=2", "dp=1,mp=2"])
+def test_mesh_on_a_gloo_world_prints_the_unsharded_lines(sized, capsys,
+                                                          tmp_path, mesh):
+    """``--mesh`` over two spawned processes (``tests/torch_dist.py``):
+    rank 0 prints the lines of the run without ``--mesh``, rank 1
+    prints nothing, and both serve every request."""
+    import torch_dist
+    serve.main(CLI_ARGV)
+    want = capsys.readouterr().out
+    size = dict(SIZE, n_epochs=EPOCHS)
+    ranks = torch_dist.run_world(torch_dist.serve_cli, 2, tmp_path,
+                                 CLI_ARGV + ["--mesh", mesh], size)
+    assert ranks[0]["out"] == want
+    assert ranks[1]["out"] == ""
+    assert [r["served"] for r in ranks] == [8, 8]
 
 
 def test_cli_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["-n", "4"])
+
+
+def test_torchrun_serves_the_example_over_a_mesh(capsys):
+    """``torchrun --standalone --nproc-per-node 2 -m
+    repro_torch.examples.serve_rag_slo --mesh dp=2``: the process group
+    comes from torchrun's environment, rank 0 alone prints, and the
+    answers are the run's without a mesh."""
+    import os
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.examples import serve_rag_slo
+    serve_rag_slo.main(["--device", "cpu", "--batch", "4"])
+    want = capsys.readouterr().out
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               OMP_NUM_THREADS="1")
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.examples.serve_rag_slo",
+         "--mesh", "dp=2", "--device", "cpu", "--batch", "4"],
+        env=env, capture_output=True, text=True, timeout=240)
+    assert run.returncode == 0, run.stderr[-2000:]
+
+    def answers(out):
+        return [line for line in out.splitlines()
+                if line.startswith("  a") or "avg SLO reward" in line]
+    got = answers(run.stdout)
+    assert len(got) == 5 and [g.split("s; ")[-1] for g in got] == \
+        [w.split("s; ")[-1] for w in answers(want)]
+    assert run.stdout.count("# sharded executor over mesh dp=2") == 1

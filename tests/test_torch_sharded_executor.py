@@ -1,0 +1,287 @@
+"""The port's ``ShardedExecutor`` on spawned gloo worlds (one process a
+rank, ``tests/torch_dist.py``) against the reference's single-device
+executor.
+
+The reference's own sharded path is red on this jax (queue 3 of
+``ROADMAP.md``), so every layout is held against the reference's
+``SingleDeviceExecutor`` tokens, on the reference tests' engines and
+prompts (``tests/test_sharded_executor.py``, ``tests/test_paged_engine.py``):
+qwen SMOKE in float32 at dp=2, mp=2, dp=2 x mp=2 and dp=4, dense and
+paged.  Also: the layout each rank takes (its slots, its kv heads, its
+shards of the weights, one cache allocation), prefix hits as the
+reference's partitioned pool makes them, the mp=2 logits, every family
+at dp=2 and dbrx / gemma3 at dp=2 x mp=2 against the port's own
+single-device engine (itself held against the reference in
+``test_torch_engine.py`` and ``test_torch_families.py``), the refusal of
+MLA, Mamba2 and Whisper at mp=2, the reference's chaos plans, and the
+in-process world of one.
+"""
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch.distributed as dist
+
+import torch_dist as W
+from repro.configs import get_config as ref_config
+from repro.models import build_model as ref_build
+from repro.serving.continuous import ContinuousEngine as RefEngine
+from repro.serving.executor import SingleDeviceExecutor as RefExecutor
+from repro_torch.configs import ARCH_IDS
+from repro_torch.models.schema import tree_leaves
+
+LAYOUTS = {"dp2": ("dp=2", 2, 1), "mp2": ("dp=1,mp=2", 1, 2),
+           "dp2mp2": ("dp=2,mp=2", 2, 2), "dp4": ("dp=4", 4, 1)}
+LOGIT_RTOL = 1e-4   # of max |logit|: float32, the tensor-parallel partial
+#                     sums added in another order
+MP_REFUSED = ("minicpm3-4b", "mamba2-130m", "whisper-large-v3")
+
+
+def _prompts(vocab):
+    """The reference tests' prompts: tests/test_sharded_executor.py's
+    dp=4,mp=2 set, and tests/test_paged_engine.py's prefix-sharing set."""
+    rng = np.random.default_rng(0)
+    dense = [list(map(int, rng.integers(4, vocab, size=n)))
+             for n in (10, 7, 10, 5, 7, 9, 12, 6)]
+    rng = np.random.default_rng(0)
+    base = list(rng.integers(4, vocab, size=16))
+    paged = [list(map(int, rng.integers(4, vocab, size=n)))
+             for n in (10, 7, 10, 5)]
+    paged += [list(map(int, base + list(rng.integers(4, vocab, size=4))))
+              for _ in range(4)]
+    return dense, paged
+
+
+def _ref_paged(rm, rp, prompts, partitions, quant):
+    """The reference's single-device paged engine, its host pool cut into
+    ``partitions`` as a dp-wide mesh cuts it: two waves' tokens and the
+    prompt tokens served from shared pages."""
+    model = rm if not quant else ref_build(dataclasses.replace(
+        rm.cfg, kv_quant_int8=True))
+    ex = RefExecutor(model, rp, **W.PAGED_KW)
+    ex.page_partitions = partitions
+    eng = RefEngine(executor=ex)
+    waves = [[list(map(int, g.tokens)) for g in
+              eng.generate_many(prompts, max_new_tokens=12)]
+             for _ in range(2)]
+    return waves, eng.stats.prefill_tokens_avoided
+
+
+@pytest.fixture(scope="module")
+def ref():
+    cfg = dataclasses.replace(ref_config(W.QWEN, "smoke"), dtype="float32")
+    rm = ref_build(cfg)
+    rp = rm.init(jax.random.PRNGKey(0))
+    dense, paged = _prompts(cfg.vocab_size)
+    out = {"np": jax.tree_util.tree_map(np.asarray, rp), "cfg": cfg,
+           "prompts": (dense, paged)}
+    out["dense"] = [list(map(int, g.tokens)) for g in RefEngine(
+        rm, rp, **W.DENSE_KW).generate_many(dense, max_new_tokens=12)]
+    for dp in (1, 2, 4):
+        out[("paged", dp)] = _ref_paged(rm, rp, paged, dp, False)
+    out[("paged_int8", 2)] = _ref_paged(rm, rp, paged, 2, True)
+    toks = np.asarray([p[:5] for p in dense[:3]], np.int32)
+    pre, cache = rm.prefill(rp, {"tokens": toks}, rm.init_cache(3, 64))
+    nxt = np.asarray(pre[:, -1]).argmax(-1)
+    dec, _ = rm.decode(rp, {"tokens": nxt[:, None].astype(np.int32)}, cache)
+    out["logits"] = (toks, np.asarray(pre), np.asarray(dec))
+    return out
+
+
+@pytest.fixture(scope="module")
+def worlds(ref, tmp_path_factory):
+    """One spawned world a layout, each rank's results.  dp=2 also serves
+    every family, mp=2 also tries the families it must refuse, dp=2 x
+    mp=2 also serves dbrx and gemma3 and the int8 pool and runs the
+    chaos plans."""
+    tmp = tmp_path_factory.mktemp("sharded")
+    dense, paged = ref["prompts"]
+    out = {}
+    for name, (spec, dp, mp) in LAYOUTS.items():
+        logits = ref["logits"][0] if mp > 1 else None
+        out[name] = W.run_world(W.serve_layout, dp * mp, tmp, spec,
+                                ref["np"], dense, paged, logits,
+                                name == "dp2mp2")
+    fam_prompts = dense[:6]
+    out["families"] = W.run_world(W.serve_families, 2, tmp, "dp=2",
+                                  list(ARCH_IDS), fam_prompts)
+    out["families_mp"] = W.run_world(
+        W.serve_families, 4, tmp, "dp=2,mp=2",
+        ("dbrx-132b", "gemma3-12b") + MP_REFUSED, fam_prompts)
+    out["chaos"] = W.run_world(W.chaos_run, 4, tmp, "dp=2,mp=2", ref["np"],
+                               dense[:6], 6)
+    return out
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_dense_tokens_match_the_reference_single_device(ref, worlds,
+                                                        layout):
+    for rank in worlds[layout]:
+        assert rank["dense"] == ref["dense"]
+        assert rank["dense_allocs"] == 2
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_paged_tokens_and_prefix_hits_match_the_reference(ref, worlds,
+                                                          layout):
+    """Both waves' tokens and the prompt tokens served from shared pages
+    equal the reference's single-device paged engine with its pool cut
+    as dp cuts it (a slot's pages stay in its rank's partition)."""
+    dp = LAYOUTS[layout][1]
+    waves, avoided = ref[("paged", dp)]
+    assert avoided > 0
+    for rank in worlds[layout]:
+        assert rank["paged"] == waves
+        st = rank["paged_stats"]
+        assert st["avoided"] == avoided
+        assert st["partitions"] == dp and st["allocs"] == 2
+
+
+def test_paged_int8_tokens_match_the_reference(ref, worlds):
+    waves, avoided = ref[("paged_int8", 2)]
+    for rank in worlds["dp2mp2"]:
+        assert rank["paged_int8"] == waves
+        assert rank["paged_int8_stats"]["avoided"] == avoided
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_each_rank_holds_its_slots_heads_and_shards(ref, worlds, layout):
+    """Slots [r S / dp, (r + 1) S / dp) at data coordinate r; the slot
+    cache and the page pool hold the rank's slots or pages and kv heads,
+    the prefill scratch every row and the rank's kv heads; the weights
+    the rank's heads, d_ff columns and vocab rows (at mp = 1 the
+    caller's own tensors)."""
+    _, dp, mp = LAYOUTS[layout]
+    cfg = ref["cfg"]
+    S, L, Hkv, Dh = 4, 64, cfg.n_kv_heads, cfg.head_dim
+    nb = cfg.n_layers
+    NP = S * (64 // 8 + 1)
+    for rank in worlds[layout]:
+        d = rank["coords"]["data"]
+        assert rank["slot_base"] == d * S // dp
+        assert rank["slots_here"] == S // dp
+        assert rank["cache_k"] == (nb, S // dp, L, Hkv // mp, Dh)
+        assert rank["scratch_k"] == (nb, 4, L, Hkv // mp, Dh)
+        assert rank["paged_stats"]["pool"] == (nb, NP // dp, 8, Hkv // mp,
+                                               Dh)
+        assert rank["paged_stats"]["table"] == (S // dp, 64 // 8 + 1)
+        assert rank["paged_stats"]["page_base"] == d * NP // dp
+        assert rank["params"] == {
+            "wq": (nb, cfg.d_model, cfg.n_heads // mp, Dh),
+            "w_gate": (nb, cfg.d_model, cfg.d_ff // mp),
+            "embed": (cfg.padded_vocab // mp, cfg.d_model)}
+        assert rank["shared_embed"] == (mp == 1)
+
+
+@pytest.mark.parametrize("layout", ["mp2", "dp2mp2"])
+def test_tensor_parallel_logits_match_the_reference(ref, worlds, layout):
+    _, pre, dec = ref["logits"]
+    for rank in worlds[layout]:
+        for got, want in zip(rank["logits"], (pre, dec)):
+            assert got.shape == want.shape
+            err = np.abs(got - want).max() / np.abs(want).max()
+            assert err <= LOGIT_RTOL, err
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_family_serves_at_dp2(worlds, arch):
+    for rank in worlds["families"]:
+        kind, *res = rank[arch]
+        assert kind == "served", res
+        want, got = res
+        assert got == want
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "gemma3-12b"])
+def test_moe_and_windowed_families_serve_at_dp2_mp2(worlds, arch):
+    for rank in worlds["families_mp"]:
+        kind, *res = rank[arch]
+        assert kind == "served", res
+        want, got = res
+        assert got == want
+
+
+@pytest.mark.parametrize("arch", MP_REFUSED)
+def test_mla_mamba2_and_whisper_are_refused_at_mp2(worlds, arch):
+    """No collective exists for MLA's latent, Mamba2's d_inner or
+    Whisper's cross and encoder layers: the executor refuses before any
+    collective, naming the leaf, its spec and the roadmap item."""
+    for rank in worlds["families_mp"]:
+        kind, msg = rank[arch]
+        assert kind == "refused"
+        assert "ROADMAP.md queue 1, item 9" in msg and "mp=2" in msg
+        assert "resolved to (" in msg
+
+
+def test_reference_chaos_plans_on_dp2_mp2(worlds):
+    """The reference's NaN-on-slot-2 and requeued decode-fault plans,
+    and the NaN plan through ``Gateway.serve``: every rank's outcomes,
+    engine counters and ``GatewayStats`` equal the one-device run's."""
+    for rank in worlds["chaos"]:
+        single, sharded = rank["single"], rank["sharded"]
+        assert sharded == single
+        outs, trips, quarantined, reset, more = sharded["nan"]
+        failed = [i for i, o in enumerate(outs) if o[0]]
+        assert len(failed) == 1 and outs[failed[0]][1]
+        assert trips == 1 and quarantined == [2] and reset == [2]
+        for i, o in enumerate(outs):
+            if i not in failed:
+                assert o[2] == sharded["clean"][i]
+        toks, faults, requeued = sharded["fault"]
+        assert toks == sharded["clean"] and faults == 1 and requeued > 0
+        assert sharded["gateway"]["served"] == 6
+        assert sharded["gateway_engine"][0] == 1
+
+
+def test_world_of_one_in_process(ref):
+    """``make_serving_mesh("dp=1")`` with no process group makes a gloo
+    world of one here; the sharded engine gives the reference's tokens
+    and views of the caller's weights."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving.continuous import ContinuousEngine
+    assert not dist.is_initialized()
+    cfg, model, params = W._model(W.QWEN, ref["np"])
+    try:
+        mesh = make_serving_mesh("dp=1", cfg, device="cpu")
+        assert dist.get_world_size() == 1 and mesh.coords == {
+            "data": 0, "model": 0}
+        eng = ContinuousEngine(model, params, mesh=mesh, **W.DENSE_KW)
+        got = eng.generate_many(ref["prompts"][0], max_new_tokens=12)
+        assert [list(map(int, g.tokens)) for g in got] == ref["dense"]
+        assert all(a is b for a, b in zip(tree_leaves(eng.executor.params),
+                                          tree_leaves(params)))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_indivisible_layouts_are_refused(ref):
+    """num_slots and num_pages must split over dp (the reference's
+    messages); a mesh needs as many processes as the world has."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving.executor import ShardedExecutor
+    cfg, model, params = W._model(W.QWEN, ref["np"])
+    with pytest.raises(ValueError, match="needs 2 processes but the world "
+                                         "has 1"):
+        make_serving_mesh("dp=2", cfg, device="cpu")
+    try:
+        mesh = make_serving_mesh("dp=1", cfg, device="cpu")
+        mesh.devices = np.zeros((2, 1), int)   # a dp=2 grid on paper
+        mesh.coords = {"data": 1, "model": 0}
+        with pytest.raises(ValueError, match="num_slots=3 must be divisible"
+                                             " by the mesh data-axis size 2"):
+            ShardedExecutor(model, params, mesh=mesh, num_slots=3,
+                            max_len=64)
+        with pytest.raises(ValueError, match="num_pages=31 must be "
+                                             "divisible by the mesh"):
+            ShardedExecutor(model, params, mesh=mesh, num_slots=4,
+                            max_len=64, paged=True, page_size=8,
+                            num_pages=31)
+        with pytest.raises(ValueError, match="num_pages=32 over 2 "
+                                             "partition"):
+            ShardedExecutor(model, params, mesh=mesh, num_slots=4,
+                            max_len=64, paged=True, page_size=4,
+                            num_pages=32)
+    finally:
+        dist.destroy_process_group()

@@ -1,0 +1,300 @@
+"""Spawned gloo worlds for the port's multi-process tests.
+
+``run_world(fn, n, tmp_path, *args)`` starts ``n`` processes with the
+``spawn`` start method.  Each joins a gloo process group through a
+``file://`` store under ``tmp_path`` (no fixed port, so parallel test
+workers never meet), caps torch at one intra-op thread, runs
+``fn(rank, *args)`` and pickles its result into ``tmp_path``.  A rank
+that raises fails the test with its traceback; a world still running
+after ``timeout`` seconds (a rank hung in a collective) is killed and
+fails the test.  The process group's own ``timeout`` is shorter, so a
+lost peer surfaces as a raise first.
+
+The worker bodies live here too: a spawned process imports torch, numpy
+and the port, never JAX; the tests hand it the reference's weights as
+numpy arrays and hold its results against the reference's in the parent.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import io
+import os
+import pickle
+import traceback
+from datetime import timedelta
+
+import numpy as np
+
+WORLD_TIMEOUT_S = 240
+PG_TIMEOUT_S = 120
+
+QWEN = "qwen1.5-32b"
+# the reference's sharded-executor tests' engines
+# (tests/test_sharded_executor.py, tests/test_paged_engine.py)
+DENSE_KW = dict(num_slots=4, max_len=64, max_new_cap=16, sync_every=4,
+                prefill_batch=4)
+PAGED_KW = dict(num_slots=4, max_len=64, max_new_cap=16, sync_every=4,
+                prefill_batch=2, paged=True, page_size=8)
+CHAOS_KW = dict(num_slots=4, max_len=64, max_new_cap=16, sync_every=2,
+                prefill_batch=2)
+FAMILY_KW = dict(num_slots=4, max_len=48, max_new_cap=8, sync_every=4,
+                 prefill_batch=2)
+
+
+def _entry(rank, n, store, out_dir, fn, args):
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=n,
+                                timeout=timedelta(seconds=PG_TIMEOUT_S))
+        try:
+            res = fn(rank, *args)
+        finally:
+            dist.destroy_process_group()
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def run_world(fn, n: int, tmp_path, *args, timeout: float = WORLD_TIMEOUT_S):
+    """Every rank's ``fn(rank, *args)`` over a gloo world of ``n``."""
+    import multiprocessing as mp
+    import time
+    ctx = mp.get_context("spawn")
+    out_dir = tmp_path / f"world-{fn.__name__}-{n}-{time.monotonic_ns()}"
+    out_dir.mkdir()
+    store = out_dir / "store"
+    procs = [ctx.Process(target=_entry,
+                         args=(r, n, str(store), str(out_dir), fn, args))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        hung = [i for i, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    errs = {r: (out_dir / f"rank{r}.err").read_text() for r in range(n)
+            if (out_dir / f"rank{r}.err").exists()}
+    if errs:
+        raise AssertionError("\n".join(f"rank {r}:\n{t}"
+                                       for r, t in errs.items()))
+    if hung:
+        raise AssertionError(f"ranks {hung} still running after "
+                             f"{timeout} s: killed")
+    bad = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode}
+    if bad:
+        raise AssertionError(f"exit codes {bad}")
+    return [pickle.loads((out_dir / f"rank{r}.pkl").read_bytes())
+            for r in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# Worker bodies
+# ---------------------------------------------------------------------------
+
+
+def _model(arch: str, np_params=None, **over):
+    """A float32 SMOKE model and its params on the host: ``np_params``
+    (the reference's, as numpy) bridged, or the port's seeded draw."""
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(arch, "smoke"), dtype="float32",
+                              **over)
+    model = build_model(cfg)
+    params = (model.init(seed=0, device="cpu") if np_params is None
+              else params_from_numpy(np_params, device="cpu"))
+    return cfg, model, params
+
+
+def _tokens(gens):
+    return [[int(t) for t in g.tokens] for g in gens]
+
+
+def serve_layout(rank, spec, np_params, dense_prompts, paged_prompts,
+                 logit_tokens, int8):
+    """One layout of qwen SMOKE: the dense engine on the reference
+    test's prompts, the paged engine on its prefix-sharing prompts (two
+    waves; with ``int8`` also over the int8 pool), the layout the
+    executor took, and, with ``logit_tokens``, the prefill and one
+    decode step's logits through the sharded model."""
+    import torch
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import build_model
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.serving.executor import ShardedExecutor
+    cfg, model, params = _model(QWEN, np_params)
+    mesh = make_serving_mesh(spec, cfg, device="cpu")
+    out = {"coords": dict(mesh.coords)}
+    eng = ContinuousEngine(model, params, mesh=mesh, **DENSE_KW)
+    ex = eng.executor
+    out["dense"] = _tokens(eng.generate_many(dense_prompts, 12))
+    out["dense_allocs"] = eng.stats.cache_allocations
+    out["slot_base"], out["slots_here"] = ex.slot_base, ex._dactive.shape[0]
+    out["cache_k"] = tuple(ex._cache["blocks"]["p0"]["k"].shape)
+    out["scratch_k"] = tuple(ex._pcache["blocks"]["p0"]["k"].shape)
+    out["params"] = {name: tuple(leaf.shape) for name, leaf in (
+        ("wq", ex.params["blocks"]["p0"]["attn"]["wq"]),
+        ("w_gate", ex.params["blocks"]["p0"]["mlp"]["w_gate"]),
+        ("embed", ex.params["embed"]))}
+    # mp = 1 keeps every leaf as it came, a view of the caller's
+    out["shared_embed"] = (ex.params["embed"].data_ptr()
+                           == params["embed"].data_ptr())
+    for quant in (False, True) if int8 else (False,):
+        qmodel = build_model(dataclasses.replace(cfg, kv_quant_int8=quant))
+        eng = ContinuousEngine(qmodel, params, mesh=mesh, **PAGED_KW)
+        tag = "paged_int8" if quant else "paged"
+        out[tag] = [_tokens(eng.generate_many(paged_prompts, 12))
+                    for _ in range(2)]
+        out[tag + "_stats"] = dict(
+            avoided=eng.stats.prefill_tokens_avoided,
+            allocs=eng.stats.cache_allocations,
+            partitions=eng._pages.partitions,
+            pool=tuple(eng.executor._cache["blocks"]["p0"][
+                "k_q" if quant else "k"].shape),
+            table=tuple(eng.executor._cache["table"].shape),
+            page_base=eng.executor.page_base)
+    if logit_tokens is not None:
+        toks = torch.from_numpy(np.asarray(logit_tokens, np.int64))
+        ex = ShardedExecutor(model, params, mesh=mesh, num_slots=4,
+                             max_len=64, prefill_batch=toks.shape[0])
+        with torch.no_grad():
+            pre, _ = model.prefill(ex.params, {"tokens": toks}, ex._pcache,
+                                   tp=ex.tp)
+            nxt = pre[:, -1].argmax(-1)
+            dec, _ = model.decode(ex.params, {"tokens": nxt[:, None]},
+                                  ex._pcache, tp=ex.tp)
+        out["logits"] = (pre.numpy(), dec.numpy())
+    return out
+
+
+def serve_families(rank, spec, archs, prompts):
+    """Each SMOKE family's dense engine tokens on one device and over the
+    mesh, and a ``ValueError``'s text where the mesh refuses it."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving.continuous import ContinuousEngine
+    out = {}
+    mesh = make_serving_mesh(spec, device="cpu")
+    for arch in archs:
+        _, model, params = _model(arch)
+        single = ContinuousEngine(model, params, **FAMILY_KW)
+        want = _tokens(single.generate_many(prompts, 8))
+        try:
+            eng = ContinuousEngine(model, params, mesh=mesh, **FAMILY_KW)
+        except ValueError as exc:
+            out[arch] = ("refused", str(exc))
+            continue
+        out[arch] = ("served", want, _tokens(eng.generate_many(prompts, 8)))
+    return out
+
+
+def chaos_run(rank, spec, np_params, prompts, questions):
+    """The reference's chaos plans (tests/test_sharded_executor.py) on
+    the engine over the mesh and on one device: a NaN on slot 2, then a
+    transient decode fault requeued once; and the NaN plan through
+    ``Gateway.serve`` (closed loop, retries) over
+    ``ContinuousEngineBackend``, its ``GatewayStats``."""
+    from repro_torch.core.config import RetrievalConfig, RouterConfig
+    from repro_torch.data import HashTokenizer, SyntheticSquad
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.retrieval import BM25Index
+    from repro_torch.routing import (ContinuousEngineBackend, FixedPolicy,
+                                     Gateway, Request)
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.serving.faults import (ChaosInjector, FaultPlan,
+                                            FaultSpec, RetryPolicy)
+    cfg, model, params = _model(QWEN, np_params)
+    mesh = make_serving_mesh(spec, cfg, device="cpu")
+    nan = FaultPlan(specs=(FaultSpec(site="executor.decode", kind="nan",
+                                     start=1, count=1, slots=(2,)),))
+    fault = FaultPlan(specs=(FaultSpec(site="executor.decode",
+                                       kind="raise", start=1, count=1),))
+    data = SyntheticSquad(n_paragraphs=40, n_questions=questions, seed=0)
+    index = BM25Index.build([p.text for p in data.paragraphs],
+                            RetrievalConfig(vocab_hash_dim=1024))
+
+    def run(m):
+        def build(chaos=None, **kw):
+            return ContinuousEngine(model, params, mesh=m, chaos=chaos,
+                                    **CHAOS_KW, **kw)
+        res = {"clean": _tokens(build().generate_many(prompts, 10))}
+        eng = build(ChaosInjector(nan))
+        rids = [eng.reserve_rid() for _ in prompts]
+        for rid, p in zip(rids, prompts):
+            eng.submit(rid, p, 10)
+        done = eng.run()
+        outs = [done[r] for r in rids]
+        res["nan"] = ([(o.failed, o.transient, [int(t) for t in o.tokens])
+                       for o in outs], eng.stats.n_nan_trips,
+                      sorted(eng.quarantined_slots), eng.reset_quarantine(),
+                      _tokens(eng.generate_many(prompts[:2], 6)))
+        eng = build(ChaosInjector(fault), max_requeues=1)
+        res["fault"] = (_tokens(eng.generate_many(prompts, 10)),
+                        eng.stats.n_exec_faults, eng.stats.n_requeued)
+        backend = ContinuousEngineBackend.create(
+            model, params, HashTokenizer(cfg.vocab_size), index,
+            num_slots=4, max_prompt_len=48, max_new_tokens=8, sync_every=2,
+            chaos=ChaosInjector(nan), mesh=m)
+        gw = Gateway(FixedPolicy(2), backend, router_cfg=RouterConfig(),
+                     index=index, max_batch=8, adaptive_refusal=False,
+                     retry=RetryPolicy(max_retries=2, backoff_s=0.0),
+                     sleep=lambda s: None, clock=lambda: 0.0)
+        st = gw.serve([Request(qid=q.qid, question=q, slo="quality_first")
+                       for q in data.questions])
+        res["gateway"] = {
+            f.name: getattr(st, f.name) for f in dataclasses.fields(st)
+            if f.name not in ("decisions", "latency")}
+        res["gateway"]["action_counts"] = dict(st.action_counts)
+        res["gateway_engine"] = (backend.engine.stats.n_nan_trips,
+                                 backend.engine.stats.n_quarantined)
+        return res
+
+    return {"single": run(None), "sharded": run(mesh)}
+
+
+def serve_cli(rank, argv, size):
+    """``repro_torch.launch.serve.main(argv)`` on a testbed of ``size``
+    (patched through the module's ``TestbedConfig`` name), its standard
+    output captured."""
+    from repro_torch.core.config import RouterConfig, TestbedConfig
+    from repro_torch.launch import serve
+    n_epochs = size.pop("n_epochs")
+    serve.TestbedConfig = lambda: TestbedConfig(
+        **size, router=RouterConfig(n_epochs=n_epochs))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run = serve.main(argv)
+    return {"out": buf.getvalue(), "served": run["stats"].served}
+
+
+def retrieval(rank, spec, tf, doc_len, idf, qtf, emb, qe, k):
+    """The distributed BM25 and dense top-k over the mesh: the
+    functions on the whole corpus and the classes over their shards."""
+    import torch
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.retrieval import (DistributedBM25,
+                                       DistributedDenseIndex,
+                                       distributed_bm25_topk,
+                                       distributed_dense_topk)
+    mesh = make_serving_mesh(spec, device="cpu")
+    t = torch.from_numpy
+    qv = t(qtf * idf[None, :])
+    bs, bi = distributed_bm25_topk(mesh, t(tf), t(doc_len), qv, k=k)
+    ds, di = distributed_dense_topk(mesh, t(emb), t(qe), k=k)
+    ci, cs = DistributedBM25(mesh, tf, doc_len, idf).topk(qtf, k=k)
+    ei, es = DistributedDenseIndex(mesh, emb).topk(qe, k=k)
+    return {"bm25": (bi.numpy(), bs.numpy()), "dense": (di.numpy(),
+                                                        ds.numpy()),
+            "bm25_class": (ci, cs), "dense_class": (ei, es)}

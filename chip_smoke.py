@@ -201,6 +201,25 @@ Phases, each on its own lines; any failure exits nonzero:
                the same seeded init: loss, gradient norm and the updated
                leaves agreeing, the activations beside the float32
                accumulators falling.
+16a1. sharded train — multi-GPU training on one card: a dp = 1 mesh
+               over an NCCL group of one rank, each layer's weights
+               gathered (a copy) inside its rematerialized body.
+               ``make_sharded_train_step`` for 8 steps on phase 12's
+               qwen1.5-32b (4 layers, 4 x 1024, the same seeded weights
+               and batches): losses and gradient norms within 1e-3 of
+               phase 12's single-device run (the largest gap printed),
+               the collectives a step by kind, ms a step beside phase
+               12's and their ratio, peak memory and the peak of live
+               gathered weights; ``make_sharded_eval_step`` with K4 on
+               the trained shards (K4 4 times) beside ``make_eval_step``
+               with K4 and without.  Then 16a0's dbrx-132b (1 layer)
+               through ``make_ep_moe_fn`` at capacity 4.0 = E / k: no
+               routed row dropped, each step's loss and gradient norm
+               within 1e-3 of the capacity form's at the same params
+               (the whole run within 5e-2 of 16a0's: bf16 sums in
+               another row order drift apart), 6 ``all_to_all`` a step;
+               and 3 steps at capacity 1.25 from the same init, the
+               share of routed rows dropped printed.
 16a. moe/gqa serve — the mixture-of-experts and GQA families at their
                published widths through ``Gateway.serve``, one after the
                other, each after the previous model is freed:
@@ -398,6 +417,22 @@ TRAIN_FAMILIES = (
     ("whisper-large-v3", None, 4, 384, ("encoder/attn/wq/0", "enc_pos",
                                         "blocks/p0/cross/wq/0")),
 )
+# the sharded step against the single-device one at dp = 1: the same bf16
+# arithmetic (a gather or reduce-scatter of one rank copies), but for
+# bf16 gradients summed by atomics in an order that may change from run
+# to run (REMAT_RTOL's reason)
+SHARDED_RTOL = 1e-3
+DBRX = "dbrx-132b"
+# the EP moe_fn's capacity factors on the card: E / k = 16 / 4 (no drop),
+# and the reference's default, 3 steps from the same init
+EP_CAPACITY, EP_DROP_CAPACITY, EP_DROP_STEPS = 4.0, 1.25, 3
+# the EP run against the capacity form's whole run: step 0 agrees
+# (2.3e-5 of its gradient norm), then the expert products' bf16 sums in
+# another row order, carried by 8 Adam steps at lr 1e-4, drift the
+# trajectories apart (4.5e-3 of the loss, 1.2e-2 of the gradient norm
+# by step 8 on an H100); each step is held at SHARDED_RTOL against the
+# capacity form at the same params instead
+EP_DRIFT_RTOL = 5e-2
 EVAL_RTOL = 5e-3  # bf16 activations: K4 rounds P to bf16 and sums in
 #                   another order than the plain float32 attention
 REMAT_RTOL = 1e-3  # the same forward; bf16 gradients summed by atomics in
@@ -3033,7 +3068,9 @@ def _train_family(arch: str, layers, batch: int, seq: int, card: str,
     say(f"   device time by kernel, one more step (top 10): "
         f"{device_split(lambda: step_fn(params, opt_state, b), 10)}")
     return {"params": params, "model": model, "opt_state": opt_state,
-            "batch": b, "step_ms": step_ms, "seq": seq, "rows": batch}
+            "batch": b, "step_ms": step_ms, "seq": seq, "rows": batch,
+            "record": {"losses": losses, "gnorms": gnorms, "ms": ms,
+                       "step_ms": step_ms, "peak": peak, "lr": lr}}
 
 
 def _eval_family(trained: dict, card: str, label: str) -> tuple:
@@ -3210,18 +3247,22 @@ def eval_phase(trained: dict, card: str) -> dict:
     return {"flash_attention": launches}
 
 
-def train_families_phase(card: str) -> dict:
+def train_families_phase(card: str, records: dict = None) -> dict:
     """Every served family trained and evaluated on the card, each after
     the previous model is freed (TRAIN_FAMILIES: dbrx-132b's MoE,
     minicpm3-4b's MLA, deepseek-v3-671b's MLA + MTP, gemma3-12b's sliding
     window, phi-3-vision-4.2b's image projector, whisper-large-v3's
     encoder): :func:`_train_family`, then :func:`_eval_family`; then
     :func:`microbatch_phase`.  Returns K4's launches in each family's
-    eval, keyed by arch, for the kernel table's rows at their shapes."""
+    eval, keyed by arch, for the kernel table's rows at their shapes;
+    each run's losses, gradient norms and times go into ``records``
+    (by arch), for :func:`sharded_train_phase`."""
     t0 = time.perf_counter()
     out = {}
     for arch, layers, batch, seq, watched in TRAIN_FAMILIES:
         trained = _train_family(arch, layers, batch, seq, card, watched)
+        if records is not None:
+            records[arch] = trained["record"]
         del trained["opt_state"], trained["batch"]
         out[arch] = {"flash_attention": _eval_family(trained, card, arch)[0]}
         del trained
@@ -3331,6 +3372,287 @@ def microbatch_phase(card: str) -> None:
         raise AssertionError(f"[microbatched] the gradient computation's "
                              f"memory beside the accumulators did not fall: "
                              f"{acts} GiB for microbatches {MICROBATCHES}")
+
+
+def _sharded_run(label: str, arch: str, layers, batch: int, seq: int,
+                 card: str, lr: float, steps: int, *, capacity=None,
+                 evaluate: bool = False, twin: bool = False) -> dict:
+    """``make_sharded_train_step`` for ``steps`` steps on ``arch`` at full
+    width cut to ``layers``, from :func:`_train_family`'s seeded weights
+    and ``LMDataset`` batches (the same draws, so its single-device run
+    is the twin), on a dp = 1 mesh over an NCCL group of one rank: the
+    params and AdamW moments as the rank's shards (at dp = 1 the leaves
+    themselves), each layer's weights gathered (a copy) inside its
+    rematerialized body.  With ``capacity`` the MoE layers take
+    ``make_ep_moe_fn`` at that capacity factor.  Records each step's
+    metrics, ms (CUDA events), collectives by kind and routed / kept
+    rows, the peak memory and the peak of live gathered bytes; with
+    ``twin``, before each step, the single-device loss and gradient norm
+    (``forward_train_loss``, the capacity form) at the same params and
+    batch; with ``evaluate`` also the sharded eval step with K4 beside
+    ``make_eval_step`` with K4 and without on the trained shards."""
+    import torch
+    from repro_torch.data.lm_dataset import LMDataset
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.moe_parallel import make_ep_moe_fn
+    from repro_torch.models import build_model
+    from repro_torch.models import collectives as C
+    from repro_torch.models.schema import tree_leaves
+    from repro_torch.models.transformer import forward_train_loss
+    from repro_torch.training import OptConfig, make_eval_step
+    from repro_torch.training.optimizer import global_norm
+    from repro_torch.training.steps import value_and_grads
+    from repro_torch.training.sharded import (init_opt_state,
+                                              make_sharded_eval_step,
+                                              make_sharded_train_step,
+                                              shard_params)
+    _free_gpu_memory(label)
+    cfg, model, params = _build_family(arch, layers, card, label)
+    out = {"cfg": cfg}
+    with _serving_mesh(cfg) as mesh:
+        local = shard_params(model, mesh, params)
+        views = all(a is b for a, b in zip(tree_leaves(local),
+                                           tree_leaves(params)))
+        del params
+        opt = init_opt_state(model, mesh)
+        routed = []
+        moe_fn = None
+        if capacity is not None:
+            ep = make_ep_moe_fn(mesh, capacity_factor=capacity)
+
+            def moe_fn(p, x, c):
+                st = {}
+                y, aux = ep(p, x, c, stats=st)
+                routed.append(st)
+                return y, aux
+        step = make_sharded_train_step(
+            model, OptConfig(lr=lr, warmup_steps=2, total_steps=TRAIN_STEPS),
+            mesh, moe_fn=moe_fn)
+        batches = LMDataset(cfg, seq).batches(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        C.reset_counts()
+        events, metrics, issued, kept, twins = [], [], [], [], []
+        for _ in range(steps):
+            b = {k: torch.from_numpy(v).cuda()
+                 for k, v in next(batches).items()}
+            if twin:
+                loss, grads = value_and_grads(
+                    lambda p, mb: forward_train_loss(p, cfg, mb), local, [b])
+                twins.append((float(loss), float(global_norm(grads))))
+                del grads
+            routed.clear()
+            C.ISSUED.clear()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            local, opt, m = step(local, opt, b)
+            end.record()
+            events.append((start, end))
+            metrics.append(m)
+            issued.append(dict(C.ISSUED))
+            # the forward's calls (the rematerialized forward repeats them)
+            n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+            kept.append([(st["routed"], st["kept"]) for st in routed[:n_moe]])
+        torch.cuda.synchronize()
+        out.update(
+            views=views, issued=issued,
+            losses=[float(m["loss"]) for m in metrics],
+            gnorms=[float(m["grad_norm"]) for m in metrics],
+            ms=[a.elapsed_time(e) for a, e in events],
+            peak=torch.cuda.max_memory_allocated(),
+            gathered_peak=C.GATHERED["peak"],
+            train_k4=flash_attention.launches,
+            kept=[[(r, int(k)) for r, k in step_] for step_ in kept],
+            twins=twins,
+            nccl=".".join(map(str, torch.cuda.nccl.version())))
+        out["step_ms"] = sum(out["ms"][1:]) / max(1, len(out["ms"]) - 1)
+        if evaluate:
+            held = {k: torch.from_numpy(v).cuda() for k, v in next(
+                LMDataset(cfg, seq, seed=1).batches(batch)).items()}
+            k4_model = build_model(dataclasses.replace(
+                cfg, use_pallas_attention=True))
+            sharded_eval = make_sharded_eval_step(k4_model, mesh)
+            torch.cuda.synchronize()
+            flash_attention.launches = 0
+            C.ISSUED.clear()
+            out["eval"] = float(sharded_eval(local, held))
+            torch.cuda.synchronize()
+            out["eval_k4"] = flash_attention.launches
+            out["eval_issued"] = dict(C.ISSUED)
+            out["eval_single_k4"] = float(make_eval_step(k4_model)(local,
+                                                                   held))
+            out["eval_plain"] = float(make_eval_step(model)(local, held))
+            out["eval_ms"] = cuda_ms(lambda: sharded_eval(local, held), 3)
+            out["eval_single_ms"] = cuda_ms(
+                lambda: make_eval_step(k4_model)(local, held), 3)
+        del local, opt
+    return out
+
+
+def single_device_records(card: str) -> dict:
+    """The two single-device runs :func:`sharded_train_phase` is held
+    against, run alone: phase 12's qwen training and 16a0's dbrx one
+    (the whole script takes them from those phases)."""
+    records = {}
+    for arch, layers, batch, seq, watched in TRAIN_FAMILIES[:1]:
+        records[arch] = _train_family(arch, layers, batch, seq, card,
+                                      watched)["record"]
+    records[QWEN] = _train_family(QWEN, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ,
+                                  card, QWEN_WATCHED, label="train",
+                                  lr=3e-4)["record"]
+    return records
+
+
+def _gap(got, want) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def sharded_train_phase(card: str, records: dict) -> dict:
+    """Multi-GPU training on one card: ``make_sharded_train_step`` over
+    a dp = 1 mesh (an NCCL group of one rank), held against the
+    single-device runs of phases 12 and 16a0 (``records``: their losses,
+    gradient norms, ms and peaks, on the same seeded weights and
+    batches; one card cannot hold two train states of these models, so
+    the turns are whole runs, single first, in this call).
+
+    qwen1.5-32b at full width cut to 4 layers, 4 x 1024, lr 3e-4, 8
+    steps without ``moe_fn``: every loss and gradient norm within
+    SHARDED_RTOL of the single-device step's, the largest gap printed;
+    the collectives a step by kind; ms a step and the ratio; peak
+    memory and the peak of live gathered bytes; then the sharded eval
+    step with K4 on the trained shards (K4 once a layer: 4) against
+    ``make_eval_step`` with K4 (SHARDED_RTOL) and without (EVAL_RTOL).
+    dbrx-132b at full width cut to 1 layer, 4 x 1024, lr 1e-4, through
+    ``make_ep_moe_fn`` (E = 16, E_loc = 16 at dp = 1): at capacity 4.0 =
+    E / k no routed row drops, each step's loss and gradient norm are
+    the capacity form's at the same params and batch within
+    SHARDED_RTOL, and the whole run stays within EP_DRIFT_RTOL of
+    16a0's (its step 0 within SHARDED_RTOL); 6 ``all_to_all`` a step (2
+    a MoE layer forward, 2 for its rematerialized forward, 2 backward);
+    then, from the same seeded init, 3 steps at capacity 1.25 with the
+    share of routed rows dropped.  Returns K4's launches in the sharded
+    eval."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {}
+    for key, arch, layers, lr, capacity, evaluate in (
+            ("qwen", QWEN, TRAIN_LAYERS, 3e-4, None, True),
+            ("dbrx", DBRX, 1, FAMILY_LR, EP_CAPACITY, False)):
+        single = records[arch]
+        label = f"sharded train {arch}" + (
+            f" (EP at capacity {capacity})" if capacity else "")
+        run = _sharded_run(label, arch, layers, TRAIN_BATCH, TRAIN_SEQ, card,
+                           lr, TRAIN_STEPS, capacity=capacity,
+                           evaluate=evaluate, twin=capacity is not None)
+        if run["twins"]:
+            # the capacity form at the same params each step: the EP
+            # block's products sum over rows in another order, and eight
+            # bf16 Adam steps carry that apart (the whole run's gap is
+            # printed against EP_DRIFT_RTOL)
+            twin_l = _gap(run["losses"], [t[0] for t in run["twins"]])
+            twin_g = _gap(run["gnorms"], [t[1] for t in run["twins"]])
+            say(f"   the capacity form at the same params and batch, each "
+                f"step: losses {[round(t[0], 6) for t in run['twins']]}, "
+                f"grad_norm {[round(t[1], 6) for t in run['twins']]}; "
+                f"largest relative gap {twin_l:.3e} / {twin_g:.3e} (tol "
+                f"{SHARDED_RTOL:.0e}) [{card}]")
+            if not (twin_l <= SHARDED_RTOL and twin_g <= SHARDED_RTOL):
+                raise AssertionError(f"[{label}] EP is not the capacity form "
+                                     f"at the same params: {twin_l}, "
+                                     f"{twin_g}")
+        run_tol = EP_DRIFT_RTOL if run["twins"] else SHARDED_RTOL
+        gap_l = _gap(run["losses"], single["losses"])
+        gap_g = _gap(run["gnorms"], single["gnorms"])
+        kinds = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all")
+        per_step = [tuple(i.get(k, 0) for k in kinds) for i in run["issued"]]
+        say(f"   dp = 1 mesh over NCCL {run['nccl']}; the shards are the "
+            f"leaves themselves: {run['views']}")
+        say(f"   losses sharded {[round(x, 6) for x in run['losses']]}, "
+            f"single-device {[round(x, 6) for x in single['losses']]}; "
+            f"largest relative gap {gap_l:.3e} (tol {run_tol:.0e}) "
+            f"[{card}]")
+        say(f"   grad_norm sharded {[round(x, 6) for x in run['gnorms']]}, "
+            f"single {[round(x, 6) for x in single['gnorms']]}; largest "
+            f"relative gap {gap_g:.3e}")
+        say(f"   collectives a step ({', '.join(kinds)}): {per_step[0]}"
+            f"{'' if len(set(per_step)) == 1 else f' (varying: {per_step})'}")
+        ratio = run["step_ms"] / single["step_ms"]
+        say(f"   ms a step (CUDA events) sharded "
+            f"{[round(x, 2) for x in run['ms']]}, steady {run['step_ms']:.2f}; "
+            f"single-device steady {single['step_ms']:.2f}; ratio "
+            f"{ratio:.3f}; peak memory {run['peak'] / 2**30:.2f} GiB "
+            f"(single {single['peak'] / 2**30:.2f}); live gathered weights "
+            f"at most {run['gathered_peak'] / 2**30:.3f} GiB [{card}]")
+        if run["train_k4"]:
+            raise AssertionError(f"[{label}] K4 launched {run['train_k4']} "
+                                 f"times in train steps")
+        first = abs(run["losses"][0] - single["losses"][0]) / abs(
+            single["losses"][0])
+        if not (gap_l <= run_tol and gap_g <= run_tol
+                and first <= SHARDED_RTOL):
+            raise AssertionError(f"[{label}] the sharded step is not the "
+                                 f"single-device step: {gap_l}, {gap_g}")
+        if run["peak"] >= 80e9:
+            raise AssertionError(f"[{label}] peak {run['peak']} B")
+        out[key] = {"gap_loss": gap_l, "gap_gnorm": gap_g,
+                    "collectives": dict(zip(kinds, per_step[0])),
+                    "step_ms": run["step_ms"], "ratio": ratio,
+                    "peak_gib": run["peak"] / 2**30}
+        if capacity is not None:
+            n_moe = sum(run["cfg"].is_moe_layer(i)
+                        for i in range(run["cfg"].n_layers))
+            want = 6 * n_moe
+            drops = [sum(r - k for r, k in st) for st in run["kept"]]
+            say(f"   all_to_all a step: {per_step[0][3]} (expected {want}: "
+                f"2 a MoE layer forward, 2 for its rematerialized forward, "
+                f"2 backward); routed rows dropped a step at capacity "
+                f"{capacity}: {drops} of {run['kept'][0][0][0]}")
+            if per_step[0][3] != want or any(drops):
+                raise AssertionError(f"[{label}] all_to_all {per_step[0][3]}"
+                                     f", drops {drops}")
+            drop = _sharded_run(f"sharded train {arch} (EP at capacity "
+                                f"{EP_DROP_CAPACITY})", arch, layers,
+                                TRAIN_BATCH, TRAIN_SEQ, card, lr,
+                                EP_DROP_STEPS, capacity=EP_DROP_CAPACITY)
+            shares = [sum(r - k for r, k in st) / sum(r for r, _ in st)
+                      for st in drop["kept"]]
+            say(f"   capacity {EP_DROP_CAPACITY}: share of routed rows "
+                f"dropped a step {[round(x, 4) for x in shares]}; losses "
+                f"{[round(x, 6) for x in drop['losses']]} (capacity "
+                f"{capacity}: {[round(x, 6) for x in run['losses'][:3]]}); "
+                f"grad_norm {[round(x, 6) for x in drop['gnorms']]}; ms a "
+                f"step {[round(x, 2) for x in drop['ms']]}; peak "
+                f"{drop['peak'] / 2**30:.2f} GiB [{card}]")
+            if not all(math.isfinite(x) for x in drop["losses"]
+                       + drop["gnorms"]):
+                raise AssertionError(f"[{label}] capacity "
+                                     f"{EP_DROP_CAPACITY}: {drop}")
+            out[key]["drop_shares"] = shares
+        if evaluate:
+            want = _kernel_layers(run["cfg"])
+            gap = abs(run["eval"] - run["eval_single_k4"]) / abs(
+                run["eval_single_k4"])
+            gap_plain = abs(run["eval"] - run["eval_plain"]) / abs(
+                run["eval_plain"])
+            say(f"== sharded eval [{arch}]: loss {run['eval']:.6f} with K4 "
+                f"({run['eval_k4']} launches for the {want} layers the "
+                f"gate lets through), make_eval_step with K4 "
+                f"{run['eval_single_k4']:.6f} (gap {gap:.2e}, tol "
+                f"{SHARDED_RTOL:.0e}), plain {run['eval_plain']:.6f} (gap "
+                f"{gap_plain:.2e}, tol {EVAL_RTOL:.0e}); collectives "
+                f"{run['eval_issued']}; {run['eval_ms']:.2f} ms sharded, "
+                f"{run['eval_single_ms']:.2f} ms single (warm) [{card}]")
+            if run["eval_k4"] != want or gap > SHARDED_RTOL \
+                    or gap_plain > EVAL_RTOL:
+                raise AssertionError(f"[sharded eval] K4 {run['eval_k4']}, "
+                                     f"gaps {gap}, {gap_plain}")
+            out["flash_attention"] = run["eval_k4"]
+    say(f"   sharded train counts: {json.dumps(out)}")
+    say(f"== sharded train: {time.perf_counter() - t0:.1f} s [{card}]")
+    return out
 
 
 def _greedy_gaps(model, params, rec) -> tuple:
@@ -5113,12 +5435,15 @@ def main() -> None:
     launches.update(main_path_phases(card, router, dist_launches))
     trained = train_phase(card)
     launches.update(eval_phase(trained, card))
+    # the single-device runs the sharded phase is held against
+    records = {QWEN: trained["record"]}
     del trained
     _free_gpu_memory("mamba")
     mamba_serve_phase(card, router)
     launches.update(mamba_eval_phase(card))
     mamba_train_phase(card)
-    train_launches = train_families_phase(card)
+    train_launches = train_families_phase(card, records)
+    sharded_train_phase(card, records)
     moe_gqa_serve_phase(card, router)
     gemma_launches = gemma3_serve_phase(card, router)
     mla_serve_phase(card, router)

@@ -13,7 +13,8 @@ The repository's ``benchmarks/run.py`` also lists benches without a
 twin here: ``kernels``, ``serving``, ``retrieval`` and ``chaos`` write
 the JAX package's measurement rows and wait for a benchmark of the port
 (ROADMAP.md queue 1, item 10); ``roofline`` divides the mesh dry-run
-records by TPU constants (queue 1, item 9, multi-GPU); ``perf`` reads
+records by TPU constants (its H100 twin: queue 1, item 9, next 1, with
+``launch/dryrun.py``); ``perf`` reads
 ``experiments/dryrun/``, which the repository does not have.
 """
 from __future__ import annotations

@@ -31,3 +31,22 @@ def get_config(arch_id: str, variant: str = "full") -> ModelConfig:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return getattr(mod, variant.upper())
+
+
+# The input shapes the reference assigns to this paper (global batch x
+# sequence), which its dry run and launch/specs.py resolve.
+INPUT_SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
+
+# long_500k needs sub-quadratic attention or a bounded KV cache
+LONG_CONTEXT_ARCHS = {"mamba2-130m", "jamba-1.5-large-398b", "gemma3-12b"}
+
+
+def shape_supported(arch_id: str, shape: str) -> bool:
+    if shape == "long_500k":
+        return arch_id in LONG_CONTEXT_ARCHS
+    return True

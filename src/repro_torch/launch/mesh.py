@@ -12,17 +12,19 @@ device.  The mesh hands plain process groups to the executor, the model
 apply and sharded retrieval, whose hand-written kernels take plain local
 tensors: no DTensor.
 
-The reference's TPU constants (peak rates, HBM and ICI bandwidths) are
-not carried over: they feed its roofline analysis, whose H100 twin comes
-with the training half of multi-GPU work (``ROADMAP.md`` queue 1, item
-9).
+The same mesh carries sharded training
+(:mod:`repro_torch.training.sharded`).  :func:`make_production_mesh` is
+the reference's production layout without processes, for resolving
+specs (:mod:`repro_torch.launch.specs`).  The reference's TPU constants
+(peak rates, HBM and ICI bandwidths) are not carried over: they feed its
+roofline analysis, whose H100 twin is the next slice (``ROADMAP.md``
+queue 1, item 9, next 1).
 """
 from __future__ import annotations
 
 import contextlib
 import os
 from dataclasses import dataclass
-from types import SimpleNamespace
 from typing import Dict
 
 import numpy as np
@@ -64,6 +66,24 @@ class ServingMesh:
         return self.size("model")
 
 
+@dataclass(frozen=True)
+class LayoutMesh:
+    """A mesh's layout alone: ``axis_names`` and a ``devices`` grid of
+    device numbers, no process group (what the sharding resolver
+    reads)."""
+    axis_names: tuple
+    devices: np.ndarray
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> LayoutMesh:
+    """The reference's production layouts (``launch/mesh.py``): one pod
+    of 16 x 16 over ``("data", "model")``, or two pods, ``(2, 16, 16)``
+    over ``("pod", "data", "model")``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return LayoutMesh(axes, np.arange(int(np.prod(shape))).reshape(shape))
+
+
 def check_mp_divisibility(model_cfg, mp: int, *, spec: str = "") -> None:
     """Fail fast when ``mp`` can't partition a model's param schema.
 
@@ -79,10 +99,8 @@ def check_mp_divisibility(model_cfg, mp: int, *, spec: str = "") -> None:
     from repro_torch.models.transformer import decoder_param_schema
     from repro_torch.sharding import model_axis_fallbacks
 
-    stub = SimpleNamespace(axis_names=AXES,
-                           devices=np.empty((1, mp), object))
     _, fallbacks = model_axis_fallbacks(decoder_param_schema(model_cfg),
-                                        stub)
+                                        LayoutMesh(AXES, np.empty((1, mp))))
     if fallbacks:
         raise ValueError(
             f"serving mesh {spec or f'mp={mp}'} cannot tensor-parallel "

@@ -27,7 +27,11 @@ attention layer gets its local heads and kv heads (every head count
 here comes from a weight's or a tensor's shape, so G = H / Hkv is
 mp-invariant), the MLP its local ``d_ff`` columns; each all-reduces its
 partial output projection over ``tp`` before any output bias.  With
-``None`` nothing changes.
+``None`` nothing changes.  Training passes ``tp`` as a
+:class:`~repro_torch.models.collectives.GradGroup`: the all-reduce is
+then the Megatron ``g`` (gradient passed through) and each sublayer's
+input enters its column-split products through ``f`` (gradient summed
+over ``tp``); serving's plain group keeps the in-place all-reduce.
 
 Multi-head latent attention (:func:`mla_apply`) reaches no kernel, as in
 the reference: its naive decode runs the plain :func:`attention`, its
@@ -45,6 +49,7 @@ from repro_torch.core.config import MLAConfig, ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.paged_flash_decode import paged_flash_decode
+from repro_torch.models.collectives import GradGroup, copy_to_split, sum_shared
 from repro_torch.models.schema import ParamSpec
 from repro_torch.serving import kv_quant as KQ
 
@@ -217,7 +222,10 @@ def _write_page_step(pool, rows, page, off, keep):
 
 def all_reduce(x, tp):
     """Sum ``x`` over the model-axis group ``tp`` in place (``tp=None``:
-    ``x`` as it is)."""
+    ``x`` as it is); a :class:`GradGroup` sums out of place with a
+    gradient (the Megatron ``g``)."""
+    if isinstance(tp, GradGroup):
+        return sum_shared(x, tp.group)
     if tp is not None:
         dist.all_reduce(x, group=tp)
     return x
@@ -267,6 +275,7 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
     kv heads, and the output projection is all-reduced over ``tp``.
     """
     B, S, d = x.shape
+    x = copy_to_split(x, tp)
     q = proj_heads(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
@@ -551,6 +560,7 @@ def mlp_schema(cfg: ModelConfig, d_ff: Optional[int] = None
 def mlp_apply(p, x, tp=None):
     """SwiGLU; with ``tp`` over this rank's ``d_ff`` columns, the down
     projection summed over ``tp`` before ``b_out``."""
+    x = copy_to_split(x, tp)
     h = torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     if "b_ff" in p:
         h = h + p["b_ff"]

@@ -45,16 +45,20 @@ class Model:
             device=resolve_device(device))
 
     # forward passes --------------------------------------------------
-    def train_logits(self, params, inputs):
-        return T.forward_train(params, self.cfg, inputs)
+    def train_logits(self, params, inputs, *, moe_fn=None, tp=None,
+                     gather=None):
+        return T.forward_train(params, self.cfg, inputs, moe_fn=moe_fn,
+                               tp=tp, gather=gather)
 
-    def prefill(self, params, inputs, cache, *, mla_absorb=False, tp=None):
+    def prefill(self, params, inputs, cache, *, moe_fn=None,
+                mla_absorb=False, tp=None):
         return T.forward_prefill(params, self.cfg, inputs, cache,
-                                 mla_absorb=mla_absorb, tp=tp)
+                                 moe_fn=moe_fn, mla_absorb=mla_absorb, tp=tp)
 
-    def decode(self, params, inputs, cache, *, mla_absorb=False, tp=None):
+    def decode(self, params, inputs, cache, *, moe_fn=None, mla_absorb=False,
+               tp=None):
         return T.forward_decode(params, self.cfg, inputs, cache,
-                                mla_absorb=mla_absorb, tp=tp)
+                                moe_fn=moe_fn, mla_absorb=mla_absorb, tp=tp)
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -44,9 +44,11 @@ without ``audio_emb``, read from the cache's ``cross_k`` / ``cross_v``,
 as the reference's served decode reads them).  The stub embeddings are
 cast to the weights' dtype on the way in (the reference casts the
 image's, and promotes a float32 frame embedding's sums past bf16
-weights; the port's matrix products take one dtype).  The
-reference's ``moe_fn`` hook exists for its expert-parallel path only and
-is not ported yet (the training half of ``ROADMAP.md`` queue 1, item 9).
+weights; the port's matrix products take one dtype).  ``moe_fn``, as in
+the reference, replaces :func:`~repro_torch.models.moe.moe_apply_ragged`
+in every MoE layer of every forward (the expert-parallel block of
+:func:`repro_torch.launch.moe_parallel.make_ep_moe_fn`); ``None``
+changes nothing.
 
 Tensor-parallel serving: the cached forward takes ``tp``, the model
 axis's process group (``None``: one device, unchanged), and threads it
@@ -67,6 +69,17 @@ rematerializes each block in the backward pass: ``"full"`` keeps only
 the block's input, ``"dots"`` also keeps the outputs of the weight
 products (``aten.mm`` / ``aten.addmm``: the counterpart of
 ``dots_with_no_batch_dims_saveable``), ``"none"`` keeps everything.
+
+Sharded training (:mod:`repro_torch.training.sharded`) passes the
+training forward two more hooks: ``tp``, the model axis as a
+:class:`~repro_torch.models.collectives.GradGroup` (the serving apply's
+collectives with gradients, the logits gathered over the vocab with
+this rank's slice of their gradient), and ``gather(tree, path)``, the
+FSDP gather of the weights at ``path`` (``("blocks", i)`` is block i's
+slice of the stack).  Each layer's weights are gathered inside the
+layer's rematerialized body, so the backward pass gathers them again and
+no gathered layer outlives its use; with ``gather`` every layer is
+rematerialized, under ``remat="none"`` too.
 """
 from __future__ import annotations
 
@@ -83,6 +96,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.collectives import (GradGroup, copy_to_split,
+                                            gather_shared, group_of)
 from repro_torch.models.moe import moe_apply_ragged, moe_schema
 from repro_torch.models.schema import ParamSpec, stack_specs, tree_map
 from repro_torch.models.ssm import ssm_apply, ssm_cache_schema, ssm_schema
@@ -176,7 +191,7 @@ def _layer_schema(cfg: ModelConfig, s: LayerSig) -> Dict[str, Any]:
 
 def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
                 cache=None, page_table=None, mla_absorb: bool = False,
-                enc_out=None, tp=None):
+                enc_out=None, tp=None, moe_fn=None):
     """One residual block.  Returns (x, cache, aux): the cache is updated
     in place (see :func:`repro_torch.models.layers.gqa_apply`,
     :func:`repro_torch.models.layers.mla_apply` and
@@ -191,7 +206,9 @@ def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
 
     ``tp``: the tensor-parallel group of the GQA and FFN sublayers (see
     the module docstring); MLA and Mamba2 layers take none
-    (:func:`check_tensor_parallel` keeps them whole on every rank)."""
+    (:func:`check_tensor_parallel` keeps them whole on every rank).
+    ``moe_fn(p, x, cfg) -> (y, aux)`` replaces ``moe_apply_ragged`` in
+    an MoE layer and brings its own collectives."""
     aux = 0.0
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if s.kind == "M":
@@ -221,9 +238,9 @@ def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
                              cross_kv=(ck, cv), tp=tp)
         x = x + out
     if s.is_moe:
-        ff, aux = moe_apply_ragged(p["moe"], L.rmsnorm(p["ln2"], x,
-                                                       cfg.norm_eps), cfg,
-                                   tp=tp)
+        h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        ff, aux = (moe_apply_ragged(p["moe"], h, cfg, tp=tp)
+                   if moe_fn is None else moe_fn(p["moe"], h, cfg))
         x = x + ff
     elif "mlp" in p:
         # the reference adds an FFN term of 0.0 when there is no MLP
@@ -249,11 +266,11 @@ TP_AXES = {
 
 
 def check_tensor_parallel(named, mp: int) -> None:
-    """Refuse a placement the tensor-parallel apply has no collective
-    for.  ``named`` holds ``(leaf name, ParamSpec, spec)`` of every
-    parameter and cache leaf; at ``mp > 1`` each leaf of :data:`TP_AXES`
-    must split on its axis there, and no other leaf may split over
-    ``model``: MLA's latent, Mamba2's ``d_inner``, Whisper's cross
+    """Refuse a placement the tensor-parallel apply (serving's, and the
+    sharded train step's) has no collective for.  ``named`` holds
+    ``(leaf name, ParamSpec, spec)`` of every parameter and cache leaf;
+    at ``mp > 1`` each leaf of :data:`TP_AXES` must split on its axis
+    there, and no other leaf may split over ``model``: MLA's latent, Mamba2's ``d_inner``, Whisper's cross
     layers, a head_dim fallback, and Whisper's encoder and the MTP
     layer, which run without ``tp``."""
     if mp <= 1:
@@ -267,10 +284,11 @@ def check_tensor_parallel(named, mp: int) -> None:
                     if e == "model"), None)
         if want != got:
             raise ValueError(
-                f"tensor-parallel serving at mp={mp} has no collective "
+                f"tensor parallelism at mp={mp} has no collective "
                 f"for {name} {ps.shape} {ps.axes} resolved to {spec} "
                 f"(the apply splits it on {want or 'no axis'}): serving "
-                f"this family at mp > 1 is ROADMAP.md queue 1, item 9")
+                f"or training this family at mp > 1 is ROADMAP.md queue "
+                f"1, item 9, next 2")
 
 
 def _layer_cache_schema(cfg: ModelConfig, s: LayerSig, batch: int,
@@ -422,7 +440,7 @@ def _embed_lookup(params, cfg: ModelConfig, tokens, tp=None):
     if tp is not None:
         w = params["embed"]
         rows = w.shape[0]
-        local = tokens.long() - dist.get_rank(tp) * rows
+        local = tokens.long() - dist.get_rank(group_of(tp)) * rows
         inside = (local >= 0) & (local < rows)
         x = w[local.clamp(0, rows - 1)].masked_fill(~inside[..., None], 0)
         return L.all_reduce(x, tp)
@@ -436,6 +454,9 @@ def _unembed(params, cfg: ModelConfig, x, tp=None):
     """Logits in float32; with ``tp`` the rank's vocab block, gathered
     over ``tp`` in rank order into the whole vocab."""
     w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    if isinstance(tp, GradGroup):
+        logits = (copy_to_split(x, tp) @ w.T).float()
+        return gather_shared(logits, tp.group, logits.dim() - 1)
     logits = (x @ w.T).float()
     if tp is None:
         return logits
@@ -469,43 +490,60 @@ def _prepend_image(params, cfg: ModelConfig, inputs, x):
                       x], dim=1)
 
 
-def _encode(params, cfg: ModelConfig, audio_emb):
+def _gathered(gather, tree, *path):
+    """``tree``, the params at ``path``, as a layer reads them: through
+    the sharded step's FSDP ``gather`` (module docstring), else as it
+    is."""
+    return tree if gather is None else gather(tree, path)
+
+
+def _encode(params, cfg: ModelConfig, audio_emb, gather=None):
     """Whisper's encoder over the stub frame embeddings (B, T, d), T =
     ``encoder_seq_len``: ``enc_pos`` added, ``n_encoder_layers``
-    non-causal layers (rope on, as in the reference), the final norm."""
-    w = params["enc_pos"]
+    non-causal layers (rope on, as in the reference), the final norm.
+    With ``gather`` (and autograd on) each layer is rematerialized."""
+    w = _gathered(gather, params["enc_pos"], "enc_pos")
     x = audio_emb.to(w.dtype) + w[None]
     B, T, _ = x.shape
     positions = torch.arange(T, dtype=torch.int32,
                              device=x.device)[None].expand(B, T)
+
+    def layer(h, lp, i):
+        lp = _gathered(gather, lp, "encoder", i)
+        return apply_layer(lp, h, cfg, ENC_SIG, positions=positions)[0]
+
+    remat = gather is not None and torch.is_grad_enabled()
     for i in range(cfg.n_encoder_layers):
-        x, _, _ = apply_layer(_slice(params["encoder"], i), x, cfg, ENC_SIG,
-                              positions=positions)
-    return L.rmsnorm(params["enc_final_norm"], x, cfg.norm_eps)
+        lp = _slice(params["encoder"], i)
+        x = (checkpoint(layer, x, lp, i, use_reentrant=False) if remat
+             else layer(x, lp, i))
+    return L.rmsnorm(_gathered(gather, params["enc_final_norm"],
+                               "enc_final_norm"), x, cfg.norm_eps)
 
 
 def forward_prefill(params, cfg: ModelConfig, inputs, cache, *,
-                    mla_absorb: bool = False, tp=None):
+                    moe_fn=None, mla_absorb: bool = False, tp=None):
     """Prefill: run the full prompt, fill the cache, return last logits."""
     return _forward_cached(params, cfg, inputs, cache, prefill=True,
-                           mla_absorb=mla_absorb, tp=tp)
+                           moe_fn=moe_fn, mla_absorb=mla_absorb, tp=tp)
 
 
 def forward_decode(params, cfg: ModelConfig, inputs, cache, *,
-                   mla_absorb: bool = False, tp=None):
+                   moe_fn=None, mla_absorb: bool = False, tp=None):
     """One decode step: inputs["tokens"] is (B, 1)."""
     return _forward_cached(params, cfg, inputs, cache, prefill=False,
-                           mla_absorb=mla_absorb, tp=tp)
+                           moe_fn=moe_fn, mla_absorb=mla_absorb, tp=tp)
 
 
 def _forward_cached(params, cfg, inputs, cache, *, prefill, mla_absorb,
-                    tp=None):
+                    moe_fn=None, tp=None):
     """Returns (logits (B, 1, V) float32 of the last position, cache).
     The cache dict is updated in place and returned: its k/v leaves are
     written where they lie, and ``cache["pos"]`` is replaced by the
     advanced positions.  ``mla_absorb`` picks the MLA layers' absorbed
     attention (it changes nothing elsewhere); ``tp`` is the
-    tensor-parallel group (module docstring)."""
+    tensor-parallel group and ``moe_fn`` the MoE layers' block (module
+    docstring)."""
     prefix, block, n_blocks = layer_structure(cfg)
     tokens = inputs["tokens"]
     B, S = tokens.shape
@@ -543,7 +581,8 @@ def _forward_cached(params, cfg, inputs, cache, *, prefill, mla_absorb,
     for lp, lc, s in zip(params["prefix"], cache["prefix"], prefix):
         x, _, _ = apply_layer(lp, x, cfg, s, positions=positions,
                               cache=lc, page_table=page_table,
-                              mla_absorb=mla_absorb, enc_out=enc_out, tp=tp)
+                              mla_absorb=mla_absorb, enc_out=enc_out, tp=tp,
+                              moe_fn=moe_fn)
     for i in range(n_blocks):
         bp, bc = _slice(params["blocks"], i), _slice(cache["blocks"], i)
         for j, s in enumerate(block):
@@ -551,7 +590,7 @@ def _forward_cached(params, cfg, inputs, cache, *, prefill, mla_absorb,
                                   positions=positions, cache=bc[f"p{j}"],
                                   page_table=page_table,
                                   mla_absorb=mla_absorb, enc_out=enc_out,
-                                  tp=tp)
+                                  tp=tp, moe_fn=moe_fn)
     cache["pos"] = new_pos
 
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -563,11 +602,15 @@ def _forward_cached(params, cfg, inputs, cache, *, prefill, mla_absorb,
 # ---------------------------------------------------------------------------
 
 
-def _embed_inputs(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor]):
+def _embed_inputs(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor],
+                  tp=None, gather=None):
     """Token embedding, after the projected image where there is one.
     Returns (x, positions)."""
     tokens = inputs["tokens"]
-    x = _prepend_image(params, cfg, inputs, _embed_lookup(params, cfg, tokens))
+    front = {k: _gathered(gather, params[k], k)
+             for k in ("embed", "projector") if k in params}
+    x = _prepend_image(front, cfg, inputs,
+                       _embed_lookup(front, cfg, tokens, tp))
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
@@ -582,52 +625,62 @@ def _save_weight_products(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _backbone(params, cfg: ModelConfig, inputs):
+def _backbone(params, cfg: ModelConfig, inputs, *, moe_fn=None, tp=None,
+              gather=None):
     """Embedding (and the encoder, for an encoder-decoder: not
     rematerialized, as in the reference) and every decoder layer, under
     ``cfg.remat``.  Returns the hidden states before the final norm and
     the MoE load-balance loss summed over the layers (0 without an MoE
-    layer)."""
+    layer).  ``moe_fn``, ``tp``, ``gather``: the module docstring; with
+    ``gather`` the prefix layers and the encoder's are rematerialized
+    too."""
     prefix, block, n_blocks = layer_structure(cfg)
-    x, positions = _embed_inputs(params, cfg, inputs)
-    enc_out = (_encode(params, cfg, inputs["audio_emb"])
+    x, positions = _embed_inputs(params, cfg, inputs, tp, gather)
+    enc_out = (_encode(params, cfg, inputs["audio_emb"], gather)
                if cfg.is_encoder_decoder else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp, s in zip(params["prefix"], prefix):
-        x, _, a = apply_layer(lp, x, cfg, s, positions=positions,
-                              enc_out=enc_out)
-        aux = aux + a
 
-    def block_body(h, acc, bp, enc):
-        for j, s in enumerate(block):
-            h, _, a = apply_layer(bp[f"p{j}"], h, cfg, s,
-                                  positions=positions, enc_out=enc)
+    def body(h, acc, tree, enc, path):
+        # prefix layer path[1], or block path[1]'s layers p0, p1, ...
+        tree = _gathered(gather, tree, *path)
+        layers = ([(tree, prefix[path[1]])] if path[0] == "prefix"
+                  else [(tree[f"p{j}"], s) for j, s in enumerate(block)])
+        for lp, s in layers:
+            h, _, a = apply_layer(lp, h, cfg, s, positions=positions,
+                                  enc_out=enc, tp=tp, moe_fn=moe_fn)
             acc = acc + a
         return h, acc
 
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"{cfg.name}: unknown remat {cfg.remat!r}")
     # nothing is saved for a backward pass when autograd is off
-    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    remat = ((cfg.remat != "none" or gather is not None)
+             and torch.is_grad_enabled())
     kw = ({"context_fn": functools.partial(
         create_selective_checkpoint_contexts, _save_weight_products)}
           if cfg.remat == "dots" else {})
-    for i in range(n_blocks):
-        bp = _slice(params["blocks"], i)
-        x, aux = (checkpoint(block_body, x, aux, bp, enc_out,
+    for j, lp in enumerate(params["prefix"]):
+        path = ("prefix", j)
+        x, aux = (checkpoint(body, x, aux, lp, enc_out, path,
                              use_reentrant=False, **kw)
-                  if remat else block_body(x, aux, bp, enc_out))
+                  if remat and gather is not None
+                  else body(x, aux, lp, enc_out, path))
+    for i in range(n_blocks):
+        bp, path = _slice(params["blocks"], i), ("blocks", i)
+        x, aux = (checkpoint(body, x, aux, bp, enc_out, path,
+                             use_reentrant=False, **kw)
+                  if remat else body(x, aux, bp, enc_out, path))
     return x, aux
 
 
-def _mtp_hidden(params, cfg: ModelConfig, h_final, tokens):
+def _mtp_hidden(params, cfg: ModelConfig, h_final, tokens, gather=None):
     """DeepSeek-V3's multi-token prediction (depth 1): the final stream
     at t (before the final norm) beside the embedding of token t + 1,
     combined and run through one extra dense layer, then its own final
     norm.  Returns (B, S - 1, d): position t predicts token t + 2 through
     the shared head.  No remat, as in the reference."""
-    mp = params["mtp"]
-    tok_emb = params["embed"][tokens]
+    mp = _gathered(gather, params["mtp"], "mtp")
+    tok_emb = _gathered(gather, params["embed"], "embed")[tokens]
     h_in = torch.cat(
         [L.rmsnorm(mp["norm_h"], h_final[:, :-1], cfg.norm_eps),
          L.rmsnorm(mp["norm_e"], tok_emb[:, 1:], cfg.norm_eps)], dim=-1)
@@ -639,20 +692,31 @@ def _mtp_hidden(params, cfg: ModelConfig, h_final, tokens):
     return L.rmsnorm(mp["final_norm"], h, cfg.norm_eps)
 
 
-def forward_train(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor]):
+def _head(params, cfg: ModelConfig, gather=None):
+    """The unembedding weights as :func:`_unembed` reads them."""
+    k = "embed" if cfg.tie_embeddings else "lm_head"
+    return {k: _gathered(gather, params[k], k)}
+
+
+def forward_train(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor],
+                  *, moe_fn=None, tp=None, gather=None):
     """Full-sequence forward.  Returns (logits (B, S, V) float32, extras)
     with ``extras["aux_loss"]`` the MoE load-balance loss (0 without an
     MoE layer) and, with ``cfg.mtp_depth``, ``extras["mtp_logits"]``
-    (B, S - 1, V) float32."""
-    h_final, aux = _backbone(params, cfg, inputs)
-    x = L.rmsnorm(params["final_norm"], h_final, cfg.norm_eps)
+    (B, S - 1, V) float32.  ``moe_fn``, ``tp``, ``gather``: the module
+    docstring."""
+    h_final, aux = _backbone(params, cfg, inputs, moe_fn=moe_fn, tp=tp,
+                             gather=gather)
+    x = L.rmsnorm(_gathered(gather, params["final_norm"], "final_norm"),
+                  h_final, cfg.norm_eps)
     extras = {"aux_loss": aux}
     if cfg.mtp_depth:
         # the text positions only, after an image's
         tokens = inputs["tokens"]
-        extras["mtp_logits"] = _unembed(params, cfg, _mtp_hidden(
-            params, cfg, h_final[:, -tokens.shape[1]:], tokens))
-    return _unembed(params, cfg, x), extras
+        extras["mtp_logits"] = _unembed(_head(params, cfg, gather), cfg,
+                                        _mtp_hidden(
+            params, cfg, h_final[:, -tokens.shape[1]:], tokens, gather), tp)
+    return _unembed(_head(params, cfg, gather), cfg, x, tp), extras
 
 
 def _masked_nll(logits, labels, ignore_id: int, z_loss: float):
@@ -667,21 +731,29 @@ def _masked_nll(logits, labels, ignore_id: int, z_loss: float):
     return torch.where(valid, nll, 0.0).sum(), valid.sum(dtype=torch.int32)
 
 
-def _ce_chunk(xc, w, lc, ignore_id: int, z_loss: float):
+def _ce_chunk(xc, w, lc, ignore_id: int, z_loss: float, tp=None):
     # the product in the params' dtype, then float32, as the reference's
     # einsum(...).astype(float32)
-    return _masked_nll((xc @ w.T).float(), lc, ignore_id, z_loss)
+    if isinstance(tp, GradGroup):
+        logits = gather_shared((copy_to_split(xc, tp) @ w.T).float(),
+                               tp.group, 2)
+    else:
+        logits = (xc @ w.T).float()
+    return _masked_nll(logits, lc, ignore_id, z_loss)
 
 
 def chunked_ce(x, w, labels, *, ignore_id: int = -1, z_loss: float = 1e-4,
-               chunk: int = 512):
+               chunk: int = 512, tp=None):
     """Cross-entropy without materializing (B, S, V) logits.
 
     x: (B, S, d) final hidden states; w: (V, d) unembedding.  The sequence
     is cut into chunks of ``c = min(chunk, S)`` positions, ``c`` lowered
     until it divides S; each chunk is rematerialized in the backward pass,
     so only one chunk's (B, c, V) logits exist at a time.  Returns
-    (sum_nll float32, n_valid int32).
+    (sum_nll float32, n_valid int32).  With training's ``tp`` (a
+    :class:`~repro_torch.models.collectives.GradGroup`) ``w`` holds this
+    rank's vocab rows and each chunk's logits are gathered over the
+    vocab.
     """
     B, S, d = x.shape
     c = min(chunk, S)
@@ -691,31 +763,66 @@ def chunked_ce(x, w, labels, *, ignore_id: int = -1, z_loss: float = 1e-4,
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     nvalid = torch.zeros((), dtype=torch.int32, device=x.device)
     for i in range(0, S, c):
-        args = (x[:, i:i + c], w, labels[:, i:i + c], ignore_id, z_loss)
+        args = (x[:, i:i + c], w, labels[:, i:i + c], ignore_id, z_loss, tp)
         s, nv = (checkpoint(_ce_chunk, *args, use_reentrant=False) if remat
                  else _ce_chunk(*args))
         tot, nvalid = tot + s, nvalid + nv
     return tot, nvalid
 
 
+def loss_terms(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+               *, moe_fn=None, tp=None, gather=None):
+    """The sums :func:`forward_train_loss` divides: ``(tot, n, aux, mtot,
+    mn)``, the chunked CE's sum over the valid positions and their count,
+    the aux loss, and the MTP CE's sum and count (None without MTP).  A
+    sharded step sums ``tot``, ``n``, ``mtot``, ``mn`` over its data
+    ranks before it divides."""
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    labels = batch["labels"]
+    x, aux = _backbone(params, cfg, inputs, moe_fn=moe_fn, tp=tp,
+                       gather=gather)
+    xn = L.rmsnorm(_gathered(gather, params["final_norm"], "final_norm"),
+                   x, cfg.norm_eps)
+    w = next(iter(_head(params, cfg, gather).values()))
+    S_txt = labels.shape[1]
+    tot, nvalid = chunked_ce(xn[:, -S_txt:], w, labels, tp=tp)
+    mtot = mn = None
+    if cfg.mtp_depth:
+        h_mtp = _mtp_hidden(params, cfg, x[:, -S_txt:], inputs["tokens"],
+                            gather)
+        mtot, mn = chunked_ce(h_mtp, w, labels[:, 1:], tp=tp)
+    return tot, nvalid, aux, mtot, mn
+
+
+def combine_loss(tot, n, aux, mtot=None, mn=None):
+    """The loss of :func:`loss_terms`' (or :func:`logit_loss_terms`')
+    sums: ``tot / n + aux`` (+ ``MTP_WEIGHT`` x ``mtot / mn``)."""
+    loss = tot / n.clamp(min=1) + aux
+    if mtot is not None:
+        loss = loss + MTP_WEIGHT * mtot / mn.clamp(min=1)
+    return loss
+
+
 def forward_train_loss(params, cfg: ModelConfig,
-                       batch: Dict[str, torch.Tensor]):
+                       batch: Dict[str, torch.Tensor], *, moe_fn=None):
     """Memory-lean training loss: backbone + chunked CE + the MoE
     load-balance loss (+ ``MTP_WEIGHT`` x the multi-token-prediction
     CE, whose labels are shifted by one)."""
-    inputs = {k: v for k, v in batch.items() if k != "labels"}
-    labels = batch["labels"]
-    x, aux = _backbone(params, cfg, inputs)
-    xn = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    S_txt = labels.shape[1]
-    tot, nvalid = chunked_ce(xn[:, -S_txt:], w, labels)
-    loss = tot / nvalid.clamp(min=1) + aux
-    if cfg.mtp_depth:
-        h_mtp = _mtp_hidden(params, cfg, x[:, -S_txt:], inputs["tokens"])
-        mtot, mn = chunked_ce(h_mtp, w, labels[:, 1:])
-        loss = loss + MTP_WEIGHT * mtot / mn.clamp(min=1)
-    return loss
+    return combine_loss(*loss_terms(params, cfg, batch, moe_fn=moe_fn))
+
+
+def logit_loss_terms(logits, labels, *, extras=None, ignore_id: int = -1,
+                     z_loss: float = 1e-4):
+    """:func:`loss_fn`'s sums, as :func:`loss_terms` gives them."""
+    S = labels.shape[1]
+    # logits[:, -S:] drops modality positions
+    tot, nvalid = _masked_nll(logits[:, -S:], labels, ignore_id, z_loss)
+    extras = extras or {}
+    mtot = mn = None
+    if "mtp_logits" in extras:
+        mtot, mn = _masked_nll(extras["mtp_logits"], labels[:, 1:],
+                               ignore_id, 0.0)
+    return tot, nvalid, extras.get("aux_loss", 0.0), mtot, mn
 
 
 def loss_fn(logits, labels, *, extras=None, ignore_id: int = -1,
@@ -723,14 +830,6 @@ def loss_fn(logits, labels, *, extras=None, ignore_id: int = -1,
     """Next-token CE with ignore mask, z-loss and the aux loss; with
     ``extras["mtp_logits"]`` also ``MTP_WEIGHT`` x the MTP CE (token t +
     2 from position t; no z-loss, as in the reference)."""
-    S = labels.shape[1]
-    # logits[:, -S:] drops modality positions
-    tot, nvalid = _masked_nll(logits[:, -S:], labels, ignore_id, z_loss)
-    loss = tot / nvalid.clamp(min=1)
-    if extras:
-        loss = loss + extras.get("aux_loss", 0.0)
-        if "mtp_logits" in extras:
-            mtot, mn = _masked_nll(extras["mtp_logits"], labels[:, 1:],
-                                   ignore_id, 0.0)
-            loss = loss + MTP_WEIGHT * mtot / mn.clamp(min=1)
-    return loss
+    return combine_loss(*logit_loss_terms(logits, labels, extras=extras,
+                                          ignore_id=ignore_id,
+                                          z_loss=z_loss))

@@ -500,7 +500,8 @@ class ShardedExecutor(SingleDeviceExecutor):
         # group prefills the whole admission group and commits only its
         # own slots' rows (_commit, _commit_paged).  The reference shards
         # the scratch rows over data when prefill_batch divides dp and
-        # all-gathers them for the insert (ROADMAP.md queue 1, item 9).
+        # all-gathers them for the insert (ROADMAP.md queue 1, item 9,
+        # next 3).
         return (zeros_from_schema(local_schema(schema, specs, mesh),
                                   device=self.device),
                 zeros_from_schema(local_schema(scratch, sspecs, mesh,

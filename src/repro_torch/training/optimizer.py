@@ -16,6 +16,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.models.collectives import reduce_sum
 from repro_torch.models.schema import ParamSpec, tree_leaves, tree_map
 
 
@@ -58,16 +59,42 @@ def lr_at(cfg: OptConfig, step):
     return torch.where(step < cfg.warmup_steps, warm, cfg.lr * cos)
 
 
-def global_norm(tree):
-    """sqrt of the sum of squares of every leaf, in float32."""
-    return torch.sqrt(sum(torch.sum(leaf.float() ** 2)
-                          for leaf in tree_leaves(tree)))
+def global_norm(tree, mesh=None, specs=None):
+    """sqrt of the sum of squares of every leaf, in float32.  With a
+    ``mesh`` the leaves are this rank's shards under ``specs`` (each
+    leaf's spec tuple in tree order, see :mod:`repro_torch.sharding`):
+    each leaf's sum of squares is summed over the mesh axes that split
+    it and no other, so a replicated leaf counts once (one all-reduce of
+    the leaves' sums over ``data``, one over ``model`` when it has more
+    than one rank).  The leaves' sums are then added in tree order, as
+    without a mesh."""
+    leaves = tree_leaves(tree)
+    sq = [torch.sum(leaf.float() ** 2) for leaf in leaves]
+    if mesh is not None:
+        sq = torch.stack(sq)
+        split = [{a for e in spec if e is not None
+                  for a in (e if isinstance(e, tuple) else (e,))}
+                 for spec in specs]
+        for axis in ("data", "model"):
+            if axis == "model" and mesh.size("model") == 1:
+                continue
+            mask = torch.tensor([axis in s for s in split],
+                                device=sq.device)
+            summed = reduce_sum(torch.where(mask, sq, 0.0),
+                                mesh.group(axis))
+            sq = torch.where(mask, summed, sq)
+        sq = sq.unbind()
+    return torch.sqrt(sum(sq))
 
 
 @torch.no_grad()
-def adamw_update(grads, opt_state, params, cfg: OptConfig):
+def adamw_update(grads, opt_state, params, cfg: OptConfig, *, mesh=None,
+                 specs=None):
     """One AdamW step.  Returns (params, opt_state, metrics) with
-    ``metrics`` holding ``grad_norm`` and ``lr`` as tensors.
+    ``metrics`` holding ``grad_norm`` and ``lr`` as tensors.  With a
+    ``mesh`` the trees hold this rank's shards under ``specs`` (each
+    leaf's spec in tree order) and the clipping norm is the global one
+    (:func:`global_norm`).
 
     Unlike the reference, which returns new trees, the port updates the
     params and the moments IN PLACE, leaf by leaf, and returns the same
@@ -76,7 +103,7 @@ def adamw_update(grads, opt_state, params, cfg: OptConfig):
     be in the params' dtype or float32 (accumulated microbatches).
     """
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, specs)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = lr_at(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2

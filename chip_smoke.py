@@ -147,8 +147,11 @@ Phases, each on its own lines; any failure exits nonzero:
                step counted, a decode chunk under
                ``set_sync_debug_mode("error")``; then ``--mesh dp=1`` on
                the serve CLI (``--variant smoke``) printing the lines of
-               the run without it.  The process group is destroyed at
-               the end.
+               the run without it.  One more decode step of the 8
+               slots over 392-row caches through the tensor-parallel
+               apply: its collectives, K1 launches, peak memory and its
+               rise, and ms, for phase 16a2.  The process group is
+               destroyed at the end.
 12. train    — the serving weights freed, ``make_train_step`` (fused
                loss, plain attention, AdamW) for 8 steps on
                ``qwen1.5-32b`` at full width with its depth cut 64 -> 4
@@ -220,6 +223,18 @@ Phases, each on its own lines; any failure exits nonzero:
                another row order drift apart), 6 ``all_to_all`` a step;
                and 3 steps at capacity 1.25 from the same init, the
                share of routed rows dropped printed.
+16a2. dry run — ``repro_torch.launch.dryrun`` in a subprocess, as rank 0
+               of a one-rank fake world on fake CUDA tensors (nothing
+               allocated on the card): 16a1's qwen train step (4 layers,
+               4 x 1024, dp = 1) and 11a's decode step (qwen FULL, 8
+               slots, 392-row caches).  Its collective census and K1's
+               would-be launches (the census's count of K1's fake-rule
+               op; no kernel launches in a trace) equal to the real
+               steps' collectives and launches, its predicted peak and
+               temp bytes within 10 % (or 256 MiB) of
+               ``max_memory_allocated`` and its rise above the resident
+               bytes; the roofline's three terms and MODEL_FLOPS (as a
+               share of 989 TFLOP/s) beside each step's measured ms.
 16a. moe/gqa serve — the mixture-of-experts and GQA families at their
                published widths through ``Gateway.serve``, one after the
                other, each after the previous model is freed:
@@ -352,6 +367,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -632,6 +648,17 @@ def kernel_phase(build_report: dict = None) -> list:
         say(f"== K1 ptxas: {line}")
     for line in k1_ptxas(build_report, "paged_flash_decode", "MAXG"):
         say(f"== K2 ptxas: {line}")
+    # the script's first timed row: a second of bf16 products first, so
+    # that it does not time the card's clocks ramping up (a fresh H100
+    # 80GB HBM3 at 700 W once read 31.80 µs warm against 19.37 flushed
+    # on the main path)
+    warm = torch.ones(4096, 4096, device="cuda", dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 1.0:
+        for _ in range(50):
+            warm @ warm
+        torch.cuda.synchronize()
+    del warm
     rows = []
     for label, B, L, H, Hkv, D in (
             ("main path", 8, 392, 40, 40, 128),
@@ -2889,6 +2916,7 @@ def sharded_serve_phase(card: str, model, params, index, qs, policy,
                 f"path's {main_ms:.2f}): sharded = {ratio:.3f} x single; "
                 f"{counts['all_reduce'] // k} all-reduces and "
                 f"{counts['all_gather'] // k} all-gather a step [{card}]")
+        REAL_STEPS["decode"] = _tp_decode_step(model, params, mesh, card)
         say(f"   sharded path launches: K1 {sharded['dense']['flash_decode']}"
             f" (dense), K2 {sharded['paged']['paged_flash_decode']} (paged), "
             f"{L} layers x decode steps, each turn; K3 "
@@ -2911,6 +2939,46 @@ def sharded_serve_phase(card: str, model, params, index, qs, policy,
             say(f"   | {line}")
         if differ or len(outs[0]) != len(outs[1]):
             raise AssertionError(f"[sharded cli] lines differ: {differ[:4]}")
+
+
+# the real steps the dry-run phase (16a2) is held against
+REAL_STEPS: dict = {}
+
+
+def _tp_decode_step(model, params, mesh, card: str) -> dict:
+    """One decode step of ``NUM_SLOTS`` slots over ``MAX_PROMPT_LEN +
+    MAX_NEW_TOKENS``-row caches through the tensor-parallel apply (``tp``
+    the mesh's model group, as ``ShardedExecutor`` runs it) and the next
+    token's argmax: its collectives (as ``_count_collectives`` counts
+    them), K1 launches, the resident bytes before it and the peak during
+    it, and its ms (CUDA events, warm)."""
+    import torch
+    from repro_torch.kernels.flash_decode import flash_decode
+    tp = mesh.group("model")
+    cache = model.init_cache(NUM_SLOTS, MAX_PROMPT_LEN + MAX_NEW_TOKENS,
+                             device=mesh.device)
+    tokens = torch.zeros(NUM_SLOTS, 1, dtype=torch.int32, device=mesh.device)
+
+    def step():
+        logits, _ = model.decode(params, {"tokens": tokens}, cache, tp=tp)
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    step()
+    cache["pos"].zero_()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    flash_decode.launches = 0
+    counts = _count_collectives(step)
+    torch.cuda.synchronize()
+    out = {"collectives": counts, "launches": flash_decode.launches,
+           "resident": resident, "peak": torch.cuda.max_memory_allocated(),
+           "ms": cuda_ms(step, 20)}
+    say(f"   one TP decode step ({NUM_SLOTS} slots, "
+        f"{MAX_PROMPT_LEN + MAX_NEW_TOKENS}-row caches): {counts}, K1 "
+        f"{out['launches']}, resident {resident} B, peak {out['peak']} B, "
+        f"{out['ms']:.3f} ms [{card}]")
+    del cache
+    return out
 
 
 def _leaf(params, path: str):
@@ -3431,6 +3499,7 @@ def _sharded_run(label: str, arch: str, layers, batch: int, seq: int,
         batches = LMDataset(cfg, seq).batches(batch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
         flash_attention.launches = 0
         C.reset_counts()
         events, metrics, issued, kept, twins = [], [], [], [], []
@@ -3461,7 +3530,7 @@ def _sharded_run(label: str, arch: str, layers, batch: int, seq: int,
             losses=[float(m["loss"]) for m in metrics],
             gnorms=[float(m["grad_norm"]) for m in metrics],
             ms=[a.elapsed_time(e) for a, e in events],
-            peak=torch.cuda.max_memory_allocated(),
+            peak=torch.cuda.max_memory_allocated(), resident=resident,
             gathered_peak=C.GATHERED["peak"],
             train_k4=flash_attention.launches,
             kept=[[(r, int(k)) for r, k in step_] for step_ in kept],
@@ -3597,6 +3666,11 @@ def sharded_train_phase(card: str, records: dict) -> dict:
                                  f"single-device step: {gap_l}, {gap_g}")
         if run["peak"] >= 80e9:
             raise AssertionError(f"[{label}] peak {run['peak']} B")
+        if key == "qwen":
+            REAL_STEPS["train"] = {
+                "collectives": run["issued"][0], "launches": run["train_k4"],
+                "resident": run["resident"], "peak": run["peak"],
+                "ms": run["step_ms"]}
         out[key] = {"gap_loss": gap_l, "gap_gnorm": gap_g,
                     "collectives": dict(zip(kinds, per_step[0])),
                     "step_ms": run["step_ms"], "ratio": ratio,
@@ -3652,6 +3726,114 @@ def sharded_train_phase(card: str, records: dict) -> dict:
             out["flash_attention"] = run["eval_k4"]
     say(f"   sharded train counts: {json.dumps(out)}")
     say(f"== sharded train: {time.perf_counter() - t0:.1f} s [{card}]")
+    return out
+
+
+DRYRUN_TOL, DRYRUN_SLACK = 0.10, 256 << 20  # the larger of 10 % and 256 MiB
+_DRYRUN_CODE = r"""
+import dataclasses, json, numpy as np
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import LayoutMesh
+cases = json.loads(%r)
+lay = LayoutMesh(("data", "model"), np.arange(1).reshape(1, 1))
+full = get_config("qwen1.5-32b", "full")
+out = {}
+for key, layers, shape, kw in cases:
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    out[key] = D.trace_case(cfg, shape, lay, device="cuda", **kw)
+print(json.dumps(out))
+"""
+
+
+def dryrun_phase(card: str) -> dict:
+    """The dry run (``repro_torch.launch.dryrun``) of two steps this
+    script also runs for real, traced in a subprocess (a process makes
+    one world) as rank 0 of a one-rank fake world on fake CUDA tensors:
+    phase 16a1's qwen train step (4 layers, 4 x 1024, dp = 1, through
+    ``make_sharded_train_step``) and phase 11a's decode step (qwen FULL,
+    ``NUM_SLOTS`` slots over 392-row caches, through the tensor-parallel
+    apply; ``REAL_STEPS``).  Each census equal to the real step's
+    collectives, K1's would-be launches (the census's dispatches of its
+    fake-rule op) equal to the real step's launches, the predicted peak and temp bytes
+    within ``DRYRUN_TOL`` (or ``DRYRUN_SLACK``, the larger) of
+    ``max_memory_allocated`` and of its rise above the resident bytes;
+    the roofline's three terms and MODEL_FLOPS (its share of 989 TFLOP/s)
+    printed beside each step's measured ms."""
+    from repro_torch.analysis import roofline as R
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    t0 = time.perf_counter()
+    shapes = {"train": dict(kind="train", global_batch=TRAIN_BATCH,
+                            seq_len=TRAIN_SEQ),
+              "decode": dict(kind="decode", global_batch=NUM_SLOTS,
+                             seq_len=MAX_PROMPT_LEN + MAX_NEW_TOKENS)}
+    cases = [("train", TRAIN_LAYERS, shapes["train"], {"microbatches": 1}),
+             ("decode", None, shapes["decode"], {})]
+    r = subprocess.run(
+        [sys.executable, "-c", _DRYRUN_CODE % json.dumps(cases)],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join(
+            [str(ROOT / "src")] + [p for p in [os.environ.get(
+                "PYTHONPATH")] if p])})
+    if r.returncode != 0:
+        raise AssertionError(f"[dry run] exit {r.returncode}: "
+                             f"{r.stderr[-3000:]}")
+    traced = json.loads(r.stdout.splitlines()[-1])
+    say(f"== dry run: qwen1.5-32b train (4 layers, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}) and FULL decode ({NUM_SLOTS} slots x "
+        f"{MAX_PROMPT_LEN + MAX_NEW_TOKENS} rows) traced on a one-rank "
+        f"fake world in {time.perf_counter() - t0:.1f} s (trace "
+        f"{traced['train']['trace_s']} / {traced['decode']['trace_s']} s) "
+        f"[{card}]")
+    full = get_config(QWEN, "full")
+    out = {}
+    for key, layers, shape, _ in cases:
+        dry, real = traced[key], REAL_STEPS[key]
+        kinds = {k.replace("-", "_"): n
+                 for k, n in dry["collective_counts"].items()}
+        want = {k: real["collectives"].get(k, 0) for k in kinds}
+        k1 = dry["launches"]["flash_decode"]
+        others = {n: c for n, c in dry["launches"].items()
+                  if n != "flash_decode" and c}
+        rise = real["peak"] - real["resident"]
+        gaps = {}
+        for name, pred, meas in (("peak", dry["peak_bytes"], real["peak"]),
+                                 ("temp", dry["temp_size_in_bytes"], rise)):
+            gaps[name] = (pred - meas, max(DRYRUN_TOL * meas, DRYRUN_SLACK))
+        cfg = full if layers is None else dataclasses.replace(
+            full, n_layers=layers)
+        row = R.analyse(QWEN, shape, record={**dry, "n_devices": 1},
+                        cfg=cfg, mesh={"data": 1, "model": 1})
+        share = row.model_flops / (real["ms"] / 1e3 * PEAK_FLOPS_BF16)
+        say(f"   {key}: census {kinds} (the real step: "
+            f"{real['collectives']}); K1 {k1} would-be launches (real "
+            f"step launched {real['launches'] if key == 'decode' else 0}); "
+            f"predicted "
+            f"peak {dry['peak_bytes']} B = arguments "
+            f"{dry['argument_size_in_bytes']} + temp "
+            f"{dry['temp_size_in_bytes']}, measured peak {real['peak']} B "
+            f"(resident {real['resident']}, rise {rise}): gaps "
+            f"{gaps['peak'][0]} / {gaps['temp'][0]} B (bars "
+            f"{gaps['peak'][1]:.0f} / {gaps['temp'][1]:.0f}) [{card}]")
+        say(f"   {key}: roofline compute {row.compute_s * 1e3:.4f} ms, "
+            f"memory {row.memory_s * 1e3:.4f} ms, collective "
+            f"{row.collective_s * 1e3:.4f} ms ({row.dominant}); counted "
+            f"{dry['flops']:.4g} FLOP, MODEL_FLOPS {row.model_flops:.4g} "
+            f"= {share:.4f} of 989 TFLOP/s at the measured "
+            f"{real['ms']:.3f} ms a step [{card}]")
+        real_k1 = real["launches"] if key == "decode" else 0
+        if kinds != want or k1 != real_k1 or others:
+            raise AssertionError(f"[dry run {key}] census {kinds} vs "
+                                 f"{want}, K1 {k1} vs {real_k1}, {others}")
+        for name, (gap, bar) in gaps.items():
+            if abs(gap) > bar:
+                raise AssertionError(f"[dry run {key}] {name} off by {gap} "
+                                     f"B (bar {bar:.0f})")
+        out[key] = {"census": kinds, "k1": k1, "gaps": gaps,
+                    "share": share, "dominant": row.dominant}
+    say(f"== dry run: {time.perf_counter() - t0:.1f} s [{card}]")
     return out
 
 
@@ -5444,6 +5626,7 @@ def main() -> None:
     mamba_train_phase(card)
     train_launches = train_families_phase(card, records)
     sharded_train_phase(card, records)
+    dryrun_phase(card)
     moe_gqa_serve_phase(card, router)
     gemma_launches = gemma3_serve_phase(card, router)
     mla_serve_phase(card, router)

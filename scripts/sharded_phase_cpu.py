@@ -55,6 +55,9 @@ class _Event:
     def elapsed_time(self, other):
         return (other.t - self.t) * 1e3
 
+    def synchronize(self):
+        pass
+
 
 def _counted(wrapper, plain):
     def call(*a, **kw):
@@ -71,7 +74,7 @@ def main() -> None:
         mock.patch.object(torch.cuda, "Event", _Event),
         *(mock.patch.object(torch.cuda, name, lambda *a: None) for name in
           ("synchronize", "empty_cache", "reset_peak_memory_stats",
-           "set_sync_debug_mode")),
+           "set_sync_debug_mode", "_sleep")),
         *(mock.patch.object(torch.cuda, name, lambda *a: 0) for name in
           ("memory_allocated", "max_memory_allocated")),
         mock.patch.object(torch.cuda.nccl, "version", lambda: (0, 0, 0)),

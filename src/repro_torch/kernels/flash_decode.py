@@ -17,13 +17,23 @@ or narrow by :func:`wide_blocks`.  Both depend on shapes alone, never on
 and their times on the card: ``scripts/flash_decode_sweep.py``.
 
 * :func:`flash_decode` — the wrapper.  CPU tensors take the plain
-  version; CUDA tensors launch the kernel or raise (there is no
-  fallback).  ``flash_decode.launches`` counts kernel launches (one a
+  version; CUDA tensors go through the op
+  ``torch.ops.repro_torch.flash_decode``, whose CUDA kernel
+  (:func:`_launch`) launches the hand-written kernel or raises (there
+  is no fallback).  ``flash_decode.launches`` counts kernel launches (one a
   call).  The partials and tickets of the merge live in a per-(device,
   stream) scratch the module keeps (:func:`_scratch`, shared with the
   paged kernel); the kernel leaves the tickets at zero.
 * :func:`flash_decode_torch` — the plain PyTorch version, with the
   semantics of the reference's ``kernels/ref.py::flash_decode_ref``.
+* The fake rule: on a fake CUDA tensor (``FakeTensorMode``, the dry run
+  of :mod:`repro_torch.launch.dryrun`) the op's fake kernel gives the
+  output's shape and dtype and computes nothing; ``FlopCounterMode``
+  counts the op at :func:`decode_flops`, what it counts for the plain
+  version at the same shapes, and the dry run's census counts its
+  dispatches as the launches the card would make.  ``launches`` counts
+  real launches only.  What the op's dispatch costs beside calling
+  :func:`_launch` directly: ``scripts/flash_decode_op_cost.py``.
 
 Contract (that of the reference's ``ops.flash_decode``): q ``(B, H, D)``;
 k/v ``(B, L, Hkv, D)``; lengths ``(B,)`` int32 valid kv entries per
@@ -34,6 +44,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 
@@ -86,16 +97,43 @@ def flash_decode_torch(q, k, v, lengths):
 
 
 def flash_decode(q, k, v, lengths):
-    """Decode attention: the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors."""
+    """Decode attention: the plain version for CPU tensors, the op (the
+    CUDA kernel) for CUDA tensors.  On fake CUDA tensors the op takes
+    its fake rule: no kernel runs and nothing is computed, so it is no
+    fallback to the plain version."""
     if q.device.type == "cpu":
         return flash_decode_torch(q, k, v, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
-    return _launch(q, k, v, lengths)
+    return torch.ops.repro_torch.flash_decode(q, k, v, lengths)
 
 
 flash_decode.launches = 0
+
+
+def decode_flops(B: int, H: int, L: int, D: int, Dv: int) -> int:
+    """The products of a decode step's attention over the padded ``L``:
+    q.k^T and p.v, what ``FlopCounterMode`` counts for
+    :func:`flash_decode_torch` (its two einsums; the softmax is not
+    counted)."""
+    return 2 * B * H * L * (D + Dv)
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_decode(Tensor q, Tensor k, Tensor v, Tensor lengths) "
+            "-> Tensor")
+
+
+@torch.library.register_fake("repro_torch::flash_decode", lib=_LIB)
+def _flash_decode_fake(q, k, v, lengths):
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_decode)
+def _flash_decode_flops(q_shape, k_shape, v_shape, lengths_shape,
+                        out_shape=None, **kwargs) -> int:
+    B, H, D = q_shape
+    return decode_flops(B, H, k_shape[1], D, v_shape[-1])
 
 
 def _check(q, k, v, lengths) -> None:
@@ -191,3 +229,6 @@ def _launch(q, k, v, lengths):
                            f"{rc}")
     flash_decode.launches += 1
     return out
+
+
+_LIB.impl("flash_decode", _launch, "CUDA")

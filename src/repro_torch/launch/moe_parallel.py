@@ -11,6 +11,7 @@ from __future__ import annotations
 from functools import partial
 
 from repro_torch.core.config import ModelConfig
+from repro_torch.launch.mesh import BATCH
 from repro_torch.models.moe import moe_apply_ep
 
 
@@ -26,12 +27,11 @@ def make_ep_moe_fn(mesh, capacity_factor: float = 1.25, comm_dtype=None,
     this rank's rows: a batch the data axis divides is split over
     it, one it does not is the same on every rank, as the reference's
     ``x_spec`` replicates it (the block computes the same either way).
-    The ``all_to_all`` runs over ``data``; the aux loss is averaged over
-    the replica ranks (``data``: the port's meshes have no ``pod``
-    axis)."""
+    The ``all_to_all`` runs over ``data``, within each pod; the aux loss
+    is averaged over the replica ranks, ``pod`` x ``data``."""
     fn = partial(moe_apply_ep, data_group=mesh.group("data"),
                  model_group=mesh.group("model"),
-                 replica_group=mesh.group("data"),
+                 replica_group=mesh.group(BATCH),
                  capacity_factor=capacity_factor, comm_dtype=comm_dtype,
                  scatter_down=scatter_down)
 

@@ -47,9 +47,14 @@ def batch_specs(cfg: ModelConfig, shape_name: str, mesh) -> Dict[str, Any]:
     """Train / prefill / decode batch stand-ins (tokens, labels, the
     modality inputs)."""
     sh = INPUT_SHAPES[shape_name]
-    B, S = sh["global_batch"], sh["seq_len"]
-    kind = sh["kind"]
+    return batch_specs_at(cfg, sh["kind"], sh["global_batch"], sh["seq_len"],
+                          mesh)
 
+
+def batch_specs_at(cfg: ModelConfig, kind: str, B: int, S: int,
+                   mesh) -> Dict[str, Any]:
+    """:func:`batch_specs` at a ``kind`` ("train", "prefill" or
+    "decode"), global batch ``B`` and sequence ``S`` of one's own."""
     specs: Dict[str, Any] = {}
     if kind == "decode":
         specs["tokens"] = _batch_sds((B, 1), "int32", mesh, B)
@@ -97,8 +102,20 @@ def opt_specs(cfg: ModelConfig, mesh, *, ep: bool = False):
 def cache_specs(cfg: ModelConfig, shape_name: str, mesh):
     """The decode cache at the shape's batch and length."""
     sh = INPUT_SHAPES[shape_name]
-    B, S = sh["global_batch"], sh["seq_len"]
+    return cache_specs_at(cfg, sh["global_batch"], sh["seq_len"], mesh)
+
+
+def cache_specs_at(cfg: ModelConfig, B: int, S: int, mesh):
+    """:func:`cache_specs` at a batch and length of one's own."""
     return _schema_sds(init_cache_schema(cfg, B, S), mesh, fsdp=False)
+
+
+def serve_param_specs(cfg: ModelConfig, mesh, *, ep: bool = False):
+    """The decoder's parameters as the serving apply holds them: whole
+    over ``data`` (``ShardedExecutor``'s placement; ``model.prefill``
+    and ``decode`` have no FSDP gather), the experts over ``data`` under
+    EP."""
+    return _schema_sds(decoder_param_schema(cfg), mesh, fsdp=False, ep=ep)
 
 
 def use_ep(cfg: ModelConfig, mesh) -> bool:

@@ -1,5 +1,5 @@
 """Sharded train and eval steps: FSDP over ``data`` x tensor parallel
-over ``model``, on ``torch.distributed``.
+over ``model`` (x data parallel over ``pod``), on ``torch.distributed``.
 
 The reference has no module of this name: it jits ``make_train_step``
 over FSDP specs (``launch/specs.py::param_specs`` / ``opt_specs``, built
@@ -30,17 +30,25 @@ mesh))`` (:func:`train_specs`; :func:`shard_params` and
   collectives, the embedding's masked lookup and the logits gathered
   over the vocab; :func:`~repro_torch.models.transformer.
   check_tensor_parallel` refuses MLA, Mamba2 and Whisper at mp > 1.
+* **The multi-pod layout** (a mesh with a ``pod`` axis, the
+  reference's ``(2, 16, 16)``): the batch's rows split over ``pod`` x
+  ``data``, pod-major; the weights are placed as on one pod (the
+  resolver puts no leaf on ``pod``), so FSDP and EP stay within a pod,
+  over ``data``.
 * **The loss** is the global batch's mean: each rank's CE sums and
-  valid counts are summed over ``data`` before the division.  The MoE
-  aux loss without EP takes its means over the global batch
-  (:func:`~repro_torch.models.moe.router_probs` with ``data``); with EP
-  the ranks' aux is averaged, as the reference's ``pmean`` does.
+  valid counts are summed over ``pod`` x ``data`` before the division.
+  The MoE aux loss without EP takes its means over the global batch
+  (:func:`~repro_torch.models.moe.router_probs` over ``pod`` x
+  ``data``); with EP the ranks' aux is averaged over ``pod`` x
+  ``data``, as the reference's ``pmean`` over its replica axes does.
 * **Gradients.**  A leaf not split over ``data`` (below
   ``FSDP_MIN_SIZE``: norms, biases) has its gradient summed over
-  ``data`` (one all-reduce a dtype); a leaf replicated over ``model``
-  already has the same gradient on every model rank.  The clipping
-  norm counts each leaf once (``global_norm`` with the mesh) and AdamW
-  updates the shards in place.
+  ``pod`` x ``data`` (one all-reduce a dtype); a leaf split over
+  ``data`` (FSDP, EP) has its reduce-scattered shard summed over
+  ``pod`` where the mesh has that axis (one all-reduce a dtype); a leaf
+  replicated over ``model`` already has the same gradient on every
+  model rank.  The clipping norm counts each leaf once (``global_norm``
+  with the mesh) and AdamW updates the shards in place.
 
 On a mesh axis of one rank the collectives still run: the gather is a
 copy of the leaf (one layer's weights at a time), the reduce-scatter a
@@ -55,6 +63,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.launch.mesh import BATCH
 from repro_torch.launch.specs import use_ep
 from repro_torch.models import collectives as C
 from repro_torch.models.moe import moe_apply_ragged
@@ -124,6 +133,9 @@ class _Sharded:
         check_tensor_parallel(named_specs(model.schema, self.specs), mp)
         self.tp = C.GradGroup(mesh.group("model")) if mp > 1 else None
         self.data = mesh.group("data")
+        # the batch's axes: pod x data (data alone without a pod axis)
+        self.batch = mesh.group(BATCH)
+        self.pod = mesh.group("pod") if "pod" in mesh.axis_names else None
         # a caller's moe_fn is expert-parallel: its expert leaves stay
         # on their data shards
         ep = moe_fn is not None
@@ -132,7 +144,7 @@ class _Sharded:
                              f"the experts to divide data={mesh.dp}")
         # without EP the MoE layers take the aux loss's global means
         self.moe_fn = moe_fn if moe_fn is not None or cfg.moe is None else (
-            partial(moe_apply_ragged, tp=self.tp, data=self.data))
+            partial(moe_apply_ragged, tp=self.tp, data=self.batch))
         # the dim each leaf is gathered on over data (None: not gathered)
         self.dims = tree_map_with_path(lambda path, ps: next(
             (i for i, e in enumerate(leaf_at(self.specs, path))
@@ -147,6 +159,8 @@ class _Sharded:
                            named_specs(model.schema, self.specs)]
         self.whole = [i for i, spec in enumerate(self.leaf_specs)
                       if "data" not in _axes(spec)]
+        self.split = [i for i, spec in enumerate(self.leaf_specs)
+                      if "data" in _axes(spec)]
 
     def gather(self, tree, path):
         dims = (self.sliced[path[0]] if path[0] in self.sliced
@@ -156,8 +170,8 @@ class _Sharded:
 
     def rows(self, batch: Dict[str, torch.Tensor], microbatches: int):
         """This rank's rows of each of ``microbatches`` consecutive
-        blocks of the global batch (views)."""
-        dp, r = self.mesh.dp, self.mesh.coord("data")
+        blocks of the global batch (views), over ``pod`` x ``data``."""
+        dp, r = self.mesh.batch_shards, self.mesh.batch_index
         out = []
         for i in range(microbatches):
             mb = {}
@@ -165,7 +179,8 @@ class _Sharded:
                 if x.shape[0] % (dp * microbatches):
                     raise ValueError(
                         f"batch of {x.shape[0]} rows does not split into "
-                        f"{microbatches} microbatches over {dp} data ranks")
+                        f"{microbatches} microbatches over {dp} batch "
+                        f"shards")
                 b = x.shape[0] // (dp * microbatches)
                 mb[k] = x[(i * dp + r) * b:(i * dp + r + 1) * b]
             out.append(mb)
@@ -173,10 +188,10 @@ class _Sharded:
 
     def loss(self, tot, n, aux, mtot, mn):
         """The global loss of this rank's sums: CE sums and counts summed
-        over ``data`` (one all-reduce), then divided."""
+        over ``pod`` x ``data`` (one all-reduce), then divided."""
         parts = [tot, n.float()] + ([] if mtot is None
                                     else [mtot, mn.float()])
-        s = C.sum_shared(torch.stack(parts), self.data)
+        s = C.sum_shared(torch.stack(parts), self.batch)
         return combine_loss(s[0], s[1], aux,
                             *(() if mtot is None else (s[2], s[3])))
 
@@ -215,7 +230,9 @@ def make_sharded_train_step(model: Model, opt_cfg: OptConfig, mesh, *,
     def train_step(params, opt_state, batch):
         loss, grads = value_and_grads(loss_for, params,
                                       sh.rows(batch, microbatches))
-        _sum_whole(grads, sh.whole, sh.data)
+        _sum_over(grads, sh.whole, sh.batch)
+        if sh.pod is not None:
+            _sum_over(grads, sh.split, sh.pod)
         params, opt_state, metrics = adamw_update(
             grads, opt_state, params, opt_cfg, mesh=mesh, specs=sh.leaf_specs)
         metrics["loss"] = loss
@@ -228,7 +245,7 @@ def make_sharded_eval_step(model: Model, mesh, *, moe_fn=None):
     """Returns eval_step(params, batch) -> the global loss (a float32
     tensor), :func:`repro_torch.training.steps.make_eval_step` over
     ``mesh`` (the whole logits of this rank's rows, ``loss_fn``'s sums
-    summed over ``data``).  The attention takes the reference's kernel
+    summed over ``pod`` x ``data``).  The attention takes the reference's kernel
     gate as ``make_eval_step`` does: K4 under
     ``cfg.use_pallas_attention``."""
     sh = _Sharded(model, mesh, moe_fn)
@@ -247,11 +264,11 @@ def make_sharded_eval_step(model: Model, mesh, *, moe_fn=None):
 
 
 @torch.no_grad()
-def _sum_whole(grads, whole, group) -> None:
-    """Sum the gradients at ``whole`` over ``group`` in place, one
+def _sum_over(grads, idx, group) -> None:
+    """Sum the gradients at ``idx`` over ``group`` in place, one
     all-reduce of their concatenation a dtype."""
     by_dtype: Dict[torch.dtype, list] = {}
-    for i in whole:
+    for i in idx:
         by_dtype.setdefault(grads[i].dtype, []).append(i)
     for idx in by_dtype.values():
         flat = C.reduce_sum(torch.cat([grads[i].reshape(-1) for i in idx]),

@@ -139,7 +139,11 @@ def test_cuda_request_launches_or_raises_never_falls_back(
     with no card and no nvcc that is an error, never the plain path.
     Tensors of a request within the contract reach the build having
     chosen the partitions and sized the merge's scratch -- fake tensors,
-    whose values cannot be read, so neither reads ``lengths``."""
+    whose values cannot be read, so neither reads ``lengths``.  The
+    wrapper sends a CUDA tensor to the op ``repro_torch::flash_decode``,
+    whose CUDA kernel is ``_launch``; a fake tensor would take the op's
+    fake rule (``tests/test_torch_dryrun.py``), so these fake tensors,
+    standing for real ones, are given to ``_launch`` itself."""
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour on a host without a card")
 
@@ -155,8 +159,10 @@ def test_cuda_request_launches_or_raises_never_falls_back(
         k = _fake_cuda((B, L, Hkv, head_dim), dtype)
         lens = torch.ones(B, dtype=torch.int32, device="cuda")
         with pytest.raises(error, match=match):
-            fd.flash_decode(q, k, k, lens)
+            fd._launch(q, k, k, lens)
     assert fd.flash_decode.launches == before
+    assert torch._C._dispatch_has_kernel_for_dispatch_key(
+        "repro_torch::flash_decode", "CUDA")
     if error is not RuntimeError:
         return
     parts, _ = fd.partitions(L)

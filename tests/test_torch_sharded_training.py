@@ -8,15 +8,18 @@ CPU) on the same weights (the reference's ``Model.init`` plus seeded
 numpy noise, carried across by the bridge) and the same global batch,
 for 3 AdamW steps at lr 1e-3:
 
-* qwen SMOKE in float32 at dp = 2, dp = 4, mp = 2 and dp = 2 x mp = 2;
+* qwen SMOKE in float32 at dp = 2, dp = 4, mp = 2 and dp = 2 x mp = 2,
+  and on the multi-pod layout at pod = 2 x dp = 2 and pod = 2 x mp = 2
+  (the rows over pod x data, the FSDP shards' gradients summed over
+  pod);
   at dp = 2 also with labels ignored in one rank's rows only (the loss
   is still the global mean) and at ``microbatches=2``;
 * dbrx SMOKE at dp = 3, which does not divide its 4 experts: the
   non-EP path, whose aux loss takes the global batch's means as the
   reference's does; and with no ``moe_fn`` at mp = 2, the experts'
   d_ff split over the model ranks (``moe_apply_ragged`` under ``tp``);
-* dbrx SMOKE with the expert-parallel ``moe_fn`` at dp = 2 and dp = 2 x
-  mp = 2, capacity 2.0 = E / k (no row drops), against the reference's
+* dbrx SMOKE with the expert-parallel ``moe_fn`` at dp = 2, dp = 2 x
+  mp = 2 and pod = 2 x dp = 2 (EP within a pod), capacity 2.0 = E / k (no row drops), against the reference's
   step with ``load_balance_coef = 0`` in both packages (EP averages the
   ranks' aux losses, GSPMD takes the global one); separately the EP aux
   against the mean of the reference's aux over each rank's rows.
@@ -190,6 +193,9 @@ def runs(tmp_path_factory):
         "dp=2,mp=2": [steps("qwen", QWEN, {}, qp, qb),
                       steps("dbrx_ep", DBRX, NO_COEF, dp_, db4, "ep")],
         "dp=3": [steps("dbrx_global_aux", DBRX, {}, dp_, db6)],
+        "pod=2,dp=2": [steps("qwen", QWEN, {}, qp, qb),
+                       steps("dbrx_ep", DBRX, NO_COEF, dp_, db4, "ep")],
+        "pod=2,mp=2": [steps("qwen", QWEN, {}, qp, qb)],
     }
     port = {}
     for spec, cases in worlds.items():
@@ -218,7 +224,9 @@ STEP_CASES = [("dp=2", "qwen"), ("dp=4", "qwen"), ("dp=1,mp=2", "qwen"),
               ("dp=2,mp=2", "qwen"), ("dp=2", "qwen_one_rank_ignored"),
               ("dp=2", "qwen_mb2"), ("dp=3", "dbrx_global_aux"),
               ("dp=1,mp=2", "dbrx_global_aux"),
-              ("dp=2", "dbrx_ep"), ("dp=2,mp=2", "dbrx_ep")]
+              ("dp=2", "dbrx_ep"), ("dp=2,mp=2", "dbrx_ep"),
+              ("pod=2,dp=2", "qwen"), ("pod=2,dp=2", "dbrx_ep"),
+              ("pod=2,mp=2", "qwen")]
 IDS = [f"{s}-{k}" for s, k in STEP_CASES]
 
 
@@ -353,3 +361,17 @@ def test_mp2_refuses_mla_mamba2_whisper(runs, arch):
         assert msg is not None, f"{arch} trained at mp=2"
         assert "at mp=2 has no collective" in msg, msg
         assert "ROADMAP.md queue 1, item 9" in msg
+
+
+def test_pod_sums_the_fsdp_shards_gradients_over_pod(runs):
+    """On the multi-pod layout a step adds one all-reduce a dtype: the
+    FSDP shards' reduce-scattered gradients summed over pod (the loss's
+    sums and the unsplit leaves' gradients go over pod x data in the
+    same all-reduces as on one pod)."""
+    _, port = runs
+    for r in port["pod=2,dp=2"]:
+        for issued in r["qwen"]["issued"]:
+            assert issued["all_reduce"] == 4, issued
+    coords = sorted(tuple(r["coords"][a] for a in ("pod", "data", "model"))
+                    for r in port["pod=2,dp=2"])
+    assert coords == [(0, 0, 0), (0, 1, 0), (1, 0, 0), (1, 1, 0)]

@@ -223,3 +223,33 @@ def _named(model, mesh):
     from repro_torch.sharding import named_specs
     from repro_torch.training.sharded import train_specs
     return named_specs(model.schema, train_specs(model, mesh))
+
+
+# ---------------------------------------------------------------------------
+# The dry run against a real world
+# ---------------------------------------------------------------------------
+
+
+def dryrun_real(rank, spec, arch, over, shape):
+    """The dry run's counted fields of this rank's step (``shape``: the
+    dry run's kind / global_batch / seq_len) run for real on the mesh
+    ``spec`` (zero weights and batch)."""
+    import torch
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_serving_mesh
+    mesh = make_serving_mesh(spec, device="cpu")
+    fn, args, info, nbytes = D.build_step(_cfg(arch, **over), shape, mesh,
+                                          device=torch.device("cpu"))
+    rec = D.trace(fn, args, nbytes)
+    rec["info"] = info
+    return rec
+
+
+def dryrun_fake(rank, axes, grid, arch, over, shape):
+    """The same step traced as rank 0 of a fake world of the grid's size
+    (this process's gloo world of one is replaced)."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import LayoutMesh
+    layout = LayoutMesh(tuple(axes),
+                        np.arange(int(np.prod(grid))).reshape(grid))
+    return D.trace_case(_cfg(arch, **over), shape, layout, device="cpu")

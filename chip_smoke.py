@@ -235,6 +235,20 @@ Phases, each on its own lines; any failure exits nonzero:
                ``max_memory_allocated`` and its rise above the resident
                bytes; the roofline's three terms and MODEL_FLOPS (as a
                share of 989 TFLOP/s) beside each step's measured ms.
+               Then the head_dim route (kv heads, or heads too, that the
+               production mesh's mp = 16 does not divide): qwen FULL's
+               decode_32k and train_4k and command-r FULL's decode_32k,
+               unpadded, traced as rank 0 of the fake 16 x 16 world on
+               fake CUDA tensors and, concurrently, on fake CPU tensors
+               (two more subprocesses): census, collective bytes,
+               per-rank peak and temp, FLOPs and K1's would-be launches
+               printed, the census and bytes equal on both and K1 0 on
+               both (the split layers take the plain route on either);
+               and the route's split-score decode attention at qwen
+               FULL's decode shape (B = 8, L = 392 ragged, H = 40, D =
+               128, bf16), its float32 partial scores all-reduced over a
+               one-rank NCCL group: equal to the plain attention, within
+               the kernel tolerance of K1, each timed.
 16a. moe/gqa serve — the mixture-of-experts and GQA families at their
                published widths through ``Gateway.serve``, one after the
                other, each after the previous model is freed:
@@ -3747,6 +3761,49 @@ print(json.dumps(out))
 """
 
 
+# the head_dim route's production-mesh traces (phase 16a2): unpadded
+# on the 16 x 16 layout; train_4k at one microbatch (the CLI picks 16:
+# the same ops 16 times over, minutes of tracing)
+DRYRUN_MESH_CASES = (("qwen1.5-32b", "decode_32k", None),
+                     ("command-r-35b", "decode_32k", None),
+                     ("qwen1.5-32b", "train_4k", 1))
+_DRYRUN_MESH_CODE = r"""
+import json, sys
+from repro_torch.launch import dryrun as D
+out = {}
+for arch, shape, mb in json.loads(sys.argv[2]):
+    out[f"{arch} {shape}"] = D.run_one(arch, shape, "single",
+                                       device=sys.argv[1], microbatches=mb)
+print(json.dumps(out))
+"""
+
+
+def _subprocess(code: str, *args) -> subprocess.Popen:
+    """``python -c code args`` from the repo root with ``src`` on the
+    path, its output piped."""
+    return subprocess.Popen(
+        [sys.executable, "-c", code, *args], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join(
+            [str(ROOT / "src")] + [p for p in [os.environ.get(
+                "PYTHONPATH")] if p])})
+
+
+def _finish(proc: subprocess.Popen, label: str, timeout: float) -> dict:
+    """The JSON of the last line ``proc`` printed (killed past
+    ``timeout``)."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"[{label}] still running after {timeout} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"[{label}] exit {proc.returncode}: "
+                             f"{err[-3000:]}")
+    return json.loads(out.splitlines()[-1])
+
+
 def dryrun_phase(card: str) -> dict:
     """The dry run (``repro_torch.launch.dryrun``) of two steps this
     script also runs for real, traced in a subprocess (a process makes
@@ -3760,7 +3817,11 @@ def dryrun_phase(card: str) -> dict:
     within ``DRYRUN_TOL`` (or ``DRYRUN_SLACK``, the larger) of
     ``max_memory_allocated`` and of its rise above the resident bytes;
     the roofline's three terms and MODEL_FLOPS (its share of 989 TFLOP/s)
-    printed beside each step's measured ms."""
+    printed beside each step's measured ms.  Beside that subprocess two
+    more trace ``DRYRUN_MESH_CASES`` unpadded as rank 0 of the fake 16 x
+    16 world, on fake CUDA and on fake CPU tensors: the census and
+    collective bytes equal, K1 0 on both (the head_dim route's layers
+    decode on the plain route); then :func:`split_score_check`."""
     from repro_torch.analysis import roofline as R
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import PEAK_FLOPS_BF16
@@ -3771,16 +3832,20 @@ def dryrun_phase(card: str) -> dict:
                              seq_len=MAX_PROMPT_LEN + MAX_NEW_TOKENS)}
     cases = [("train", TRAIN_LAYERS, shapes["train"], {"microbatches": 1}),
              ("decode", None, shapes["decode"], {})]
-    r = subprocess.run(
-        [sys.executable, "-c", _DRYRUN_CODE % json.dumps(cases)],
-        capture_output=True, text=True, timeout=300, cwd=ROOT,
-        env={**os.environ, "PYTHONPATH": os.pathsep.join(
-            [str(ROOT / "src")] + [p for p in [os.environ.get(
-                "PYTHONPATH")] if p])})
-    if r.returncode != 0:
-        raise AssertionError(f"[dry run] exit {r.returncode}: "
-                             f"{r.stderr[-3000:]}")
-    traced = json.loads(r.stdout.splitlines()[-1])
+    # the production-mesh traces run beside the one-rank ones
+    mesh_procs = {dev: _subprocess(_DRYRUN_MESH_CODE, dev,
+                                   json.dumps(DRYRUN_MESH_CASES))
+                  for dev in ("cuda", "cpu")}
+    try:
+        traced = _finish(_subprocess(_DRYRUN_CODE % json.dumps(cases)),
+                         "dry run", 300)
+        mesh = {dev: _finish(proc, f"dry run 16 x 16 {dev}", 600)
+                for dev, proc in mesh_procs.items()}
+    finally:
+        for proc in mesh_procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     say(f"== dry run: qwen1.5-32b train (4 layers, {TRAIN_BATCH} x "
         f"{TRAIN_SEQ}) and FULL decode ({NUM_SLOTS} slots x "
         f"{MAX_PROMPT_LEN + MAX_NEW_TOKENS} rows) traced on a one-rank "
@@ -3833,8 +3898,85 @@ def dryrun_phase(card: str) -> dict:
                                      f"B (bar {bar:.0f})")
         out[key] = {"census": kinds, "k1": k1, "gaps": gaps,
                     "share": share, "dominant": row.dominant}
+    for arch, shape, mb in DRYRUN_MESH_CASES:
+        key = f"{arch} {shape}"
+        card_rec, cpu_rec = mesh["cuda"][key], mesh["cpu"][key]
+        k1 = {d: r["launches"]["flash_decode"] for d, r in mesh.items()
+              for r in [r[key]]}
+        say(f"   16 x 16, {key} unpadded (rank 0 of 256, fake tensors; "
+            f"{'microbatches ' + str(mb) if mb else 'one step'}): census "
+            f"{card_rec['collective_counts']}, collective bytes "
+            f"{card_rec['collective_bytes']}; peak "
+            f"{card_rec['peak_bytes']} B, temp "
+            f"{card_rec['temp_size_in_bytes']} B (on cpu tensors "
+            f"{cpu_rec['peak_bytes']} / {cpu_rec['temp_size_in_bytes']}); "
+            f"{card_rec['flops']:.4g} FLOP; K1 would-be launches {k1}; "
+            f"traced in {card_rec['trace_s']} / {cpu_rec['trace_s']} s "
+            f"[{card}]")
+        if (card_rec["collective_counts"] != cpu_rec["collective_counts"]
+                or card_rec["collective_bytes"]
+                != cpu_rec["collective_bytes"] or any(k1.values())):
+            raise AssertionError(f"[dry run 16 x 16 {key}] card "
+                                 f"{card_rec['collective_counts']} vs cpu "
+                                 f"{cpu_rec['collective_counts']}, K1 {k1}")
+        out[key] = {"census": card_rec["collective_counts"],
+                    "peak": card_rec["peak_bytes"]}
+    out["split_scores"] = split_score_check(card)
     say(f"== dry run: {time.perf_counter() - t0:.1f} s [{card}]")
     return out
+
+
+def split_score_check(card: str) -> dict:
+    """The head_dim route's decode attention (``models/layers.py::
+    attention`` with ``reduce``: float32 partial scores summed over the
+    model group before the scale, the masks and the softmax) at qwen
+    FULL's decode shape, through a one-rank NCCL group: equal to the
+    plain attention (a one-rank all-reduce leaves the scores as they
+    are) and within ``KERNEL_TOL`` of K1 on the same rows; each timed
+    warm by CUDA events."""
+    import torch
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models import layers as L
+    B, Lk, H, D = NUM_SLOTS, MAX_PROMPT_LEN + MAX_NEW_TOKENS, 40, 128
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+    q, k, v = rnd(B, 1, H, D), rnd(B, Lk, H, D), rnd(B, Lk, H, D)
+    lens = torch.randint(1, Lk + 1, (B,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    lens[0], lens[1] = 1, Lk
+    pos = (lens - 1)[:, None]
+    with _serving_mesh() as mesh:
+        group = mesh.group("model")
+
+        def split():
+            return L.attention(q, k, v, q_pos=pos, kv_len=lens,
+                               head_dim=D,
+                               reduce=lambda s: L.all_reduce(s, group))
+
+        def plain():
+            return L.attention(q, k, v, q_pos=pos, kv_len=lens)
+
+        def k1():
+            return flash_decode(q[:, 0], k, v, lens)
+        got, want, kern = split(), plain(), k1()
+        torch.cuda.synchronize()
+        err_plain = (got.float() - want.float()).abs().max().item()
+        err_k1 = (got[:, 0].float() - kern.float()).abs().max().item()
+        ms = {name: cuda_ms(fn, 50) for name, fn in
+              (("split", split), ("plain", plain), ("k1", k1))}
+    say(f"   head_dim route's split-score decode attention (B={B}, L={Lk} "
+        f"ragged, H={H}, D={D}, bf16; scores all-reduced over a one-rank "
+        f"NCCL group): max_abs_err {err_plain:.3e} vs the plain attention, "
+        f"{err_k1:.3e} vs K1 (tol {KERNEL_TOL:.0e}); "
+        f"{ms['split'] * 1e3:.2f} us, plain {ms['plain'] * 1e3:.2f} us, "
+        f"K1 {ms['k1'] * 1e3:.2f} us [{card}]")
+    if err_plain != 0.0 or not err_k1 <= KERNEL_TOL:
+        raise AssertionError(f"[split scores] {err_plain} vs plain, "
+                             f"{err_k1} vs K1")
+    return {"err_k1": err_k1, **ms}
 
 
 def _greedy_gaps(model, params, rec) -> tuple:

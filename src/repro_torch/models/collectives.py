@@ -13,10 +13,13 @@ that this convention needs:
   Megatron ``f``) is the identity forward and all-reduces the gradient;
 * an all-gather whose result every rank uses alike (the logits' vocab,
   the expert output's ``d`` after ``scatter_down``) keeps this rank's
-  slice of the gradient; the FSDP gather of a weight, whose result each
-  data rank uses on its own rows, reduce-scatters (sums) it instead;
+  slice of the gradient; an all-gather whose result each rank uses on
+  its own part (the FSDP gather of a weight, used on the data rank's
+  rows; the ``head_dim`` rows of q / k / v a tensor-parallel attention
+  gathers, used for the rank's own heads) reduce-scatters (sums) it
+  instead;
 * a reduce-scatter all-gathers the gradient; an all-to-all sends it
-  back the way the rows came.
+  back the way the rows came (with uneven blocks too).
 
 ``torch.distributed.nn.functional.all_reduce`` is not used: its
 backward all-reduces again, which would multiply every upstream
@@ -107,12 +110,17 @@ def _slice(x, group, dim: int):
     return x.narrow(dim, r * s, s).contiguous()
 
 
-def _all_to_all(x, group):
-    """Block i of dim 0 to rank i; block j of the result from rank j."""
+def _all_to_all(x, group, sizes=None, out_sizes=None):
+    """Block i of dim 0 to rank i; block j of the result from rank j.
+    Equal blocks, or the rows of dim 0 ``sizes`` sends and ``out_sizes``
+    receives, rank by rank."""
     ISSUED["all_to_all"] += 1
     x = x.contiguous()
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
+    if sizes is None:
+        out = torch.empty_like(x)
+    else:
+        out = x.new_empty((sum(out_sizes),) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x, out_sizes, sizes, group=group)
     return out
 
 
@@ -139,6 +147,20 @@ class _CopyToSplit(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return reduce_sum(g.clone(), ctx.group), None
+
+
+class _GatherSplit(torch.autograd.Function):
+    """All-gather on ``dim`` forward; the gradient reduce-scattered
+    (summed over the group, this rank's block) backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, ctx.dim), None, None
 
 
 class _GatherShared(torch.autograd.Function):
@@ -180,31 +202,27 @@ def _untrack(n: int) -> None:
     GATHERED["live"] -= n
 
 
-class _GatherWeight(torch.autograd.Function):
-    """FSDP: all-gather a weight's shards on ``dim`` forward; the
-    gradient reduce-scattered (summed over the data ranks) backward."""
+class _GatherWeight(_GatherSplit):
+    """FSDP: :class:`_GatherSplit` of a weight's shards, its bytes
+    tracked in :data:`GATHERED`."""
 
     @staticmethod
     def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
-        out = all_gather(x, group, dim)
+        out = _GatherSplit.forward(ctx, x, group, dim)
         _track(out)
         return out
-
-    @staticmethod
-    def backward(ctx, g):
-        return reduce_scatter(g, ctx.group, ctx.dim), None, None
 
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _all_to_all(x, group)
+    def forward(ctx, x, group, sizes, out_sizes):
+        ctx.group, ctx.sizes, ctx.out_sizes = group, sizes, out_sizes
+        return _all_to_all(x, group, sizes, out_sizes)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_to_all(g, ctx.group), None
+        return (_all_to_all(g, ctx.group, ctx.out_sizes, ctx.sizes), None,
+                None, None)
 
 
 class _MeanShared(torch.autograd.Function):
@@ -241,14 +259,21 @@ def scatter_sum(x, group, dim: int):
     return _ScatterSum.apply(x, group, dim)
 
 
+def gather_split(x, group, dim: int):
+    """Every rank's block of ``dim``, in rank order, each rank using the
+    result on its own part (the gradient summed, this rank's block)."""
+    return _GatherSplit.apply(x, group, dim)
+
+
 def gather_weight(x, group, dim: int):
     """The FSDP gather of a weight's ``dim`` over the data ranks."""
     return _GatherWeight.apply(x, group, dim)
 
 
-def all_to_all(x, group):
-    """Block i of ``x``'s dim 0 to rank i (equal blocks)."""
-    return _AllToAll.apply(x, group)
+def all_to_all(x, group, sizes=None, out_sizes=None):
+    """Block i of ``x``'s dim 0 to rank i: equal blocks, or ``sizes[i]``
+    rows to rank i and ``out_sizes[j]`` rows from rank j."""
+    return _AllToAll.apply(x, group, sizes, out_sizes)
 
 
 def mean_shared(x, group):

@@ -32,6 +32,11 @@ partial output projection over ``tp`` before any output bias.  With
 then the Megatron ``g`` (gradient passed through) and each sublayer's
 input enters its column-split products through ``f`` (gradient summed
 over ``tp``); serving's plain group keeps the in-place all-reduce.
+Where mp does not divide the kv heads (qwen1.5-32b's 40, command-r's,
+dbrx's and gemma3's 8 at mp = 16), the resolver splits the attention's
+leaves on ``head_dim`` and the layer takes that placement's own route
+(:func:`_gqa_head_dim`: the step's rows gathered for rope, decode's
+partial scores summed over ``tp``, whole heads at S > 1).
 
 Multi-head latent attention (:func:`mla_apply`) reaches no kernel, as in
 the reference: its naive decode runs the plain :func:`attention`, its
@@ -49,7 +54,9 @@ from repro_torch.core.config import MLAConfig, ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.paged_flash_decode import paged_flash_decode
-from repro_torch.models.collectives import GradGroup, copy_to_split, sum_shared
+from repro_torch.models.collectives import (GradGroup, all_to_all,
+                                            copy_to_split, gather_split,
+                                            group_of, sum_shared)
 from repro_torch.models.schema import ParamSpec
 from repro_torch.serving import kv_quant as KQ
 
@@ -108,14 +115,18 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 
-def _attn_block(q, k, v, q_pos, kv_pos, kv_len, *, causal, window, softcap):
+def _attn_block(q, k, v, q_pos, kv_pos, kv_len, *, causal, window, softcap,
+                head_dim=None, reduce=None):
     """One query block against full kv.
 
     q: (B, Sq, Hkv, G, Dh)  k/v: (B, Skv, Hkv, Dh)
     q_pos: (B, Sq)  kv_pos: (Skv,)  kv_len: (B,) or None
     """
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+    scale = 1.0 / math.sqrt(head_dim or q.shape[-1])
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float())
+    if reduce is not None:
+        scores = reduce(scores)
+    scores = scores * scale
     if softcap:
         scores = torch.tanh(scores / softcap) * softcap
     qp = q_pos[:, :, None]          # (B, Sq, 1)
@@ -135,12 +146,18 @@ def _attn_block(q, k, v, q_pos, kv_pos, kv_len, *, causal, window, softcap):
 
 
 def attention(q, k, v, *, q_pos, kv_len=None, causal=True, window=0,
-              softcap=0.0, q_chunk=1024):
+              softcap=0.0, q_chunk=1024, head_dim=None, reduce=None):
     """Grouped-query attention with query chunking.
 
     q: (B, Sq, H, Dh), k/v: (B, Skv, Hkv, Dh).
     q_pos: (B, Sq) absolute positions of queries.
     kv_len: (B,) valid cache length (None = all Skv valid).
+
+    With ``reduce``, q, k and v hold one rank's slice of the head dims
+    (``head_dim`` is the whole width, which sets the scale): each query
+    block's float32 partial scores go through ``reduce`` (the sum over
+    the ranks' slices, an all-reduce) before the scale, the softcap, the
+    masks and the softmax, and the result is this rank's slice of P V.
     """
     B, Sq, H, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -148,15 +165,15 @@ def attention(q, k, v, *, q_pos, kv_len=None, causal=True, window=0,
     G = H // Hkv
     qg = q.reshape(B, Sq, Hkv, G, Dh)
     kv_pos = torch.arange(Skv, dtype=torch.int32, device=q.device)
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              head_dim=head_dim, reduce=reduce)
 
     if Sq <= q_chunk or Sq % q_chunk != 0:
-        out = _attn_block(qg, k, v, q_pos, kv_pos, kv_len,
-                          causal=causal, window=window, softcap=softcap)
+        out = _attn_block(qg, k, v, q_pos, kv_pos, kv_len, **kw)
         return out.reshape(B, Sq, H, Dv)
 
     outs = [_attn_block(qg[:, i:i + q_chunk], k, v, q_pos[:, i:i + q_chunk],
-                        kv_pos, kv_len, causal=causal, window=window,
-                        softcap=softcap)
+                        kv_pos, kv_len, **kw)
             for i in range(0, Sq, q_chunk)]
     return torch.cat(outs, dim=1).reshape(B, Sq, H, Dv)
 
@@ -220,6 +237,30 @@ def _write_page_step(pool, rows, page, off, keep):
     pool[page, off] = vals
 
 
+def _page_targets(page_table, pos, pool):
+    """(page, offset, keep) of each slot's write at ``pos`` into ``pool``
+    (num_pages, page_size, ...) through ``page_table``; a position past
+    the table (an idle slot parked at ``max_blocks * page_size``) is not
+    kept."""
+    NP, ps = pool.shape[:2]
+    MB = page_table.shape[1]
+    blk = pos // ps
+    page = page_table[torch.arange(pos.shape[0], device=pos.device),
+                      blk.clamp(max=MB - 1)].long().clamp(0, NP - 1)
+    return page, (pos % ps).long(), blk < MB
+
+
+def _paged_rows(pk, pv, page_table):
+    """The reference's plain read of the pools: every block but the last
+    (the executor's write-overflow block) gathered into a contiguous
+    row, so the softmax runs over the dense path's length."""
+    B, MB = page_table.shape
+    tbl = (page_table[:, :MB - 1] if MB > 1
+           else page_table).long().clamp(0, pk.shape[0] - 1)
+    return (pk[tbl].reshape(B, -1, *pk.shape[2:]),
+            pv[tbl].reshape(B, -1, *pv.shape[2:]))
+
+
 def all_reduce(x, tp):
     """Sum ``x`` over the model-axis group ``tp`` in place (``tp=None``:
     ``x`` as it is); a :class:`GradGroup` sums out of place with a
@@ -273,6 +314,11 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
 
     With ``tp`` the weights, biases and cache hold this rank's heads and
     kv heads, and the output projection is all-reduced over ``tp``.
+    Where mp does not divide the kv heads, the kv weights and the cache
+    hold this rank's ``head_dim`` columns instead (and so do the query's
+    where mp does not divide the heads): :func:`_gqa_head_dim`, told
+    apart by the local head_dim, as every head count here comes from a
+    shape.
     """
     B, S, d = x.shape
     x = copy_to_split(x, tp)
@@ -292,6 +338,12 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
     v = proj_heads(x, p["wv"])
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
+    if k.shape[-1] < cfg.head_dim:
+        # the kv heads split on head_dim over tp: that placement's route
+        out = _gqa_head_dim(q, k, v, cfg, positions=positions, cache=cache,
+                            window=window, causal=causal, ring=ring,
+                            page_table=page_table, tp=tp)
+        return _out_proj(p, out, tp), cache
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -334,15 +386,9 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
         # paged decode: write this step's k/v into the page holding
         # `pos`, read back through the block table
         quant = "k_q" in cache
-        pool = cache["k_q"] if quant else cache["k"]
-        NP, ps = pool.shape[:2]
-        MB = page_table.shape[1]
         pos = positions[:, 0]
-        blk = pos // ps
-        keep = blk < MB
-        page = page_table[torch.arange(B, device=x.device),
-                          blk.clamp(max=MB - 1)].long().clamp(0, NP - 1)
-        off = (pos % ps).long()
+        page, off, keep = _page_targets(page_table, pos,
+                                        cache["k_q"] if quant else cache["k"])
         if quant:
             kq, ks = KQ.quantize(k[:, 0])
             vq, vs = KQ.quantize(v[:, 0])
@@ -358,13 +404,7 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
             out = paged_flash_decode(q[:, 0], pk, pv, page_table, pos + 1)
             out = out[:, None].to(v.dtype)
         else:
-            # the reference's read: every block but the last (the
-            # executor's write-overflow block) gathered into a contiguous
-            # row, so the softmax runs over the dense path's length
-            tbl = (page_table[:, :MB - 1] if MB > 1
-                   else page_table).long().clamp(0, NP - 1)
-            ck = pk[tbl].reshape(B, -1, *pk.shape[2:])
-            cv = pv[tbl].reshape(B, -1, *pv.shape[2:])
+            ck, cv = _paged_rows(pk, pv, page_table)
             out = attention(q, ck, cv, q_pos=positions, kv_len=pos + 1,
                             causal=causal, window=window, softcap=softcap,
                             q_chunk=cfg.attn_q_chunk)
@@ -401,6 +441,196 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
                             causal=causal, window=window, softcap=softcap,
                             q_chunk=cfg.attn_q_chunk)
     return _out_proj(p, out, tp), cache
+
+
+def _heads_of(H: int, n: int, r: int):
+    """Rank ``r``'s block of ``H`` heads over ``n`` ranks, the first
+    ``H % n`` ranks one head more: (first head, count a rank)."""
+    counts = [H // n + (i < H % n) for i in range(n)]
+    return sum(counts[:r]), counts
+
+
+def _kv_of(k, v, start: int, count: int, G: int):
+    """The kv heads that query heads [start, start + count) read (kv
+    head h // G), as a GQA block for :func:`attention`: a slice where
+    the heads cover whole groups or sit in one, else one kv head a query
+    head."""
+    lo, hi = start // G, (start + count - 1) // G + 1
+    if (start % G == 0 and count % G == 0) or hi - lo == 1:
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    idx = torch.div(torch.arange(start, start + count, device=k.device), G,
+                    rounding_mode="floor")
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _cache_rows(k, v, quant: bool, dims):
+    """The cache leaves' rows of whole k / v rows (..., Hkv, Dh): this
+    rank's ``dims``, and with ``quant`` the int8 codes of the whole rows.
+    The reference keeps one scale a (position, kv head) over the whole
+    head_dim, so a slice's own absmax would give other codes: the rows
+    are quantized whole, then sliced, and the scales stay whole."""
+    if not quant:
+        return {"k": k[..., dims], "v": v[..., dims]}
+    kq, ks = KQ.quantize(k)
+    vq, vs = KQ.quantize(v)
+    return {"k_q": kq[..., dims], "v_q": vq[..., dims], "k_s": ks,
+            "v_s": vs}
+
+
+def _gqa_head_dim(q, k, v, cfg: ModelConfig, *, positions, cache, window,
+                  causal, ring, page_table, tp):
+    """The attention of a layer whose kv heads split on ``head_dim`` over
+    ``tp`` (the resolver's fallback where mp does not divide them): k, v
+    (B, S, Hkv, Dh / n) and the cache leaves hold this rank's columns;
+    q holds either its heads, whole (mp divides the heads: the "mixed"
+    placement), or its columns of every head.  Returns the attention's
+    output as ``wo`` holds it here: this rank's heads, or this rank's
+    columns of every head.  The reference leaves these collectives to
+    XLA; the port writes them out:
+
+    * Rope rotates dim j with j + Dh / 2, which another rank holds, so
+      the step's rows are all-gathered whole on head_dim before rope
+      (one gather of q, k and v, or of k and v where q splits on heads;
+      a few KB at decode).
+    * Decode (S == 1) keeps the cache's split: rank r's columns of q
+      against its cache columns give partial scores, all-reduced in
+      float32 over ``tp`` (:func:`attention` with ``reduce``), then the
+      softmax and this rank's columns of P V.  Gathering the cache
+      instead would move every layer's K and V (64 MiB each a sequence
+      at command-r's decode_32k) where the summed scores are B x H x L
+      x 4 bytes (8 MiB a sequence): the dry run counts 2.69e9 bytes of
+      all-reduces for rank 0's decode_32k step on the 16 x 16 layout,
+      against 4.3e10 to gather its 40 layers' caches.  In the mixed placement q is gathered over its
+      heads first (every head's scores are summed) and P V over
+      head_dim after, before ``wo``'s heads: two gathers of B x H x Dh
+      rows, where a reduce-scatter of the scores to this rank's heads
+      would leave it without the other ranks' V columns.  No kernel
+      takes a slice of a head's dims, so this is the placement's own
+      route, on the plain attention, not a fallback from K1 / K2.
+    * S > 1 (prefill, training, evaluation) would sum S x S scores
+      (275 GB a sequence a layer for command-r at prefill_32k), so the
+      k / v rows are gathered (with a cache, the cache's rows after this
+      step's are written: the prompt's), each rank attends its own
+      heads whole (K4 under the no-cache gate), and only this rank's
+      columns are written to the cache.  In the mixed placement those
+      are its own q heads; where the heads split on head_dim too
+      (qwen1.5-32b's 40 heads at mp = 16), rank r takes an uneven block
+      of the heads (:func:`_heads_of`: 3 or 2 of 40) and an all-to-all
+      returns each head's columns to the rank ``wo`` holds them on.  By
+      the dry run's count for rank 0 of the 16 x 16 layout, every rank
+      attending every head instead would take 3.09e15 FLOP at
+      prefill_32k against 4.87e14 (2.46e15 against 1.16e15 at train_4k
+      in one microbatch) and a peak of 40.1 GB against 17.9, to save an
+      all-to-all of 2.7 GB (8.6 GB): under 1.5 % of either step's
+      collective bytes.
+    * int8 caches quantize the whole rows (:func:`_cache_rows`).
+
+    Training runs it under a :class:`GradGroup`: each gather's backward
+    reduce-scatters the gradient (every rank uses the gathered rows for
+    its own heads) and the all-to-all sends it back.  The decode route
+    takes a cache, which training never does."""
+    group = group_of(tp)
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    Dh, Hkv = cfg.head_dim, k.shape[2]
+    Dl = k.shape[-1]
+    dims = slice(r * Dl, (r + 1) * Dl)
+    split_q = q.shape[-1] < Dh
+    H = q.shape[2] if split_q else q.shape[2] * n
+    B, S = q.shape[:2]
+    if split_q:
+        q, k, v = gather_split(torch.cat([q, k, v], 2), group, 3).split(
+            [H, Hkv, Hkv], 2)
+    else:
+        k, v = gather_split(torch.cat([k, v], 2), group, 3).split(
+            [Hkv, Hkv], 2)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    quant = cache is not None and "k_q" in cache
+    softcap = cfg.attn_logit_softcap
+    bidx = torch.arange(B, device=q.device)
+
+    if cache is not None and S == 1:
+        if not split_q:
+            q = gather_split(q, group, 2)
+        rows = {name: t[:, 0] for name, t in
+                _cache_rows(k, v, quant, dims).items()}
+        pos = positions[:, 0]
+        kv_len = pos + 1
+        if ring and window:
+            ck, cv = cache["k"], cache["v"]
+            W = ck.shape[1]
+            slot = (pos % W).long()
+            ck[bidx, slot] = rows["k"].to(ck.dtype)
+            cv[bidx, slot] = rows["v"].to(cv.dtype)
+            kv_len, causal, window = kv_len.clamp(max=W), False, 0
+        elif page_table is not None:
+            page, off, keep = _page_targets(
+                page_table, pos, cache["k_q"] if quant else cache["k"])
+            for name, t in rows.items():
+                _write_page_step(cache[name], t, page, off, keep)
+            ck, cv = _paged_rows(*(KQ.read(cache, dtype=v.dtype) if quant
+                                   else (cache["k"], cache["v"])),
+                                 page_table)
+        else:
+            for name, t in rows.items():
+                _write_step(cache[name], t, pos)
+            ck, cv = (KQ.read(cache, dtype=v.dtype) if quant
+                      else (cache["k"], cache["v"]))
+        out = attention(q[..., dims], ck, cv, q_pos=positions,
+                        kv_len=kv_len, causal=causal, window=window,
+                        softcap=softcap, q_chunk=cfg.attn_q_chunk,
+                        head_dim=Dh, reduce=lambda s: all_reduce(s, group))
+        if split_q:
+            return out
+        Hl = H // n
+        return gather_split(out, group, 3)[:, :, r * Hl:(r + 1) * Hl]
+
+    kv_len = None
+    if cache is not None and ring and window:
+        # the ring receives the trailing min(S, W) keys; prefill attends
+        # over the fresh rows, as on one device
+        ck, cv = cache["k"], cache["v"]
+        span = min(S, ck.shape[1])
+        slots = (positions[:, -span:] % ck.shape[1]).long()
+        ck[bidx[:, None], slots] = k[:, -span:, :, dims].to(ck.dtype)
+        cv[bidx[:, None], slots] = v[:, -span:, :, dims].to(cv.dtype)
+    elif cache is not None:
+        idx = positions.long()
+        for name, t in _cache_rows(k, v, quant, dims).items():
+            cache[name][bidx[:, None], idx] = t.to(cache[name].dtype)
+        # attend over the cache as on one device (a suffix prefill's
+        # shared prefix is there): its rows gathered whole
+        names = ("k_q", "v_q") if quant else ("k", "v")
+        k, v = gather_split(torch.cat([cache[c] for c in names], 2), group,
+                            3).split([Hkv, Hkv], 2)
+        if quant:
+            k = KQ.dequantize(k, cache["k_s"], q.dtype)
+            v = KQ.dequantize(v, cache["v_s"], q.dtype)
+        kv_len = positions[:, -1] + 1
+    if split_q:
+        start, counts = _heads_of(H, n, r)
+        count = counts[r]
+        q = q[:, :, start:start + count]
+    else:
+        start, count = r * q.shape[2], q.shape[2]
+    k, v = _kv_of(k, v, start, count, H // Hkv)
+    if (cache is None and cfg.use_pallas_attention and causal and not window
+            and not softcap and S == k.shape[1] and S % 128 == 0):
+        out = flash_attention(q, k, v, causal=True)
+    else:
+        out = attention(q, k, v, q_pos=positions, kv_len=kv_len,
+                        causal=causal, window=window, softcap=softcap,
+                        q_chunk=cfg.attn_q_chunk)
+    if not split_q:
+        return out
+    # this rank's heads, every rank's columns of them -> every head, this
+    # rank's columns
+    send = out.reshape(B, S, count, n, Dl).permute(3, 0, 1, 2, 4)
+    got = all_to_all(send.reshape(-1), group, [B * S * count * Dl] * n,
+                     [B * S * c * Dl for c in counts])
+    return torch.cat([t.reshape(B, S, c, Dl) for t, c in
+                      zip(got.split([B * S * c * Dl for c in counts]),
+                          counts)], 2)
 
 
 def _out_proj(p, out, tp=None):

@@ -54,13 +54,15 @@ Tensor-parallel serving: the cached forward takes ``tp``, the model
 axis's process group (``None``: one device, unchanged), and threads it
 through :func:`apply_layer` as the reference threads ``moe_fn``.  Each
 rank holds the shards :data:`TP_AXES` names — the vocab rows of the
-embedding, its heads and kv heads, its ``d_ff`` / ``d_ff_expert``
-columns — and four collectives make the whole function: the embedding
-lookup masks the ids outside the rank's rows and all-reduces, the
-attention and FFN output projections all-reduce, and the logits are
-all-gathered over the vocab in rank order (so argmax ties resolve as
-on one device).  :func:`check_tensor_parallel` refuses any other
-placement.
+embedding, its heads and kv heads (or, where mp does not divide them,
+its ``head_dim`` columns), its ``d_ff`` / ``d_ff_expert`` columns —
+and four collectives make the whole function: the embedding lookup
+masks the ids outside the rank's rows and all-reduces, the attention
+and FFN output projections all-reduce, and the logits are all-gathered
+over the vocab in rank order (so argmax ties resolve as on one device);
+an attention layer split on ``head_dim`` adds its own (see
+:func:`repro_torch.models.layers.gqa_apply`).
+:func:`check_tensor_parallel` refuses any other placement.
 
 Training: gradients reach the stacked ``blocks`` leaves through the
 per-slice views, so ``.grad`` (or ``torch.autograd.grad``) of a stacked
@@ -250,18 +252,24 @@ def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
 
 
 # The leaves the tensor-parallel apply splits over the model axis, by
-# the end of their path, with the logical axis each one splits there:
-# the weights of the GQA and FFN sublayers and the GQA caches (the
-# dense slot cache or page pool, int8 or not).  Every other leaf stays
-# whole on each rank.
+# the end of their path, with the logical axes each one may split on
+# there (``None``: whole): the weights of the GQA and FFN sublayers and
+# the GQA caches (the dense slot cache or page pool, int8 or not).  The
+# attention's leaves split on their heads, or, where the resolver falls
+# back because the mesh's mp does not divide the head count, on
+# ``head_dim`` (:func:`repro_torch.models.layers.gqa_apply`'s head_dim
+# route); the int8 scales have no head_dim and stay whole then.  Every
+# other leaf stays whole on each rank.
 TP_AXES = {
-    "embed": "vocab", "lm_head": "vocab",
-    **{f"attn/{w}": "heads" for w in ("wq", "bq", "wo")},
-    **{f"attn/{w}": "kv_heads" for w in ("wk", "wv", "bk", "bv")},
-    **{f"{m}/{w}": "d_ff" for m in ("mlp", "shared")
+    "embed": ("vocab",), "lm_head": ("vocab",),
+    **{f"attn/{w}": ("heads", "head_dim") for w in ("wq", "bq", "wo")},
+    **{f"attn/{w}": ("kv_heads", "head_dim")
+       for w in ("wk", "wv", "bk", "bv")},
+    **{f"{m}/{w}": ("d_ff",) for m in ("mlp", "shared")
        for w in ("w_gate", "w_up", "w_down", "b_ff")},
-    **{f"moe/{w}": "d_ff_expert" for w in ("w_gate", "w_up", "w_down")},
-    **{c: "kv_heads" for c in ("k", "v", "k_q", "v_q", "k_s", "v_s")},
+    **{f"moe/{w}": ("d_ff_expert",) for w in ("w_gate", "w_up", "w_down")},
+    **{c: ("kv_heads", "head_dim") for c in ("k", "v", "k_q", "v_q")},
+    **{c: ("kv_heads", None) for c in ("k_s", "v_s")},
 }
 
 
@@ -269,24 +277,25 @@ def check_tensor_parallel(named, mp: int) -> None:
     """Refuse a placement the tensor-parallel apply (serving's, and the
     sharded train step's) has no collective for.  ``named`` holds
     ``(leaf name, ParamSpec, spec)`` of every parameter and cache leaf;
-    at ``mp > 1`` each leaf of :data:`TP_AXES` must split on its axis
-    there, and no other leaf may split over ``model``: MLA's latent, Mamba2's ``d_inner``, Whisper's cross
-    layers, a head_dim fallback, and Whisper's encoder and the MTP
-    layer, which run without ``tp``."""
+    at ``mp > 1`` each leaf of :data:`TP_AXES` must split on one of its
+    axes there, and no other leaf may split over ``model``: MLA's
+    latent, Mamba2's ``d_inner``, Whisper's cross layers, and Whisper's
+    encoder and the MTP layer, which run without ``tp``."""
     if mp <= 1:
         return
     for name, ps, spec in named:
         whole = name.startswith(("encoder/", "mtp/"))
-        want = None if whole else next(
-            (ax for key, ax in TP_AXES.items()
-             if name == key or name.endswith("/" + key)), None)
+        want = (None,) if whole else next(
+            (axes for key, axes in TP_AXES.items()
+             if name == key or name.endswith("/" + key)), (None,))
         got = next((ps.axes[i] for i, e in enumerate(spec)
                     if e == "model"), None)
-        if want != got:
+        if got not in want:
+            names = " or ".join(a or "no axis" for a in want)
             raise ValueError(
                 f"tensor parallelism at mp={mp} has no collective "
                 f"for {name} {ps.shape} {ps.axes} resolved to {spec} "
-                f"(the apply splits it on {want or 'no axis'}): serving "
+                f"(the apply splits it on {names}): serving "
                 f"or training this family at mp > 1 is ROADMAP.md queue "
                 f"1, item 9, next 2")
 

@@ -435,7 +435,8 @@ class ShardedExecutor(SingleDeviceExecutor):
       :class:`~repro_torch.serving.paged.PagePool` allocates from with
       ``page_partitions = dp``), and decodes them through K1 / K2.
     * **Weights** resolve through ``specs_for_schema(schema, mesh,
-      fsdp=False)``: the attention heads and kv heads, the FFN and
+      fsdp=False)``: the attention heads and kv heads (their
+      ``head_dim`` columns where mp does not divide them), the FFN and
       expert columns and the vocab split over ``model``
       (:data:`repro_torch.models.transformer.TP_AXES`); the apply takes
       the model axis's group as ``tp``.  A placement the apply has no

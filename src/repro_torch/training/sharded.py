@@ -28,8 +28,10 @@ mesh))`` (:func:`train_specs`; :func:`shard_params` and
 * **Tensor parallel over model** (mp > 1), GQA and FFN sublayers: the
   serving apply's placement (``TP_AXES``) with the Megatron ``f`` / ``g``
   collectives, the embedding's masked lookup and the logits gathered
-  over the vocab; :func:`~repro_torch.models.transformer.
-  check_tensor_parallel` refuses MLA, Mamba2 and Whisper at mp > 1.
+  over the vocab, and the head_dim route's gathers (reduce-scatter
+  backward) and all-to-all where mp does not divide the kv heads;
+  :func:`~repro_torch.models.transformer.check_tensor_parallel` refuses
+  MLA, Mamba2 and Whisper at mp > 1.
 * **The multi-pod layout** (a mesh with a ``pod`` axis, the
   reference's ``(2, 16, 16)``): the batch's rows split over ``pod`` x
   ``data``, pod-major; the weights are placed as on one pod (the

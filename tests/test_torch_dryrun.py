@@ -30,9 +30,11 @@
   torch built with CUDA (a CPU-only build has no CUDA device guard to
   index them with): that case runs only there, and ``chip_smoke.py``'s
   dry-run phase holds qwen FULL's 64 launches on the card.
-* **The CLI**: a refused combination prints ``FAIL`` with
-  ``check_tensor_parallel``'s message and exits 1; an accepted one
-  writes its record.  Each runs in a subprocess (a process makes one
+* **The CLI**: a refused combination (minicpm3-4b's MLA) prints
+  ``FAIL`` with ``check_tensor_parallel``'s message and exits 1; an
+  accepted one writes its record; qwen1.5-32b's decode_32k passes as
+  published on the head_dim route, its census and scores' bytes as the
+  route sends them, no would-be K1 launch.  Each runs in a subprocess (a process makes one
   world).
 """
 import torch_threads  # noqa: F401  (caps torch's threads under xdist)
@@ -304,14 +306,43 @@ def _cli(tmp_path, *argv):
 
 
 def test_cli_prints_fail_for_a_refused_combination(tmp_path):
-    r = _cli(tmp_path, "--arch", QWEN, "--shape", "decode_32k",
+    arch = "minicpm3-4b"
+    r = _cli(tmp_path, "--arch", arch, "--shape", "decode_32k",
              "--device", "cpu")
     assert r.returncode == 1, r.stderr[-3000:]
     fail = [ln for ln in r.stdout.splitlines() if ln.startswith("FAIL")]
-    assert len(fail) == 1 and f"{QWEN}__decode_32k__single" in fail[0]
+    assert len(fail) == 1 and f"{arch}__decode_32k__single" in fail[0]
     assert "tensor parallelism at mp=16 has no collective" in fail[0]
     assert "queue 1, item 9, next 2" in fail[0]
     assert not list(tmp_path.glob("*.json"))
+
+
+def test_cli_passes_qwen_decode_unpadded_on_the_head_dim_route(tmp_path):
+    """qwen1.5-32b as published (40 heads and kv heads: head_dim on the
+    16-way model axis) at decode_32k on the single-pod layout: the
+    record, its census (the embedding's all-reduce, three a layer: the
+    summed partial scores, the attention's and the MLP's output; one
+    all-gather a layer of the step's q / k / v rows, and the logits'),
+    the scores' bytes, and no would-be K1 launch."""
+    r = _cli(tmp_path, "--arch", QWEN, "--shape", "decode_32k",
+             "--device", "cpu")
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    rec = json.loads((tmp_path / f"{QWEN}__decode_32k__single.json")
+                     .read_text())
+    cfg = get_config(QWEN, "full")
+    n = cfg.n_layers
+    assert rec["collective_counts"]["all-reduce"] == 3 * n + 1
+    assert rec["collective_counts"]["all-gather"] == n + 1
+    assert rec["collective_counts"]["all-to-all"] == 0
+    B = INPUT_SHAPES["decode_32k"]["global_batch"] // 16
+    L = INPUT_SHAPES["decode_32k"]["seq_len"]
+    scores = B * cfg.n_heads * L * 4
+    hidden = B * cfg.d_model * 2
+    assert rec["collective_bytes"]["all-reduce"] == (
+        n * (scores + 2 * hidden) + hidden)
+    assert rec["launches"]["flash_decode"] == 0
+    assert rec["fallbacks"] == []
+    assert rec["peak_bytes"] < 80e9
 
 
 def test_cli_writes_the_record_of_an_accepted_combination(tmp_path):

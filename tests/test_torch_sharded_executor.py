@@ -15,6 +15,17 @@ single-device engine (itself held against the reference in
 ``test_torch_engine.py`` and ``test_torch_families.py``), the refusal of
 MLA, Mamba2 and Whisper at mp=2, the reference's chaos plans, and the
 in-process world of one.
+
+The ``head_dim`` route (kv heads, or heads too, that mp does not
+divide): at dp=1 x mp=4, a qwen SMOKE variant with 6 heads and 6 kv
+heads (both on head_dim; rope's partner columns two ranks away),
+command-r SMOKE as published (8 / 2 / 32: q heads split, kv on
+head_dim) and gemma3 SMOKE (4 / 2 / 64, its windowed layers, and with
+the ring cache), and at dp=2 x mp=2 command-r SMOKE with one kv head:
+greedy tokens identical to the port's single-device engine, dense,
+paged (prefix sharing) and paged int8; the prefill's and 3 decode
+steps' logits within ``LOGIT_RTOL`` over the dense cache and
+``INT8_LOGIT_RTOL`` over its int8 form; each rank's head_dim columns.
 """
 import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
@@ -29,7 +40,7 @@ from repro.configs import get_config as ref_config
 from repro.models import build_model as ref_build
 from repro.serving.continuous import ContinuousEngine as RefEngine
 from repro.serving.executor import SingleDeviceExecutor as RefExecutor
-from repro_torch.configs import ARCH_IDS
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models.schema import tree_leaves
 
 LAYOUTS = {"dp2": ("dp=2", 2, 1), "mp2": ("dp=1,mp=2", 1, 2),
@@ -37,6 +48,18 @@ LAYOUTS = {"dp2": ("dp=2", 2, 1), "mp2": ("dp=1,mp=2", 1, 2),
 LOGIT_RTOL = 1e-4   # of max |logit|: float32, the tensor-parallel partial
 #                     sums added in another order
 MP_REFUSED = ("minicpm3-4b", "mamba2-130m", "whisper-large-v3")
+# the int8 cache: a k / v element an ulp of the tensor-parallel sums
+# moves across a rounding boundary takes the next code, a whole scale
+# step (up to 7.7e-5 of max |logit| seen here)
+INT8_LOGIT_RTOL = 1e-3
+HEAD_DIM = {"qwen6": ("qwen1.5-32b", {"n_heads": 6, "n_kv_heads": 6}),
+            "command-r": ("command-r-35b", {}),
+            "gemma3": ("gemma3-12b", {}),
+            "gemma3_ring": ("gemma3-12b", {"window_ring_cache": True})}
+HEAD_DIM_MIXED = {"command-r_kv1": ("command-r-35b", {"n_kv_heads": 1})}
+HEAD_DIM_LAYOUTS = {"mp4": ("dp=1,mp=4", HEAD_DIM),
+                    "dp2mp2": ("dp=2,mp=2", HEAD_DIM_MIXED)}
+HEAD_DIM_ENGINES = ("dense", "paged", "paged_int8")
 
 
 def _prompts(vocab):
@@ -113,6 +136,91 @@ def worlds(ref, tmp_path_factory):
     out["chaos"] = W.run_world(W.chaos_run, 4, tmp, "dp=2,mp=2", ref["np"],
                                dense[:6], 6)
     return out
+
+
+@pytest.fixture(scope="module")
+def head_dim_worlds(tmp_path_factory):
+    """One world a layout of the head_dim cases, on prompts of 20-40
+    tokens (past gemma3 SMOKE's window of 32 with 12 new ones) and four
+    sharing a 16-token prefix."""
+    tmp = tmp_path_factory.mktemp("head_dim")
+    rng = np.random.default_rng(0)
+    base = list(rng.integers(4, 512, size=16))
+    prompts = [list(map(int, rng.integers(4, 512, size=n)))
+               for n in (20, 33, 40, 27)]
+    prompts += [list(map(int, base + list(rng.integers(4, 512, size=n))))
+                for n in (6, 12, 20, 9)]
+    return {name: W.run_world(W.serve_head_dim, 4, tmp, spec,
+                              [(k, a, o) for k, (a, o) in cases.items()],
+                              prompts, 12)
+            for name, (spec, cases) in HEAD_DIM_LAYOUTS.items()}
+
+
+HEAD_DIM_TOKEN_CASES = [
+    (layout, key, eng) for layout, (_, cases) in HEAD_DIM_LAYOUTS.items()
+    for key, (_, over) in cases.items()
+    for eng in (HEAD_DIM_ENGINES if "window_ring_cache" not in over
+                else ("dense",))]
+
+
+@pytest.mark.parametrize("layout,key,engine", HEAD_DIM_TOKEN_CASES,
+                         ids=["-".join(c) for c in HEAD_DIM_TOKEN_CASES])
+def test_head_dim_split_serves_the_single_device_tokens(head_dim_worlds,
+                                                        layout, key,
+                                                        engine):
+    for rank in head_dim_worlds[layout]:
+        single, got = rank[key][engine]
+        assert len(single) == 8 and all(len(t) == 12 for t in single)
+        assert got == single
+
+
+HEAD_DIM_LOGIT_CASES = [(layout, key, quant)
+                        for layout, (_, cases) in HEAD_DIM_LAYOUTS.items()
+                        for key in cases for quant in (False, True)]
+
+
+@pytest.mark.parametrize("layout,key,quant", HEAD_DIM_LOGIT_CASES,
+                         ids=[f"{lay}-{k}-{'int8' if q else 'plain'}"
+                              for lay, k, q in HEAD_DIM_LOGIT_CASES])
+def test_head_dim_split_logits_match_one_device(head_dim_worlds, layout,
+                                                key, quant):
+    bar = INT8_LOGIT_RTOL if quant else LOGIT_RTOL
+    for rank in head_dim_worlds[layout]:
+        want = rank[key][("logits", quant, "single")]
+        got = rank[key][("logits", quant, "sharded")]
+        assert len(got) == 4
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            err = np.abs(g - w).max() / np.abs(w).max()
+            assert err <= bar, err
+
+
+@pytest.mark.parametrize("layout", HEAD_DIM_LAYOUTS)
+def test_head_dim_split_leaves_on_each_rank(head_dim_worlds, layout):
+    """wk, the slot cache's and the prefill scratch's k / v (or k_q /
+    v_q) hold head_dim / mp columns of every kv head, the int8 scales
+    every kv head whole; wq its heads where mp divides them, else its
+    columns."""
+    spec, cases = HEAD_DIM_LAYOUTS[layout]
+    mp = 4 if layout == "mp4" else 2
+    for rank in head_dim_worlds[layout]:
+        for key, (arch, over) in cases.items():
+            cfg = dataclasses.replace(get_config(arch, "smoke"), **over)
+            H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+            for eng in HEAD_DIM_ENGINES:
+                if eng not in rank[key]:
+                    continue
+                sh = rank[key][eng + "_shapes"]
+                assert sh["wk"][-2:] == (Hkv, Dh // mp)
+                assert sh["wq"][-2:] == ((H // mp, Dh) if H % mp == 0
+                                         else (H, Dh // mp))
+                # the slot cache and the prefill scratch (resolved on
+                # model alone) alike
+                for c, shape in [*sh["cache"].items(),
+                                 *sh["scratch"].items()]:
+                    assert shape[-2:] == ((Hkv, 1) if c.endswith("_s")
+                                          else (Hkv, Dh // mp)), (c, shape)
+                assert sh["scratch"].keys() == sh["cache"].keys()
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)

@@ -46,6 +46,19 @@ block's weights; the collectives a step; the sharded eval step against
 single-device logits (1e-5 of max |logit|) and tokens (identical);
 minicpm3, mamba2 and whisper refused at mp = 2 with
 ``check_tensor_parallel``'s error.
+
+The ``head_dim`` route (kv heads, or heads too, that mp does not
+divide): one step's loss and every parameter's gradient over the mesh
+(the sharded step's loss on the rank's shards, its unsplit leaves'
+gradients summed over data, every leaf gathered whole) against the
+port's single-device ``value_and_grads`` of ``forward_train_loss`` on
+the same seeded weights and batch (4 x 48 tokens, past gemma3 SMOKE's
+window of 32): a qwen SMOKE variant with 6 heads and 6 kv heads,
+command-r SMOKE and gemma3 SMOKE at dp = 1 x mp = 4, command-r SMOKE
+with one kv head at dp = 2 x mp = 2.  Bars: the loss within
+``LOSS_RTOL``; each gradient within ``HEAD_DIM_GRAD_TOL`` of its leaf's
+largest |gradient| (float32, the partial sums in another order; up to
+1.3e-6 seen).
 """
 import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
@@ -77,6 +90,15 @@ NOISE_ULPS = 64
 MOMENT_TOL = 1e-5
 LOGIT_TOL = 1e-5
 NO_COEF = {"moe": {"load_balance_coef": 0.0}}
+HEAD_DIM_GRAD_TOL = 1e-5
+HEAD_DIM = {
+    "dp=1,mp=4": {"qwen6": (QWEN, {"n_heads": 6, "n_kv_heads": 6}),
+                  "command-r": ("command-r-35b", {}),
+                  "gemma3": ("gemma3-12b", {})},
+    "dp=2,mp=2": {"command-r_kv1": ("command-r-35b", {"n_kv_heads": 1})},
+}
+HEAD_DIM_CASES = [(spec, key) for spec, cases in HEAD_DIM.items()
+                  for key in cases]
 
 
 def _ref_cfg(arch, over=None):
@@ -361,6 +383,41 @@ def test_mp2_refuses_mla_mamba2_whisper(runs, arch):
         assert msg is not None, f"{arch} trained at mp=2"
         assert "at mp=2 has no collective" in msg, msg
         assert "ROADMAP.md queue 1, item 9" in msg
+
+
+@pytest.fixture(scope="module")
+def head_dim_runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("head_dim")
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(4, 512, size=(4, 48)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    batch["labels"][0, :5] = -1
+    return {spec: run_world(W.grads_head_dim, 4, tmp, spec,
+                            [(k, a, o, batch) for k, (a, o) in
+                             cases.items()])
+            for spec, cases in HEAD_DIM.items()}
+
+
+@pytest.mark.parametrize("spec,key", HEAD_DIM_CASES,
+                         ids=[f"{s}-{k}" for s, k in HEAD_DIM_CASES])
+def test_head_dim_split_loss_and_gradients_match_one_device(head_dim_runs,
+                                                            spec, key):
+    arch, over = HEAD_DIM[spec][key]
+    cfg = dataclasses.replace(get_config(arch, "smoke"), **over)
+    mp = int(spec.split("mp=")[1])
+    # the route is taken: the kv heads do not divide mp
+    assert cfg.n_kv_heads % mp
+    for r in head_dim_runs[spec]:
+        loss, sloss = r[key]["loss"]
+        assert sloss == pytest.approx(loss, rel=LOSS_RTOL)
+        grads = r[key]["grads"]
+        assert len(grads) == len(list(_paths(build_model(cfg).schema)))
+        for name, (g, s) in grads.items():
+            assert s.shape == g.shape, name
+            bar = HEAD_DIM_GRAD_TOL * np.abs(g).max()
+            assert np.abs(s - g).max() <= bar, (name, np.abs(s - g).max(),
+                                                bar)
+        assert np.abs(grads["blocks/p0/attn/wk"][0]).max() > 0
 
 
 def test_pod_sums_the_fsdp_shards_gradients_over_pod(runs):

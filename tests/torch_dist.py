@@ -298,3 +298,74 @@ def retrieval(rank, spec, tf, doc_len, idf, qtf, emb, qe, k):
     return {"bm25": (bi.numpy(), bs.numpy()), "dense": (di.numpy(),
                                                         ds.numpy()),
             "bm25_class": (ci, cs), "dense_class": (ei, es)}
+
+
+# the head_dim route's engines: prompts of 20-40 tokens and 12 new ones
+# run past gemma3 SMOKE's window of 32 (and around its ring); the paged
+# prompts share a 16-token prefix, so suffix prefills attend over
+# gathered shared pages
+HEAD_DIM_KW = dict(num_slots=4, max_len=64, max_new_cap=16, sync_every=4,
+                   prefill_batch=2)
+HEAD_DIM_PAGED_KW = dict(HEAD_DIM_KW, paged=True, page_size=8)
+
+
+def serve_head_dim(rank, spec, cases, prompts, new_tokens):
+    """Each case ``(key, arch, over)`` (a float32 SMOKE config with the
+    fields ``over`` replaces, its seeded weights): the single-device
+    engine's tokens and the tokens over the mesh ``spec``, dense, paged
+    and paged int8 (dense only where ``over`` asks for the ring cache,
+    which never pages), the rank's local wq, wk, cache and prefill
+    scratch shapes, and
+    the logits of a prefill of the first two prompts and 3 greedy decode
+    steps on one device and through the sharded model, over the dense
+    cache and its int8 form."""
+    import torch
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving.executor import ShardedExecutor
+    from repro_torch.models import build_model
+    from repro_torch.serving.continuous import ContinuousEngine
+    mesh = make_serving_mesh(spec, device="cpu")
+    out = {"coords": dict(mesh.coords)}
+    for key, arch, over in cases:
+        cfg, model, params = _model(arch, **over)
+        engines = {"dense": (model, HEAD_DIM_KW)}
+        if not cfg.window_ring_cache:
+            engines["paged"] = (model, HEAD_DIM_PAGED_KW)
+            engines["paged_int8"] = (build_model(dataclasses.replace(
+                cfg, kv_quant_int8=True)), HEAD_DIM_PAGED_KW)
+        res = {}
+        for name, (m, kw) in engines.items():
+            single = _tokens(ContinuousEngine(m, params, **kw)
+                             .generate_many(prompts, new_tokens))
+            eng = ContinuousEngine(m, params, mesh=mesh, **kw)
+            res[name] = (single, _tokens(eng.generate_many(prompts,
+                                                           new_tokens)))
+            ex = eng.executor
+            res[name + "_shapes"] = {
+                "wq": tuple(ex.params["blocks"]["p0"]["attn"]["wq"].shape),
+                "wk": tuple(ex.params["blocks"]["p0"]["attn"]["wk"].shape),
+                "cache": {c: tuple(t.shape) for c, t in
+                          ex._cache["blocks"]["p0"].items()},
+                "scratch": {c: tuple(t.shape) for c, t in
+                            ex._pcache["blocks"]["p0"].items()}}
+        n = min(len(p) for p in prompts[:2])
+        toks = torch.tensor([p[:n] for p in prompts[:2]])
+        for quant in (False, True):
+            m = build_model(dataclasses.replace(cfg, kv_quant_int8=quant))
+            ex = ShardedExecutor(m, params, mesh=mesh, num_slots=2,
+                                 max_len=64, prefill_batch=2)
+            runs = {"single": (params, m.init_cache(2, 64, device="cpu"),
+                               None),
+                    "sharded": (ex.params, ex._pcache, ex.tp)}
+            for name, (p, cache, tp) in runs.items():
+                with torch.no_grad():
+                    lg, cache = m.prefill(p, {"tokens": toks}, cache, tp=tp)
+                    got = [lg.numpy()]
+                    for _ in range(3):
+                        nxt = lg[:, -1].argmax(-1)[:, None]
+                        lg, cache = m.decode(p, {"tokens": nxt}, cache,
+                                             tp=tp)
+                        got.append(lg.numpy())
+                res[("logits", quant, name)] = got
+        out[key] = res
+    return out

@@ -253,3 +253,65 @@ def dryrun_fake(rank, axes, grid, arch, over, shape):
     layout = LayoutMesh(tuple(axes),
                         np.arange(int(np.prod(grid))).reshape(grid))
     return D.trace_case(_cfg(arch, **over), shape, layout, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# The head_dim route's gradients
+# ---------------------------------------------------------------------------
+
+
+def _noisy_params(model, seed=0):
+    """The port's seeded draw plus seeded numpy noise (the biases and
+    norms are not left at their constant inits), the same on every
+    rank."""
+    import torch
+    from repro_torch.models.schema import tree_map
+    rng = np.random.default_rng(seed)
+    return tree_map(lambda t: t + torch.from_numpy(
+        rng.normal(0, 0.02, tuple(t.shape)).astype(np.float32)),
+        model.init(seed=0, device="cpu"))
+
+
+def grads_head_dim(rank, spec, cases):
+    """Each case ``(key, arch, over, batch)``: the loss and every
+    parameter's gradient of one step on the global ``batch``, on one
+    device (``value_and_grads`` of ``forward_train_loss``) and over the
+    mesh ``spec`` (the sharded step's loss on this rank's rows and
+    shards, the unsplit leaves' gradients summed over data as the step
+    sums them, every leaf gathered whole)."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.schema import tree_leaves, tree_map_with_path
+    from repro_torch.models.transformer import forward_train_loss, loss_terms
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.training.sharded import (_Sharded, _sum_over,
+                                              gather_params, shard_params)
+    from repro_torch.training.steps import value_and_grads
+    mesh = make_serving_mesh(spec, device="cpu")
+    out = {"coords": dict(mesh.coords)}
+    for key, arch, over, batch in cases:
+        cfg = _cfg(arch, **over)
+        model = build_model(cfg)
+        params = _noisy_params(model)
+        b = {k: torch.from_numpy(v.astype(np.int64)) for k, v in batch.items()}
+        loss, grads = value_and_grads(
+            lambda p, mb: forward_train_loss(p, cfg, mb), params, [b])
+        sh = _Sharded(model, mesh, None)
+
+        def loss_for(p, mb):
+            return sh.loss(*loss_terms(p, cfg, mb, moe_fn=sh.moe_fn,
+                                       tp=sh.tp, gather=sh.gather))
+        sloss, sgrads = value_and_grads(loss_for,
+                                        shard_params(model, mesh, params),
+                                        sh.rows(b, 1))
+        _sum_over(sgrads, sh.whole, sh.batch)
+        it = iter(sgrads)
+        whole = gather_params(model, mesh, tree_map_with_path(
+            lambda path, ps: next(it), model.schema))
+        names = []
+        tree_map_with_path(lambda path, ps: names.append(
+            "/".join(map(str, path))), model.schema)
+        out[key] = {"loss": (float(loss), float(sloss)),
+                    "grads": {n: (g.numpy(), s.numpy()) for n, g, s in
+                              zip(names, grads, tree_leaves(whole))}}
+    return out

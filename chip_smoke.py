@@ -56,6 +56,19 @@ Phases, each on its own lines; any failure exits nonzero:
                over the same corpus and questions, one K3 and one K5
                launch, the ids of ``topk_batch`` and of the stable top-k
                of ``scores_batch`` (but for ties within 1e-5).
+4a. grouped gemm — K7 (the MoE layers' grouped product and its dX) and
+               K8 (its dW), ``csrc/grouped_gemm.cu``, against their
+               plain versions in bf16 and float32 at dbrx-132b's and
+               deepseek-v3-671b's prefill (4 x 384 tokens) and decode (8
+               slots) shapes, dbrx's training shape (4 x 1024), a split
+               with empty groups and one with every row in one group:
+               forward and, against autograd of the plain version, dX
+               and dW (not in float32 at deepseek's prefill), K7
+               repeating bit for bit; in bf16 each shape timed warm and
+               flushed beside the plain version, its bound and
+               ``torch._grouped_mm`` (the yardstick, for K8 in its 2-D
+               form that splits the rows by group; the port never calls
+               it); ptxas's registers and spills.
 5. small     — the SMOKE decoder in bf16: prefill + decode on the card
                against the same weights on the host; then every weight
                NaN, 2 requests on 2 slots: the executor's isfinite test
@@ -199,8 +212,10 @@ Phases, each on its own lines; any failure exits nonzero:
                ``whisper-large-v3`` FULL at 4 x 384 tokens with 4 x
                1500 frames; model FLOPs/s over the active parameters;
                each eval launching K4 once for each layer the
-               reference's gate lets through (1, 0, 0, 2, 32, 32).  Then
-               qwen at 4 layers, one step at microbatches 1, 2 and 4 from
+               reference's gate lets through (1, 0, 0, 2, 32, 32);
+               dbrx's train steps through the grouped GEMM, K7 3 x 3
+               times a step (forward, rematerialized forward, dX) and K8
+               3 times (dW).  Then qwen at 4 layers, one step at microbatches 1, 2 and 4 from
                the same seeded init: loss, gradient norm and the updated
                leaves agreeing, the activations beside the float32
                accumulators falling.
@@ -218,7 +233,7 @@ Phases, each on its own lines; any failure exits nonzero:
                with K4 and without.  Then 16a0's dbrx-132b (1 layer)
                through ``make_ep_moe_fn`` at capacity 4.0 = E / k: no
                routed row dropped, each step's loss and gradient norm
-               within 1e-3 of the capacity form's at the same params
+               within 1e-3 of the routed form's (K7 / K8) at the same params
                (the whole run within 5e-2 of 16a0's: bf16 sums in
                another row order drift apart), 6 ``all_to_all`` a step;
                and 3 steps at capacity 1.25 from the same init, the
@@ -252,16 +267,18 @@ Phases, each on its own lines; any failure exits nonzero:
 16a. moe/gqa serve — the mixture-of-experts and GQA families at their
                published widths through ``Gateway.serve``, one after the
                other, each after the previous model is freed:
-               ``dbrx-132b`` (16 experts top-4 in the exact capacity
-               form, 48 heads over 8 kv heads: G = 6) cut to 10 of its 40
+               ``dbrx-132b`` (16 experts top-4 through the grouped GEMM,
+               48 heads over 8 kv heads: G = 6) cut to 10 of its 40
                layers, and ``command-r-35b`` FULL (64 over 8: G = 8), on
                the dense engine (K1) and the paged engine (page 8, 400
                pages; K2), 8 + 8 requests as in phase 7: K1 / K2 exactly
-               layers x decode steps, every request served, the dense
+               layers x decode steps, K7 exactly 3 x MoE layers x
+               (prefills + decode steps), every request served, the dense
                engine's greedy tokens repeating bit for bit when its
                first batch is served again, a decode chunk under
                ``torch.cuda.set_sync_debug_mode("error")``; the decode
-               step (median, CUDA events) beside its weight-read bound,
+               step (median, CUDA events) beside its weight-read bound
+               (an MoE layer's experts as many as a step's rows reach),
                each admission group's prefill beside its routed-operation
                bound, peak memory.  Phase 3 holds K1 and K2 at both
                models' shapes (H 48 and 64 over 8 kv heads).
@@ -295,7 +312,8 @@ Phases, each on its own lines; any failure exits nonzero:
                61 layers (3 dense, 2 MoE of 256 experts top-8 with a
                shared one) with the naive decode, each through
                ``Gateway.serve`` on the dense engine as in 16a: K1, K2
-               and K4 launched exactly 0 times, every request served,
+               and K4 launched exactly 0 times, K7 3 times in each of
+               deepseek's 2 MoE layers a forward, every request served,
                the tokens repeating bit for bit, a decode chunk under
                ``set_sync_debug_mode("error")``; decode step, prefill
                and peak memory beside their bounds.  minicpm3's naive
@@ -456,12 +474,13 @@ DBRX = "dbrx-132b"
 # the EP moe_fn's capacity factors on the card: E / k = 16 / 4 (no drop),
 # and the reference's default, 3 steps from the same init
 EP_CAPACITY, EP_DROP_CAPACITY, EP_DROP_STEPS = 4.0, 1.25, 3
-# the EP run against the capacity form's whole run: step 0 agrees
+# the EP run against the routed form's whole run (16a0's: K7 / K8): step 0
+# agrees
 # (2.3e-5 of its gradient norm), then the expert products' bf16 sums in
 # another row order, carried by 8 Adam steps at lr 1e-4, drift the
 # trajectories apart (4.5e-3 of the loss, 1.2e-2 of the gradient norm
 # by step 8 on an H100); each step is held at SHARDED_RTOL against the
-# capacity form at the same params instead
+# routed form at the same params instead
 EP_DRIFT_RTOL = 5e-2
 EVAL_RTOL = 5e-3  # bf16 activations: K4 rounds P to bf16 and sums in
 #                   another order than the plain float32 attention
@@ -533,6 +552,21 @@ MLA_F32_RTOL = 1e-4     # of max |logit|: float32 on the card and on the
 MLA_ABSORB_RTOL = 2e-3  # of max |logit|: absorbed vs naive in float32,
 #                         the reference's own tolerance for the pair
 #                         (tests/test_transformer.py)
+# the MoE layers' grouped GEMM (K7 forward and dX, K8 dW): one product
+# (the gate's, d x f; dX and dW of it) at the main path's shapes: T
+# tokens, top-k of E experts, M = T k routed rows; each token's k
+# experts drawn from seeded scores (distinct, about uniform)
+GG_SHAPES = (("dbrx-132b prefill", 4 * 384, 4, 16, 6144, 10752),
+             ("dbrx-132b decode", NUM_SLOTS, 4, 16, 6144, 10752),
+             ("deepseek-v3-671b prefill", 4 * 384, 8, 256, 7168, 2048),
+             ("deepseek-v3-671b decode", NUM_SLOTS, 8, 256, 7168, 2048))
+# K8's main path: dbrx-132b's training step (TRAIN_FAMILIES: 4 x 1024)
+GG_TRAIN_SHAPE = ("dbrx-132b train", 4 * 1024, 4, 16, 6144, 10752)
+GG_TOL = 1e-2      # of max |y|, bf16 outputs: both versions sum in
+#                    float32 and round once (2^-8 of |y| <= max |y|), the
+#                    plain one in cuBLAS's order
+GG_F32_TOL = 1e-5  # of max |y|, float32 (no TF32): the same products
+#                    summed in another order
 
 
 def say(*a) -> None:
@@ -1102,6 +1136,231 @@ def ssd_kernel_phase() -> dict:
         del x, Bm, Cm, dt, args, y, y32, want
     torch.cuda.empty_cache()
     return row
+
+
+def _gg_routing(T: int, k: int, E: int, g) -> tuple:
+    """Offsets of T tokens' top-k of E experts, drawn from seeded scores:
+    ``(offsets (E + 1,) int32 on the card, group sizes)``."""
+    import torch
+    top = torch.randn(T, E, generator=g, device="cuda").topk(k).indices
+    ids = top.reshape(-1).sort(stable=True).values
+    offsets = torch.searchsorted(ids, torch.arange(E + 1,
+                                                   device="cuda")).int()
+    return offsets, offsets.diff().tolist()
+
+
+def _gg_library(grouped, capacity, want) -> tuple:
+    """The yardstick: ``grouped()`` (a ``torch._grouped_mm`` call) where
+    the card's torch has it for these operands, else the capacity form's
+    product (``capacity()`` makes its zero buffers and gives the
+    ``torch.bmm`` call); neither is the port's.  Returns its name, the
+    call and, for ``torch._grouped_mm``, its max |difference| from
+    ``want`` (the kernel's output) relative to max |want|."""
+    import torch
+    try:
+        got = grouped()
+    except (AttributeError, RuntimeError, TypeError) as err:
+        reason = str(err).splitlines()[0][:80]
+        return (f"the capacity form's torch.bmm (_grouped_mm: {reason})",
+                capacity(), None)
+    diff = ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+    return "torch._grouped_mm", grouped, diff
+
+
+def _gg_rel_err(a, b) -> float:
+    """max |a - b| / max |b|, for a dW one expert's matrix at a time: a
+    float32 copy of a whole dW takes 15 GB at deepseek-v3-671b's widths,
+    and three of them do not fit beside the weight and both dW."""
+    err = scale = 0.0
+    for p, q in (zip(a, b) if a.dim() == 3 else ((a, b),)):
+        err = max(err, (p.float() - q.float()).abs().max().item())
+        scale = max(scale, q.float().abs().max().item())
+    return err / scale
+
+
+def _gg_case(label, x, w, offsets, max_group, dtype, tol, grads=True
+             ) -> dict:
+    """K7 (through the wrapper and ``GroupedGemm``'s backward: K7 for dX,
+    K8 for dW) against the plain version and its autograd on the same
+    inputs; K7 called twice must agree bit for bit.  Returns the relative
+    errors."""
+    import torch
+    from repro_torch.kernels.grouped_gemm import (GroupedGemm, grouped_gemm,
+                                                  grouped_gemm_torch)
+    y = grouped_gemm(x, w, offsets, max_group)
+    again = grouped_gemm(x, w, offsets, max_group)
+    want = grouped_gemm_torch(x, w, offsets, max_group)
+    torch.cuda.synchronize()
+    errs = {"y": _gg_rel_err(y, want)}
+    repeat = torch.equal(y, again)
+    del y, again, want
+    if grads:
+        dy = torch.randn(x.shape[0], w.shape[2], device="cuda",
+                         dtype=dtype)
+        xk, wk = (t.detach().requires_grad_(True) for t in (x, w))
+        got = torch.autograd.grad(GroupedGemm.apply(xk, wk, offsets),
+                                  (xk, wk), dy)
+        xp, wp = (t.detach().requires_grad_(True) for t in (x, w))
+        ref = torch.autograd.grad(grouped_gemm_torch(xp, wp, offsets,
+                                                     max_group), (xp, wp), dy)
+        for name, a, b in zip(("dx", "dw"), got, ref):
+            errs[name] = _gg_rel_err(a, b)
+        del dy, xk, wk, got, xp, wp, ref
+    say(f"   {label} [{str(dtype).split('.')[-1]}]: max |err| / max |want| "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tol "
+        f"{tol:.0e}); K7 repeats bit for bit: {repeat}")
+    bad = {k: v for k, v in errs.items() if not v <= tol}
+    if bad or not repeat:
+        raise AssertionError(f"grouped_gemm [{label}, {dtype}] disagrees "
+                             f"with its plain version: {bad}; repeat "
+                             f"{repeat}")
+    return errs
+
+
+def grouped_gemm_phase(build_report: dict = None) -> list:
+    """K7 and K8 (the MoE layers' grouped GEMM) against their plain
+    versions on the card, in bf16 and float32, at GG_SHAPES (dbrx-132b's
+    and deepseek-v3-671b's prefill and decode), K8's training shape, a
+    split with empty groups (first, middle, last) and one with every row
+    in one group: forward, and dX and dW against autograd of the plain
+    version (in float32 not at deepseek's prefill, whose plain autograd
+    does not fit beside the 15 GB weight and two 15 GB dW); then, in
+    bf16, each shape's K7 (K8 at the training shape) timed warm and with
+    L2 flushed beside the plain version as the main path calls it
+    (max_group = T), its bound (operations at 989 TFLOP/s or the bytes of its rows and of
+    the experts they reach at 3.35 TB/s, the larger) and the library
+    yardstick.  ptxas's registers and spills first.  Returns the rows of
+    the kernel table."""
+    import torch
+    from repro_torch.kernels.grouped_gemm import (grouped_gemm,
+                                                  grouped_gemm_dw_torch,
+                                                  grouped_gemm_torch)
+    k8 = torch.ops.repro_torch.grouped_gemm_dw
+    t0 = time.perf_counter()
+    out = (build_report or {}).get("grouped_gemm", {}).get(
+        "compiler_output", "")
+    for line in ptxas_lines(out) or ["not built in this run"]:
+        say(f"== K7/K8 ptxas: {line}")
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def rnd(*shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                ).to(dtype)
+
+    # the ragged edges: empty groups first, in the middle and last; every
+    # row in one group (small shapes: the contract, not the speed)
+    for label, sizes, K, N in (
+            ("empty groups", [0, 37, 0, 0, 129, 200, 1, 0], 256, 384),
+            ("one group", [0, 0, 0, 500, 0, 0, 0, 0], 256, 384)):
+        offsets = torch.tensor([0] + sizes, device="cuda").cumsum(0).int()
+        for dtype, tol in ((torch.bfloat16, GG_TOL),
+                           (torch.float32, GG_F32_TOL)):
+            x = rnd(sum(sizes), K, dtype=dtype)
+            w = rnd(len(sizes), K, N, dtype=dtype, scale=K ** -0.5)
+            _gg_case(f"{label} {sizes}, K={K} N={N}", x, w, offsets,
+                     max(sizes), dtype, tol)
+            dw = k8(x, rnd(sum(sizes), N, dtype=dtype), offsets)
+            empty = [i for i, n in enumerate(sizes) if n == 0]
+            if dw[empty].any():
+                raise AssertionError(f"grouped_gemm_dw [{label}] wrote "
+                                     f"nonzero dW for an empty group")
+
+    rows = []
+    for label, T, k, E, d, f in GG_SHAPES + (GG_TRAIN_SHAPE,):
+        offsets, sizes = _gg_routing(T, k, E, g)
+        M, hit = T * k, sum(n > 0 for n in sizes)
+        say(f"== kernel grouped_gemm [{label}: T={T} tokens top-{k} of "
+            f"E={E}, M={M} rows, K={d} N={f}; {hit} experts reached, "
+            f"groups {min(sizes)}..{max(sizes)} rows]")
+        train = label == GG_TRAIN_SHAPE[0]
+        for dtype, tol in ((torch.bfloat16, GG_TOL),
+                           (torch.float32, GG_F32_TOL)):
+            x = rnd(M, d, dtype=dtype)
+            w = rnd(E, d, f, dtype=dtype, scale=d ** -0.5)
+            # float32 gradients at deepseek's prefill: the plain version's
+            # autograd holds its (256, 1536, 7168) buffer and that
+            # buffer's gradient, 11.3 GB each, beside the 15 GB weight and
+            # both 15 GB dW, over 70 of the card's 80 GB
+            errs = _gg_case(label, x, w, offsets, T, dtype, tol, grads=not (
+                dtype == torch.float32
+                and label == "deepseek-v3-671b prefill"))
+            if dtype == torch.float32:
+                del x, w
+                torch.cuda.empty_cache()
+                continue
+            nops = 2 * M * d * f
+            if train:
+                dy = rnd(M, f, dtype=dtype)
+                err = errs["dw"]
+                name, source = "grouped_gemm_dw", "K8"
+
+                def kernel():
+                    return k8(x, dy, offsets)
+
+                def plain():
+                    return grouped_gemm_dw_torch(x, dy, offsets, T)
+
+                def capacity():
+                    xb = x.new_zeros((E, T, d))
+                    db = dy.new_zeros((E, T, f))
+                    return lambda: torch.bmm(xb.transpose(1, 2), db)
+                # x and dy read once, dW written once, every expert's
+                nbytes = (M * d + M * f + E * d * f) * 2
+                # the 2-D x 2-D form splits the contraction (rows) by offs
+                lib_name, library, lib_diff = _gg_library(
+                    lambda: torch._grouped_mm(x.t(), dy, offs=offsets[1:]),
+                    capacity, kernel())
+            else:
+                err = errs["y"]
+                name, source = "grouped_gemm", "K7"
+
+                def kernel():
+                    return grouped_gemm(x, w, offsets, T)
+
+                def plain():
+                    return grouped_gemm_torch(x, w, offsets, T)
+                def capacity():
+                    buf = x.new_zeros((E, T, d))
+                    return lambda: torch.bmm(buf, w)
+                # x read once, y written once, and the weights of each
+                # expert a row reaches
+                nbytes = (M * d + M * f + hit * d * f) * 2
+                lib_name, library, lib_diff = _gg_library(
+                    lambda: torch._grouped_mm(x, w, offs=offsets[1:]),
+                    capacity, kernel())
+            ms = cuda_ms(kernel, 20)
+            cold = cuda_ms_cold(kernel, 10)
+            plain_ms = cuda_ms(plain, 5)
+            library_ms = cuda_ms(library, 20)
+            lib_cold = cuda_ms_cold(library, 10)
+            t_ops, t_bytes = nops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+            bound_ms = max(t_ops, t_bytes) * 1e3
+            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            say(f"   {source} {name} bf16: kernel {ms * 1e3:.2f} us warm, "
+                f"{cold * 1e3:.2f} us flushed ({nops / ms / 1e9:.1f} "
+                f"TFLOP/s) | plain {plain_ms * 1e3:.2f} us | library "
+                f"{library_ms * 1e3:.2f} us warm, {lib_cold * 1e3:.2f} us "
+                f"flushed ({lib_name}"
+                + ("" if lib_diff is None else
+                   f"; max |difference| from the kernel / max |kernel| "
+                   f"{lib_diff:.3e}")
+                + f") | bound {bound_ms * 1e3:.2f} us ({nops / 1e9:.1f} GFLOP"
+                f" / 989 TFLOP/s = {t_ops * 1e6:.2f} us; {nbytes / 1e9:.3f} "
+                f"GB / 3.35 TB/s = {t_bytes * 1e6:.2f} us; {bound_by})")
+            rows.append(dict(name=name, route="cuda",
+                             source="src/repro_torch/kernels/csrc/"
+                                    "grouped_gemm.cu",
+                             replaces="src/repro/models/moe.py:91",
+                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=library_ms, shape=label,
+                             ms_cold=cold, library=lib_name,
+                             library_ms_cold=lib_cold))
+            del x, w
+            torch.cuda.empty_cache()
+    say(f"== grouped gemm: {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 def cuda_ms_cold(fn, iters: int = 20) -> float:
@@ -2104,16 +2363,19 @@ def _drive(label, backend, index, qs, n_batches, card, n_layers,
     steps = es.n_decode_steps
     step_ms = _step_ms(rec["chunks"], steps)
     weight_bytes = _served_weight_bytes(engine.params)
-    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    # an MoE step reads only the experts its rows reach: its bound is
+    # printed with the decode step (_say_step_and_prefill), not here
+    bound = ("" if engine.model.cfg.moe else
+             f" beside the weight-read bound "
+             f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms "
+             f"({weight_bytes / 1e9:.1f} GB / 3.35 TB/s)")
     rec["step_ms"] = step_ms
     say(f"   engine: admitted {es.n_admitted}, completed {es.n_completed}, "
         f"prefills {es.n_prefills}, decode chunks {es.n_decode_chunks} "
         f"({steps} steps), max concurrent {es.max_concurrent}, "
         f"quarantined {es.n_quarantined}")
     say(f"   decode [{label}]: {step_ms:.2f} ms per step (device time of the "
-        f"chunks) beside the weight-read bound {bound_ms:.2f} ms "
-        f"({weight_bytes / 1e9:.1f} GB / 3.35 TB/s); serve wall "
-        f"{wall:.2f} s; peak memory "
+        f"chunks){bound}; serve wall {wall:.2f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
     say(f"   launches {launches} for {n_layers} layers x {steps} decode "
         f"steps")
@@ -3052,14 +3314,17 @@ def _train_family(arch: str, layers, batch: int, seq: int, card: str,
     and gradient norm finite, the step-0 loss equal to
     ``forward_train_loss`` under ``no_grad`` on the same params and
     batch, the loss falling, the ``watched`` leaves ("/"-paths, see
-    :func:`_leaf`) moving, no K4 launch and no param left requiring
-    grad; prints ms per step (CUDA events), positions / s, model FLOPs /
-    s, peak memory and the device time of one more step by kernel.
-    Returns the trained params, the model, the optimizer state, the last
-    batch and the steady step's ms."""
+    :func:`_leaf`) moving, no K4 launch, an MoE layer's K7 and K8
+    launches (three products a layer: K7 forward, rematerialized and dX,
+    K8 dW) and no param left requiring grad; prints ms per step (CUDA
+    events), positions / s, model FLOPs / s, peak memory and the device
+    time of one more step by kernel.  Returns the trained params, the
+    model, the optimizer state, the last batch, the steady step's ms and
+    the K7 / K8 launches."""
     import torch
     from repro_torch.data.lm_dataset import LMDataset
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.grouped_gemm import grouped_gemm
     from repro_torch.models.schema import tree_leaves, zeros_from_schema
     from repro_torch.models.transformer import forward_train_loss
     from repro_torch.training import (OptConfig, adamw_init_schema,
@@ -3097,6 +3362,7 @@ def _train_family(arch: str, layers, batch: int, seq: int, card: str,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0
+    grouped_gemm.launches = grouped_gemm.dw_launches = 0
     for i in range(TRAIN_STEPS):
         b = first if i == 0 else {k: torch.from_numpy(v).cuda() for k, v in
                                   next(batches).items()}
@@ -3109,6 +3375,8 @@ def _train_family(arch: str, layers, batch: int, seq: int, card: str,
         metrics.append(m)
     torch.cuda.synchronize()
     k4_launches = flash_attention.launches
+    moe = {"grouped_gemm": grouped_gemm.launches,
+           "grouped_gemm_dw": grouped_gemm.dw_launches}
     peak = torch.cuda.max_memory_allocated()
     ms = [s_.elapsed_time(e) for s_, e in events]
     losses = [float(m["loss"]) for m in metrics]
@@ -3144,6 +3412,21 @@ def _train_family(arch: str, layers, batch: int, seq: int, card: str,
     if k4_launches:
         raise AssertionError(f"[{label}] K4 launched {k4_launches} times in "
                              f"train steps")
+    # an MoE layer's three products: K7 in the forward, again in the
+    # rematerialized forward, and for dX; K8 for dW
+    n_moe = _moe_layers(cfg)
+    forwards = 1 if cfg.remat == "none" else 2
+    want = {"grouped_gemm": 3 * n_moe * (forwards + 1) * TRAIN_STEPS,
+            "grouped_gemm_dw": 3 * n_moe * TRAIN_STEPS}
+    if n_moe:
+        say(f"   grouped GEMM launches in the train steps: K7 "
+            f"{moe['grouped_gemm']}, K8 {moe['grouped_gemm_dw']} (3 "
+            f"products x {n_moe} MoE layer(s) x {TRAIN_STEPS} steps, K7 "
+            f"{forwards + 1} times: forward{', remat' * (forwards - 1)} "
+            f"and dX; K8 once: dW)")
+    if moe != want:
+        raise AssertionError(f"[{label}] grouped GEMM launches {moe}, want "
+                             f"{want}")
     if any(t.requires_grad for t in tree_leaves(params)):
         raise AssertionError(f"[{label}] params left requiring grad")
     del before, metrics
@@ -3151,6 +3434,7 @@ def _train_family(arch: str, layers, batch: int, seq: int, card: str,
         f"{device_split(lambda: step_fn(params, opt_state, b), 10)}")
     return {"params": params, "model": model, "opt_state": opt_state,
             "batch": b, "step_ms": step_ms, "seq": seq, "rows": batch,
+            "launches": moe,
             "record": {"losses": losses, "gnorms": gnorms, "ms": ms,
                        "step_ms": step_ms, "peak": peak, "lr": lr}}
 
@@ -3336,7 +3620,8 @@ def train_families_phase(card: str, records: dict = None) -> dict:
     window, phi-3-vision-4.2b's image projector, whisper-large-v3's
     encoder): :func:`_train_family`, then :func:`_eval_family`; then
     :func:`microbatch_phase`.  Returns K4's launches in each family's
-    eval, keyed by arch, for the kernel table's rows at their shapes;
+    eval and K8's in its train steps, keyed by arch, for the kernel
+    table's rows at their shapes;
     each run's losses, gradient norms and times go into ``records``
     (by arch), for :func:`sharded_train_phase`."""
     t0 = time.perf_counter()
@@ -3346,7 +3631,9 @@ def train_families_phase(card: str, records: dict = None) -> dict:
         if records is not None:
             records[arch] = trained["record"]
         del trained["opt_state"], trained["batch"]
-        out[arch] = {"flash_attention": _eval_family(trained, card, arch)[0]}
+        out[arch] = {"flash_attention": _eval_family(trained, card, arch)[0],
+                     "grouped_gemm_dw":
+                         trained["launches"]["grouped_gemm_dw"]}
         del trained
     microbatch_phase(card)
     say(f"== train families: {time.perf_counter() - t0:.1f} s")
@@ -3470,7 +3757,7 @@ def _sharded_run(label: str, arch: str, layers, batch: int, seq: int,
     metrics, ms (CUDA events), collectives by kind and routed / kept
     rows, the peak memory and the peak of live gathered bytes; with
     ``twin``, before each step, the single-device loss and gradient norm
-    (``forward_train_loss``, the capacity form) at the same params and
+    (``forward_train_loss``, the routed form) at the same params and
     batch; with ``evaluate`` also the sharded eval step with K4 beside
     ``make_eval_step`` with K4 and without on the trained shards."""
     import torch
@@ -3610,7 +3897,7 @@ def sharded_train_phase(card: str, records: dict) -> dict:
     dbrx-132b at full width cut to 1 layer, 4 x 1024, lr 1e-4, through
     ``make_ep_moe_fn`` (E = 16, E_loc = 16 at dp = 1): at capacity 4.0 =
     E / k no routed row drops, each step's loss and gradient norm are
-    the capacity form's at the same params and batch within
+    the routed form's at the same params and batch within
     SHARDED_RTOL, and the whole run stays within EP_DRIFT_RTOL of
     16a0's (its step 0 within SHARDED_RTOL); 6 ``all_to_all`` a step (2
     a MoE layer forward, 2 for its rematerialized forward, 2 backward);
@@ -3631,20 +3918,21 @@ def sharded_train_phase(card: str, records: dict) -> dict:
                            lr, TRAIN_STEPS, capacity=capacity,
                            evaluate=evaluate, twin=capacity is not None)
         if run["twins"]:
-            # the capacity form at the same params each step: the EP
+            # the routed form at the same params each step: the EP
             # block's products sum over rows in another order, and eight
             # bf16 Adam steps carry that apart (the whole run's gap is
             # printed against EP_DRIFT_RTOL)
             twin_l = _gap(run["losses"], [t[0] for t in run["twins"]])
             twin_g = _gap(run["gnorms"], [t[1] for t in run["twins"]])
-            say(f"   the capacity form at the same params and batch, each "
+            say(f"   the routed form (K7 / K8) at the same params and batch, "
+                f"each "
                 f"step: losses {[round(t[0], 6) for t in run['twins']]}, "
                 f"grad_norm {[round(t[1], 6) for t in run['twins']]}; "
                 f"largest relative gap {twin_l:.3e} / {twin_g:.3e} (tol "
                 f"{SHARDED_RTOL:.0e}) [{card}]")
             if not (twin_l <= SHARDED_RTOL and twin_g <= SHARDED_RTOL):
-                raise AssertionError(f"[{label}] EP is not the capacity form "
-                                     f"at the same params: {twin_l}, "
+                raise AssertionError(f"[{label}] EP is not the routed form at "
+                                     f"the same params: {twin_l}, "
                                      f"{twin_g}")
         run_tol = EP_DRIFT_RTOL if run["twins"] else SHARDED_RTOL
         gap_l = _gap(run["losses"], single["losses"])
@@ -4224,18 +4512,17 @@ def mamba_train_phase(card: str) -> None:
         raise AssertionError("[mamba train] the refused step changed state")
 
 
-def _prefill_flops(cfg, B: int, S: int, every_expert: bool = False) -> int:
+def _prefill_flops(cfg, B: int, S: int) -> int:
     """The operations one prefill of B prompts of S tokens needs on an
     attention stack: the weight products of every token (an MoE layer's
-    router, its shared experts' and its top-k experts' products; with
-    ``every_expert`` all E experts', as the capacity form computes them),
-    the causal attention scores and values, and the unembedding of the
-    last position.  An MLA layer's products are its query (through the
-    q-LoRA), latent, key / value expansion and output projections; its
-    scores span the nope and rope dims, its values v_head_dim.  A
-    decoder layer of an encoder-decoder adds its cross sublayer, as a
-    served prefill runs it (no encoder: keys and values from the
-    cache)."""
+    router, its shared experts' and its top-k experts' products, the
+    routed rows the grouped GEMM computes), the causal attention scores
+    and values, and the unembedding of the last position.  An MLA
+    layer's products are its query (through the q-LoRA), latent, key /
+    value expansion and output projections; its scores span the nope and
+    rope dims, its values v_head_dim.  A decoder layer of an
+    encoder-decoder adds its cross sublayer, as a served prefill runs it
+    (no encoder: keys and values from the cache)."""
     T = B * S
     d, H, Hkv, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     causal = S * (S + 1) // 2
@@ -4259,9 +4546,8 @@ def _prefill_flops(cfg, B: int, S: int, every_expert: bool = False) -> int:
         ops += attn
         if cfg.is_moe_layer(i):
             e = cfg.moe
-            rows = T * (e.n_experts if every_expert else e.top_k)
             ops += (2 * T * d * e.n_experts
-                    + 2 * (rows + T * e.n_shared_experts) * 3 * d
+                    + 2 * T * (e.top_k + e.n_shared_experts) * 3 * d
                     * e.d_ff_expert)
         else:
             ops += 2 * T * 3 * d * cfg.d_ff
@@ -4287,13 +4573,80 @@ def _kernel_layers(cfg) -> int:
 NOT_DECODED = ("mtp", "projector", "encoder", "enc_pos", "enc_final_norm")
 
 
-def _served_weight_bytes(params) -> int:
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def _served_weight_bytes(params, expert_share: float = 1.0) -> float:
     """The bytes a decode step reads once at least: every weight but
-    those of ``NOT_DECODED`` (the capacity form of an MoE layer reads all
-    its experts)."""
-    from repro_torch.models.schema import tree_leaves
-    return sum(t.numel() * t.element_size() for t in tree_leaves(
-        {k: v for k, v in params.items() if k not in NOT_DECODED}))
+    those of ``NOT_DECODED``, an MoE layer's routed experts (its
+    ``EXPERT_LEAVES``) times ``expert_share``, the share of its experts a
+    step's rows reach: the grouped GEMM reads only those."""
+    def walk(tree, path=()):
+        if isinstance(tree, dict):
+            return sum(walk(v, path + (k,)) for k, v in tree.items())
+        if isinstance(tree, (list, tuple)):
+            return sum(walk(v, path) for v in tree)
+        share = (expert_share if path[-2:-1] == ("moe",)
+                 and path[-1] in EXPERT_LEAVES else 1.0)
+        return tree.numel() * tree.element_size() * share
+    return walk({k: v for k, v in params.items() if k not in NOT_DECODED})
+
+
+def _moe_layers(cfg) -> int:
+    return sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+
+
+@contextlib.contextmanager
+def _routed_groups(calls: list):
+    """Record ``(rows, offsets)`` of every forward grouped product (the
+    op ``repro_torch::grouped_gemm`` on untransposed weights) dispatched
+    while open, by a dispatch mode: nothing is patched, and the offsets
+    stay on the card."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Recorder(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func._schema.name == "repro_torch::grouped_gemm" and not (
+                    args[3]):
+                calls.append((args[0].shape[0], args[2]))
+            return func(*args, **(kwargs or {}))
+    with Recorder():
+        yield
+
+
+def _decode_expert_share(cfg, calls, slots: int) -> float:
+    """The mean share of an MoE layer's experts that a decode step's rows
+    (``slots`` x top-k) reach, over the recorded products; 1.0 without
+    MoE."""
+    import torch
+    if not cfg.moe:
+        return 1.0
+    dec = [o for m, o in calls if m == slots * cfg.moe.top_k]
+    if not dec:
+        raise AssertionError(f"no decode step's grouped product was "
+                             f"recorded ({len(calls)} products)")
+    hits = torch.stack([(o[1:] > o[:-1]).sum() for o in dec])
+    return hits.float().mean().item() / cfg.moe.n_experts
+
+
+def _check_moe_launches(label, launches, stats, cfg) -> int:
+    """K7 three times (gate, up, down) in each MoE layer of every
+    forward, each admission group's prefill and each decode step.
+    Returns the count."""
+    want = 3 * _moe_layers(cfg) * (stats.n_prefills + stats.n_decode_steps)
+    got = launches["grouped_gemm"]
+    if not cfg.moe:
+        if got:
+            raise AssertionError(f"[{label}] grouped_gemm launched {got} "
+                                 f"times without MoE layers")
+        return 0
+    say(f"   grouped_gemm (K7) launches {got} = 3 x {_moe_layers(cfg)} MoE "
+        f"layers x ({stats.n_prefills} prefills + {stats.n_decode_steps} "
+        f"decode steps)")
+    if got != want or not got:
+        raise AssertionError(f"[{label}] grouped_gemm launched {got} times, "
+                             f"want {want}")
+    return got
 
 
 def _cross_cache_bytes(cfg, slots: int) -> int:
@@ -4305,22 +4658,29 @@ def _cross_cache_bytes(cfg, slots: int) -> int:
             * cfg.head_dim * 2 * 2)
 
 
-def _say_step_and_prefill(label, rec, ex, cfg, params, card) -> float:
+def _say_step_and_prefill(label, rec, ex, cfg, params, card,
+                          groups=()) -> float:
     """Print the dense engine's decode step (median of the chunks'
-    per-step device time) beside its bound, the weights read once (and,
-    for an encoder-decoder, every slot's cross cache), and each
-    admission group's prefill (device time of prefill + commit) beside
-    its bound over the routed operations or the weights read once.
-    Returns the decode bound in ms."""
+    per-step device time) beside its bound, the weights read once (an
+    MoE layer's experts as many as the step's rows reach, by the routed
+    ``groups`` that :func:`_check_repeat` recorded; and, for an
+    encoder-decoder, every slot's cross cache), and each admission
+    group's prefill (device time of prefill + commit) beside its bound
+    over the routed operations or every weight read once.  Returns the
+    decode bound in ms."""
     import statistics
-    weight_bytes = _served_weight_bytes(params)
+    share = _decode_expert_share(cfg, groups, ex.num_slots)
+    weight_bytes = _served_weight_bytes(params, share)
     cross = _cross_cache_bytes(cfg, ex.num_slots)
     per_step = [s_.elapsed_time(e) / ex.sync_every for s_, e in rec["chunks"]]
     step_ms = statistics.median(per_step)
     bound_ms = (weight_bytes + cross) / HBM_BYTES_PER_S * 1e3
     what = (f"weight-read bound {bound_ms:.2f} ms ({weight_bytes / 1e9:.1f}"
             f" GB" + (f" + {cross / 1e9:.2f} GB of cross cache" if cross
-                      else "") + " / 3.35 TB/s)")
+                      else "") + " / 3.35 TB/s" + (
+                f"; an MoE layer's step reaches {share * cfg.moe.n_experts:.1f}"
+                f" of its {cfg.moe.n_experts} experts" if cfg.moe else "")
+            + ")")
     say(f"   decode step [{label}]: median {step_ms:.2f} ms over "
         f"{len(per_step)} chunks of {ex.sync_every} steps (CUDA events; "
         f"{[round(x, 2) for x in per_step]}) beside its {what} = "
@@ -4328,31 +4688,38 @@ def _say_step_and_prefill(label, rec, ex, cfg, params, card) -> float:
     admits = {}
     for shape, (s_, e) in zip(rec["admit_shapes"], rec["admits"]):
         admits.setdefault(shape, []).append(s_.elapsed_time(e))
+    every_weight = _served_weight_bytes(params)
     for (B, S), ms in admits.items():
         need = _prefill_flops(cfg, B, S)
-        done = _prefill_flops(cfg, B, S, every_expert=True)
-        pre_bound = max(weight_bytes / HBM_BYTES_PER_S,
+        pre_bound = max(every_weight / HBM_BYTES_PER_S,
                         need / BF16_OPS_PER_S) * 1e3
         say(f"   prefill [{label}]: {len(ms)} admission groups of {B} x {S} "
             f"tokens, {statistics.median(ms):.2f} ms each (median device "
             f"time of prefill + commit; {[round(x, 2) for x in ms]}) beside "
             f"its bound {pre_bound:.2f} ms ({need / 1e12:.2f} TFLOP routed / "
-            f"989 TFLOP/s, or the weights read once); the capacity form "
-            f"computes {done / 1e12:.2f} TFLOP = {done / need:.2f} x the "
-            f"routed [{card}]")
+            f"989 TFLOP/s, or every weight read once) [{card}]")
     return bound_ms
 
 
-def _check_repeat(label, dense, qs) -> dict:
-    """Serve the FixedPolicy(0) batch of a :func:`_drive` run again: its
-    greedy tokens must repeat bit for bit.  Returns the first run's
-    tokens by prompt (the record then holds the repeat's)."""
+def _check_repeat(label, dense, qs, groups=None) -> dict:
+    """Serve the FixedPolicy(0) batch of a :func:`_drive` run again,
+    untimed: its greedy tokens must repeat bit for bit.  Given a list
+    ``groups``, the repeat records its grouped products there
+    (:func:`_routed_groups`): the same tokens route alike, so a decode
+    step reaches the experts it reached in the timed run.  Returns the
+    first run's tokens by prompt (the record then holds the repeat's
+    tokens and, still, only the timed run's events)."""
     import torch
     rec = dense["rec"]
     first = dict(rec["tokens"])
     rec["tokens"].clear()
-    dense["gateways"][0][1].serve(_requests(qs, 0))
+    timed = {k: len(rec[k]) for k in ("chunks", "admits", "admit_shapes")}
+    with (contextlib.nullcontext() if groups is None
+          else _routed_groups(groups)):
+        dense["gateways"][0][1].serve(_requests(qs, 0))
     torch.cuda.synchronize()
+    for k, n in timed.items():
+        del rec[k][n:]
     again = rec["tokens"]
     same = sum(first.get(k) == v for k, v in again.items())
     say(f"   repeat [{label}]: the FixedPolicy(0) batch served again, "
@@ -4443,6 +4810,7 @@ def _serve_family(arch: str, layers, card: str, policy, data, index,
     from repro_torch.data import HashTokenizer
     from repro_torch.kernels.flash_decode import (flash_decode,
                                                   flash_decode_torch)
+    from repro_torch.kernels.grouped_gemm import grouped_gemm
     from repro_torch.kernels.paged_flash_decode import paged_flash_decode
     from repro_torch.models import build_model
     from repro_torch.models import layers as model_layers
@@ -4451,7 +4819,8 @@ def _serve_family(arch: str, layers, card: str, policy, data, index,
     cfg, model, params = _build_family(arch, layers, card, phase)
     L = _kernel_layers(cfg)
     counters = {"flash_decode": flash_decode,
-                "paged_flash_decode": paged_flash_decode}
+                "paged_flash_decode": paged_flash_decode,
+                "grouped_gemm": grouped_gemm}
     qs = data.questions[-16:]
 
     def backend_for(served_model=model, **engine_kw):
@@ -4467,11 +4836,16 @@ def _serve_family(arch: str, layers, card: str, policy, data, index,
     dense = _drive(label, backend, index, qs, 2, card, L, counters, policy)
     _check_launches(label, dense["launches"], "flash_decode",
                     dense["steps"], L, absent=("paged_flash_decode",))
+    k7 = _check_moe_launches(label, dense["launches"], backend.engine.stats,
+                             cfg)
     rec, ex = dense["rec"], backend.engine.executor
-    bound_ms = _say_step_and_prefill(label, rec, ex, cfg, params, card)
-    first = _check_repeat(label, dense, qs)
+    groups = []
+    first = _check_repeat(label, dense, qs, groups)
+    bound_ms = _say_step_and_prefill(label, rec, ex, cfg, params, card,
+                                     groups)
+    del groups
     # a decode chunk on the card synchronises with the host nowhere (the
-    # MoE group sizes stay on the device)
+    # MoE group offsets stay on the device)
     _check_no_sync(ex, "decode chunk")
     # a witness for the dense-vs-paged agreement below: the same batch
     # with K1 swapped for its plain version (float32 throughout)
@@ -4526,6 +4900,8 @@ def _serve_family(arch: str, layers, card: str, policy, data, index,
     paged = _drive(label, backend, index, qs, 2, card, L, counters, policy)
     _check_paged_launches(label, paged["launches"], paged["steps"], L,
                           paged["rec"]["short_prefills"])
+    k7 += _check_moe_launches(label, paged["launches"], backend.engine.stats,
+                              cfg)
     tokens = paged["rec"]["tokens"]
     common = [k for k in tokens if k in dense_tokens]
     agree = sum(a == b for k in common
@@ -4540,12 +4916,13 @@ def _serve_family(arch: str, layers, card: str, policy, data, index,
         f"the first (prefill's) token of {firsts}: bf16 sums in K2's order "
         f"and K1's part the two runs [{card}]")
     launches = {"flash_decode": dense_launches["flash_decode"],
-                "paged_flash_decode": paged["launches"]["paged_flash_decode"]}
+                "paged_flash_decode": paged["launches"]["paged_flash_decode"],
+                "grouped_gemm": k7}
     del paged, backend
     return model, params, launches
 
 
-def moe_gqa_serve_phase(card: str, policy) -> None:
+def moe_gqa_serve_phase(card: str, policy) -> dict:
     """The mixture-of-experts and GQA families at their published widths
     through ``Gateway.serve``: ``dbrx-132b`` (16 experts top-4, G = 6)
     cut to 10 of its 40 layers and ``command-r-35b`` FULL (G = 8), seeded
@@ -4556,24 +4933,31 @@ def moe_gqa_serve_phase(card: str, policy) -> None:
     ``FixedPolicy(0)``, 8 routed by ``policy`` (the trained router),
     every launch count 0 just before and read just after.  Checks every
     request served, K1 (dense) and K2 (paged) launched exactly layers x
-    decode steps, the dense engine's greedy tokens repeating bit for bit
-    when its first batch is served again, and a dense decode chunk
-    running with no host sync; prints the decode step (median of the
-    chunks' per-step device time) beside its weight-read bound, each
-    admission group's prefill beside its bound over the routed
-    operations, peak memory, and how many greedy tokens of the first
-    batch agree when it is served again with K1 swapped for its plain
-    version (a witness for the dense-vs-paged agreement)."""
+    decode steps, dbrx's MoE layers launching K7 (the grouped GEMM)
+    three times in each forward (:func:`_check_moe_launches`), the dense
+    engine's greedy tokens repeating bit for bit when its first batch
+    is served again, and a dense decode chunk running with no host
+    sync; prints the decode step (median of the chunks' per-step device
+    time) beside its weight-read bound (an MoE layer's experts as many
+    as the step's rows reach), each admission group's prefill beside
+    its bound over the routed operations, peak memory, and how many
+    greedy tokens of the first batch agree when it is served again with
+    K1 swapped for its plain version (a witness for the dense-vs-paged
+    agreement).  Returns each model's launches (K1 dense, K2 paged, K7
+    on both)."""
     from repro_torch.data import SyntheticSquad
     from repro_torch.retrieval import BM25Index
     t0 = time.perf_counter()
     data = SyntheticSquad(n_paragraphs=600, n_questions=1000, seed=0)
     index = BM25Index.build([p.text for p in data.paragraphs])
+    launches = {}
     for arch, layers in MOE_GQA_MODELS:
         _free_gpu_memory(f"{arch} dense")
-        _serve_family(arch, layers, card, policy, data, index)
+        launches[arch] = _serve_family(arch, layers, card, policy, data,
+                                       index)[2]
     say(f"== moe/gqa serve: both models served, {time.perf_counter() - t0:.1f}"
         f" s")
+    return launches
 
 
 def gemma3_serve_phase(card: str, policy) -> dict:
@@ -4744,7 +5128,7 @@ def _mtp_loss_check(cfg, params, card: str, counters) -> None:
         raise AssertionError(f"[mtp loss] kernels launched: {launches}")
 
 
-def mla_serve_phase(card: str, policy) -> None:
+def mla_serve_phase(card: str, policy) -> dict:
     """Multi-head latent attention at its published widths through
     ``Gateway.serve`` on the dense slot engine (the paged pool refuses
     MLA, as the reference's does): ``minicpm3-4b`` FULL (not cut) with
@@ -4758,15 +5142,18 @@ def mla_serve_phase(card: str, policy) -> None:
     under ``FixedPolicy(0)``, 8 routed by ``policy``, every launch count
     0 just before and read just after.  Checks every request served, K1,
     K2 and K4 launched exactly 0 times (the reference's MLA has no
-    kernel branch), the greedy tokens repeating bit for bit when the
-    first batch is served again, and a decode chunk running with no host
-    sync; prints the decode step beside its weight-read bound, each
-    admission group's prefill beside its bound, peak memory, and how
-    many greedy tokens the naive and absorbed runs share."""
+    kernel branch), deepseek's two MoE layers launching K7 three times in
+    each forward, the greedy tokens repeating bit for bit when the first
+    batch is served again, and a decode chunk running with no host sync;
+    prints the decode step beside its weight-read bound, each admission
+    group's prefill beside its bound, peak memory, and how many greedy
+    tokens the naive and absorbed runs share.  Returns each model's K7
+    launches."""
     import torch
     from repro_torch.data import HashTokenizer, SyntheticSquad
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.grouped_gemm import grouped_gemm
     from repro_torch.kernels.paged_flash_decode import paged_flash_decode
     from repro_torch.retrieval import BM25Index
     from repro_torch.routing import ContinuousEngineBackend
@@ -4775,9 +5162,11 @@ def mla_serve_phase(card: str, policy) -> None:
     data = SyntheticSquad(n_paragraphs=600, n_questions=1000, seed=0)
     index = BM25Index.build([p.text for p in data.paragraphs])
     qs = data.questions[-16:]
-    counters = {"flash_decode": flash_decode,
-                "paged_flash_decode": paged_flash_decode,
-                "flash_attention": flash_attention}
+    attention = {"flash_decode": flash_decode,
+                 "paged_flash_decode": paged_flash_decode,
+                 "flash_attention": flash_attention}
+    counters = {**attention, "grouped_gemm": grouped_gemm}
+    launches = {}
     for arch, layers, modes in MLA_MODELS:
         _free_gpu_memory(f"{arch} dense")
         cfg, model, params = _build_family(arch, layers, card, "mla serve")
@@ -4789,16 +5178,22 @@ def mla_serve_phase(card: str, policy) -> None:
                 num_slots=NUM_SLOTS, prefill_batch=PREFILL_BATCH,
                 max_prompt_len=MAX_PROMPT_LEN, max_new_tokens=MAX_NEW_TOKENS,
                 mla_absorb=absorb)
-            dense = _drive(label, backend, index, qs, 2, card, 0, counters,
-                           policy)
-            if dense["steps"] == 0 or any(dense["launches"].values()):
+            dense = _drive(label, backend, index, qs, 2, card, 0,
+                           counters, policy)
+            if dense["steps"] == 0 or any(dense["launches"][k]
+                                          for k in attention):
                 raise AssertionError(f"[{label}] kernels launched "
                                      f"{dense['launches']} over "
                                      f"{dense['steps']} decode steps: MLA "
                                      f"takes none")
+            launches[arch] = {"grouped_gemm": _check_moe_launches(
+                label, dense["launches"], backend.engine.stats, cfg)}
             ex = backend.engine.executor
-            _say_step_and_prefill(label, dense["rec"], ex, cfg, params, card)
-            tokens[absorb] = _check_repeat(label, dense, qs)
+            groups = []
+            tokens[absorb] = _check_repeat(label, dense, qs, groups)
+            _say_step_and_prefill(label, dense["rec"], ex, cfg, params, card,
+                                  groups)
+            del groups
             _check_no_sync(ex, "decode chunk")
             del dense, backend, ex
             gc.collect()
@@ -4814,9 +5209,10 @@ def mla_serve_phase(card: str, policy) -> None:
                 f"weights; the absorbed attention runs in float32)")
             mla_absorb_witness(card, cfg, params)
         if cfg.mtp_depth:
-            _mtp_loss_check(cfg, params, card, counters)
+            _mtp_loss_check(cfg, params, card, attention)
         del model, params
     say(f"== mla serve: {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def _modality_inputs(cfg, B: int, S_txt: int, dev, dtype=None) -> dict:
@@ -5753,7 +6149,8 @@ def main() -> None:
             + attention_kernel_phase(report))
     k6 = ssd_kernel_phase()
     retrieval_rows, launches, dist_launches = retrieval_kernel_phase()
-    rows += retrieval_rows + [k6]
+    moe_rows = grouped_gemm_phase(report)
+    rows += retrieval_rows + [k6] + moe_rows
     small_model_phase()
     router = router_phase(card)
     launches.update(main_path_phases(card, router, dist_launches))
@@ -5769,14 +6166,19 @@ def main() -> None:
     train_launches = train_families_phase(card, records)
     sharded_train_phase(card, records)
     dryrun_phase(card)
-    moe_gqa_serve_phase(card, router)
+    moe_launches = moe_gqa_serve_phase(card, router)
     gemma_launches = gemma3_serve_phase(card, router)
-    mla_serve_phase(card, router)
+    moe_launches.update(mla_serve_phase(card, router))
     family_launches = modality_serve_phase(card, router)
     family_launches[GEMMA] = gemma_launches
-    # K4's rows at a family's eval shape count that family's eval
+    # K4's rows at a family's eval shape count that family's eval, K8's
+    # its train steps
     for arch, counts in train_launches.items():
         family_launches.setdefault(arch, {}).update(counts)
+    # K7's rows at an MoE family's shapes count its serve phase's
+    for arch in (DBRX, "deepseek-v3-671b"):
+        family_launches.setdefault(arch, {})["grouped_gemm"] = \
+            moe_launches[arch]["grouped_gemm"]
     _free_gpu_memory("serve cli")
     serve_cli_phase(card)
     # the paper's benches run beside the training CLI, after every timed
@@ -5787,7 +6189,9 @@ def main() -> None:
     for row in rows:
         # the rows at a family's shape count that family's phase's
         # launches (gemma3: head_dim 256; phi-3: 96; whisper: 64, G = 1;
-        # K4's at phi-3's and gemma3's eval shapes, their evals')
+        # K4's at phi-3's and gemma3's eval shapes, their evals'; K7's at
+        # dbrx's and deepseek's, their serve phases'; K8's, dbrx's train
+        # steps)
         fam = [f for f in family_launches
                if row.get("shape", "").startswith(f)]
         row["launches"] = (family_launches[fam[0]] if fam

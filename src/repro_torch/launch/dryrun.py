@@ -102,9 +102,10 @@ _C10D_KINDS = {
 
 
 # the hand-written kernels a step can reach; a kernel with a fake rule
-# dispatches the op ``repro_torch::<name>`` on a fake CUDA tensor (K1)
+# dispatches the op ``repro_torch::<name>`` on a fake CUDA tensor (K1,
+# and the MoE layers' grouped GEMM K7 / K8)
 KERNELS = ("flash_decode", "paged_flash_decode", "flash_attention",
-           "ssd_chunk_scan")
+           "ssd_chunk_scan", "grouped_gemm", "grouped_gemm_dw")
 
 
 def _tensors(tree) -> list:

@@ -9,19 +9,19 @@ over the model axis (``tp``), as the reference's serving executor does.
 Expert weights live as ``(E, d, f)`` and ``(E, f, d)``, the reference's
 leaves, so parameters carry across leaf for leaf.
 
-:func:`moe_apply_ragged` computes the reference's function, whose
-grouped products are ``jax.lax.ragged_dot`` over token rows sorted by
-expert, in the exact capacity form instead: no expert receives more
-than T rows (each token's top-k experts are distinct), so each routed
-row is written into a zero ``(E, T, d)`` buffer at ``[expert, token]``
-and the three products are ``torch.bmm`` against the stacked weights.
-The group sizes never reach the host, so neither prefill nor a decode
-chunk waits on the device.  Every write goes to its own
-``[expert, token]`` pair, so the dispatch is deterministic, and the
-combine adds each token's k weighted rows in the reference's order
-(ascending expert id: its stable sort, then its scatter-add).  The cost:
-the products run over all E x T rows, E / k times the routed work, and
-every expert's weights are read each step.
+:func:`moe_apply_ragged` is the reference's sort-based dispatch: the
+T x k routed rows sorted by expert (a stable sort), the group offsets
+counted on the device (``searchsorted`` over the sorted ids: no
+``bincount``, whose CUDA form reads its maximum back to the host), and
+the three products (gate, up, down) through
+:func:`repro_torch.kernels.grouped_gemm.grouped_gemm`, which computes
+only each expert's routed rows (K7 on the card, its gradient K7 and K8;
+the reference's ``jax.lax.ragged_dot``).  The group sizes never reach
+the host, so neither prefill nor a decode chunk waits on the device.
+The sorted rows are a permutation of the token-major ``(T x k, d)``
+rows, so their gradient writes each row once, and the combine adds each
+token's k weighted rows in the reference's order (ascending expert id:
+its stable sort, then its scatter-add), with no atomics.
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.config import ModelConfig, MoEConfig
+from repro_torch.kernels.grouped_gemm import grouped_gemm
 from repro_torch.models import collectives as C
 from repro_torch.models.layers import all_reduce, mlp_apply, mlp_schema
 from repro_torch.models.schema import ParamSpec
@@ -109,20 +110,30 @@ def moe_apply_ragged(p, x, cfg: ModelConfig, tp=None, data=None
     # each token's k choices in ascending expert id: the reference's
     # stable sort orders a token's rows so, and its scatter-add sums them
     # in that order
+    E, k = e.n_experts, e.top_k
     order = torch.argsort(top_idx, dim=-1, stable=True)
     top_idx = torch.gather(top_idx, 1, order)
     top_vals = torch.gather(top_vals, 1, order)
-    tok = torch.arange(T, device=x.device)[:, None].expand(T, e.top_k)
-    xs = xf.new_zeros((e.n_experts, T, d)).index_put(
-        (top_idx, tok), xf[:, None].expand(T, e.top_k, d))
+    flat_e = top_idx.reshape(-1)                      # (T*k,) token-major
+    sort_idx = torch.argsort(flat_e, stable=True)
+    offsets = torch.searchsorted(
+        flat_e[sort_idx], torch.arange(E + 1, device=x.device)).int()
+    # a permutation of the token-major rows: its gradient writes each
+    # row once
+    xs = xf[:, None].expand(T, k, d).reshape(T * k, d)[sort_idx]
 
-    h = F.silu(torch.bmm(xs, p["w_gate"])) * torch.bmm(xs, p["w_up"])
-    out = torch.bmm(h, p["w_down"])                   # (E, T, d)
+    # a token's k experts are distinct: no group holds more than T rows
+    h = (F.silu(grouped_gemm(xs, p["w_gate"], offsets, T))
+         * grouped_gemm(xs, p["w_up"], offsets, T))
+    out = grouped_gemm(h, p["w_down"], offsets, T)   # (T*k, d), sorted
 
+    # each token's k rows in its ascending expert order
+    pos = torch.empty_like(sort_idx).scatter_(
+        0, sort_idx, torch.arange(T * k, device=x.device))
     w = C.copy_to_split(top_vals.to(out.dtype), tp)
-    rows = out[top_idx, tok] * w[..., None]           # (T, k, d)
+    rows = out[pos.reshape(T, k)] * w[..., None]      # (T, k, d)
     y = rows[:, 0]
-    for j in range(1, e.top_k):
+    for j in range(1, k):
         y = y + rows[:, j]
     y = all_reduce(y.reshape(B, S, d), tp)
     y = y + _shared_out(p, x, tp)

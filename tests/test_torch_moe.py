@@ -1,8 +1,10 @@
-"""The port's mixture-of-experts block against the reference, on dbrx SMOKE.
+"""The port's mixture-of-experts block against the reference, on dbrx SMOKE
+(and the block alone on deepseek SMOKE).
 
-The reference computes ``moe_apply_ragged`` with ``jax.lax.ragged_dot``
-over rows sorted by expert; the port computes the same function in the
-exact capacity form (``models/moe.py``).  Weights come from the
+Both compute ``moe_apply_ragged`` over the routed rows sorted by expert:
+the reference with ``jax.lax.ragged_dot``, the port with its grouped
+GEMM (``kernels/grouped_gemm.py``: on CPU tensors its plain version).
+Weights come from the
 reference's ``init_from_schema`` / ``Model.init`` plus seeded numpy
 noise, carried across by ``repro_torch.bridge``; activations and tokens
 are numpy draws.  The reference runs jitted on the CPU, the port eagerly
@@ -46,8 +48,8 @@ GRAD_TOL = 1e-4
 ARCH = "dbrx-132b"
 
 
-def _configs(dtype="float32", **moe_kw):
-    rc, tc = ref_config(ARCH, "smoke"), get_config(ARCH, "smoke")
+def _configs(dtype="float32", arch=ARCH, **moe_kw):
+    rc, tc = ref_config(arch, "smoke"), get_config(arch, "smoke")
     return (dataclasses.replace(rc, dtype=dtype, moe=dataclasses.replace(
                 rc.moe, **moe_kw)),
             dataclasses.replace(tc, dtype=dtype, moe=dataclasses.replace(
@@ -73,12 +75,7 @@ def _x(rc, B=2, S=16, seed=1):
         (B, S, rc.d_model)) * 0.5).astype(np.float32)
 
 
-@pytest.mark.parametrize("n_shared", [0, 1], ids=["routed", "shared"])
-def test_moe_block_matches_reference(n_shared):
-    rc, tc = _configs(n_shared_experts=n_shared)
-    p = _block_params(rc)
-    assert ("shared" in p) == bool(n_shared)
-    x = _x(rc)
+def _block_against_reference(rc, tc, p, x):
     want, want_aux = jax.jit(lambda p, x: ref_moe.moe_apply_ragged(
         p, x, rc))(jax.tree_util.tree_map(jnp.asarray, p), jnp.asarray(x))
     got, got_aux = M.moe_apply_ragged(params_from_numpy(p, device="cpu"),
@@ -89,6 +86,32 @@ def test_moe_block_matches_reference(n_shared):
     assert float(np.abs(np.asarray(want)).max()) > 1e-3   # not a null test
     np.testing.assert_allclose(float(got_aux), float(want_aux),
                                rtol=AUX_RTOL)
+
+
+@pytest.mark.parametrize("arch", [ARCH, "deepseek-v3-671b"])
+@pytest.mark.parametrize("n_shared", [0, 1], ids=["routed", "shared"])
+def test_moe_block_matches_reference(n_shared, arch):
+    rc, tc = _configs(arch=arch, n_shared_experts=n_shared)
+    p = _block_params(rc)
+    assert ("shared" in p) == bool(n_shared)
+    _block_against_reference(rc, tc, p, _x(rc))
+
+
+@pytest.mark.parametrize("expert", [0, 1, 3], ids=["first", "middle", "last"])
+def test_moe_block_with_an_empty_group_matches_reference(expert):
+    """The router sends no token to one expert (positive activations
+    against a negative router column): that group is empty, and the
+    block still computes the reference's function."""
+    rc, tc = _configs()
+    p = _block_params(rc)
+    p["router"][:, expert] = -np.abs(p["router"][:, expert]) - 0.5
+    x = np.abs(_x(rc))
+    _, idx, _ = M.router_probs({"router": torch.from_numpy(p["router"])},
+                               torch.from_numpy(x.reshape(-1, rc.d_model)),
+                               tc.moe)
+    assert expert not in idx.unique().tolist()
+    assert len(idx.unique()) == tc.moe.n_experts - 1
+    _block_against_reference(rc, tc, p, x)
 
 
 def test_router_choices_match_reference():

@@ -61,14 +61,18 @@ Phases, each on its own lines; any failure exits nonzero:
                plain versions in bf16 and float32 at dbrx-132b's and
                deepseek-v3-671b's prefill (4 x 384 tokens) and decode (8
                slots) shapes, dbrx's training shape (4 x 1024), a split
-               with empty groups and one with every row in one group:
-               forward and, against autograd of the plain version, dX
-               and dW (not in float32 at deepseek's prefill), K7
-               repeating bit for bit; in bf16 each shape timed warm and
-               flushed beside the plain version, its bound and
+               with empty groups, one with every row in one group and
+               one whose every group holds under 64 rows: forward and,
+               against autograd of the plain version, dX and dW (not in
+               float32 at deepseek's prefill), K7 and K8 each repeating
+               bit for bit; in bf16 each shape timed warm and flushed
+               beside the plain version, its bound and
                ``torch._grouped_mm`` (the yardstick, for K8 in its 2-D
                form that splits the rows by group; the port never calls
-               it); ptxas's registers and spills.
+               it), with the kernel's time as a multiple of each;
+               ptxas's registers and spills (a spill fails) and the
+               library's HGMMA (wgmma) and HMMA (mma.sync) counts (no
+               HGMMA, or any HMMA, fails).
 5. small     — the SMOKE decoder in bf16: prefill + decode on the card
                against the same weights on the host; then every weight
                NaN, 2 requests on 2 slots: the executor's isfinite test
@@ -1183,8 +1187,8 @@ def _gg_case(label, x, w, offsets, max_group, dtype, tol, grads=True
              ) -> dict:
     """K7 (through the wrapper and ``GroupedGemm``'s backward: K7 for dX,
     K8 for dW) against the plain version and its autograd on the same
-    inputs; K7 called twice must agree bit for bit.  Returns the relative
-    errors."""
+    inputs; K7 called twice must agree bit for bit, and so must K8.
+    Returns the relative errors."""
     import torch
     from repro_torch.kernels.grouped_gemm import (GroupedGemm, grouped_gemm,
                                                   grouped_gemm_torch)
@@ -1206,10 +1210,13 @@ def _gg_case(label, x, w, offsets, max_group, dtype, tol, grads=True
                                                      max_group), (xp, wp), dy)
         for name, a, b in zip(("dx", "dw"), got, ref):
             errs[name] = _gg_rel_err(a, b)
-        del dy, xk, wk, got, xp, wp, ref
+        dw_again = torch.ops.repro_torch.grouped_gemm_dw(x, dy, offsets)
+        torch.cuda.synchronize()
+        repeat = repeat and torch.equal(got[1], dw_again)
+        del dy, xk, wk, got, xp, wp, ref, dw_again
     say(f"   {label} [{str(dtype).split('.')[-1]}]: max |err| / max |want| "
         f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tol "
-        f"{tol:.0e}); K7 repeats bit for bit: {repeat}")
+        f"{tol:.0e}); K7{' and K8' * grads} repeat bit for bit: {repeat}")
     bad = {k: v for k, v in errs.items() if not v <= tol}
     if bad or not repeat:
         raise AssertionError(f"grouped_gemm [{label}, {dtype}] disagrees "
@@ -1222,16 +1229,20 @@ def grouped_gemm_phase(build_report: dict = None) -> list:
     """K7 and K8 (the MoE layers' grouped GEMM) against their plain
     versions on the card, in bf16 and float32, at GG_SHAPES (dbrx-132b's
     and deepseek-v3-671b's prefill and decode), K8's training shape, a
-    split with empty groups (first, middle, last) and one with every row
-    in one group: forward, and dX and dW against autograd of the plain
-    version (in float32 not at deepseek's prefill, whose plain autograd
-    does not fit beside the 15 GB weight and two 15 GB dW); then, in
-    bf16, each shape's K7 (K8 at the training shape) timed warm and with
-    L2 flushed beside the plain version as the main path calls it
-    (max_group = T), its bound (operations at 989 TFLOP/s or the bytes of its rows and of
+    split with empty groups (first, middle, last), one with every row
+    in one group and one whose every group holds under 64 rows (each K8
+    reduction a single, partly zeroed stage; K7's second consumer idle):
+    forward, and dX and dW against autograd of the plain version (in
+    float32 not at deepseek's prefill, whose plain autograd does not fit
+    beside the 15 GB weight and two 15 GB dW); then, in bf16, each
+    shape's K7 (K8 at the training shape) timed warm and with L2 flushed
+    beside the plain version as the main path calls it (max_group = T),
+    its bound (operations at 989 TFLOP/s or the bytes of its rows and of
     the experts they reach at 3.35 TB/s, the larger) and the library
-    yardstick.  ptxas's registers and spills first.  Returns the rows of
-    the kernel table."""
+    yardstick, and the kernel's warm time as a multiple of each.
+    ptxas's registers and spills first (a spill fails), then the
+    library's HGMMA and HMMA counts (wgmma must be there, mma.sync must
+    not).  Returns the rows of the kernel table."""
     import torch
     from repro_torch.kernels.grouped_gemm import (grouped_gemm,
                                                   grouped_gemm_dw_torch,
@@ -1242,6 +1253,16 @@ def grouped_gemm_phase(build_report: dict = None) -> list:
         "compiler_output", "")
     for line in ptxas_lines(out) or ["not built in this run"]:
         say(f"== K7/K8 ptxas: {line}")
+    spills = [line for line in ptxas_lines(out) if re.search(
+        r"[1-9]\d* bytes spill (stores|loads)", line)]
+    if spills:
+        raise AssertionError(f"grouped_gemm spills: {spills}")
+    hgmma = sass_count("grouped_gemm", "HGMMA")
+    hmma = sass_count("grouped_gemm", "HMMA")
+    say(f"== K7/K8 SASS: {hgmma} HGMMA (wgmma), {hmma} HMMA (mma.sync)")
+    if hgmma == 0 or hmma:
+        raise AssertionError("grouped_gemm's bf16 products must run on "
+                             "wgmma alone")
     g = torch.Generator(device="cuda").manual_seed(7)
 
     def rnd(*shape, dtype, scale=1.0):
@@ -1249,10 +1270,14 @@ def grouped_gemm_phase(build_report: dict = None) -> list:
                 ).to(dtype)
 
     # the ragged edges: empty groups first, in the middle and last; every
-    # row in one group (small shapes: the contract, not the speed)
+    # row in one group; every group under 64 rows, with K and N not
+    # multiples of the 128 x 256 tile (small shapes: the contract, not
+    # the speed)
     for label, sizes, K, N in (
             ("empty groups", [0, 37, 0, 0, 129, 200, 1, 0], 256, 384),
-            ("one group", [0, 0, 0, 500, 0, 0, 0, 0], 256, 384)):
+            ("one group", [0, 0, 0, 500, 0, 0, 0, 0], 256, 384),
+            ("groups under 64 rows", [5, 63, 1, 0, 17, 40, 2, 33], 320,
+             264)):
         offsets = torch.tensor([0] + sizes, device="cuda").cumsum(0).int()
         for dtype, tol in ((torch.bfloat16, GG_TOL),
                            (torch.float32, GG_F32_TOL)):
@@ -1337,6 +1362,8 @@ def grouped_gemm_phase(build_report: dict = None) -> list:
             t_ops, t_bytes = nops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
             bound_ms = max(t_ops, t_bytes) * 1e3
             bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            say(f"   {source} {name} bf16: x library {ms / library_ms:.2f}"
+                f", x bound {ms / bound_ms:.2f} (warm)")
             say(f"   {source} {name} bf16: kernel {ms * 1e3:.2f} us warm, "
                 f"{cold * 1e3:.2f} us flushed ({nops / ms / 1e9:.1f} "
                 f"TFLOP/s) | plain {plain_ms * 1e3:.2f} us | library "

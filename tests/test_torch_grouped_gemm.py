@@ -360,6 +360,27 @@ def test_c_signatures_are_the_kernel_source():
         assert m and len(m.group(1).split(",")) == n, name
 
 
+def test_bf16_group_limit_is_the_kernel_source():
+    """K7's bf16 kernel takes at most kMaxGroups groups (its shared-memory
+    prefix); the wrapper refuses more before any build, float32 not."""
+    m = re.search(r"constexpr int kMaxGroups = (\d+);",
+                  KERNEL_SOURCE.read_text())
+    assert m and int(m.group(1)) == gg.MAX_BF16_GROUPS
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a host without a card")
+    E = gg.MAX_BF16_GROUPS + 1
+    with FakeTensorMode():
+        offsets = torch.zeros(E + 1, dtype=torch.int32, device="cuda")
+        with pytest.raises(ValueError, match="at most"):
+            gg._launch(_fake_cuda((10, 64), torch.bfloat16),
+                       _fake_cuda((E, 64, 32), torch.bfloat16), offsets,
+                       False)
+        with pytest.raises(RuntimeError, match="nvcc"):
+            gg._launch(_fake_cuda((10, 64), torch.float32),
+                       _fake_cuda((E, 64, 32), torch.float32), offsets,
+                       False)
+
+
 @pytest.fixture
 def cpu_stand_ins():
     """The ops given CPU kernels for the length of a test: the plain

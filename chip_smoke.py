@@ -162,7 +162,13 @@ Phases, each on its own lines; any failure exits nonzero:
                identical to phase 7's, K1 / K2 64 times a decode step,
                the decode steps of the turns, the collectives of a decode
                step counted, a decode chunk under
-               ``set_sync_debug_mode("error")``; then ``--mesh dp=1`` on
+               ``set_sync_debug_mode("error")``; in each dense turn one
+               admission group (prefill + commit) of 4 seeded
+               384-token prompts timed with CUDA events, the sharded
+               executor prefilling all 4 rows (one batch shard: no row
+               split) and its admission issuing no collective of its own
+               (only the apply's over ``model``; no all-to-all), the
+               first tokens of every turn equal; then ``--mesh dp=1`` on
                the serve CLI (``--variant smoke``) printing the lines of
                the run without it.  One more decode step of the 8
                slots over 392-row caches through the tensor-parallel
@@ -3110,7 +3116,7 @@ def main_path_phases(card: str, policy, dist_launches: dict) -> dict:
 def _count_collectives(fn) -> dict:
     """The ``torch.distributed`` collectives ``fn()`` issues, by name."""
     import torch.distributed as dist
-    counts = {"all_reduce": 0, "all_gather": 0}
+    counts = {"all_reduce": 0, "all_gather": 0, "all_to_all_single": 0}
     real = {name: getattr(dist, name) for name in counts}
 
     def counting(name):
@@ -3121,6 +3127,58 @@ def _count_collectives(fn) -> dict:
     with mock.patch.multiple(dist, **{n: counting(n) for n in counts}):
         fn()
     return counts
+
+
+ADMIT_REPS = 3
+
+
+def _time_admission(label: str, ex, collectives: dict) -> dict:
+    """One admission group of ``PREFILL_BATCH`` seeded prompts of
+    ``MAX_PROMPT_LEN`` tokens (prefill + commit) through ``ex.admit``
+    into slots ``0 .. PB - 1`` of an idle engine: a warm call, then the
+    median of ``ADMIT_REPS`` calls, each timed with CUDA events from an
+    idle stream (the host's enqueueing and the card's work together).
+    Checks: every prefill ran on all ``PB`` rows (a wrapper of
+    ``model.prefill`` counts them), and one admission issued the
+    ``collectives`` given, by name.  Returns the time, the calls' ms and
+    the first tokens committed."""
+    import numpy as np
+    import torch
+    pb = ex.prefill_batch
+    toks = np.random.default_rng(0).integers(
+        4, ex.model.cfg.vocab_size, (pb, MAX_PROMPT_LEN)).astype(np.int32)
+    args = (toks, np.arange(pb, dtype=np.int32),
+            np.full(pb, MAX_NEW_TOKENS, np.int32))
+    rows, real = [], ex.model.prefill
+
+    def admit(*a):
+        # the class's admit, not the engine instrumentation's wrapper
+        return type(ex).admit(ex, *a)
+
+    def prefill(params, inputs, cache, **kw):
+        rows.append(int(inputs["tokens"].shape[0]))
+        return real(params, inputs, cache, **kw)
+    with mock.patch.object(ex.model, "prefill", prefill):
+        admit(*args)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(ADMIT_REPS):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            admit(*args)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+        counts = _count_collectives(lambda: admit(*args))
+        torch.cuda.synchronize()
+    if set(rows) != {pb} or len(rows) != ADMIT_REPS + 2:
+        raise AssertionError(f"[{label}] prefills of {rows} rows, want "
+                             f"{ADMIT_REPS + 2} of {pb}")
+    if counts != collectives:
+        raise AssertionError(f"[{label}] an admission issued {counts}, "
+                             f"want {collectives}")
+    return {"ms": float(np.median(ms)), "calls": ms,
+            "firsts": ex._host(ex._dtok)[:pb].tolist()}
 
 
 def sharded_serve_phase(card: str, model, params, index, qs, policy,
@@ -3138,6 +3196,9 @@ def sharded_serve_phase(card: str, model, params, index, qs, policy,
     step)``), K1 / K2 64 times a decode step, the collectives of one
     decode step (an all-reduce for the embedding and two a layer, one
     all-gather of the logits), no host sync in a sharded decode chunk.
+    Each dense turn also times one admission group through its
+    executor (``_time_admission``): the sharded one prefills all PB rows
+    and adds no collective, every turn commits the same first tokens.
     Then ``--mesh dp=1`` on the serve CLI (SMOKE: the engines above are
     FULL) prints the lines of the run without it.  The process group is
     destroyed at the end."""
@@ -3160,7 +3221,7 @@ def sharded_serve_phase(card: str, model, params, index, qs, policy,
     with _serving_mesh(cfg) as mesh:
         for kind, engine_kw in (("dense", {}), ("paged", paged_kw)):
             want, main_ms = single[kind]
-            steps_ms = []
+            steps_ms, admits = [], []
             for turn in (None, mesh, mesh, None):
                 label = f"{'sharded' if turn else 'single'} {kind}"
                 backend = ContinuousEngineBackend.create(
@@ -3198,6 +3259,20 @@ def sharded_serve_phase(card: str, model, params, index, qs, policy,
                                          f"path's")
                 steps_ms.append(rec["step_ms"])
                 served = len(rec["tokens"])
+                if kind == "dense":
+                    # sharded: only the apply's collectives over model (an
+                    # all-reduce for the embedding and two a layer, one
+                    # all-gather of the logits), no all-to-all
+                    admits.append(_time_admission(label, ex, {
+                        "all_reduce": (2 * L + 1) * bool(turn),
+                        "all_gather": int(bool(turn)),
+                        "all_to_all_single": 0}))
+                    say(f"   {label}: one admission group of "
+                        f"{PREFILL_BATCH} x {MAX_PROMPT_LEN} tokens "
+                        f"(prefill + commit), median of {ADMIT_REPS}: "
+                        f"{admits[-1]['ms']:.2f} ms (calls "
+                        f"{' / '.join(f'{t:.2f}' for t in admits[-1]['calls'])}"
+                        f" ms) [{card}]")
                 if turn is not None:
                     sharded[kind] = run["launches"]
                     torch.cuda.synchronize()
@@ -3205,7 +3280,7 @@ def sharded_serve_phase(card: str, model, params, index, qs, policy,
                     torch.cuda.synchronize()
                     k = ex.sync_every
                     if counts != {"all_reduce": (2 * L + 1) * k,
-                                  "all_gather": k}:
+                                  "all_gather": k, "all_to_all_single": 0}:
                         raise AssertionError(f"[{label}] collectives "
                                              f"{counts}")
                     _check_no_sync(ex, f"{label} decode chunk")
@@ -3219,6 +3294,18 @@ def sharded_serve_phase(card: str, model, params, index, qs, policy,
                 f"path's {main_ms:.2f}): sharded = {ratio:.3f} x single; "
                 f"{counts['all_reduce'] // k} all-reduces and "
                 f"{counts['all_gather'] // k} all-gather a step [{card}]")
+            if admits:
+                if any(a["firsts"] != admits[0]["firsts"] for a in admits):
+                    raise AssertionError(f"[sharded admission] first tokens "
+                                         f"differ over the turns: "
+                                         f"{[a['firsts'] for a in admits]}")
+                t = [a["ms"] for a in admits]
+                say(f"   dense admission group in turns single / sharded / "
+                    f"sharded / single {' / '.join(f'{x:.2f}' for x in t)} "
+                    f"ms: sharded = {(t[1] + t[2]) / (t[0] + t[3]):.3f} x "
+                    f"single; the sharded executor prefilled all "
+                    f"{PREFILL_BATCH} rows and added no collective; first "
+                    f"tokens {admits[0]['firsts']} in every turn [{card}]")
         REAL_STEPS["decode"] = _tp_decode_step(model, params, mesh, card)
         say(f"   sharded path launches: K1 {sharded['dense']['flash_decode']}"
             f" (dense), K2 {sharded['paged']['paged_flash_decode']} (paged), "

@@ -9,8 +9,8 @@ device buffers lives behind the executor protocol implemented here by
 the global page pool + block tables) and the dense prefill scratch,
 allocated once, plus prefill, insert+state-commit and the K-step decode
 chunk; and by :class:`ShardedExecutor`, the same over a
-``torch.distributed`` mesh of one process per card (slots on ``data``,
-params on ``model``).
+``torch.distributed`` mesh of one process per card (slots and prefill
+rows on ``pod`` x ``data``, params on ``model``).
 
 PyTorch runs eagerly on the card's current stream: ``admit`` and
 ``decode_chunk`` enqueue their kernels and return without waiting, and
@@ -52,6 +52,7 @@ Protocol (duck-typed, the reference's):
 """
 from __future__ import annotations
 
+import math
 import time
 from typing import Optional
 
@@ -60,10 +61,13 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.data.tokenizer import EOS, PAD
-from repro_torch.models.schema import tree_leaves, zeros_from_schema
+from repro_torch.launch.mesh import BATCH
+from repro_torch.models.collectives import _all_to_all
+from repro_torch.models.schema import (tree_leaves, tree_map,
+                                       tree_map_with_path, zeros_from_schema)
 from repro_torch.models.transformer import check_tensor_parallel
-from repro_torch.sharding import (local_params, local_schema, named_specs,
-                                  specs_for_schema)
+from repro_torch.sharding import (local_params, local_schema, local_shape,
+                                  named_specs, specs_for_schema)
 
 
 class SingleDeviceExecutor:
@@ -76,6 +80,8 @@ class SingleDeviceExecutor:
     slot_base = 0
     page_base = 0
     page_partitions = 1
+    # the rows of an admission group this executor prefills
+    prefill_rows = slice(None)
 
     def __init__(self, model, params, *, num_slots: int = 8,
                  max_len: int = 512, max_new_cap: int = 64,
@@ -204,17 +210,28 @@ class SingleDeviceExecutor:
                                        **self._model_kw())
         return logits[:, -1].argmax(dim=-1).to(torch.int32)
 
+    def _scratch_rows(self, firsts, slot_idx: np.ndarray):
+        """Where the admission group's prefilled rows are: ``(scratch,
+        first tokens, the group's rows it holds in order)`` — here all
+        of them, in the prefill scratch."""
+        return [(self._pcache, firsts, slice(None))]
+
     def _commit(self, firsts, slot_idx: np.ndarray, limits: np.ndarray):
-        """Scatter the prefilled scratch rows into their slots and write
-        the admission group's slot state, in place.  Unused scratch rows
-        carry slot index ``num_slots`` and are dropped — here on the
-        host, where the indices come from."""
+        for pc, f, rows in self._scratch_rows(firsts, slot_idx):
+            self._insert(pc, f, slot_idx[rows], limits[rows])
+
+    def _insert(self, pc, firsts, slot_idx: np.ndarray,
+                limits: np.ndarray) -> None:
+        """Scatter the prefilled rows of ``pc`` into their slots and
+        write their slot state, in place.  Unused scratch rows carry
+        slot index ``num_slots`` and are dropped — here on the host,
+        where the indices come from."""
         rows, loc = self._local_rows(slot_idx)
         if rows.size == 0:
             return
         r = self._to_device(rows)
         s = self._to_device(loc.astype(np.int64))
-        cache, pc = self._cache, self._pcache
+        cache = self._cache
         cache["pos"][s] = pc["pos"][r]
         # prefix leaves are (B, ...); block leaves are (n_blocks, B, ...)
         for big, small in zip(tree_leaves(cache["prefix"]),
@@ -237,13 +254,13 @@ class SingleDeviceExecutor:
 
     # -- paged bodies ---------------------------------------------------
 
-    def _page_views(self):
+    def _page_views(self, pc):
         """Per layer and leaf: the pool ``(num_pages, ps, ...)`` and the
-        prefill scratch seen as pages ``(PB * mb_scratch, ps, ...)`` —
-        both views, so copies into them land in the caches."""
+        prefill scratch ``pc`` seen as pages ``(PB * mb_scratch, ps,
+        ...)`` — both views, so copies into them land in the caches."""
         for key in ("prefix", "blocks"):
             for pool, scr in zip(tree_leaves(self._cache[key]),
-                                 tree_leaves(self._pcache[key])):
+                                 tree_leaves(pc[key])):
                 # prefix leaves are (B, ...); block leaves (n_blocks, B, ...)
                 for pl, sc in (zip(pool, scr) if key == "blocks"
                                else [(pool, scr)]):
@@ -262,23 +279,30 @@ class SingleDeviceExecutor:
             return
         dst = self._to_device(blocks)
         pages = self._to_device(flat[blocks].astype(np.int64))
-        for pool, scr in self._page_views():
+        for pool, scr in self._page_views(self._pcache):
             scr.index_copy_(0, dst, pool.index_select(0, pages))
 
     def _commit_paged(self, firsts, slot_idx: np.ndarray,
                       limits: np.ndarray, tables: np.ndarray,
                       wmask: np.ndarray) -> None:
-        """Scatter the prefilled scratch blocks into their allocated
-        pages and write the admission group's slot state and block
-        tables.  ``wmask`` marks the freshly written blocks: shared
-        (borrowed) blocks and unused rows go to the ``num_pages``
-        sentinel and are dropped — here on the host."""
+        for pc, f, rows in self._scratch_rows(firsts, slot_idx):
+            self._insert_paged(pc, f, slot_idx[rows], limits[rows],
+                               tables[rows], wmask[rows])
+
+    def _insert_paged(self, pc, firsts, slot_idx: np.ndarray,
+                      limits: np.ndarray, tables: np.ndarray,
+                      wmask: np.ndarray) -> None:
+        """Scatter the prefilled blocks of ``pc``'s rows into their
+        allocated pages and write their slot state and block tables.
+        ``wmask`` marks the freshly written blocks: shared (borrowed)
+        blocks and unused rows go to the ``num_pages`` sentinel and are
+        dropped — here on the host."""
         rows, loc = self._local_rows(slot_idx)
         if rows.size == 0:
             return
         r = self._to_device(rows)
         s = self._to_device(loc.astype(np.int64))
-        self._cache["pos"][s] = self._pcache["pos"][r]
+        self._cache["pos"][s] = pc["pos"][r]
         # a slot's pages all lie in its own partition; a table's unused
         # entries (0) keep pointing at page 0 of the pool held here
         tbl, held = self._local_pages(tables[rows])
@@ -290,7 +314,7 @@ class SingleDeviceExecutor:
         if blocks.size:
             src = self._to_device(blocks)
             dst = self._to_device(pages[blocks].astype(np.int64))
-            for pool, scr in self._page_views():
+            for pool, scr in self._page_views(pc):
                 pool.index_copy_(0, dst, scr.index_select(0, src))
         self._commit_state(firsts[r], s, limits[rows])
 
@@ -351,7 +375,9 @@ class SingleDeviceExecutor:
         if self.paged:
             raise RuntimeError("paged executor: use admit_paged()")
         t0 = time.perf_counter() if self._m_admit is not None else 0.0
-        firsts = self._prefill(self._to_device(tokens.astype(np.int64)))
+        rows = self.prefill_rows
+        firsts = self._prefill(self._to_device(
+            tokens[rows].astype(np.int64)))
         self._commit(firsts, np.asarray(slot_idx), np.asarray(limits))
         if self._m_admit is not None:
             self._m_admit.observe((time.perf_counter() - t0) * 1e3)
@@ -371,9 +397,11 @@ class SingleDeviceExecutor:
         if not self.paged:
             raise RuntimeError("dense executor: use admit()")
         t0 = time.perf_counter() if self._m_admit is not None else 0.0
+        rows = self.prefill_rows
         self._gather(np.asarray(gather_src))
-        firsts = self._prefill(self._to_device(tokens.astype(np.int64)),
-                               self._to_device(np.asarray(pos0, np.int32)))
+        firsts = self._prefill(
+            self._to_device(tokens[rows].astype(np.int64)),
+            self._to_device(np.asarray(pos0, np.int32)[rows]))
         self._commit_paged(firsts, np.asarray(slot_idx), np.asarray(limits),
                            np.asarray(tables, np.int32),
                            np.asarray(write_mask, bool))
@@ -413,8 +441,67 @@ class SingleDeviceExecutor:
         self._clear(self._dbad, slots)
 
 
+def _row_leaves(tree) -> list:
+    """``(leaf, its row dim)`` of a cache tree in tree order: a prefix
+    leaf (and ``pos``) is ``(B, ...)``, a block leaf ``(n_blocks, B,
+    ...)``."""
+    out: list = []
+    tree_map_with_path(lambda path, t: out.append(
+        (t, int(path[0] == "blocks"))), tree)
+    return out
+
+
+def _segments(leaves, k: int):
+    """Where ``k`` rows of each leaf sit in one rank's chunk of an
+    exchange: ``(byte offset, shape)`` a leaf, each 16-byte aligned so
+    that it views as its dtype, and the chunk's bytes."""
+    segs, at = [], 0
+    for t, d in leaves:
+        shape = (*t.shape[:d], k, *t.shape[d + 1:])
+        segs.append((at, shape))
+        at += -(-math.prod(shape) * t.element_size() // 16) * 16
+    return segs, at
+
+
+def _row_routes(slot_idx: np.ndarray, num_slots: int, shards: int,
+                row_shards: int, prefill_batch: int):
+    """The rows of an admission group that another rank prefills than
+    the one holding their slot: ``(rows, source, destination)`` batch
+    indices.  The rank at batch index ``q`` prefills share ``q %
+    row_shards`` of the rows and holds slots ``[q, q + 1) * num_slots /
+    shards``; a row comes from the rank of its destination's pod (the
+    block of ``row_shards`` batch indices) whose share holds it."""
+    per = prefill_batch // row_shards
+    rows = np.flatnonzero(slot_idx < num_slots)
+    dst = slot_idx[rows] // (num_slots // shards)
+    src = dst - dst % row_shards + rows // per
+    x = src != dst
+    return rows[x], src[x], dst[x]
+
+
+def _page_routes(gather_src: np.ndarray, shards: int, row_shards: int,
+                 num_pages: int):
+    """Each rank's borrowed pages ``(shards, rows a share x blocks)``,
+    flat over (row, block) as its prefill scratch is seen as pages; the
+    rank holding each page (the sentinel ``num_pages``'s is ``shards``,
+    no rank); and which of them another rank holds."""
+    per = gather_src.shape[0] // row_shards
+    q = np.arange(shards)
+    pages = gather_src[(q % row_shards * per)[:, None]
+                       + np.arange(per)].reshape(shards, -1)
+    owner = pages // (num_pages // shards)
+    return pages, owner, (pages < num_pages) & (owner != q[:, None])
+
+
+def _view(buf, at: int, like, shape):
+    """``buf``'s bytes from ``at`` seen as a ``like.dtype`` tensor."""
+    n = math.prod(shape) * like.element_size()
+    return buf[at:at + n].view(like.dtype).view(shape)
+
+
 class ShardedExecutor(SingleDeviceExecutor):
-    """dp x mp executor: slots on ``data``, params on ``model``.
+    """pod x dp x mp executor: slots and prefill rows on the batch axes
+    (``pod`` x ``data``), params on ``model``.
 
     SPMD, one process per card over ``torch.distributed``: the
     counterpart of the reference's single-controller GSPMD executor
@@ -425,15 +512,32 @@ class ShardedExecutor(SingleDeviceExecutor):
     ContinuousEngine` scheduler — on the same inputs; deterministic
     under the same seeds, the ranks make the same host decisions and
     call this executor the same way.  Ranks talk only through
-    collectives: the model apply's over ``model`` and the gathers of the
-    slot state over ``data`` here.
+    collectives: the model apply's over ``model``, and over the batch
+    axes the row exchange, the paged borrow and the gathers of the slot
+    state here.
 
-    * **Slots** split contiguously over ``data``: the rank at data
-      coordinate ``d`` holds slots ``[d * S / dp, (d + 1) * S / dp)`` of
-      the slot cache (or, paged, the page partition ``d`` of
-      ``num_pages / dp`` pages, which the engine's
+    * **Slots** split contiguously over the batch axes, pod-major: the
+      rank at batch index ``b`` (``mesh.batch_index``) of ``n =
+      mesh.batch_shards`` holds slots ``[b * S / n, (b + 1) * S / n)``
+      of the slot cache (or, paged, the page partition ``b`` of
+      ``num_pages / n`` pages, which the engine's
       :class:`~repro_torch.serving.paged.PagePool` allocates from with
-      ``page_partitions = dp``), and decodes them through K1 / K2.
+      ``page_partitions = n``), and decodes them through K1 / K2.
+    * **Prefill rows** split as the resolver splits the scratch's batch
+      dim (the reference's ``_batch_entry``): over ``pod`` x ``data``
+      where ``prefill_batch`` divides ``n``, else over ``data`` (each
+      pod repeats it) where it divides dp, else not at all.  A rank
+      prefills only its rows (``prefill_rows``) into a scratch of that
+      many rows.  Then each row goes whole — every cache leaf and its
+      first token — to the rank holding its slot, in one
+      ``all_to_all`` over the batch group on a packed buffer (the
+      reference all-gathers every row to every device instead), and
+      the commit writes only local slots.  Paged, a row's shared prefix
+      pages lie in its slot's partition: the pages held on another rank
+      than the one prefilling the row come over in one more
+      ``all_to_all`` before the prefill, copied bit for bit.  With one
+      row shard, or where no row or page crosses ranks, neither is
+      issued.
     * **Weights** resolve through ``specs_for_schema(schema, mesh,
       fsdp=False)``: the attention heads and kv heads (their
       ``head_dim`` columns where mp does not divide them), the FFN and
@@ -446,9 +550,9 @@ class ShardedExecutor(SingleDeviceExecutor):
       copies its shard — or already as this rank's shards
       (:func:`repro_torch.sharding.init_local_params`).
     * **Host reads** (``sync_control``, ``fetch_outputs``,
-      ``slot_faults``) all-gather the per-slot arrays over ``data`` in
-      rank order, so they return every slot, as on one device; the
-      decode chunk itself has no host sync.
+      ``slot_faults``) all-gather the per-slot arrays over the batch
+      group in batch order, so they return every slot, as on one
+      device; the decode chunk itself has no host sync.
 
     Greedy decode is row-independent, so every layout gives the
     single-device executor's tokens (the same sums, in float32 up to
@@ -457,18 +561,18 @@ class ShardedExecutor(SingleDeviceExecutor):
 
     def __init__(self, model, params, *, mesh, num_slots: int = 8,
                  **kw):
-        dp = mesh.dp
-        if num_slots % dp != 0:
+        n = mesh.batch_shards
+        if num_slots % n != 0:
             raise ValueError(
                 f"num_slots={num_slots} must be divisible by the mesh "
-                f"data-axis size {dp} to shard the slot dimension")
+                f"data-axis size {n} to shard the slot dimension")
         self.mesh = mesh
         self.tp = mesh.group("model")
-        self.slot_base = mesh.coord("data") * (num_slots // dp)
+        self.slot_base = mesh.batch_index * (num_slots // n)
         if kw.get("paged"):
-            # the pool's page dim shards over data with the slots: a
-            # slot's pages stay on the rank that holds its row
-            self.page_partitions = dp
+            # the pool's page dim shards over the batch axes with the
+            # slots: a slot's pages stay on the rank that holds its row
+            self.page_partitions = n
         specs = specs_for_schema(model.schema, mesh, fsdp=False)
         check_tensor_parallel(named_specs(model.schema, specs), mesh.mp)
         super().__init__(model, local_params(model.schema, params, mesh,
@@ -476,16 +580,16 @@ class ShardedExecutor(SingleDeviceExecutor):
                          num_slots=num_slots, **kw)
 
     def _validate_pages(self) -> None:
-        if self.num_pages % self.mesh.dp != 0:
+        n = self.mesh.batch_shards
+        if self.num_pages % n != 0:
             raise ValueError(
                 f"num_pages={self.num_pages} must be divisible by the mesh "
-                f"data-axis size {self.mesh.dp} to shard the pool")
+                f"data-axis size {n} to shard the pool")
         super()._validate_pages()
 
     def _alloc_caches(self):
         """This rank's slots (or page partition) and kv heads of the slot
-        cache; the prefill scratch holds every row of an admission
-        group and this rank's kv heads."""
+        cache; this rank's rows and kv heads of the prefill scratch."""
         m, mesh = self.model, self.mesh
         if self.paged:
             schema = m.paged_cache_schema(self.num_slots, self.num_pages,
@@ -497,25 +601,104 @@ class ShardedExecutor(SingleDeviceExecutor):
         sspecs = specs_for_schema(scratch, mesh)
         check_tensor_parallel(named_specs(schema, specs)
                               + named_specs(scratch, sspecs), mesh.mp)
-        # The prefill is replicated over data: every rank of a model
-        # group prefills the whole admission group and commits only its
-        # own slots' rows (_commit, _commit_paged).  The reference shards
-        # the scratch rows over data when prefill_batch divides dp and
-        # all-gathers them for the insert (ROADMAP.md queue 1, item 9,
-        # next 3).
+        per = local_shape((self.prefill_batch,), sspecs["pos"], mesh)[0]
+        self._row_shards = self.prefill_batch // per
+        lo = mesh.batch_index % self._row_shards * per
+        self.prefill_rows = slice(lo, lo + per)
         return (zeros_from_schema(local_schema(schema, specs, mesh),
                                   device=self.device),
-                zeros_from_schema(local_schema(scratch, sspecs, mesh,
-                                               axes=("model",)),
+                zeros_from_schema(local_schema(scratch, sspecs, mesh),
                                   device=self.device))
 
     def _model_kw(self) -> dict:
         return {"mla_absorb": self.mla_absorb, "tp": self.tp}
 
+    # -- the row split ---------------------------------------------------
+
+    def _exchange(self, leaves, sends, counts):
+        """One ``all_to_all`` over the batch group: to rank ``q`` the
+        rows ``sends[q]`` (indices into each leaf's row dim) of every
+        ``(leaf, row dim)`` of ``leaves``, packed into one buffer; from
+        rank ``o`` ``counts[o]`` rows.  Returns ``(o, the received
+        leaves)`` for each ``o`` that sends, views of the buffer shaped
+        as the leaves with ``counts[o]`` rows."""
+        send_sizes = [_segments(leaves, len(ix))[1] for ix in sends]
+        buf = torch.empty(sum(send_sizes), dtype=torch.uint8,
+                          device=self.device)
+        at = 0
+        for ix, size in zip(sends, send_sizes):
+            if len(ix):
+                idx = self._to_device(ix.astype(np.int64))
+                for (t, d), (off, shape) in zip(
+                        leaves, _segments(leaves, len(ix))[0]):
+                    torch.index_select(t, d, idx,
+                                       out=_view(buf, at + off, t, shape))
+            at += size
+        recv_sizes = [_segments(leaves, k)[1] for k in counts]
+        got = _all_to_all(buf, self.mesh.group(BATCH), send_sizes,
+                          recv_sizes)
+        out, at = [], 0
+        for o, (k, size) in enumerate(zip(counts, recv_sizes)):
+            if k:
+                out.append((o, [_view(got, at + off, t, shape)
+                                for (t, _), (off, shape) in zip(
+                                    leaves, _segments(leaves, k)[0])]))
+            at += size
+        return out
+
+    def _scratch_rows(self, firsts, slot_idx: np.ndarray):
+        """This rank's prefilled rows in the scratch, and each row that
+        another rank prefilled for a slot held here, received whole."""
+        here = [(self._pcache, firsts, self.prefill_rows)]
+        if self._row_shards == 1:
+            return here
+        rows, src, dst = _row_routes(slot_idx, self.num_slots,
+                                     self.mesh.batch_shards,
+                                     self._row_shards, self.prefill_batch)
+        if not rows.size:
+            return here
+        me, n = self.mesh.batch_index, self.mesh.batch_shards
+        lo = self.prefill_rows.start
+        sends = [rows[(src == me) & (dst == q)] - lo for q in range(n)]
+        recvs = [rows[(dst == me) & (src == o)] for o in range(n)]
+        for o, got in self._exchange(_row_leaves(self._pcache)
+                                     + [(firsts, 0)], sends,
+                                     [r.size for r in recvs]):
+            it = iter(got)
+            pc = tree_map(lambda _: next(it), self._pcache)
+            here.append((pc, next(it), recvs[o]))
+        return here
+
+    def _gather(self, src: np.ndarray) -> None:
+        """The borrow into this rank's rows: the shared pages held here
+        copied locally, the others received from their ranks."""
+        super()._gather(src[self.prefill_rows])
+        if self._row_shards == 1:
+            return
+        n, me = self.mesh.batch_shards, self.mesh.batch_index
+        pages, owner, cross = _page_routes(src, n, self._row_shards,
+                                           self.num_pages)
+        if not cross.any():
+            return
+        sends = [pages[q][cross[q] & (owner[q] == me)] - self.page_base
+                 for q in range(n)]
+        recvs = [np.flatnonzero(cross[me] & (owner[me] == o))
+                 for o in range(n)]
+        pool = _row_leaves({k: self._cache[k] for k in ("prefix",
+                                                        "blocks")})
+        scratch = _row_leaves({k: self._pcache[k] for k in ("prefix",
+                                                            "blocks")})
+        ps = self.page_size
+        for o, got in self._exchange(pool, sends, [r.size for r in recvs]):
+            dst = self._to_device(recvs[o])
+            for (scr, d), g in zip(scratch, got):
+                scr.reshape(*scr.shape[:d], -1, ps, *scr.shape[d + 2:]
+                            ).index_copy_(d, dst, g)
+
     def _host(self, t: torch.Tensor) -> np.ndarray:
-        """Every slot's value, gathered over ``data`` in rank order (the
-        slots' order), then copied to the host."""
+        """Every slot's value, gathered over the batch group in batch
+        order (the slots' order), then copied to the host."""
         x = t.to(torch.int32)
-        parts = [torch.empty_like(x) for _ in range(self.mesh.dp)]
-        dist.all_gather(parts, x, group=self.mesh.group("data"))
+        parts = [torch.empty_like(x) for _ in range(self.mesh.batch_shards)]
+        dist.all_gather(parts, x, group=self.mesh.group(BATCH))
         return np.array(torch.cat(parts).to(t.dtype).cpu())

@@ -45,7 +45,8 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "paged_decode_sweep.py",
-    ROOT / "scripts" / "grouped_gemm_ab.py"],
+    ROOT / "scripts" / "grouped_gemm_ab.py",
+    ROOT / "scripts" / "admission_ab.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_statement_names_jax_or_reference(path):
     roots = set(_imported_roots(path))

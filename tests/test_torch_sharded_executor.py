@@ -6,15 +6,21 @@ The reference's own sharded path is red on this jax (queue 3 of
 ``ROADMAP.md``), so every layout is held against the reference's
 ``SingleDeviceExecutor`` tokens, on the reference tests' engines and
 prompts (``tests/test_sharded_executor.py``, ``tests/test_paged_engine.py``):
-qwen SMOKE in float32 at dp=2, mp=2, dp=2 x mp=2 and dp=4, dense and
-paged.  Also: the layout each rank takes (its slots, its kv heads, its
-shards of the weights, one cache allocation), prefix hits as the
-reference's partitioned pool makes them, the mp=2 logits, every family
+qwen SMOKE in float32 at dp=2, mp=2, dp=2 x mp=2, dp=4 and pod=2, dense
+and paged.  Also: the layout each rank takes (its slots, its kv heads,
+its shards of the weights, one cache allocation, the local shapes the
+dry run's specs give), the rows of an admission group each rank
+prefills (its share over the batch axes, as the reference's
+``_batch_entry`` splits them) and shared pages borrowed from another
+rank, prefix hits as the reference's partitioned pool makes them, the
+routes of the row exchange and the borrow at every rank of pod=2 x
+dp=2, the mp=2 logits, every family
 at dp=2 and dbrx / gemma3 at dp=2 x mp=2 against the port's own
 single-device engine (itself held against the reference in
 ``test_torch_engine.py`` and ``test_torch_families.py``), the refusal of
 MLA, Mamba2 and Whisper at mp=2, the reference's chaos plans, and the
-in-process world of one.
+in-process world of one (whose admissions issue no collective of their
+own).
 
 The ``head_dim`` route (kv heads, or heads too, that mp does not
 divide): at dp=1 x mp=4, a qwen SMOKE variant with 6 heads and 6 kv
@@ -29,6 +35,8 @@ steps' logits within ``LOGIT_RTOL`` over the dense cache and
 """
 import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
+from collections import Counter
+from unittest import mock
 
 import jax
 import numpy as np
@@ -43,8 +51,10 @@ from repro.serving.executor import SingleDeviceExecutor as RefExecutor
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models.schema import tree_leaves
 
-LAYOUTS = {"dp2": ("dp=2", 2, 1), "mp2": ("dp=1,mp=2", 1, 2),
-           "dp2mp2": ("dp=2,mp=2", 2, 2), "dp4": ("dp=4", 4, 1)}
+# (spec, pod, dp, mp)
+LAYOUTS = {"dp2": ("dp=2", 1, 2, 1), "mp2": ("dp=1,mp=2", 1, 1, 2),
+           "dp2mp2": ("dp=2,mp=2", 1, 2, 2), "dp4": ("dp=4", 1, 4, 1),
+           "pod2": ("pod=2,dp=1", 2, 1, 1)}
 LOGIT_RTOL = 1e-4   # of max |logit|: float32, the tensor-parallel partial
 #                     sums added in another order
 MP_REFUSED = ("minicpm3-4b", "mamba2-130m", "whisper-large-v3")
@@ -60,6 +70,15 @@ HEAD_DIM_MIXED = {"command-r_kv1": ("command-r-35b", {"n_kv_heads": 1})}
 HEAD_DIM_LAYOUTS = {"mp4": ("dp=1,mp=4", HEAD_DIM),
                     "dp2mp2": ("dp=2,mp=2", HEAD_DIM_MIXED)}
 HEAD_DIM_ENGINES = ("dense", "paged", "paged_int8")
+
+
+def _rows_per_rank(pb, pod, dp):
+    """The rows of a ``pb``-row admission group one rank prefills: the
+    reference's ``_batch_entry`` splits them over pod x data, else over
+    data, else not at all."""
+    if pb % (pod * dp) == 0:
+        return pb // (pod * dp)
+    return pb // dp if pb % dp == 0 else pb
 
 
 def _prompts(vocab):
@@ -122,9 +141,9 @@ def worlds(ref, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("sharded")
     dense, paged = ref["prompts"]
     out = {}
-    for name, (spec, dp, mp) in LAYOUTS.items():
+    for name, (spec, pod, dp, mp) in LAYOUTS.items():
         logits = ref["logits"][0] if mp > 1 else None
-        out[name] = W.run_world(W.serve_layout, dp * mp, tmp, spec,
+        out[name] = W.run_world(W.serve_layout, pod * dp * mp, tmp, spec,
                                 ref["np"], dense, paged, logits,
                                 name == "dp2mp2")
     fam_prompts = dense[:6]
@@ -236,15 +255,15 @@ def test_paged_tokens_and_prefix_hits_match_the_reference(ref, worlds,
                                                           layout):
     """Both waves' tokens and the prompt tokens served from shared pages
     equal the reference's single-device paged engine with its pool cut
-    as dp cuts it (a slot's pages stay in its rank's partition)."""
-    dp = LAYOUTS[layout][1]
-    waves, avoided = ref[("paged", dp)]
+    as pod x dp cuts it (a slot's pages stay in its rank's partition)."""
+    _, pod, dp, _ = LAYOUTS[layout]
+    waves, avoided = ref[("paged", pod * dp)]
     assert avoided > 0
     for rank in worlds[layout]:
         assert rank["paged"] == waves
         st = rank["paged_stats"]
         assert st["avoided"] == avoided
-        assert st["partitions"] == dp and st["allocs"] == 2
+        assert st["partitions"] == pod * dp and st["allocs"] == 2
 
 
 def test_paged_int8_tokens_match_the_reference(ref, worlds):
@@ -256,31 +275,113 @@ def test_paged_int8_tokens_match_the_reference(ref, worlds):
 
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_each_rank_holds_its_slots_heads_and_shards(ref, worlds, layout):
-    """Slots [r S / dp, (r + 1) S / dp) at data coordinate r; the slot
-    cache and the page pool hold the rank's slots or pages and kv heads,
-    the prefill scratch every row and the rank's kv heads; the weights
-    the rank's heads, d_ff columns and vocab rows (at mp = 1 the
-    caller's own tensors)."""
-    _, dp, mp = LAYOUTS[layout]
+    """Slots [b S / n, (b + 1) S / n) at batch index b (pod-major) of the
+    n = pod x dp batch shards; the slot cache and the page pool hold the
+    rank's slots or pages and kv heads, the prefill scratch the rank's
+    share of the rows and its kv heads; the weights the rank's heads,
+    d_ff columns and vocab rows (at mp = 1 the caller's own tensors)."""
+    _, pod, dp, mp = LAYOUTS[layout]
+    n = pod * dp
     cfg = ref["cfg"]
     S, L, Hkv, Dh = 4, 64, cfg.n_kv_heads, cfg.head_dim
     nb = cfg.n_layers
     NP = S * (64 // 8 + 1)
     for rank in worlds[layout]:
-        d = rank["coords"]["data"]
-        assert rank["slot_base"] == d * S // dp
-        assert rank["slots_here"] == S // dp
-        assert rank["cache_k"] == (nb, S // dp, L, Hkv // mp, Dh)
-        assert rank["scratch_k"] == (nb, 4, L, Hkv // mp, Dh)
-        assert rank["paged_stats"]["pool"] == (nb, NP // dp, 8, Hkv // mp,
+        b = rank["batch_index"]
+        assert b == rank["coords"].get("pod", 0) * dp + rank["coords"][
+            "data"]
+        assert rank["slot_base"] == b * S // n
+        assert rank["slots_here"] == S // n
+        assert rank["cache_k"] == (nb, S // n, L, Hkv // mp, Dh)
+        assert rank["scratch_k"] == (nb, _rows_per_rank(4, pod, dp), L,
+                                     Hkv // mp, Dh)
+        assert rank["paged_stats"]["pool"] == (nb, NP // n, 8, Hkv // mp,
                                                Dh)
-        assert rank["paged_stats"]["table"] == (S // dp, 64 // 8 + 1)
-        assert rank["paged_stats"]["page_base"] == d * NP // dp
+        assert rank["paged_stats"]["table"] == (S // n, 64 // 8 + 1)
+        assert rank["paged_stats"]["page_base"] == b * NP // n
         assert rank["params"] == {
             "wq": (nb, cfg.d_model, cfg.n_heads // mp, Dh),
             "w_gate": (nb, cfg.d_model, cfg.d_ff // mp),
             "embed": (cfg.padded_vocab // mp, cfg.d_model)}
         assert rank["shared_embed"] == (mp == 1)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_each_rank_prefills_its_share_of_the_rows(worlds, layout):
+    """Every admission's prefill runs on the rank's share of the rows:
+    PB / (pod x dp) where that divides, else PB / dp, else all PB (the
+    dense engine's PB = 4, the paged engines' PB = 2)."""
+    _, pod, dp, _ = LAYOUTS[layout]
+    for rank in worlds[layout]:
+        for eng, pb in (("dense", 4), ("paged", 2), ("paged_int8", 2)):
+            if eng in rank:
+                rows = rank[eng + "_rows"]
+                assert rows and set(rows) == {_rows_per_rank(pb, pod, dp)}
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_caches_have_the_dry_run_local_shapes(worlds, layout):
+    """Each rank's prefill scratch (and dense slot cache) leaf for leaf
+    has the local shapes ``launch/specs.py::cache_specs_at`` gives."""
+    for rank in worlds[layout]:
+        for eng in ("dense", "paged", "paged_int8"):
+            if eng not in rank:
+                continue
+            shapes = rank[eng + "_shapes"]
+            assert set(shapes) == ({"scratch", "cache"} if eng == "dense"
+                                   else {"scratch"})
+            for got, want in shapes.values():
+                assert got == want
+
+
+def test_paged_rows_borrow_pages_across_ranks(ref, worlds):
+    """At dp=2 some admission's rows hold shared pages that the other
+    rank's partition holds, and their tokens are the reference's."""
+    waves, _ = ref[("paged", 2)]
+    assert sum(sum(rank["paged_borrows"]) for rank in worlds["dp2"]) > 0
+    for rank in worlds["dp2"]:
+        assert rank["paged"] == waves
+
+
+def test_exchange_routes_reach_every_row_and_block_once():
+    """The row exchange's and the borrow's routes at every rank of a
+    pod=2 x dp=2 batch group, the rows split over pod x data (PB = 4)
+    and over data with each pod repeating (PB = 2): every row with a slot
+    reaches the rank holding the slot, from a rank whose share holds it,
+    exactly once (or is prefilled there); every shared page reaches each
+    rank prefilling its row, from its holder, and a sentinel none."""
+    from repro_torch.serving.executor import _page_routes, _row_routes
+    S, n, NP, mb = 8, 4, 64, 4
+    rng = np.random.default_rng(0)
+    for pb, row_shards in ((4, 4), (2, 2)):
+        per = pb // row_shards
+        share = {q: range(q % row_shards * per, (q % row_shards + 1) * per)
+                 for q in range(n)}
+        slot_idx = np.full(pb, S, np.int32)
+        slot_idx[:pb - 1] = rng.permutation(S)[:pb - 1]   # one unused row
+        rows, src, dst = _row_routes(slot_idx, S, n, row_shards, pb)
+        for r in range(pb):
+            if slot_idx[r] == S:
+                assert r not in rows
+                continue
+            owner = slot_idx[r] // (S // n)
+            came = [s for rr, s, d in zip(rows, src, dst) if rr == r]
+            assert all(d == owner for rr, d in zip(rows, dst) if rr == r)
+            if r in share[owner]:
+                assert came == []
+            else:
+                assert len(came) == 1 and r in share[came[0]]
+                assert came[0] // row_shards == owner // row_shards
+        gsrc = rng.integers(0, NP, (pb, mb)).astype(np.int32)
+        gsrc[0, -1] = NP                                     # the sentinel
+        pages, holder, cross = _page_routes(gsrc, n, row_shards, NP)
+        for q in range(n):
+            want = gsrc[list(share[q])].reshape(-1)
+            assert (pages[q] == want).all()
+            assert (holder[q] == np.where(want < NP, want // (NP // n),
+                                          n)).all()
+            assert (cross[q] == ((want < NP)
+                                 & (want // (NP // n) != q))).all()
 
 
 @pytest.mark.parametrize("layout", ["mp2", "dp2mp2"])
@@ -295,11 +396,15 @@ def test_tensor_parallel_logits_match_the_reference(ref, worlds, layout):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_every_family_serves_at_dp2(worlds, arch):
+    """Each rank prefills one row of FAMILY_KW's two: every cache leaf
+    (MLA's latent pair, Mamba2's state, Whisper's cross cache) crosses
+    ranks in the row exchange."""
     for rank in worlds["families"]:
         kind, *res = rank[arch]
         assert kind == "served", res
         want, got = res
         assert got == want
+        assert rank[arch + "_rows"] and set(rank[arch + "_rows"]) == {1}
 
 
 @pytest.mark.parametrize("arch", ["dbrx-132b", "gemma3-12b"])
@@ -343,10 +448,48 @@ def test_reference_chaos_plans_on_dp2_mp2(worlds):
         assert sharded["gateway_engine"][0] == 1
 
 
+def _collectives_outside_prefill(ex, model, run):
+    """``run()``'s ``torch.distributed`` collectives, by name, that
+    ``ex.admit`` / ``ex.admit_paged`` issue outside ``model.prefill``,
+    and the count of admissions."""
+    names = ("all_reduce", "all_gather", "all_gather_into_tensor",
+             "all_to_all_single", "all_to_all", "broadcast",
+             "reduce_scatter_tensor", "send", "recv")
+    depth, calls, issued = Counter(), Counter(), Counter()
+    real = {n: getattr(dist, n) for n in names}
+
+    def counting(n):
+        def call(*a, **kw):
+            if depth["admit"] and not depth["prefill"]:
+                issued[n] += 1
+            return real[n](*a, **kw)
+        return call
+
+    def inside(key, fn):
+        def call(*a, **kw):
+            depth[key] += 1
+            calls[key] += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                depth[key] -= 1
+        return call
+    with mock.patch.multiple(dist, **{n: counting(n) for n in names}), \
+            mock.patch.object(model, "prefill",
+                              inside("prefill", model.prefill)), \
+            mock.patch.object(ex, "admit", inside("admit", ex.admit)), \
+            mock.patch.object(ex, "admit_paged",
+                              inside("admit", ex.admit_paged)):
+        run()
+    return issued, calls["admit"]
+
+
 def test_world_of_one_in_process(ref):
     """``make_serving_mesh("dp=1")`` with no process group makes a gloo
     world of one here; the sharded engine gives the reference's tokens
-    and views of the caller's weights."""
+    and views of the caller's weights, prefills all PB rows, and its
+    admissions, dense and paged, issue no collective beyond the model
+    apply's own."""
     from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.serving.continuous import ContinuousEngine
     assert not dist.is_initialized()
@@ -356,16 +499,30 @@ def test_world_of_one_in_process(ref):
         assert dist.get_world_size() == 1 and mesh.coords == {
             "data": 0, "model": 0}
         eng = ContinuousEngine(model, params, mesh=mesh, **W.DENSE_KW)
-        got = eng.generate_many(ref["prompts"][0], max_new_tokens=12)
+        got = []
+        issued, admits = _collectives_outside_prefill(
+            eng.executor, model, lambda: got.extend(eng.generate_many(
+                ref["prompts"][0], max_new_tokens=12)))
         assert [list(map(int, g.tokens)) for g in got] == ref["dense"]
+        assert admits > 0 and not issued
+        assert eng.executor.prefill_rows == slice(0, 4)
+        assert eng.executor._pcache["pos"].shape == (4,)
         assert all(a is b for a, b in zip(tree_leaves(eng.executor.params),
                                           tree_leaves(params)))
+        eng = ContinuousEngine(model, params, mesh=mesh, **W.PAGED_KW)
+        waves, avoided = ref[("paged", 1)]
+        got = []
+        issued, admits = _collectives_outside_prefill(
+            eng.executor, model, lambda: got.extend(eng.generate_many(
+                ref["prompts"][1], max_new_tokens=12)))
+        assert [list(map(int, g.tokens)) for g in got] == waves[0]
+        assert admits > 0 and not issued
     finally:
         dist.destroy_process_group()
 
 
 def test_indivisible_layouts_are_refused(ref):
-    """num_slots and num_pages must split over dp (the reference's
+    """num_slots and num_pages must split over pod x dp (the reference's
     messages); a mesh needs as many processes as the world has."""
     from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.serving.executor import ShardedExecutor
@@ -391,5 +548,19 @@ def test_indivisible_layouts_are_refused(ref):
             ShardedExecutor(model, params, mesh=mesh, num_slots=4,
                             max_len=64, paged=True, page_size=4,
                             num_pages=32)
+        # a pod=2 x dp=1 grid on paper: the slots split over pod too
+        mesh.axis_names = ("pod", "data", "model")
+        mesh.devices = np.zeros((2, 1, 1), int)
+        mesh.coords = {"pod": 1, "data": 0, "model": 0}
+        with pytest.raises(ValueError, match="num_slots=3 must be divisible"
+                                             " by the mesh data-axis size 2"):
+            ShardedExecutor(model, params, mesh=mesh, num_slots=3,
+                            max_len=64)
+        with pytest.raises(ValueError, match="num_pages=35 must be "
+                                             "divisible by the mesh "
+                                             "data-axis size 2"):
+            ShardedExecutor(model, params, mesh=mesh, num_slots=4,
+                            max_len=64, paged=True, page_size=8,
+                            num_pages=35)
     finally:
         dist.destroy_process_group()

@@ -123,6 +123,53 @@ def _tokens(gens):
     return [[int(t) for t in g.tokens] for g in gens]
 
 
+def _record_prefill_rows(model) -> list:
+    """Wrap ``model.prefill`` (on the instance): the row count of each
+    call is appended to the list returned."""
+    seen, real = [], model.prefill
+
+    def prefill(params, inputs, cache, **kw):
+        seen.append(int(inputs["tokens"].shape[0]))
+        return real(params, inputs, cache, **kw)
+    model.prefill = prefill
+    return seen
+
+
+def _record_borrows(ex) -> list:
+    """Wrap ``ex.admit_paged`` (on the instance): for each admission, the
+    blocks of the rows this rank prefills whose shared page another
+    rank's partition holds."""
+    seen, real = [], ex.admit_paged
+    per = ex.num_pages // ex.page_partitions
+
+    def admit_paged(*args):
+        src = np.asarray(args[-1])[ex.prefill_rows]
+        seen.append(int(((src < ex.num_pages)
+                         & (src // per != ex.mesh.batch_index)).sum()))
+        return real(*args)
+    ex.admit_paged = admit_paged
+    return seen
+
+
+def _cache_shapes(ex, mesh) -> dict:
+    """The executor's slot cache and prefill scratch leaf shapes, each
+    beside the local shapes ``launch/specs.py::cache_specs_at`` gives on
+    ``mesh`` (the slot cache's only where it is dense)."""
+    from repro_torch.launch.specs import cache_specs_at
+    from repro_torch.models.schema import tree_leaves
+    cfg = ex.model.cfg
+
+    def spec(batch):
+        return [s.local for s in tree_leaves(
+            cache_specs_at(cfg, batch, ex.max_len, mesh))]
+    out = {"scratch": ([tuple(t.shape) for t in tree_leaves(ex._pcache)],
+                       spec(ex.prefill_batch))}
+    if not ex.paged:
+        out["cache"] = ([tuple(t.shape) for t in tree_leaves(ex._cache)],
+                        spec(ex.num_slots))
+    return out
+
+
 def serve_layout(rank, spec, np_params, dense_prompts, paged_prompts,
                  logit_tokens, int8):
     """One layout of qwen SMOKE: the dense engine on the reference
@@ -137,11 +184,14 @@ def serve_layout(rank, spec, np_params, dense_prompts, paged_prompts,
     from repro_torch.serving.executor import ShardedExecutor
     cfg, model, params = _model(QWEN, np_params)
     mesh = make_serving_mesh(spec, cfg, device="cpu")
-    out = {"coords": dict(mesh.coords)}
+    out = {"coords": dict(mesh.coords), "batch_index": mesh.batch_index}
+    rows = _record_prefill_rows(model)
     eng = ContinuousEngine(model, params, mesh=mesh, **DENSE_KW)
     ex = eng.executor
     out["dense"] = _tokens(eng.generate_many(dense_prompts, 12))
     out["dense_allocs"] = eng.stats.cache_allocations
+    out["dense_rows"] = list(rows)
+    out["dense_shapes"] = _cache_shapes(ex, mesh)
     out["slot_base"], out["slots_here"] = ex.slot_base, ex._dactive.shape[0]
     out["cache_k"] = tuple(ex._cache["blocks"]["p0"]["k"].shape)
     out["scratch_k"] = tuple(ex._pcache["blocks"]["p0"]["k"].shape)
@@ -154,10 +204,14 @@ def serve_layout(rank, spec, np_params, dense_prompts, paged_prompts,
                            == params["embed"].data_ptr())
     for quant in (False, True) if int8 else (False,):
         qmodel = build_model(dataclasses.replace(cfg, kv_quant_int8=quant))
+        rows = _record_prefill_rows(qmodel)
         eng = ContinuousEngine(qmodel, params, mesh=mesh, **PAGED_KW)
+        borrows = _record_borrows(eng.executor)
         tag = "paged_int8" if quant else "paged"
         out[tag] = [_tokens(eng.generate_many(paged_prompts, 12))
                     for _ in range(2)]
+        out[tag + "_rows"], out[tag + "_borrows"] = rows, borrows
+        out[tag + "_shapes"] = _cache_shapes(eng.executor, mesh)
         out[tag + "_stats"] = dict(
             avoided=eng.stats.prefill_tokens_avoided,
             allocs=eng.stats.cache_allocations,
@@ -196,7 +250,9 @@ def serve_families(rank, spec, archs, prompts):
         except ValueError as exc:
             out[arch] = ("refused", str(exc))
             continue
+        rows = _record_prefill_rows(model)
         out[arch] = ("served", want, _tokens(eng.generate_many(prompts, 8)))
+        out[arch + "_rows"] = rows
     return out
 
 
@@ -321,9 +377,11 @@ def serve_head_dim(rank, spec, cases, prompts, new_tokens):
     cache and its int8 form."""
     import torch
     from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.schema import zeros_from_schema
     from repro_torch.serving.executor import ShardedExecutor
     from repro_torch.models import build_model
     from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.sharding import local_schema, specs_for_schema
     mesh = make_serving_mesh(spec, device="cpu")
     out = {"coords": dict(mesh.coords)}
     for key, arch, over in cases:
@@ -353,10 +411,16 @@ def serve_head_dim(rank, spec, cases, prompts, new_tokens):
         for quant in (False, True):
             m = build_model(dataclasses.replace(cfg, kv_quant_int8=quant))
             ex = ShardedExecutor(m, params, mesh=mesh, num_slots=2,
-                                 max_len=64, prefill_batch=2)
+                                 max_len=64)
+            # both rows through this rank's kv heads (the executor's
+            # scratch holds only its share of the rows)
+            schema = m.cache_schema(2, 64)
+            scratch = zeros_from_schema(local_schema(
+                schema, specs_for_schema(schema, mesh), mesh,
+                axes=("model",)), device="cpu")
             runs = {"single": (params, m.init_cache(2, 64, device="cpu"),
                                None),
-                    "sharded": (ex.params, ex._pcache, ex.tp)}
+                    "sharded": (ex.params, scratch, ex.tp)}
             for name, (p, cache, tp) in runs.items():
                 with torch.no_grad():
                     lg, cache = m.prefill(p, {"tokens": toks}, cache, tp=tp)

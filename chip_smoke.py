@@ -248,7 +248,10 @@ Phases, each on its own lines; any failure exits nonzero:
                another row order drift apart), 6 ``all_to_all`` a step;
                and 3 steps at capacity 1.25 from the same init, the
                share of routed rows dropped printed.
-16a2. dry run — ``repro_torch.launch.dryrun`` in a subprocess, as rank 0
+16a2. dry run — ``repro_torch.launch.dryrun`` in subprocesses started
+               before phase 16a0, so that their tracing (host cores
+               only) runs beside 16a0 and 16a1 (the seconds won back
+               printed), as rank 0
                of a one-rank fake world on fake CUDA tensors (nothing
                allocated on the card): 16a1's qwen train step (4 layers,
                4 x 1024, dp = 1) and 11a's decode step (qwen FULL, 8
@@ -261,11 +264,14 @@ Phases, each on its own lines; any failure exits nonzero:
                bytes; the roofline's three terms and MODEL_FLOPS (as a
                share of 989 TFLOP/s) beside each step's measured ms.
                Then the head_dim route (kv heads, or heads too, that the
-               production mesh's mp = 16 does not divide): qwen FULL's
-               decode_32k and train_4k and command-r FULL's decode_32k,
+               production mesh's mp = 16 does not divide) and the MLA
+               route: qwen FULL's decode_32k and train_4k, command-r
+               FULL's, minicpm3-4b FULL's and deepseek-v3-671b FULL's
+               decode_32k,
                unpadded, traced as rank 0 of the fake 16 x 16 world on
                fake CUDA tensors and, concurrently, on fake CPU tensors
-               (two more subprocesses): census, collective bytes,
+               (two more subprocesses; a fourth traces 16c's one-rank
+               MLA decode steps for their census): census, collective bytes,
                per-rank peak and temp, FLOPs and K1's would-be launches
                printed, the census and bytes equal on both and K1 0 on
                both (the split layers take the plain route on either);
@@ -330,7 +336,13 @@ Phases, each on its own lines; any failure exits nonzero:
                and absorbed runs driven through prefill / decode: their
                gaps in bf16, and in float32 within 2e-3 at every step.
                deepseek's ``forward_train_loss`` on 2 x 512 tokens with
-               and without MTP: both finite, different.
+               and without MTP: both finite, different.  For each model,
+               naive and absorbed, one decode step of 8 slots over
+               392-row caches (a prefill of seeded prompts) through the
+               tensor-parallel apply on a one-rank NCCL group and on one
+               device: the next tokens equal, the collectives equal to
+               16a2's one-rank census of the step, deepseek's K7
+               launches equal, both steps' ms printed.
 16d. vision / audio serve — phi-3-vision and whisper SMOKE in float32 on
                the card against the host (with the image or the frames;
                phi-3 also at head_dim 96); then ``phi-3-vision-4.2b``
@@ -363,8 +375,9 @@ Phases, each on its own lines; any failure exits nonzero:
                subprocesses on the card: qwen SMOKE and the defaults
                (mamba2-130m SMOKE), 20 steps each: each loss falls, and
                each npz checkpoint loads back equal through
-               ``load_checkpoint``.  Beside them, from before they start
-               to after they end (after every timed row above):
+               ``load_checkpoint``.  Beside them, from before phase 17's
+               open loop (virtual time) starts to after they end (after
+               every timed row above):
 19. paper benches — ``python -m repro_torch.benchmarks.run`` with the
                paper's ten benches (Table 1, Figures 1-3, mitigation,
                the objective ablation over paper5 and hybrid9, OPE, the
@@ -4146,7 +4159,10 @@ def sharded_train_phase(card: str, records: dict) -> dict:
 
 
 DRYRUN_TOL, DRYRUN_SLACK = 0.10, 256 << 20  # the larger of 10 % and 256 MiB
+# every dry-run subprocess prints one JSON line whose "wall_s" is its
+# own seconds from its start
 _DRYRUN_CODE = r"""
+import time; t0 = time.perf_counter()
 import dataclasses, json, numpy as np
 from repro_torch.configs import get_config
 from repro_torch.launch import dryrun as D
@@ -4159,23 +4175,54 @@ for key, layers, shape, kw in cases:
     cfg = full if layers is None else dataclasses.replace(full,
                                                           n_layers=layers)
     out[key] = D.trace_case(cfg, shape, lay, device="cuda", **kw)
+out["wall_s"] = time.perf_counter() - t0
 print(json.dumps(out))
 """
 
 
-# the head_dim route's production-mesh traces (phase 16a2): unpadded
-# on the 16 x 16 layout; train_4k at one microbatch (the CLI picks 16:
-# the same ops 16 times over, minutes of tracing)
+# the head_dim route's and the MLA route's production-mesh traces (phase
+# 16a2): unpadded on the 16 x 16 layout; train_4k at one microbatch (the
+# CLI picks 16: the same ops 16 times over, minutes of tracing)
 DRYRUN_MESH_CASES = (("qwen1.5-32b", "decode_32k", None),
                      ("command-r-35b", "decode_32k", None),
-                     ("qwen1.5-32b", "train_4k", 1))
+                     ("qwen1.5-32b", "train_4k", 1),
+                     ("minicpm3-4b", "decode_32k", None),
+                     ("deepseek-v3-671b", "decode_32k", None))
 _DRYRUN_MESH_CODE = r"""
+import time; t0 = time.perf_counter()
 import json, sys
 from repro_torch.launch import dryrun as D
 out = {}
 for arch, shape, mb in json.loads(sys.argv[2]):
     out[f"{arch} {shape}"] = D.run_one(arch, shape, "single",
                                        device=sys.argv[1], microbatches=mb)
+out["wall_s"] = time.perf_counter() - t0
+print(json.dumps(out))
+"""
+# phase 16c's tensor-parallel decode steps, traced as rank 0 of a
+# one-rank fake world on fake CUDA tensors: the MLA models as phase 16c
+# serves them (minicpm3-4b FULL, deepseek-v3-671b cut to 5 layers), one
+# decode step of NUM_SLOTS slots over 392-row caches, naive and
+# absorbed, the MoE layers through moe_apply_ragged as ShardedExecutor
+# serves them (no EP)
+_DRYRUN_MLA_CODE = r"""
+import time; t0 = time.perf_counter()
+import dataclasses, json, sys, numpy as np
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import LayoutMesh
+lay = LayoutMesh(("data", "model"), np.arange(1).reshape(1, 1))
+shape = json.loads(sys.argv[2])
+out = {}
+for arch, layers in json.loads(sys.argv[1]):
+    cfg = get_config(arch, "full")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    for absorb in (False, True):
+        rec = D.trace_case(cfg, shape, lay, device=sys.argv[3], ep=False,
+                           mla_absorb=absorb)
+        out[f"{arch} {absorb}"] = rec["collective_counts"]
+out["wall_s"] = time.perf_counter() - t0
 print(json.dumps(out))
 """
 
@@ -4206,7 +4253,55 @@ def _finish(proc: subprocess.Popen, label: str, timeout: float) -> dict:
     return json.loads(out.splitlines()[-1])
 
 
-def dryrun_phase(card: str) -> dict:
+def _dryrun_cases() -> list:
+    """Phase 16a2's one-rank cases: (key, layers, shape, kw)."""
+    shapes = {"train": dict(kind="train", global_batch=TRAIN_BATCH,
+                            seq_len=TRAIN_SEQ),
+              "decode": _decode_shape()}
+    return [("train", TRAIN_LAYERS, shapes["train"], {"microbatches": 1}),
+            ("decode", None, shapes["decode"], {})]
+
+
+def _decode_shape() -> dict:
+    """The main path's decode step as a dry-run shape: NUM_SLOTS slots
+    over MAX_PROMPT_LEN + MAX_NEW_TOKENS-row caches."""
+    return dict(kind="decode", global_batch=NUM_SLOTS,
+                seq_len=MAX_PROMPT_LEN + MAX_NEW_TOKENS)
+
+
+def start_dryrun() -> dict:
+    """Start phase 16a2's traces and phase 16c's census, each in a
+    subprocess on the host's cores (fake tensors: nothing is allocated
+    on the card), so that they run beside the phases in between;
+    :func:`dryrun_phase` collects them (:func:`stop_dryrun` kills any
+    left).  Returns the processes by name and their start time."""
+    census = [(arch, layers) for arch, layers, _ in MLA_MODELS]
+    procs = {"one-rank": _subprocess(_DRYRUN_CODE
+                                     % json.dumps(_dryrun_cases())),
+             "mla census": _subprocess(_DRYRUN_MLA_CODE, json.dumps(census),
+                                       json.dumps(_decode_shape()), "cuda")}
+    for dev in ("cuda", "cpu"):
+        procs[f"16 x 16 {dev}"] = _subprocess(
+            _DRYRUN_MESH_CODE, dev, json.dumps(DRYRUN_MESH_CASES))
+    return {"procs": procs, "t0": time.perf_counter()}
+
+
+def stop_dryrun(started: dict) -> None:
+    for proc in started["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+# phase 16c's census of its tensor-parallel decode steps, from the
+# one-rank dry run (``"<arch> <absorb>"`` -> collective counts by kind)
+MLA_CENSUS: dict = {}
+# seconds of work that ran beside other phases instead of after them,
+# by what ran beside (printed before the total)
+WON_BACK: dict = {}
+
+
+def dryrun_phase(card: str, started: dict = None) -> dict:
     """The dry run (``repro_torch.launch.dryrun``) of two steps this
     script also runs for real, traced in a subprocess (a process makes
     one world) as rank 0 of a one-rank fake world on fake CUDA tensors:
@@ -4223,35 +4318,37 @@ def dryrun_phase(card: str) -> dict:
     more trace ``DRYRUN_MESH_CASES`` unpadded as rank 0 of the fake 16 x
     16 world, on fake CUDA and on fake CPU tensors: the census and
     collective bytes equal, K1 0 on both (the head_dim route's layers
-    decode on the plain route); then :func:`split_score_check`."""
+    decode on the plain route, MLA takes no kernel), and a fourth the
+    one-rank census of phase 16c's MLA decode steps (``MLA_CENSUS``);
+    then :func:`split_score_check`.  ``started``: the subprocesses
+    :func:`start_dryrun` started earlier (None: started here); the
+    seconds this phase waited for them are printed beside their own."""
     from repro_torch.analysis import roofline as R
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    started = started or start_dryrun()
     t0 = time.perf_counter()
-    shapes = {"train": dict(kind="train", global_batch=TRAIN_BATCH,
-                            seq_len=TRAIN_SEQ),
-              "decode": dict(kind="decode", global_batch=NUM_SLOTS,
-                             seq_len=MAX_PROMPT_LEN + MAX_NEW_TOKENS)}
-    cases = [("train", TRAIN_LAYERS, shapes["train"], {"microbatches": 1}),
-             ("decode", None, shapes["decode"], {})]
-    # the production-mesh traces run beside the one-rank ones
-    mesh_procs = {dev: _subprocess(_DRYRUN_MESH_CODE, dev,
-                                   json.dumps(DRYRUN_MESH_CASES))
-                  for dev in ("cuda", "cpu")}
     try:
-        traced = _finish(_subprocess(_DRYRUN_CODE % json.dumps(cases)),
-                         "dry run", 300)
-        mesh = {dev: _finish(proc, f"dry run 16 x 16 {dev}", 600)
-                for dev, proc in mesh_procs.items()}
+        runs = {name: _finish(proc, f"dry run {name}", 600)
+                for name, proc in started["procs"].items()}
     finally:
-        for proc in mesh_procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
+        stop_dryrun(started)
+    waited = time.perf_counter() - t0
+    longest = max(r.pop("wall_s") for r in runs.values())
+    traced = runs["one-rank"]
+    mesh = {dev: runs[f"16 x 16 {dev}"] for dev in ("cuda", "cpu")}
+    MLA_CENSUS.update(runs["mla census"])
+    cases = _dryrun_cases()
+    WON_BACK["the dry run's traces"] = longest - waited
+    say(f"== dry run: {len(runs)} subprocesses of traces on fake tensors, "
+        f"the longest {longest:.1f} s, started "
+        f"{t0 - started['t0']:.1f} s before this phase; it waited "
+        f"{waited:.1f} s for them: {longest - waited:.1f} s won back by "
+        f"tracing beside the phases before [{card}]")
     say(f"== dry run: qwen1.5-32b train (4 layers, {TRAIN_BATCH} x "
         f"{TRAIN_SEQ}) and FULL decode ({NUM_SLOTS} slots x "
         f"{MAX_PROMPT_LEN + MAX_NEW_TOKENS} rows) traced on a one-rank "
-        f"fake world in {time.perf_counter() - t0:.1f} s (trace "
+        f"fake world (trace "
         f"{traced['train']['trace_s']} / {traced['decode']['trace_s']} s) "
         f"[{card}]")
     full = get_config(QWEN, "full")
@@ -5242,6 +5339,103 @@ def _mtp_loss_check(cfg, params, card: str, counters) -> None:
         raise AssertionError(f"[mtp loss] kernels launched: {launches}")
 
 
+def _mla_census(device: str = "cuda") -> dict:
+    """``MLA_CENSUS``; traced here (on fake ``device`` tensors) when
+    phase 16a2 has not run."""
+    if not MLA_CENSUS:
+        census = [(arch, layers) for arch, layers, _ in MLA_MODELS]
+        out = _finish(_subprocess(_DRYRUN_MLA_CODE, json.dumps(census),
+                                  json.dumps(_decode_shape()), device),
+                      "mla census", 600)
+        out.pop("wall_s")
+        MLA_CENSUS.update(out)
+    return MLA_CENSUS
+
+
+def mla_tp_decode(cfg, model, params, card: str) -> dict:
+    """One decode step of ``NUM_SLOTS`` slots over ``MAX_PROMPT_LEN +
+    MAX_NEW_TOKENS``-row caches holding a prefill of seeded prompts,
+    naive and absorbed, through the tensor-parallel apply (``tp`` the
+    model group of a one-rank NCCL serving mesh, as ``ShardedExecutor``
+    runs it: ``models/layers.py::_mla_split`` on unsplit leaves) and on
+    one device, each on its own copy of the prefilled cache.  Checks:
+    the next tokens equal; the tensor-parallel step's collectives
+    (counted by the dry run's ``Census`` on the real step) equal to the
+    one-rank dry run's census of the same step (``MLA_CENSUS``); K7's
+    launches equal.  Prints both steps' ms (CUDA events, warm).  Returns
+    the ms by route."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.grouped_gemm import grouped_gemm
+    from repro_torch.launch.dryrun import Census
+    from repro_torch.models.schema import tree_map
+    census = _mla_census()
+    t0 = time.perf_counter()
+    dev = params["embed"].device
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        4, cfg.vocab_size, size=(NUM_SLOTS, MAX_PROMPT_LEN)), device=dev)
+    out = {}
+    with _serving_mesh(cfg) as mesh:
+        tp = mesh.group("model")
+        for absorb in (False, True):
+            with torch.no_grad():
+                cache = model.init_cache(NUM_SLOTS, MAX_PROMPT_LEN
+                                         + MAX_NEW_TOKENS, device=dev)
+                logits, cache = model.prefill(params, {"tokens": toks}, cache,
+                                              mla_absorb=absorb)
+                nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            runs = {}
+            for name, group in (("single", None), ("tp", tp)):
+                mine = tree_map(torch.clone, cache)
+                pos = mine["pos"]
+
+                @torch.no_grad()
+                def step(mine=mine, group=group):
+                    # every call decodes the same step: the cache's row
+                    # at pos is written again
+                    mine["pos"] = pos
+                    lg, _ = model.decode(params, {"tokens": nxt}, mine,
+                                         tp=group, mla_absorb=absorb)
+                    return lg[:, -1].argmax(-1)
+                grouped_gemm.launches = 0
+                counted = Census()
+                with counted:
+                    got = step()
+                torch.cuda.synchronize()
+                runs[name] = {"tokens": got.tolist(),
+                              "k7": grouped_gemm.launches,
+                              "counts": {k: n for k, n in
+                                         counted.coll_counts.items() if n},
+                              "ms": cuda_ms(step, 5)}
+                del mine
+            del cache
+            route = "absorbed" if absorb else "naive"
+            want = {k: n for k, n in
+                    census[f"{cfg.name} {absorb}"].items() if n}
+            single, split = runs["single"], runs["tp"]
+            say(f"   tensor-parallel decode step [{cfg.name}, {route}] on a "
+                f"one-rank NCCL group, {NUM_SLOTS} slots x "
+                f"{MAX_PROMPT_LEN + MAX_NEW_TOKENS} rows: {split['ms']:.3f} "
+                f"ms beside the single-device step's {single['ms']:.3f} ms; "
+                f"collectives {split['counts']} (the one-rank dry run's "
+                f"census {want}); K7 {split['k7']} (single-device "
+                f"{single['k7']}); next tokens equal: "
+                f"{split['tokens'] == single['tokens']} [{card}]")
+            if (split["tokens"] != single["tokens"]
+                    or split["counts"] != want or single["counts"]
+                    or split["k7"] != single["k7"]):
+                raise AssertionError(
+                    f"[mla tp decode {cfg.name} {route}] tokens "
+                    f"{split['tokens']} vs {single['tokens']}, collectives "
+                    f"{split['counts']} vs the census {want} (single-device "
+                    f"{single['counts']}), K7 {split['k7']} vs "
+                    f"{single['k7']}")
+            out[route] = {"ms": split["ms"], "single_ms": single["ms"]}
+    say(f"   tensor-parallel decode steps [{cfg.name}]: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def mla_serve_phase(card: str, policy) -> dict:
     """Multi-head latent attention at its published widths through
     ``Gateway.serve`` on the dense slot engine (the paged pool refuses
@@ -5311,6 +5505,8 @@ def mla_serve_phase(card: str, policy) -> dict:
             _check_no_sync(ex, "decode chunk")
             del dense, backend, ex
             gc.collect()
+        # before the witness converts the weights to float32
+        mla_tp_decode(cfg, model, params, card)
         if len(tokens) == 2:
             naive, absorbed = tokens[False], tokens[True]
             common = [k for k in naive if k in absorbed]
@@ -5873,7 +6069,7 @@ def _serve_cli(label, argv, card, n_layers, counters) -> dict:
     return {"run": run, "launches": launches}
 
 
-def serve_cli_phase(card: str) -> int:
+def serve_cli_phase(card: str, before_open=None) -> int:
     """``python -m repro_torch.launch.serve --backend continuous --variant
     full`` in this process, twice, each building the FULL testbed, its
     router and its own qwen1.5-32b FULL engine as the CLI does: the
@@ -5881,6 +6077,9 @@ def serve_cli_phase(card: str) -> int:
     and the open loop on the virtual clock.  Checks: every request served
     (closed) or resolved (open), the reward finite, prefills and decode
     chunks, K1 64 times a decode step, the telemetry files non-empty.
+    ``before_open()``, where given, runs between the two (``main`` starts
+    the paper benches there: the open loop's results are on the virtual
+    clock, so they do not depend on what shares the host and the card).
     Returns the closed loop's K1 launches."""
     import tempfile
     from repro_torch.configs import get_config
@@ -5916,6 +6115,8 @@ def serve_cli_phase(card: str) -> int:
     k1 = closed["launches"]["flash_decode"]
     del closed, stats
     _free_gpu_memory("serve cli, open loop")
+    if before_open is not None:
+        before_open()
     n = SERVE_CLI_OPEN_REQUESTS
     flags = ["-n", str(n), "--open-loop", str(SERVE_CLI_RATE),
              "--deadline-ms", str(SERVE_CLI_DEADLINE_MS)]
@@ -5973,36 +6174,55 @@ def _say_paper_headlines(art: dict, derived: dict) -> None:
             f"{v['values']}")
 
 
-def paper_bench_phase(card: str, beside) -> None:
+def start_paper_benches() -> dict:
     """``python -m repro_torch.benchmarks.run`` with the paper's ten
-    benches on the card, in a subprocess started before ``beside()``
-    runs and waited for after it.  Checks: exit 0, the ten CSV rows,
-    each artifact written by this run, every number in the artifacts and
-    the derived values finite; prints the paper's headline numbers."""
+    benches on the card, started in a subprocess (its output to
+    temporary files); :func:`paper_bench_phase` waits for it."""
     import os
     import tempfile
-    art_dir = ROOT / "src" / "repro_torch" / "benchmarks" / "artifacts"
     cmd = [sys.executable, "-m", "repro_torch.benchmarks.run",
            *PAPER_BENCHES, "--device", "cuda"]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    started, t0 = time.time(), time.perf_counter()
-    with tempfile.TemporaryFile("w+") as out, \
-            tempfile.TemporaryFile("w+") as err:
-        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
-                                stderr=err, text=True)
-        try:
-            beside()
-            rc = proc.wait(timeout=900)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        wall = time.perf_counter() - t0
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    return {"cmd": cmd, "out": out, "err": err, "started": time.time(),
+            "t0": time.perf_counter(),
+            "proc": subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
+                                     stderr=err, text=True)}
+
+
+def stop_paper_benches(run: dict) -> None:
+    if run and run["proc"].poll() is None:
+        run["proc"].kill()
+        run["proc"].wait()
+
+
+def paper_bench_phase(card: str, beside, run: dict = None) -> None:
+    """The paper's ten benches (:func:`start_paper_benches`, started
+    here unless ``run`` was started earlier) waited for after
+    ``beside()`` runs.  Checks: exit 0, the ten CSV rows, each artifact
+    written by this run, every number in the artifacts and the derived
+    values finite; prints the paper's headline numbers and how long the
+    phase waited for the benches beyond ``beside()``."""
+    art_dir = ROOT / "src" / "repro_torch" / "benchmarks" / "artifacts"
+    run = run or start_paper_benches()
+    proc, cmd, started = run["proc"], run["cmd"], run["started"]
+    early = time.perf_counter() - run["t0"]
+    try:
+        beside()
+        t1 = time.perf_counter()
+        rc = proc.wait(timeout=900)
+    finally:
+        stop_paper_benches(run)
+    waited = time.perf_counter() - t1
+    wall = time.perf_counter() - run["t0"]
+    WON_BACK["the paper benches"] = early
+    with run["out"] as out, run["err"] as err:
         out.seek(0)
         err.seek(0)
         text, errors = out.read(), err.read()
-    say(f"== paper benches: {' '.join(cmd[1:])}: exit {rc} in {wall:.1f} s "
-        f"(beside the cli phase) [{card}]")
+    say(f"== paper benches: {' '.join(cmd[1:])}: exit {rc} in {wall:.1f} s, "
+        f"started {early:.1f} s before the cli phase (beside the serve "
+        f"cli's open loop), waited for {waited:.1f} s after it [{card}]")
     if rc != 0:
         raise AssertionError(f"[paper benches] exit {rc}: {errors[-4000:]}")
     lines = text.splitlines()
@@ -6277,9 +6497,15 @@ def main() -> None:
     mamba_serve_phase(card, router)
     launches.update(mamba_eval_phase(card))
     mamba_train_phase(card)
-    train_launches = train_families_phase(card, records)
-    sharded_train_phase(card, records)
-    dryrun_phase(card)
+    # the dry run's traces (host cores only) run beside the training
+    # phases on the card, and are collected in phase 16a2
+    traces = start_dryrun()
+    try:
+        train_launches = train_families_phase(card, records)
+        sharded_train_phase(card, records)
+        dryrun_phase(card, traces)
+    finally:
+        stop_dryrun(traces)
     moe_launches = moe_gqa_serve_phase(card, router)
     gemma_launches = gemma3_serve_phase(card, router)
     moe_launches.update(mla_serve_phase(card, router))
@@ -6294,10 +6520,17 @@ def main() -> None:
         family_launches.setdefault(arch, {})["grouped_gemm"] = \
             moe_launches[arch]["grouped_gemm"]
     _free_gpu_memory("serve cli")
-    serve_cli_phase(card)
-    # the paper's benches run beside the training CLI, after every timed
-    # row of the phases above
-    paper_bench_phase(card, beside=lambda: cli_phase(card))
+    # the paper's benches run beside the serve CLI's open loop (virtual
+    # time) and the training CLI, after every timed row of the phases
+    # above
+    benches = {}
+    try:
+        serve_cli_phase(card, before_open=lambda: benches.update(
+            start_paper_benches()))
+        paper_bench_phase(card, beside=lambda: cli_phase(card),
+                          run=benches or None)
+    finally:
+        stop_paper_benches(benches)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for row in rows:
@@ -6310,6 +6543,9 @@ def main() -> None:
                if row.get("shape", "").startswith(f)]
         row["launches"] = (family_launches[fam[0]] if fam
                            else launches)[row["name"]]
+    say(f"== won back by running beside other phases: "
+        f"{', '.join(f'{k} {v:.1f} s' for k, v in WON_BACK.items())}; "
+        f"{sum(WON_BACK.values()):.1f} s in all [{card}]")
     say(f"== total: {time.perf_counter() - t0:.1f} s, every phase passed "
         f"[{card}]")
     # every row has the keys above, in that order; K5's adds kernel_ms

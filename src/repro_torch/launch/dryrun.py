@@ -257,16 +257,17 @@ def _fake(tree, device):
     return [_fake(v, device) for v in tree]
 
 
-def step_specs(cfg, shape: dict, mesh) -> dict:
+def step_specs(cfg, shape: dict, mesh, ep=None) -> dict:
     """The stand-ins of a step's arguments on ``mesh``: ``params``,
     ``opt`` and ``batch`` for a train step (the weights under FSDP),
     ``params``, ``batch`` and ``cache`` for prefill and decode (the
     weights as the serving apply holds them, whole over ``data``:
     ``ShardedExecutor``'s placement, since ``model.prefill`` and
     ``decode`` have no FSDP gather; the reference's dry run gives its
-    serve steps the FSDP specs and lets GSPMD gather them)."""
+    serve steps the FSDP specs and lets GSPMD gather them).  ``ep``:
+    the experts over ``data`` (None: where ``use_ep`` holds)."""
     kind, B, S = shape["kind"], shape["global_batch"], shape["seq_len"]
-    ep = use_ep(cfg, mesh)
+    ep = use_ep(cfg, mesh) if ep is None else ep
     out = {"batch": batch_specs_at(cfg, kind, B, S, mesh)}
     if kind == "train":
         out["params"] = param_specs(cfg, mesh, ep=ep)
@@ -318,7 +319,7 @@ def configure(arch: str, *, q_chunk=0, window_ring=False,
 
 def build_step(cfg, shape: dict, mesh, *, device, mla_absorb=False,
                capacity_factor=1.25, microbatches=None, moe_comm_bf16=False,
-               moe_scatter_down=False):
+               moe_scatter_down=False, ep=None):
     """Returns ``(fn, args, info, argument_bytes)`` for one config at
     one input shape (``INPUT_SHAPES``' keys ``kind``, ``global_batch``,
     ``seq_len``) on ``mesh``; built inside ``FakeTensorMode`` the
@@ -327,16 +328,17 @@ def build_step(cfg, shape: dict, mesh, *, device, mla_absorb=False,
     :func:`pick_microbatches`' factor.  Prefill: ``model.prefill``.
     Decode: ``model.decode`` and the next token's argmax, as the
     reference's ``serve_step``.  The EP ``moe_fn`` goes in where
-    ``use_ep`` holds."""
+    ``use_ep`` holds, or as ``ep`` says (``False``: the MoE layers
+    through ``moe_apply_ragged``, as ``ShardedExecutor`` serves them)."""
     from repro_torch.training.sharded import make_sharded_train_step
     model = build_model(cfg)
     kind, B, S = shape["kind"], shape["global_batch"], shape["seq_len"]
-    ep = use_ep(cfg, mesh)
+    ep = use_ep(cfg, mesh) if ep is None else ep
     moe_fn = make_ep_moe_fn(
         mesh, capacity_factor,
         comm_dtype=torch.bfloat16 if moe_comm_bf16 else None,
         scatter_down=moe_scatter_down) if ep else None
-    specs = step_specs(cfg, shape, mesh)
+    specs = step_specs(cfg, shape, mesh, ep)
     nbytes = argument_bytes(specs)
     info = {"ep": ep}
 

@@ -40,7 +40,9 @@ partial scores summed over ``tp``, whole heads at S > 1).
 
 Multi-head latent attention (:func:`mla_apply`) reaches no kernel, as in
 the reference: its naive decode runs the plain :func:`attention`, its
-absorbed decode plain float32 products.
+absorbed decode plain float32 products.  Under ``tp`` its up-projections
+split on heads or ``head_dim`` and its cached latent on ``kv_lora``
+(:func:`_mla_split`: whole heads over the whole latent on every rank).
 """
 from __future__ import annotations
 
@@ -621,10 +623,16 @@ def _gqa_head_dim(q, k, v, cfg: ModelConfig, *, positions, cache, window,
         out = attention(q, k, v, q_pos=positions, kv_len=kv_len,
                         causal=causal, window=window, softcap=softcap,
                         q_chunk=cfg.attn_q_chunk)
-    if not split_q:
-        return out
-    # this rank's heads, every rank's columns of them -> every head, this
-    # rank's columns
+    return _to_columns(out, group, counts) if split_q else out
+
+
+def _to_columns(out, group, counts):
+    """(B, S, counts[r], D): this rank's block of heads (:func:`_heads_of`)
+    with every column -> (B, S, sum(counts), D / n): every head, this
+    rank's columns, in one all-to-all over ``group``."""
+    n = len(counts)
+    B, S, count, D = out.shape
+    Dl = D // n
     send = out.reshape(B, S, count, n, Dl).permute(3, 0, 1, 2, 4)
     got = all_to_all(send.reshape(-1), group, [B * S * count * Dl] * n,
                      [B * S * c * Dl for c in counts])
@@ -670,7 +678,7 @@ def mla_schema(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def mla_apply(p, x, cfg: ModelConfig, *, positions, cache=None, causal=True,
-              absorb: bool = False):
+              absorb: bool = False, tp=None):
     """MLA forward.  x: (B, S, d), positions: (B, S).  The cache holds
     the *compressed* pair: ``c_kv`` (B, L, kv_lora_rank) and ``k_rope``
     (B, L, qk_rope_head_dim), written IN PLACE; returns (out, cache).
@@ -687,27 +695,29 @@ def mla_apply(p, x, cfg: ModelConfig, *, positions, cache=None, causal=True,
     queries and ``wv_b`` into the output and attends in the latent
     space, in float32 throughout as the reference computes it.  Neither
     reaches a kernel: the reference's MLA has no kernel branch.
+
+    With ``tp`` the up-projections ``wq_b`` / ``wk_b`` / ``wv_b`` and
+    ``wo`` hold this rank's heads (or, where mp does not divide the
+    heads, its ``head_dim`` columns of every head) and the cache's
+    ``c_kv`` this rank's ``kv_lora`` columns: :func:`_mla_split`.
     """
-    B, S, d = x.shape
     m: MLAConfig = cfg.mla
-    dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
 
-    # --- queries
-    if m.q_lora_rank:
-        cq = rmsnorm(p["q_norm"], x @ p["wq_a"], cfg.norm_eps)
-        q = proj_heads(cq, p["wq_b"])
-    else:
-        q = proj_heads(x, p["wq_b"])
-    q_nope, q_rope = q[..., :dn], q[..., dn:]
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-
-    # --- compressed kv; the rope part is one head shared by all H
+    # --- the query's latent, and the compressed kv: the rope part is one
+    # head shared by all H
+    cq = rmsnorm(p["q_norm"], x @ p["wq_a"], cfg.norm_eps) \
+        if m.q_lora_rank else x
     ckv_full = x @ p["wkv_a"]
     c_kv = rmsnorm(p["kv_norm"], ckv_full[..., :m.kv_lora_rank],
                    cfg.norm_eps)
     k_rope = apply_rope(ckv_full[..., m.kv_lora_rank:][:, :, None, :],
                         positions, cfg.rope_theta)[:, :, 0]
+    if tp is not None:
+        out = _mla_split(p, cq, c_kv, k_rope, cfg, positions=positions,
+                         cache=cache, causal=causal, absorb=absorb, tp=tp)
+        return _out_proj(p, out, tp), cache
 
+    S = x.shape[1]
     if cache is not None:
         cc, cr = cache["c_kv"], cache["k_rope"]
         if S == 1:
@@ -722,26 +732,121 @@ def mla_apply(p, x, cfg: ModelConfig, *, positions, cache=None, causal=True,
         kv_src, kr_src, kv_len = cc, cr, positions[:, -1] + 1
     else:
         kv_src, kr_src, kv_len = c_kv, k_rope, None
+    out = _mla_heads(p, proj_heads(cq, p["wq_b"]), kv_src, kr_src, cfg,
+                     positions=positions, kv_len=kv_len, causal=causal,
+                     absorb=absorb)
+    return _out_proj(p, out.to(x.dtype)), cache
 
+
+def _mla_heads(p, q, kv_src, kr_src, cfg: ModelConfig, *, positions,
+               kv_len, causal, absorb):
+    """The attention of the heads ``q`` (B, S, H, dn + dr) holds, before
+    its rope, over the latent rows ``kv_src`` (B, Skv, r) and ``kr_src``
+    (B, Skv, dr); ``p["wk_b"]`` / ``p["wv_b"]`` hold the same heads.
+    Returns (B, S, H, dv): float32 absorbed, the latent's dtype naive."""
+    m: MLAConfig = cfg.mla
+    dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
+    q_nope = q[..., :dn]
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
     if absorb:
-        out = _mla_absorbed(p, q_nope, q_rope, kv_src, kr_src, positions,
-                            kv_len, causal, 1.0 / math.sqrt(dn + dr))
-        out = out.to(x.dtype)
-    else:
-        # naive: expand the latent into per-head k/v, then plain MHA
-        # (its 1 / sqrt(dn + dr) scale is the query's own width)
-        Skv, H = kv_src.shape[1], q.shape[2]
-        k_nope = proj_heads(kv_src, p["wk_b"])
-        v = proj_heads(kv_src, p["wv_b"])
-        k = torch.cat([k_nope, kr_src[:, :, None, :].expand(
-            B, Skv, H, dr).to(k_nope.dtype)], dim=-1)
-        qq = torch.cat([q_nope, q_rope], dim=-1)
-        out = attention(qq, k, v, q_pos=positions, kv_len=kv_len,
-                        causal=causal)
-    H, dv = out.shape[-2:]
-    wo = p["wo"]
-    out = out.reshape(B, S, H * dv) @ wo.reshape(H * dv, wo.shape[-1])
-    return out, cache
+        return _mla_absorbed(p, q_nope, q_rope, kv_src, kr_src, positions,
+                             kv_len, causal, 1.0 / math.sqrt(dn + dr))
+    # naive: expand the latent into per-head k/v, then plain MHA
+    # (its 1 / sqrt(dn + dr) scale is the query's own width)
+    B, Skv = kv_src.shape[:2]
+    k_nope = proj_heads(kv_src, p["wk_b"])
+    v = proj_heads(kv_src, p["wv_b"])
+    k = torch.cat([k_nope, kr_src[:, :, None, :].expand(
+        B, Skv, q.shape[2], dr).to(k_nope.dtype)], dim=-1)
+    qq = torch.cat([q_nope, q_rope], dim=-1)
+    return attention(qq, k, v, q_pos=positions, kv_len=kv_len,
+                     causal=causal)
+
+
+def _mla_split(p, cq, c_kv, k_rope, cfg: ModelConfig, *, positions, cache,
+               causal, absorb, tp):
+    """The attention of an MLA layer over ``tp``: ``cq`` (the query's
+    latent, or x without a q-LoRA), ``c_kv`` and ``k_rope`` are whole on
+    every rank (``wq_a``, ``wkv_a`` and the norms stay whole); the
+    up-projections hold this rank's heads (mp divides them: deepseek-v3's
+    128 at mp = 16) or its ``head_dim`` columns of every head (minicpm3's
+    40: ``wq_b`` 6 of 96 columns a rank, ``wk_b`` / ``wv_b`` 4 of 64);
+    the cache's ``c_kv`` holds this rank's ``kv_lora`` columns (32 of
+    512, 16 of 256) and ``k_rope`` is whole.  Returns the attention's
+    output, in the activations' dtype, as ``wo`` holds it here: this
+    rank's heads, or this rank's ``dv`` columns of every head.  The
+    reference leaves these
+    collectives to XLA; the port writes them out:
+
+    * Every rank attends whole heads over the whole latent, with the
+      single-device code (:func:`_mla_heads`, naive or absorbed), so a
+      one-rank group gives the single-device numbers bit for bit.
+    * The latent is whole at S > 1 (prefill, training, evaluation): the
+      fresh rows, since MLA's prefill starts at row 0.  Only this rank's
+      columns are written to the cache; ``k_rope`` is written whole.
+    * Decode (S == 1) writes its row's columns, then all-gathers the
+      cache's ``c_kv`` over ``tp`` (one gather a layer, freed before the
+      next).  By the dry run's count for rank 0 of the 16 x 16 layout at
+      decode_32k (8 sequences a rank, L = 32768, bf16), that is 256 MiB
+      a layer at deepseek-v3 (15.25 GiB over its 61 layers) and 128 MiB
+      at minicpm3 (7.75 GiB over 62).  Summing float32 partial scores
+      over ``kv_lora`` instead would all-reduce B x H x L x 4 bytes a
+      layer, 128 MiB and 40 MiB, plus q_lat's and the latent output's
+      exchanges; but a ring all-reduce puts twice its bytes on the
+      links, so at deepseek-v3 both put 240 MiB a layer on each rank's
+      links (120 against 75 MiB at minicpm3); the naive route could not
+      use it at all (its keys expand the whole latent: partial sums of
+      ``k_nope`` would be B x L x H x dn); and every rank would run the
+      softmax of every head.  The gather keeps one route for both.
+    * Where the up-projections split on head_dim, the query's 6 columns
+      a rank and the key's 4 do not line up (rank 10's straddle the
+      nope / rope boundary at 64), so the three are all-gathered whole
+      over head_dim (5.6 + 1.25 + 1.25 MiB a layer at minicpm3, bf16),
+      rank r attends an uneven block of whole heads
+      (:func:`_heads_of`: 3 or 2 of 40), and an all-to-all returns each
+      head's ``dv`` columns to the rank ``wo`` holds them on
+      (:func:`_to_columns`).  Gathering the activations instead would
+      move the whole query: B x S x H x 96 x 2 bytes, gigabytes at
+      prefill_32k.
+    * Training runs it under a :class:`GradGroup`: the whole tensors
+      enter the split products through ``f`` (``copy_to_split``: their
+      gradients, each rank's heads' part, summed over ``tp``), so
+      ``wq_a``, ``wkv_a`` and the norms get the whole gradient on every
+      rank; each gather's backward reduce-scatters its gradient and the
+      all-to-all sends it back.  The decode route takes a cache, which
+      training never does."""
+    group = group_of(tp)
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    m: MLAConfig = cfg.mla
+    cq, c_kv, k_rope = (copy_to_split(t, tp) for t in (cq, c_kv, k_rope))
+    w = {k: p[k] for k in ("wq_b", "wk_b", "wv_b")}
+    split_dim = w["wk_b"].shape[-1] < m.qk_nope_head_dim
+    if split_dim:
+        start, counts = _heads_of(cfg.n_heads, n, r)
+        w = {k: gather_split(t, group, 2)[:, start:start + counts[r]]
+             for k, t in w.items()}
+    S = cq.shape[1]
+    kv_src, kr_src, kv_len = c_kv, k_rope, None
+    if cache is not None:
+        cc, cr = cache["c_kv"], cache["k_rope"]
+        rl = cc.shape[-1]
+        cols = slice(r * rl, (r + 1) * rl)
+        if S == 1:
+            pos = positions[:, 0]
+            _write_step(cc, c_kv[:, 0, cols], pos)
+            _write_step(cr, k_rope[:, 0], pos)
+            kv_src = gather_split(cc, group, 2) if rl < m.kv_lora_rank \
+                else cc
+            kr_src, kv_len = cr, pos + 1
+        else:
+            cc[:, :S] = c_kv[..., cols].to(cc.dtype)
+            cr[:, :S] = k_rope.to(cr.dtype)
+    # in the activations' dtype before the all-to-all (the absorbed
+    # route's is float32), as on one device before wo
+    out = _mla_heads(w, proj_heads(cq, w["wq_b"]), kv_src, kr_src, cfg,
+                     positions=positions, kv_len=kv_len, causal=causal,
+                     absorb=absorb).to(cq.dtype)
+    return _to_columns(out, group, counts) if split_dim else out
 
 
 def _mla_absorbed(p, q_nope, q_rope, kv_src, kr_src, positions, kv_len,

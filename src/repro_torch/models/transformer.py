@@ -55,13 +55,16 @@ axis's process group (``None``: one device, unchanged), and threads it
 through :func:`apply_layer` as the reference threads ``moe_fn``.  Each
 rank holds the shards :data:`TP_AXES` names — the vocab rows of the
 embedding, its heads and kv heads (or, where mp does not divide them,
-its ``head_dim`` columns), its ``d_ff`` / ``d_ff_expert`` columns —
-and four collectives make the whole function: the embedding lookup
-masks the ids outside the rank's rows and all-reduces, the attention
-and FFN output projections all-reduce, and the logits are all-gathered
-over the vocab in rank order (so argmax ties resolve as on one device);
-an attention layer split on ``head_dim`` adds its own (see
-:func:`repro_torch.models.layers.gqa_apply`).
+its ``head_dim`` columns; MLA's cached latent's ``kv_lora`` columns),
+its ``d_ff`` / ``d_ff_expert`` columns — and four collectives make the
+whole function: the embedding lookup masks the ids outside the rank's
+rows and all-reduces, the attention and FFN output projections
+all-reduce, and the logits are all-gathered over the vocab in rank
+order (so argmax ties resolve as on one device); an attention layer
+split on ``head_dim`` adds its own (see
+:func:`repro_torch.models.layers.gqa_apply`), and an MLA layer its
+decode's gather of the latent (:func:`repro_torch.models.layers.
+mla_apply`).
 :func:`check_tensor_parallel` refuses any other placement.
 
 Training: gradients reach the stacked ``blocks`` leaves through the
@@ -206,8 +209,8 @@ def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
     over the cache's ``cross_k`` / ``cross_v`` when there is a cache;
     without, they are read from the cache.
 
-    ``tp``: the tensor-parallel group of the GQA and FFN sublayers (see
-    the module docstring); MLA and Mamba2 layers take none
+    ``tp``: the tensor-parallel group of the GQA, MLA and FFN sublayers
+    (see the module docstring); Mamba2 layers take none
     (:func:`check_tensor_parallel` keeps them whole on every rank).
     ``moe_fn(p, x, cfg) -> (y, aux)`` replaces ``moe_apply_ragged`` in
     an MoE layer and brings its own collectives."""
@@ -217,7 +220,7 @@ def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
         out, cache = ssm_apply(p["ssm"], h, cfg, cache=cache)
     elif cfg.attn_type == "mla":
         out, cache = L.mla_apply(p["attn"], h, cfg, positions=positions,
-                                 cache=cache, absorb=mla_absorb)
+                                 cache=cache, absorb=mla_absorb, tp=tp)
     else:
         out, cache = L.gqa_apply(p["attn"], h, cfg, positions=positions,
                                  cache=cache, window=s.window,
@@ -253,16 +256,20 @@ def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
 
 # The leaves the tensor-parallel apply splits over the model axis, by
 # the end of their path, with the logical axes each one may split on
-# there (``None``: whole): the weights of the GQA and FFN sublayers and
-# the GQA caches (the dense slot cache or page pool, int8 or not).  The
-# attention's leaves split on their heads, or, where the resolver falls
-# back because the mesh's mp does not divide the head count, on
-# ``head_dim`` (:func:`repro_torch.models.layers.gqa_apply`'s head_dim
-# route); the int8 scales have no head_dim and stay whole then.  Every
-# other leaf stays whole on each rank.
+# there (``None``: whole): the weights of the GQA, MLA and FFN
+# sublayers and the attention caches (the dense slot cache or page pool,
+# int8 or not; MLA's latent pair).  The attention's leaves split on
+# their heads, or, where the resolver falls back because the mesh's mp
+# does not divide the head count, on ``head_dim``
+# (:func:`repro_torch.models.layers.gqa_apply`'s head_dim route,
+# :func:`repro_torch.models.layers._mla_split`); the int8 scales have no
+# head_dim and stay whole then.  MLA's cached latent ``c_kv`` splits on
+# ``kv_lora``, its ``k_rope`` stays whole.  Every other leaf stays whole
+# on each rank.
 TP_AXES = {
     "embed": ("vocab",), "lm_head": ("vocab",),
-    **{f"attn/{w}": ("heads", "head_dim") for w in ("wq", "bq", "wo")},
+    **{f"attn/{w}": ("heads", "head_dim")
+       for w in ("wq", "bq", "wo", "wq_b", "wk_b", "wv_b")},
     **{f"attn/{w}": ("kv_heads", "head_dim")
        for w in ("wk", "wv", "bk", "bv")},
     **{f"{m}/{w}": ("d_ff",) for m in ("mlp", "shared")
@@ -270,6 +277,7 @@ TP_AXES = {
     **{f"moe/{w}": ("d_ff_expert",) for w in ("w_gate", "w_up", "w_down")},
     **{c: ("kv_heads", "head_dim") for c in ("k", "v", "k_q", "v_q")},
     **{c: ("kv_heads", None) for c in ("k_s", "v_s")},
+    "c_kv": ("kv_lora",), "k_rope": (None,),
 }
 
 
@@ -278,13 +286,14 @@ def check_tensor_parallel(named, mp: int) -> None:
     sharded train step's) has no collective for.  ``named`` holds
     ``(leaf name, ParamSpec, spec)`` of every parameter and cache leaf;
     at ``mp > 1`` each leaf of :data:`TP_AXES` must split on one of its
-    axes there, and no other leaf may split over ``model``: MLA's
-    latent, Mamba2's ``d_inner``, Whisper's cross layers, and Whisper's
-    encoder and the MTP layer, which run without ``tp``."""
+    axes there, and no other leaf may split over ``model``: Mamba2's
+    ``d_inner``, Whisper's cross layers, and Whisper's encoder, which
+    runs without ``tp``.  The MTP layer's leaves (``mtp/...``) split as
+    a block's do."""
     if mp <= 1:
         return
     for name, ps, spec in named:
-        whole = name.startswith(("encoder/", "mtp/"))
+        whole = name.startswith("encoder/")
         want = (None,) if whole else next(
             (axes for key, axes in TP_AXES.items()
              if name == key or name.endswith("/" + key)), (None,))
@@ -682,14 +691,19 @@ def _backbone(params, cfg: ModelConfig, inputs, *, moe_fn=None, tp=None,
     return x, aux
 
 
-def _mtp_hidden(params, cfg: ModelConfig, h_final, tokens, gather=None):
+def _mtp_hidden(params, cfg: ModelConfig, h_final, tokens, gather=None,
+                tp=None):
     """DeepSeek-V3's multi-token prediction (depth 1): the final stream
     at t (before the final norm) beside the embedding of token t + 1,
     combined and run through one extra dense layer, then its own final
     norm.  Returns (B, S - 1, d): position t predicts token t + 2 through
-    the shared head.  No remat, as in the reference."""
+    the shared head.  No remat, as in the reference.  With ``tp`` the
+    embedding's rows are the rank's vocab block (the masked lookup) and
+    the layer runs tensor-parallel, as a block's."""
     mp = _gathered(gather, params["mtp"], "mtp")
-    tok_emb = _gathered(gather, params["embed"], "embed")[tokens]
+    embed = _gathered(gather, params["embed"], "embed")
+    tok_emb = (embed[tokens] if tp is None
+               else _embed_lookup({"embed": embed}, cfg, tokens, tp))
     h_in = torch.cat(
         [L.rmsnorm(mp["norm_h"], h_final[:, :-1], cfg.norm_eps),
          L.rmsnorm(mp["norm_e"], tok_emb[:, 1:], cfg.norm_eps)], dim=-1)
@@ -697,7 +711,8 @@ def _mtp_hidden(params, cfg: ModelConfig, h_final, tokens, gather=None):
     B, S = h.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device)[None].expand(B, S)
-    h, _, _ = apply_layer(mp["layer"], h, cfg, MTP_SIG, positions=positions)
+    h, _, _ = apply_layer(mp["layer"], h, cfg, MTP_SIG, positions=positions,
+                          tp=tp)
     return L.rmsnorm(mp["final_norm"], h, cfg.norm_eps)
 
 
@@ -724,7 +739,8 @@ def forward_train(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor],
         tokens = inputs["tokens"]
         extras["mtp_logits"] = _unembed(_head(params, cfg, gather), cfg,
                                         _mtp_hidden(
-            params, cfg, h_final[:, -tokens.shape[1]:], tokens, gather), tp)
+            params, cfg, h_final[:, -tokens.shape[1]:], tokens, gather,
+            tp), tp)
     return _unembed(_head(params, cfg, gather), cfg, x, tp), extras
 
 
@@ -798,7 +814,7 @@ def loss_terms(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     mtot = mn = None
     if cfg.mtp_depth:
         h_mtp = _mtp_hidden(params, cfg, x[:, -S_txt:], inputs["tokens"],
-                            gather)
+                            gather, tp)
         mtot, mn = chunked_ce(h_mtp, w, labels[:, 1:], tp=tp)
     return tot, nvalid, aux, mtot, mn
 

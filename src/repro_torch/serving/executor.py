@@ -540,8 +540,10 @@ class ShardedExecutor(SingleDeviceExecutor):
       issued.
     * **Weights** resolve through ``specs_for_schema(schema, mesh,
       fsdp=False)``: the attention heads and kv heads (their
-      ``head_dim`` columns where mp does not divide them), the FFN and
-      expert columns and the vocab split over ``model``
+      ``head_dim`` columns where mp does not divide them; MLA's cached
+      latent on its ``kv_lora`` columns, which a prefilled row carries
+      to its slot's rank as it carries every leaf), the FFN and expert
+      columns and the vocab split over ``model``
       (:data:`repro_torch.models.transformer.TP_AXES`); the apply takes
       the model axis's group as ``tp``.  A placement the apply has no
       collective for raises here (:func:`~repro_torch.models.

@@ -25,13 +25,14 @@ mesh))`` (:func:`train_specs`; :func:`shard_params` and
   (or the embedding's, or the head's) are alive at a time
   (``collectives.GATHERED`` measures it).  A caller's ``moe_fn`` is
   expert-parallel: the expert weights then stay on their data shards.
-* **Tensor parallel over model** (mp > 1), GQA and FFN sublayers: the
-  serving apply's placement (``TP_AXES``) with the Megatron ``f`` / ``g``
-  collectives, the embedding's masked lookup and the logits gathered
-  over the vocab, and the head_dim route's gathers (reduce-scatter
-  backward) and all-to-all where mp does not divide the kv heads;
+* **Tensor parallel over model** (mp > 1), GQA, MLA and FFN sublayers
+  (DeepSeek-V3's MTP layer too): the serving apply's placement
+  (``TP_AXES``) with the Megatron ``f`` / ``g`` collectives, the
+  embedding's masked lookup and the logits gathered over the vocab, and
+  the head_dim routes' gathers (reduce-scatter backward) and
+  all-to-all where mp does not divide the heads or kv heads;
   :func:`~repro_torch.models.transformer.check_tensor_parallel` refuses
-  MLA, Mamba2 and Whisper at mp > 1.
+  Mamba2 and Whisper at mp > 1.
 * **The multi-pod layout** (a mesh with a ``pod`` axis, the
   reference's ``(2, 16, 16)``): the batch's rows split over ``pod`` x
   ``data``, pod-major; the weights are placed as on one pod (the

@@ -30,7 +30,7 @@
   torch built with CUDA (a CPU-only build has no CUDA device guard to
   index them with): that case runs only there, and ``chip_smoke.py``'s
   dry-run phase holds qwen FULL's 64 launches on the card.
-* **The CLI**: a refused combination (minicpm3-4b's MLA) prints
+* **The CLI**: a refused combination (mamba2-130m's d_inner) prints
   ``FAIL`` with ``check_tensor_parallel``'s message and exits 1; an
   accepted one writes its record; qwen1.5-32b's decode_32k passes as
   published on the head_dim route, its census and scores' bytes as the
@@ -306,7 +306,7 @@ def _cli(tmp_path, *argv):
 
 
 def test_cli_prints_fail_for_a_refused_combination(tmp_path):
-    arch = "minicpm3-4b"
+    arch = "mamba2-130m"
     r = _cli(tmp_path, "--arch", arch, "--shape", "decode_32k",
              "--device", "cpu")
     assert r.returncode == 1, r.stderr[-3000:]
@@ -343,6 +343,49 @@ def test_cli_passes_qwen_decode_unpadded_on_the_head_dim_route(tmp_path):
     assert rec["launches"]["flash_decode"] == 0
     assert rec["fallbacks"] == []
     assert rec["peak_bytes"] < 80e9
+
+
+@pytest.mark.parametrize("absorb", [False, True],
+                         ids=["naive", "absorbed"])
+def test_cli_passes_minicpm3_decode_on_the_mla_route(tmp_path, absorb):
+    """minicpm3-4b as published (40 heads: its up-projections on
+    head_dim over the 16-way model axis, the cached latent on kv_lora)
+    at decode_32k on the single-pod layout, naive and absorbed: the
+    census (the embedding's all-reduce and two a layer, the attention's
+    and the MLP's output; four all-gathers a layer, ``wq_b``, ``wk_b``,
+    ``wv_b`` and the cache's ``c_kv``, and the logits'; one all-to-all
+    a layer returning each head's columns) and the bytes: the latent's
+    128 MiB a layer as ``models/layers.py::_mla_split`` counts them,
+    the up-projections', the all-to-all's."""
+    argv = ["--arch", "minicpm3-4b", "--shape", "decode_32k", "--device",
+            "cpu"] + (["--mla-absorb"] if absorb else [])
+    r = _cli(tmp_path, *argv)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    rec = json.loads((tmp_path / "minicpm3-4b__decode_32k__single.json")
+                     .read_text())
+    cfg = get_config("minicpm3-4b", "full")
+    m, n = cfg.mla, cfg.n_layers
+    assert rec["collective_counts"]["all-reduce"] == 2 * n + 1
+    assert rec["collective_counts"]["all-gather"] == 4 * n + 1
+    assert rec["collective_counts"]["all-to-all"] == n
+    B = INPUT_SHAPES["decode_32k"]["global_batch"] // 16
+    L = INPUT_SHAPES["decode_32k"]["seq_len"]
+    latent = B * L * m.kv_lora_rank * 2
+    assert latent == 128 * 2**20
+    weights = 2 * cfg.n_heads * (
+        m.q_lora_rank * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+        + m.kv_lora_rank * (m.qk_nope_head_dim + m.v_head_dim))
+    logits = B * cfg.padded_vocab * 4
+    assert rec["collective_bytes"]["all-gather"] == (
+        n * (latent + weights) + logits)
+    assert rec["collective_bytes"]["all-reduce"] == (
+        (2 * n + 1) * B * cfg.d_model * 2)
+    # each head's 4 of 64 value columns to wo's rank, in bf16 on both
+    # routes (the absorbed one's float32 output cast first)
+    assert rec["collective_bytes"]["all-to-all"] == (
+        n * B * cfg.n_heads * (m.v_head_dim // 16) * 2)
+    assert rec["info"].get("mla_absorb", False) == absorb
+    assert rec["fallbacks"] == []
 
 
 def test_cli_writes_the_record_of_an_accepted_combination(tmp_path):

@@ -16,12 +16,17 @@ apply then attends through ``models/layers.py::_gqa_head_dim``.  Here:
 * the heads a rank attends at S > 1 (:func:`_heads_of`) and the kv
   heads they read (:func:`_kv_of`);
 * ``check_tensor_parallel`` on the production mesh's mp = 16 accepts
-  qwen1.5-32b, command-r-35b, dbrx-132b and gemma3-12b as published
-  (serving's params and caches, dense, int8 and paged; training's FSDP
-  specs) and still refuses MLA, Mamba2, jamba and Whisper's cross and
-  encoder leaves;
+  qwen1.5-32b, command-r-35b, dbrx-132b, gemma3-12b, minicpm3-4b and
+  deepseek-v3-671b (its MTP layer included) as published (serving's
+  params and caches, dense, int8 and paged where the family pages;
+  training's FSDP specs) and still refuses Mamba2, jamba and Whisper's
+  cross and encoder leaves; the MLA leaves' placements there (heads at
+  deepseek-v3, head_dim at minicpm3, the cached latent on kv_lora);
 * ``local_params`` cuts a bridged reference leaf on head_dim as the
-  resolver places it, so no converter is new.
+  resolver places it, so no converter is new: GQA's, and MLA's
+  ``wq_b`` / ``wk_b`` / ``wv_b`` / ``wo`` and cached ``c_kv`` at
+  minicpm3's widths over 16 ranks (rank 10's query columns straddle
+  the nope / rope boundary).
 """
 import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
@@ -184,9 +189,9 @@ def test_kv_heads_of_a_block_of_query_heads(Hkv, G, start, count, n_kv):
 
 
 PROD = LayoutMesh(("data", "model"), np.empty((16, 16)))
-ACCEPTED = ("qwen1.5-32b", "command-r-35b", "dbrx-132b", "gemma3-12b")
-REFUSED = ("minicpm3-4b", "deepseek-v3-671b", "mamba2-130m",
-           "jamba-1.5-large-398b", "whisper-large-v3")
+ACCEPTED = ("qwen1.5-32b", "command-r-35b", "dbrx-132b", "gemma3-12b",
+            "minicpm3-4b", "deepseek-v3-671b")
+REFUSED = ("mamba2-130m", "jamba-1.5-large-398b", "whisper-large-v3")
 
 
 def _named(cfg, *, fsdp=False, caches=True):
@@ -208,11 +213,16 @@ def _named(cfg, *, fsdp=False, caches=True):
 
 @pytest.mark.parametrize("arch", ACCEPTED)
 def test_the_four_families_pass_the_check_at_mp16(arch):
+    """The GQA families of the head_dim route and the two MLA families
+    pass as published."""
     cfg = get_config(arch, "full")
     named = _named(cfg)
-    # the published heads do not all divide 16: some leaf falls back
-    assert any(ps.axes[spec.index("model")] == "head_dim"
-               for _, ps, spec in named if "model" in spec)
+    placed = {ps.axes[spec.index("model")] for _, ps, spec in named
+              if "model" in spec}
+    # the published heads do not all divide 16 (deepseek-v3's 128 do):
+    # some leaf falls back
+    assert ("head_dim" in placed) == (arch != "deepseek-v3-671b")
+    assert ("kv_lora" in placed) == (cfg.attn_type == "mla")
     check_tensor_parallel(named, 16)
     check_tensor_parallel(_named(cfg, fsdp=True, caches=False), 16)
     if cfg.sliding_window:
@@ -265,3 +275,98 @@ def test_local_params_cut_bridged_reference_leaves_on_head_dim():
                                           want[name][..., cols])
         np.testing.assert_array_equal(attn["wo"].numpy(),
                                       want["wo"][:, :, cols])
+
+
+# (arch, the model axis's logical axis on wq_b / wk_b / wv_b / wo, the
+# local width there of wq_b, wk_b, wv_b, wo, and of the cached c_kv)
+MLA_PLACEMENTS = [
+    ("deepseek-v3-671b", "heads", (8, 8, 8, 8), 32),
+    ("minicpm3-4b", "head_dim", (6, 4, 4, 4), 16),
+]
+
+
+@pytest.mark.parametrize("arch,axis,widths,lora", MLA_PLACEMENTS,
+                         ids=[c[0] for c in MLA_PLACEMENTS])
+def test_mla_placements_at_mp16(arch, axis, widths, lora):
+    """The resolver's placements the MLA route follows on 16 x 16: the
+    up-projections and ``wo`` on heads (deepseek-v3) or head_dim
+    (minicpm3), the same in the MTP layer, whose MLP splits on d_ff; the
+    cached latent on kv_lora; ``wq_a``, ``wkv_a``, the norms and
+    ``k_rope`` whole; serving's placement and training's FSDP one."""
+    cfg = get_config(arch, "full")
+    for fsdp in (False, True):
+        specs = dict((n, (ps, s)) for n, ps, s in
+                     _named(cfg, fsdp=fsdp, caches=not fsdp))
+        layers = ["blocks/p0/attn"] + (["mtp/layer/attn"]
+                                       if cfg.mtp_depth else [])
+        for layer in layers:
+            for w, width in zip(("wq_b", "wk_b", "wv_b", "wo"), widths):
+                ps, spec = specs[f"{layer}/{w}"]
+                i = spec.index("model")
+                assert ps.axes[i] == axis
+                assert ps.shape[i] // 16 == width, (layer, w)
+            for w in ("wq_a", "q_norm", "wkv_a", "kv_norm"):
+                assert "model" not in specs[f"{layer}/{w}"][1], (layer, w)
+        if cfg.mtp_depth:
+            ps, spec = specs["mtp/layer/mlp/w_gate"]
+            assert ps.axes[spec.index("model")] == "d_ff"
+        if not fsdp:
+            ps, spec = specs["blocks/p0/c_kv"]
+            assert ps.axes[spec.index("model")] == "kv_lora"
+            assert ps.shape[-1] // 16 == lora
+            assert "model" not in specs["blocks/p0/k_rope"][1]
+
+
+def test_local_params_cut_bridged_mla_leaves_at_minicpm3_widths():
+    """minicpm3's MLA widths (40 heads of 64 + 32 query columns, 64 value
+    columns, kv_lora 256) on a narrow SMOKE body over 16 ranks: each
+    rank's cut of the bridged reference ``wq_b`` is its 6 query columns
+    (rank 10's [60, 66) straddle the nope / rope boundary at 64),
+    ``wk_b`` / ``wv_b`` / ``wo`` its 4 columns, and of a cached ``c_kv``
+    its 16 kv_lora columns."""
+    full = ref_config("minicpm3-4b", "full")
+    over = dict(dtype="float32", n_heads=full.n_heads,
+                n_kv_heads=full.n_kv_heads, head_dim=full.head_dim,
+                mla=full.mla)
+    rc = dataclasses.replace(ref_config("minicpm3-4b", "smoke"), **over)
+    cfg = dataclasses.replace(get_config("minicpm3-4b", "smoke"), **over)
+    ref = jax.tree_util.tree_map(
+        np.asarray, ref_build(rc).init(jax.random.PRNGKey(0)))
+    params = params_from_numpy(ref, device="cpu")
+    schema = decoder_param_schema(cfg)
+    cschema = init_cache_schema(cfg, 2, 8)
+    ckv = np.random.default_rng(0).normal(
+        size=cschema["blocks"]["p0"]["c_kv"].shape).astype(np.float32)
+    cache = {"pos": torch.zeros(2, dtype=torch.int32), "prefix": [],
+             "blocks": {"p0": {"c_kv": torch.from_numpy(ckv),
+                               "k_rope": torch.zeros(
+                                   cschema["blocks"]["p0"]["k_rope"].shape)}}}
+    straddle = None
+    for r in range(16):
+        mesh = _Mesh(axis_names=("data", "model"),
+                     devices=np.empty((1, 16), object),
+                     coords={"data": 0, "model": r})
+        local = local_params(schema, params, mesh,
+                             specs_for_schema(schema, mesh, fsdp=False))
+        attn, want = local["blocks"]["p0"]["attn"], ref["blocks"]["p0"][
+            "attn"]
+        q = slice(6 * r, 6 * r + 6)
+        np.testing.assert_array_equal(attn["wq_b"].numpy(),
+                                      want["wq_b"][..., q])
+        if q.start < 64 < q.stop:
+            straddle = r
+        cols = slice(4 * r, 4 * r + 4)
+        for name in ("wk_b", "wv_b"):
+            np.testing.assert_array_equal(attn[name].numpy(),
+                                          want[name][..., cols])
+        np.testing.assert_array_equal(attn["wo"].numpy(),
+                                      want["wo"][:, :, cols])
+        for name in ("wq_a", "wkv_a", "kv_norm", "q_norm"):
+            np.testing.assert_array_equal(attn[name].numpy(), want[name])
+        lc = local_params(cschema, cache, mesh,
+                          specs_for_schema(cschema, mesh))
+        np.testing.assert_array_equal(
+            lc["blocks"]["p0"]["c_kv"].numpy(),
+            ckv[..., 16 * r:16 * r + 16])
+        assert lc["blocks"]["p0"]["k_rope"].shape[-1] == cfg.mla.qk_rope_head_dim
+    assert straddle == 10

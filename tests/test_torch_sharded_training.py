@@ -44,8 +44,9 @@ block's weights; the collectives a step; the sharded eval step against
 ``make_eval_step``; the EP ``moe_fn`` in the cached forward (prefill and
 4 greedy decode steps, dbrx SMOKE at dp = 2) against the reference's
 single-device logits (1e-5 of max |logit|) and tokens (identical);
-minicpm3, mamba2 and whisper refused at mp = 2 with
-``check_tensor_parallel``'s error.
+mamba2 and whisper refused at mp = 2 with ``check_tensor_parallel``'s
+error, minicpm3's MLA accepted there (its gradients:
+``tests/test_torch_mla_tp.py``).
 
 The ``head_dim`` route (kv heads, or heads too, that mp does not
 divide): one step's loss and every parameter's gradient over the mesh
@@ -377,9 +378,13 @@ def test_ep_aux_is_the_mean_of_the_ranks_aux(runs):
 @pytest.mark.parametrize("arch", ["minicpm3-4b", "mamba2-130m",
                                   "whisper-large-v3"])
 def test_mp2_refuses_mla_mamba2_whisper(runs, arch):
+    """Mamba2 and Whisper are refused; MLA's route builds the step."""
     _, port = runs
     for r in port["dp=1,mp=2"]:
         msg = r[f"refuse/{arch}"]
+        if arch == "minicpm3-4b":
+            assert msg is None, msg
+            continue
         assert msg is not None, f"{arch} trained at mp=2"
         assert "at mp=2 has no collective" in msg, msg
         assert "ROADMAP.md queue 1, item 9" in msg

@@ -4,8 +4,10 @@
 ``spawn`` start method.  Each joins a gloo process group through a
 ``file://`` store under ``tmp_path`` (no fixed port, so parallel test
 workers never meet), caps torch at one intra-op thread, runs
-``fn(rank, *args)`` and pickles its result into ``tmp_path``.  A rank
-that raises fails the test with its traceback; a world still running
+``fn(rank, *args)``, pickles its result into ``tmp_path`` and exits
+without the interpreter's teardown.  A rank that raises fails the test
+with its traceback, one that dies otherwise with its exit code; a world
+still running
 after ``timeout`` seconds (a rank hung in a collective) is killed and
 fails the test.  The process group's own ``timeout`` is shorter, so a
 lost peer surfaces as a raise first.
@@ -21,6 +23,7 @@ import dataclasses
 import io
 import os
 import pickle
+import sys
 import traceback
 from datetime import timedelta
 
@@ -60,6 +63,12 @@ def _entry(rank, n, store, out_dir, fn, args):
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
         raise
+    # the results are written: leave without the interpreter's teardown,
+    # where gloo's threads can still abort the process (std::terminate)
+    # on a loaded host and fail a world whose every rank finished
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def run_world(fn, n: int, tmp_path, *args, timeout: float = WORLD_TIMEOUT_S):
@@ -432,4 +441,127 @@ def serve_head_dim(rank, spec, cases, prompts, new_tokens):
                         got.append(lg.numpy())
                 res[("logits", quant, name)] = got
         out[key] = res
+    return out
+
+
+# the MLA route's engines: prompts of 20-40 tokens and 12 new ones on
+# the dense slot cache (MLA never pages)
+MLA_KW = dict(num_slots=4, max_len=64, max_new_cap=16, sync_every=4,
+              prefill_batch=2)
+
+
+def serve_mla(rank, spec, cases, prompts, new_tokens):
+    """Each case ``(key, arch, over)`` (a float32 SMOKE config with the
+    fields ``over`` replaces, its seeded weights), naive and absorbed:
+    the single-device dense engine's tokens and the tokens over the mesh
+    ``spec``, the rank's local ``wq_b`` / ``wk_b`` / ``wo`` and cache
+    and prefill scratch shapes, the slot cache's rows after the serve
+    (its ``c_kv`` columns here, its ``k_rope``), and the logits of a
+    prefill of the first two prompts and 3 greedy decode steps on one
+    device and through the sharded model."""
+    import torch
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.schema import zeros_from_schema
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.sharding import local_schema, specs_for_schema
+    mesh = make_serving_mesh(spec, device="cpu")
+    out = {"coords": dict(mesh.coords)}
+    n = min(len(p) for p in prompts[:2])
+    toks = torch.tensor([p[:n] for p in prompts[:2]])
+    for key, arch, over in cases:
+        cfg, model, params = _model(arch, **over)
+        res = {}
+        for absorb in (False, True):
+            single = ContinuousEngine(model, params, mla_absorb=absorb,
+                                      **MLA_KW)
+            want = _tokens(single.generate_many(prompts, new_tokens))
+            eng = ContinuousEngine(model, params, mesh=mesh,
+                                   mla_absorb=absorb, **MLA_KW)
+            res[("tokens", absorb)] = (want, _tokens(
+                eng.generate_many(prompts, new_tokens)))
+            ex, sx = eng.executor, single.executor
+            attn = ex.params["blocks"]["p0"]["attn"]
+            res["shapes"] = {
+                **{w: tuple(attn[w].shape) for w in ("wq_b", "wk_b",
+                                                     "wv_b", "wo")},
+                "cache": {c: tuple(t.shape) for c, t in
+                          ex._cache["blocks"]["p0"].items()},
+                "scratch": {c: tuple(t.shape) for c, t in
+                            ex._pcache["blocks"]["p0"].items()}}
+            lo = ex.slot_base
+            rows = slice(lo, lo + ex._dactive.shape[0])
+            res[("cache", absorb)] = {
+                c: (sx._cache["blocks"]["p0"][c][:, rows].numpy(),
+                    ex._cache["blocks"]["p0"][c].numpy())
+                for c in ("c_kv", "k_rope")}
+            # every row on each rank, its kv_lora columns of the cache
+            schema = model.cache_schema(2, 64)
+            local = zeros_from_schema(local_schema(
+                schema, specs_for_schema(schema, mesh), mesh, ("model",)),
+                device="cpu")
+            runs = {"single": (params, model.init_cache(2, 64, device="cpu"),
+                               None),
+                    "sharded": (ex.params, local, ex.tp)}
+            for name, (p, cache, tp) in runs.items():
+                with torch.no_grad():
+                    lg, cache = model.prefill(p, {"tokens": toks}, cache,
+                                              tp=tp, mla_absorb=absorb)
+                    got = [lg.numpy()]
+                    for _ in range(3):
+                        nxt = lg[:, -1].argmax(-1)[:, None]
+                        lg, cache = model.decode(p, {"tokens": nxt}, cache,
+                                                 tp=tp, mla_absorb=absorb)
+                        got.append(lg.numpy())
+                res[("logits", absorb, name)] = got
+        out[key] = res
+    return out
+
+
+def mla_layer(rank, spec, cases):
+    """Each case ``(key, arch, over, np_params, x, steps, absorb,
+    max_len)``: one MLA layer of the float32 SMOKE config over the mesh
+    ``spec``, on this rank's cut of the whole layer ``np_params`` (the
+    resolver's serving placement) and its ``kv_lora`` columns of a
+    ``max_len``-row cache: a prefill of ``x`` (B, S, d), then one decode
+    step a column of ``steps`` (B, n, d).  Returns each call's output."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.schema import ParamSpec, zeros_from_schema
+    from repro_torch.sharding import (local_params, local_schema,
+                                      specs_for_schema)
+    mesh = make_serving_mesh(spec, device="cpu")
+    tp = mesh.group("model")
+    out = {}
+    for key, arch, over, p, x, steps, absorb, max_len in cases:
+        cfg = dataclasses.replace(get_config(arch, "smoke"),
+                                  dtype="float32", **over)
+        m = cfg.mla
+        schema = L.mla_schema(cfg)
+        params = local_params(
+            schema, {k: torch.from_numpy(v) for k, v in p.items()}, mesh,
+            specs_for_schema(schema, mesh, fsdp=False))
+        B, S = x.shape[:2]
+        cs = {"c_kv": ParamSpec((B, max_len, m.kv_lora_rank),
+                                ("batch", "seq", "kv_lora"), "float32",
+                                "zeros"),
+              "k_rope": ParamSpec((B, max_len, m.qk_rope_head_dim),
+                                  ("batch", "seq", ""), "float32",
+                                  "zeros")}
+        cache = zeros_from_schema(local_schema(
+            cs, specs_for_schema(cs, mesh), mesh, ("model",)), device="cpu")
+        pos = torch.arange(S, dtype=torch.int32)[None].expand(B, S)
+        with torch.no_grad():
+            y, _ = L.mla_apply(params, torch.from_numpy(x), cfg,
+                               positions=pos, cache=cache, absorb=absorb,
+                               tp=tp)
+            got = [y.numpy()]
+            for i in range(steps.shape[1]):
+                y, _ = L.mla_apply(
+                    params, torch.from_numpy(steps[:, i:i + 1].copy()), cfg,
+                    positions=torch.full((B, 1), S + i, dtype=torch.int32),
+                    cache=cache, absorb=absorb, tp=tp)
+                got.append(y.numpy())
+        out[key] = got
     return out

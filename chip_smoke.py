@@ -127,7 +127,7 @@ Phases, each on its own lines; any failure exits nonzero:
                default stream and stopped, K1 64 times a decode step.
 9b. chaos    — the dense engine freed; ``benchmarks/chaos_bench.py``'s
                four plans (no faults, retriever brownout, executor fault
-               burst, NaN storm) in virtual time, 24 requests each on a
+               burst, NaN storm) in virtual time, 16 requests each on a
                fresh engine of the main path's shape: counters printed;
                every request resolves, no_faults counts nothing and its
                tokens equal a features-off run's, the brownout degrades
@@ -209,6 +209,20 @@ Phases, each on its own lines; any failure exits nonzero:
                launch; ms per step, tokens/s, peak memory; the gradient
                norm at chunk 256 (NaN, as the reference's); a train step
                through K6 raising the gradient guard.
+16t. mamba tp — Mamba2 under tensor parallelism on phases 14-15's
+               ``mamba2-130m`` FULL weights: K6 on each of the 16
+               ranks' sub-heads at mp = 16 (layer 0's scan inputs on
+               phase 15's held batch, each rank's (4, 2048, 3, 32)),
+               each against its plain version and all 16 reassembled
+               against the whole call, one jamba rank's (16 heads of
+               64, N 16) too; rank 0's launch timed beside its bound
+               (its row in the kernels line); then a one-rank NCCL
+               serving mesh: ``ShardedExecutor`` serving phase 14's
+               first 8 requests with phase 14's tokens,
+               ``make_sharded_eval_step`` with K6 (24 launches) giving
+               phase 15's loss, the collectives of a decode step and an
+               eval call by kind and their ms beside the single-device
+               ones.
 16a0. train families — phase 12's checks and phase 13's eval for every
                other family, each after the previous model is freed
                (``TRAIN_FAMILIES``, lr 1e-4, 8 steps): ``dbrx-132b`` cut
@@ -265,12 +279,13 @@ Phases, each on its own lines; any failure exits nonzero:
                share of 989 TFLOP/s) beside each step's measured ms.
                Then the head_dim route (kv heads, or heads too, that the
                production mesh's mp = 16 does not divide) and the MLA
-               route: qwen FULL's decode_32k and train_4k, command-r
-               FULL's, minicpm3-4b FULL's and deepseek-v3-671b FULL's
-               decode_32k,
-               unpadded, traced as rank 0 of the fake 16 x 16 world on
-               fake CUDA tensors and, concurrently, on fake CPU tensors
-               (two more subprocesses; a fourth traces 16c's one-rank
+               route, and the Mamba2 route: qwen FULL's decode_32k and
+               train_4k, and command-r FULL's, minicpm3-4b FULL's,
+               deepseek-v3-671b FULL's, mamba2-130m FULL's and
+               jamba-1.5-large-398b FULL's decode_32k, unpadded, traced
+               as rank 0 of the fake 16 x 16 world on fake CUDA tensors
+               and, concurrently, on fake CPU tensors (two more
+               subprocesses; a fourth traces 16c's one-rank
                MLA decode steps for their census): census, collective bytes,
                per-rank peak and temp, FLOPs and K1's would-be launches
                printed, the census and bytes equal on both and K1 0 on
@@ -514,6 +529,9 @@ SSD_RTOL = 5e-5   # of max |y|, float32 before the final rounding: the same
 MAMBA = "mamba2-130m"
 MAMBA_EVAL_SEQ, MAMBA_BATCH = 2048, 4
 MAMBA_TRAIN_CHUNK, MAMBA_TRAIN_STEPS = 64, 8
+MAMBA_TP_MP = 16        # the production mesh's model axis (phase 16t)
+MAMBA_TP_LOSS_RTOL = 1e-5  # one rank: the same logits, the loss's sums
+#                            taken over the batch group
 MAMBA_EVAL_RTOL = 1e-3  # bf16 activations; both scans sum in float32
 TOKEN_GAP_RTOL = 2e-2   # of max |logit|: bf16 rounding of a batch of 8
 #                         against a batch of 1
@@ -525,8 +543,11 @@ ROUTER_MAX_DISAGREE = 2  # of 200 eval actions, card vs host training: the
 # served rate, replayed in real time through AsyncGateway's thread
 OPEN_LOOP_RATES, OPEN_LOOP_REQUESTS = (0.5, 0.75, 1.0, 1.5), 24
 # chaos: benchmarks/chaos_bench.py's rate, deadline and pump quantum (all
-# virtual time), retry policy and breaker settings
-CHAOS_REQUESTS, CHAOS_RATE = 24, 120.0
+# virtual time), retry policy and breaker settings; 16 requests a
+# scenario, the CPU twins' size (tests/test_torch_faults.py), where the
+# bench's quick run takes 24: each plan's window still falls inside the
+# run, and the phase takes two thirds of the time
+CHAOS_REQUESTS, CHAOS_RATE = 16, 120.0
 CHAOS_DEADLINE_MS, CHAOS_QUANTUM_S = 800.0, 0.01
 CHAOS_BREAKER = dict(window=8, min_calls=4, failure_threshold=0.5,
                      cooldown=4)
@@ -3054,8 +3075,8 @@ def main_path_phases(card: str, policy, dist_launches: dict) -> dict:
 
     # -- chaos and the padded engine, each on engines of their own: K1 --
     tok = HashTokenizer(cfg.vocab_size)
-    chaos_phase(model, params, tok, index, data.questions[300:324], card,
-                L, counters)
+    chaos_phase(model, params, tok, index,
+                data.questions[300:300 + CHAOS_REQUESTS], card, L, counters)
     padded_phase(model, params, tok, index, data.questions[400:408], card,
                  L, counters)
     _free_gpu_memory("paged")
@@ -4187,7 +4208,9 @@ DRYRUN_MESH_CASES = (("qwen1.5-32b", "decode_32k", None),
                      ("command-r-35b", "decode_32k", None),
                      ("qwen1.5-32b", "train_4k", 1),
                      ("minicpm3-4b", "decode_32k", None),
-                     ("deepseek-v3-671b", "decode_32k", None))
+                     ("deepseek-v3-671b", "decode_32k", None),
+                     ("mamba2-130m", "decode_32k", None),
+                     ("jamba-1.5-large-398b", "decode_32k", None))
 _DRYRUN_MESH_CODE = r"""
 import time; t0 = time.perf_counter()
 import json, sys
@@ -4503,7 +4526,7 @@ def _greedy_gaps(model, params, rec) -> tuple:
     return agree, total, worst
 
 
-def mamba_serve_phase(card: str, policy) -> None:
+def mamba_serve_phase(card: str, policy) -> dict:
     """``mamba2-130m`` FULL (24 layers, d_model 768, seeded bf16 weights,
     not cut) through ``Gateway.serve`` on the dense slot engine: 8 slots,
     prefill batch 4, prompts of 384 tokens, 8 new tokens; 8 requests
@@ -4563,14 +4586,16 @@ def mamba_serve_phase(card: str, policy) -> None:
     if not total or worst > TOKEN_GAP_RTOL:
         raise AssertionError(f"[mamba serve] engine tokens are not the "
                              f"per-request greedy choice: {worst}")
+    return {"tokens": rec["tokens"], "index": index,
+            "questions": data.questions[-16:]}
 
 
-def mamba_eval_phase(card: str) -> dict:
+def mamba_eval_phase(card: str) -> tuple:
     """``mamba2-130m`` FULL (seeded bf16 weights) on a held batch of 4 x
     2048 tokens through ``make_eval_step`` with K6 (``use_pallas_ssd``:
     every layer's scan, 24 launches a call) and with the plain chunked
     scan; the losses within MAMBA_EVAL_RTOL.  Returns K6's launches on
-    this path."""
+    this path and the loss with K6."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.lm_dataset import LMDataset
@@ -4612,7 +4637,7 @@ def mamba_eval_phase(card: str) -> dict:
     if not (math.isfinite(a) and rel <= MAMBA_EVAL_RTOL):
         raise AssertionError(f"[mamba eval] losses disagree: K6 {a}, plain "
                              f"{b}")
-    return {"ssd_chunk_scan": launches}
+    return {"ssd_chunk_scan": launches}, a
 
 
 def mamba_train_phase(card: str) -> None:
@@ -4721,6 +4746,274 @@ def mamba_train_phase(card: str) -> None:
                              "raise")
     if int(opt_state["step"]) != step0 or ssd_chunk_scan.launches != launches:
         raise AssertionError("[mamba train] the refused step changed state")
+
+
+def _k6_shard_row(label, args, chunk: int, y) -> dict:
+    """K6 at one rank's sub-heads: warm and flushed ms, the plain
+    version's, the bound over the call's bytes and operations; the
+    ``ssd_chunk_scan`` row."""
+    import torch
+    from repro_torch.kernels.ssd_scan import (ssd_chunk_scan,
+                                              ssd_chunk_scan_torch)
+    B, S, H, hd = args[0].shape
+    N = args[1].shape[-1]
+    with torch.no_grad():
+        ms = cuda_ms(lambda: ssd_chunk_scan(*args, chunk=chunk), 20)
+        cold = cuda_ms_cold(lambda: ssd_chunk_scan(*args, chunk=chunk))
+        plain_ms = cuda_ms(lambda: ssd_chunk_scan_torch(*args, chunk=chunk),
+                           5)
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, y))
+    nops = ssd_ops(B, S, H, hd, N, min(chunk, S))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    say(f"   K6 [{label}]: {ms * 1e3:.2f} us warm, {cold * 1e3:.2f} us "
+        f"flushed | plain {plain_ms * 1e3:.2f} us | library: none | bound "
+        f"{bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB: "
+        f"{t_bytes * 1e6:.2f} us; {nops / 1e9:.3f} GFLOP on the bf16 tensor "
+        f"cores: {t_ops * 1e6:.2f} us; {bound_by})")
+    return dict(name="ssd_chunk_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan.py:60", ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, shape=label, ms_cold=cold)
+
+
+def _in_turns(fns: dict, iters: int) -> dict:
+    """``cuda_ms`` of ``fns["single"]`` and ``fns["tp"]`` in turns
+    (single, tp, tp, single): each one's two readings, rounded to µs."""
+    out = {"single": [], "tp": []}
+    for name in ("single", "tp", "tp", "single"):
+        out[name].append(round(cuda_ms(fns[name], iters), 3))
+    return out
+
+
+def mamba_tp_phase(card: str, single: dict, policy) -> tuple:
+    """Mamba2 under tensor parallelism (``models/ssm.py::ssm_apply`` with
+    ``tp``), on phases 14-15's ``mamba2-130m`` FULL weights (seed 0):
+
+    * K6 on the rank shards: layer 0's scan inputs on phase 15's held
+      batch (4 x 2048, N 128, chunk 256, captured from an eval forward
+      with K6), cut for each of the 16 ranks at mp = 16 into its three
+      sub-heads of 32 (``sub_heads``): K6 on each rank's (4, 2048, 3, 32)
+      against ``ssd_chunk_scan_torch`` on the same inputs, and the 16
+      outputs reassembled against K6's whole (4, 2048, 24, 64) call, each
+      within SSD_RTOL of max |y| in float32; then one jamba rank (16
+      heads of 64, N 16, G 1, seeded inputs) against its plain version.
+      Rank 0's mamba2 launch timed warm and flushed beside its bound:
+      the ``ssd_chunk_scan`` row at the rank shard.
+    * The one-rank tensor-parallel path, on an NCCL serving mesh of one
+      rank: ``ShardedExecutor`` serves phase 14's first 8 requests
+      through ``Gateway.serve`` (FixedPolicy(0)), every launch count 0
+      just before and read just after, its tokens equal to phase 14's;
+      ``make_sharded_eval_step`` with K6 on phase 15's held batch, K6's
+      count 0 just before and 24 just after, the loss within
+      MAMBA_TP_LOSS_RTOL of phase 15's.  The collectives of a decode step
+      and of an eval call by kind (the dry run's ``Census``), and their
+      ms beside the single-device ones.
+    Returns the row and K6's launches on this phase's eval."""
+    import torch
+    import repro_torch.models.ssm as ssm_mod
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.data import HashTokenizer
+    from repro_torch.data.lm_dataset import LMDataset
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.paged_flash_decode import paged_flash_decode
+    from repro_torch.kernels.ssd_scan import (ssd_chunk_scan,
+                                              ssd_chunk_scan_torch)
+    from repro_torch.launch.dryrun import Census
+    from repro_torch.models import build_model
+    from repro_torch.routing import ContinuousEngineBackend
+    from repro_torch.training import make_eval_step
+    from repro_torch.training.sharded import (make_sharded_eval_step,
+                                              shard_params)
+    t0 = time.perf_counter()
+    cfg = get_config(MAMBA, "full")
+    model = build_model(cfg)
+    k6_model = build_model(dataclasses.replace(cfg, use_pallas_ssd=True))
+    params = model.init(seed=0, device="cuda")
+    dev = params["embed"].device
+    held = {k: torch.from_numpy(v).to(dev) for k, v in next(
+        LMDataset(cfg, MAMBA_EVAL_SEQ, seed=1).batches(MAMBA_BATCH)).items()}
+    d_inner, H = ssm_mod.ssm_dims(cfg)
+    say(f"== mamba tp: {cfg.name} FULL (seed 0) at mp = {MAMBA_TP_MP}: "
+        f"d_inner {d_inner} = {H} heads of {cfg.ssm.head_dim}, "
+        f"{d_inner // MAMBA_TP_MP} columns a rank")
+
+    # layer 0's scan inputs on the eval path
+    seen, scan = [], ssm_mod.ssd_chunk_scan
+
+    def capture(*a, **kw):
+        if not seen:
+            seen.append((a, kw["chunk"]))
+        return scan(*a, **kw)
+    ssm_mod.ssd_chunk_scan = capture
+    try:
+        with torch.no_grad():
+            k6_model.train_logits(params, {"tokens": held["tokens"]})
+    finally:
+        ssm_mod.ssd_chunk_scan = scan
+    (x, Bm, Cm, dt, A_log), chunk = seen[0]
+    B, S = x.shape[:2]
+    f32 = torch.float32
+    with torch.no_grad():
+        whole = ssd_chunk_scan(x, Bm, Cm, dt, A_log, chunk=chunk,
+                               out_dtype=f32)
+        parts, worst, row = [], 0.0, None
+        for r in range(MAMBA_TP_MP):
+            lo, c, g, heads = ssm_mod.sub_heads(cfg, MAMBA_TP_MP, r)
+            idx = torch.tensor(heads, device=dev)
+            args = (x.reshape(B, S, d_inner)[..., lo:lo + c].reshape(
+                        B, S, c // g, g).contiguous(), Bm, Cm,
+                    dt[..., idx].contiguous(), A_log[idx])
+            y = ssd_chunk_scan(*args, chunk=chunk, out_dtype=f32)
+            want = ssd_chunk_scan_torch(*args, chunk=chunk, out_dtype=f32)
+            torch.cuda.synchronize()
+            rel = ((y - want).abs().max() / want.abs().max()).item()
+            worst = max(worst, rel)
+            if not (torch.isfinite(y).all() and rel <= SSD_RTOL):
+                raise AssertionError(f"[mamba tp] K6 on rank {r}'s sub-heads "
+                                     f"{tuple(args[0].shape)} disagrees "
+                                     f"with its plain version: {rel}")
+            parts.append(y.reshape(B, S, c))
+            shard = tuple(args[0].shape)
+            if r == 0:
+                label = (f"{MAMBA} tp rank shard: mp = {MAMBA_TP_MP}, rank "
+                         f"0's sub-heads B={B} S={S} H={c // g} hd={g} G=1 "
+                         f"N={Bm.shape[-1]} chunk {chunk}, bf16")
+                y16 = ssd_chunk_scan(*args, chunk=chunk)
+                row = _k6_shard_row(label, args, chunk, y16)
+                row["max_abs_err"] = (y - want).abs().max().item()
+                say(f"   K6 rank 0 heads {heads}, float32 out against the "
+                    f"plain version: max_abs_err {row['max_abs_err']:.3e} "
+                    f"[{card}]")
+        got = torch.cat(parts, -1)
+        ref = whole.reshape(B, S, d_inner)
+        join = ((got - ref).abs().max() / ref.abs().max()).item()
+        same = torch.equal(got, ref)
+    say(f"   K6 on all {MAMBA_TP_MP} ranks' {shard} sub-heads: worst "
+        f"relative error to the plain version {worst:.3e}; reassembled "
+        f"against K6's whole {tuple(x.shape)} call {join:.3e} (bit for bit: "
+        f"{same}; tol {SSD_RTOL:.0e}) [{card}]")
+    if join > SSD_RTOL:
+        raise AssertionError(f"[mamba tp] the ranks' K6 outputs do not "
+                             f"reassemble the whole call: {join}")
+    del x, Bm, Cm, dt, whole, parts, got, ref, seen
+
+    # one jamba rank: 16 whole heads of 64, N 16, G 1 (seeded inputs)
+    jcfg = get_config("jamba-1.5-large-398b", "full")
+    jd, jH = ssm_mod.ssm_dims(jcfg)
+    _, jc, jg, jheads = ssm_mod.sub_heads(jcfg, MAMBA_TP_MP, 0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(bf)
+    jN, jchunk = jcfg.ssm.d_state, jcfg.ssm.chunk_size
+    jargs = (rnd(B, S, jc // jg, jg), rnd(B, S, 1, jN, scale=0.5),
+             rnd(B, S, 1, jN, scale=0.5),
+             F.softplus(torch.randn((B, S, jc // jg), generator=gen,
+                                    device=dev)).to(bf),
+             (torch.randn(jc // jg, generator=gen, device=dev)
+              * 0.3).to(bf))
+    with torch.no_grad():
+        y = ssd_chunk_scan(*jargs, chunk=jchunk, out_dtype=f32)
+        want = ssd_chunk_scan_torch(*jargs, chunk=jchunk, out_dtype=f32)
+        jrel = ((y - want).abs().max() / want.abs().max()).item()
+        jms = cuda_ms(lambda: ssd_chunk_scan(*jargs, chunk=jchunk), 20)
+    say(f"   K6 on a jamba rank's sub-heads {tuple(jargs[0].shape)} (heads "
+        f"{jheads[0]}..{jheads[-1]} of {jH}, N {jN}, chunk {jchunk}): "
+        f"relative error to the plain version {jrel:.3e} (tol "
+        f"{SSD_RTOL:.0e}); {jms * 1e3:.2f} us warm [{card}]")
+    if not (torch.isfinite(y).all() and jrel <= SSD_RTOL):
+        raise AssertionError(f"[mamba tp] K6 on a jamba rank disagrees with "
+                             f"its plain version: {jrel}")
+    del jargs, y, want
+
+    counters = {"flash_decode": flash_decode,
+                "paged_flash_decode": paged_flash_decode,
+                "flash_attention": flash_attention,
+                "ssd_chunk_scan": ssd_chunk_scan}
+    with _serving_mesh(cfg) as mesh:
+        tp = mesh.group("model")
+        backend = ContinuousEngineBackend.create(
+            model, params, HashTokenizer(cfg.vocab_size), single["index"],
+            num_slots=NUM_SLOTS, prefill_batch=PREFILL_BATCH,
+            max_prompt_len=MAX_PROMPT_LEN, max_new_tokens=MAX_NEW_TOKENS,
+            mesh=mesh)
+        ex = backend.engine.executor
+        if type(ex).__name__ != "ShardedExecutor":
+            raise AssertionError(f"[mamba tp] executor {type(ex).__name__}")
+        run = _drive("mamba tp dense", backend, single["index"],
+                     single["questions"], 1, card, cfg.n_layers, counters,
+                     policy)
+        toks = run["rec"]["tokens"]
+        equal = sum(single["tokens"].get(p) == t for p, t in toks.items())
+        say(f"   ShardedExecutor (dp = 1 over NCCL): {equal} of {len(toks)} "
+            f"requests' tokens equal to phase 14's; launches "
+            f"{run['launches']} [{card}]")
+        if len(toks) != 8 or equal != len(toks) or any(
+                run["launches"].values()):
+            raise AssertionError(f"[mamba tp] {equal} of {len(toks)} token "
+                                 f"lists equal phase 14's; launches "
+                                 f"{run['launches']}")
+        del backend, run
+
+        cache = model.init_cache(NUM_SLOTS, MAX_PROMPT_LEN + MAX_NEW_TOKENS,
+                                 device=dev)
+        step_tokens = torch.zeros(NUM_SLOTS, 1, dtype=torch.int32,
+                                  device=dev)
+        steps, colls = {}, {}
+        for name, group in (("single", None), ("tp", tp)):
+            @torch.no_grad()
+            def step(group=group):
+                lg, _ = model.decode(params, {"tokens": step_tokens}, cache,
+                                     tp=group)
+                return lg[:, -1].argmax(-1)
+            counted = Census()
+            with counted:
+                step()
+            torch.cuda.synchronize()
+            steps[name] = step
+            colls[name] = {k: n for k, n in counted.coll_counts.items() if n}
+        ms = _in_turns(steps, 10)
+        del cache
+        say(f"   decode step ({NUM_SLOTS} slots), in turns single, tp, tp, "
+            f"single: tensor-parallel {ms['tp']} ms, collectives "
+            f"{colls['tp']}; single-device {ms['single']} ms, collectives "
+            f"{colls['single']} [{card}]")
+
+        sparams = shard_params(k6_model, mesh, params)
+        sh_eval, k6_eval = (make_sharded_eval_step(k6_model, mesh),
+                            make_eval_step(k6_model))
+        torch.cuda.synchronize()
+        ssd_chunk_scan.launches = 0
+        counted = Census()
+        with counted:
+            loss = float(sh_eval(sparams, held))
+        torch.cuda.synchronize()
+        k6 = ssd_chunk_scan.launches
+        coll = {k: n for k, n in counted.coll_counts.items() if n}
+        ms = _in_turns({"single": lambda: k6_eval(params, held),
+                        "tp": lambda: sh_eval(sparams, held)}, 3)
+        rel = abs(loss - single["eval_loss"]) / abs(single["eval_loss"])
+        say(f"   make_sharded_eval_step with K6: loss {loss:.6f} (phase 15: "
+            f"{single['eval_loss']:.6f}, relative {rel:.2e}, tol "
+            f"{MAMBA_TP_LOSS_RTOL:.0e}); K6 launches {k6}; collectives "
+            f"{coll}; in turns {ms['tp']} ms beside make_eval_step's "
+            f"{ms['single']} ms [{card}]")
+        if k6 != cfg.n_layers or not rel <= MAMBA_TP_LOSS_RTOL:
+            raise AssertionError(f"[mamba tp] sharded eval: K6 {k6} for "
+                                 f"{cfg.n_layers} layers, loss {loss} vs "
+                                 f"{single['eval_loss']}")
+        del sparams
+    del params
+    _free_gpu_memory("mamba tp")
+    say(f"== mamba tp: {time.perf_counter() - t0:.1f} s [{card}]")
+    return row, {"ssd_chunk_scan": k6}
 
 
 def _prefill_flops(cfg, B: int, S: int) -> int:
@@ -6494,9 +6787,13 @@ def main() -> None:
     records = {QWEN: trained["record"]}
     del trained
     _free_gpu_memory("mamba")
-    mamba_serve_phase(card, router)
-    launches.update(mamba_eval_phase(card))
+    mamba = mamba_serve_phase(card, router)
+    k6_launches, mamba["eval_loss"] = mamba_eval_phase(card)
+    launches.update(k6_launches)
     mamba_train_phase(card)
+    tp_row, tp_launches = mamba_tp_phase(card, mamba, router)
+    rows.append(tp_row)
+    del mamba
     # the dry run's traces (host cores only) run beside the training
     # phases on the card, and are collected in phase 16a2
     traces = start_dryrun()
@@ -6511,6 +6808,8 @@ def main() -> None:
     moe_launches.update(mla_serve_phase(card, router))
     family_launches = modality_serve_phase(card, router)
     family_launches[GEMMA] = gemma_launches
+    # K6's row at mamba2-130m's rank shard counts phase 16t's eval
+    family_launches[MAMBA + " tp"] = tp_launches
     # K4's rows at a family's eval shape count that family's eval, K8's
     # its train steps
     for arch, counts in train_launches.items():

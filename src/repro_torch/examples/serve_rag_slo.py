@@ -26,6 +26,8 @@ from __future__ import annotations
 import argparse
 import time
 
+import torch.distributed as dist
+
 from repro_torch.configs import get_config
 from repro_torch.core.config import TestbedConfig
 from repro_torch.core.device import resolve_device
@@ -62,13 +64,20 @@ def main(argv=None):
         ap.error("--mesh requires --engine continuous")
     device = resolve_device(args.device)
     mesh = None
-    if args.mesh:
-        mesh = make_serving_mesh(args.mesh, get_config("qwen1.5-32b",
-                                                       "smoke"),
-                                 device=device)
-        device = mesh.device
-    with rank0_prints():
-        return _serve(args, device, mesh)
+    # the process group a mesh makes is this run's to destroy (see
+    # repro_torch.launch.serve.main)
+    created = args.mesh and not dist.is_initialized()
+    try:
+        if args.mesh:
+            mesh = make_serving_mesh(args.mesh, get_config("qwen1.5-32b",
+                                                           "smoke"),
+                                     device=device)
+            device = mesh.device
+        with rank0_prints():
+            return _serve(args, device, mesh)
+    finally:
+        if created and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _serve(args, device, mesh):

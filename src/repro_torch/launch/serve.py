@@ -192,12 +192,21 @@ def main(argv=None, *, init_params=None) -> dict:
     device = resolve_device(args.device)
     if args.mesh:
         from repro_torch.configs import get_config
-        mesh = make_serving_mesh(
-            args.mesh, model_cfg=get_config("qwen1.5-32b", args.variant),
-            device=device)
-        # every rank serves the same requests; rank 0 alone reports
-        with rank0_prints():
-            return _serve(args, mesh.device, mesh, init_params)
+        # the process group the mesh makes (from torchrun's environment,
+        # or a world of one) is this run's to destroy: left to the
+        # interpreter's teardown, its threads can abort the process
+        created = not dist.is_initialized()
+        try:
+            mesh = make_serving_mesh(
+                args.mesh, model_cfg=get_config("qwen1.5-32b",
+                                                args.variant),
+                device=device)
+            # every rank serves the same requests; rank 0 alone reports
+            with rank0_prints():
+                return _serve(args, mesh.device, mesh, init_params)
+        finally:
+            if created and dist.is_initialized():
+                dist.destroy_process_group()
     return _serve(args, device, None, init_params)
 
 

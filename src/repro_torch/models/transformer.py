@@ -56,15 +56,16 @@ through :func:`apply_layer` as the reference threads ``moe_fn``.  Each
 rank holds the shards :data:`TP_AXES` names — the vocab rows of the
 embedding, its heads and kv heads (or, where mp does not divide them,
 its ``head_dim`` columns; MLA's cached latent's ``kv_lora`` columns),
-its ``d_ff`` / ``d_ff_expert`` columns — and four collectives make the
-whole function: the embedding lookup masks the ids outside the rank's
-rows and all-reduces, the attention and FFN output projections
-all-reduce, and the logits are all-gathered over the vocab in rank
-order (so argmax ties resolve as on one device); an attention layer
-split on ``head_dim`` adds its own (see
-:func:`repro_torch.models.layers.gqa_apply`), and an MLA layer its
+its ``d_ff`` / ``d_ff_expert`` columns, a Mamba2 layer's ``d_inner``
+columns — and four collectives make the whole function: the embedding
+lookup masks the ids outside the rank's rows and all-reduces, the
+attention, Mamba2 and FFN output projections all-reduce, and the logits
+are all-gathered over the vocab in rank order (so argmax ties resolve
+as on one device); an attention layer split on ``head_dim`` adds its
+own (see :func:`repro_torch.models.layers.gqa_apply`), an MLA layer its
 decode's gather of the latent (:func:`repro_torch.models.layers.
-mla_apply`).
+mla_apply`), and a Mamba2 layer the all-reduce of its gated norm's sum
+of squares (:func:`repro_torch.models.ssm.ssm_apply`).
 :func:`check_tensor_parallel` refuses any other placement.
 
 Training: gradients reach the stacked ``blocks`` leaves through the
@@ -209,15 +210,15 @@ def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
     over the cache's ``cross_k`` / ``cross_v`` when there is a cache;
     without, they are read from the cache.
 
-    ``tp``: the tensor-parallel group of the GQA, MLA and FFN sublayers
-    (see the module docstring); Mamba2 layers take none
-    (:func:`check_tensor_parallel` keeps them whole on every rank).
+    ``tp``: the tensor-parallel group of the GQA, MLA, Mamba2 and FFN
+    sublayers (see the module docstring and
+    :func:`repro_torch.models.ssm.ssm_apply`).
     ``moe_fn(p, x, cfg) -> (y, aux)`` replaces ``moe_apply_ragged`` in
     an MoE layer and brings its own collectives."""
     aux = 0.0
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if s.kind == "M":
-        out, cache = ssm_apply(p["ssm"], h, cfg, cache=cache)
+        out, cache = ssm_apply(p["ssm"], h, cfg, cache=cache, tp=tp)
     elif cfg.attn_type == "mla":
         out, cache = L.mla_apply(p["attn"], h, cfg, positions=positions,
                                  cache=cache, absorb=mla_absorb, tp=tp)
@@ -264,8 +265,13 @@ def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
 # (:func:`repro_torch.models.layers.gqa_apply`'s head_dim route,
 # :func:`repro_torch.models.layers._mla_split`); the int8 scales have no
 # head_dim and stay whole then.  MLA's cached latent ``c_kv`` splits on
-# ``kv_lora``, its ``k_rope`` stays whole.  Every other leaf stays whole
-# on each rank.
+# ``kv_lora``, its ``k_rope`` stays whole.  A Mamba2 layer's
+# ``d_inner`` leaves split on it: ``w_z``, ``w_x``, ``conv_x``, ``norm``,
+# ``w_out`` and the cache's ``conv_x`` (``conv_x`` names the weight and
+# the cache leaf alike); the cache's ``state`` stays whole
+# (:func:`repro_torch.models.ssm.ssm_apply` writes only the rank's rows),
+# as do ``conv_B`` / ``conv_C``.  Every other leaf stays whole on each
+# rank.
 TP_AXES = {
     "embed": ("vocab",), "lm_head": ("vocab",),
     **{f"attn/{w}": ("heads", "head_dim")
@@ -278,6 +284,8 @@ TP_AXES = {
     **{c: ("kv_heads", "head_dim") for c in ("k", "v", "k_q", "v_q")},
     **{c: ("kv_heads", None) for c in ("k_s", "v_s")},
     "c_kv": ("kv_lora",), "k_rope": (None,),
+    **{f"ssm/{w}": ("d_inner",) for w in ("w_z", "w_x", "norm", "w_out")},
+    "conv_x": ("d_inner",), "state": (None,),
 }
 
 
@@ -286,10 +294,9 @@ def check_tensor_parallel(named, mp: int) -> None:
     sharded train step's) has no collective for.  ``named`` holds
     ``(leaf name, ParamSpec, spec)`` of every parameter and cache leaf;
     at ``mp > 1`` each leaf of :data:`TP_AXES` must split on one of its
-    axes there, and no other leaf may split over ``model``: Mamba2's
-    ``d_inner``, Whisper's cross layers, and Whisper's encoder, which
-    runs without ``tp``.  The MTP layer's leaves (``mtp/...``) split as
-    a block's do."""
+    axes there, and no other leaf may split over ``model``: Whisper's
+    cross layers, and Whisper's encoder, which runs without ``tp``.  The
+    MTP layer's leaves (``mtp/...``) split as a block's do."""
     if mp <= 1:
         return
     for name, ps, spec in named:

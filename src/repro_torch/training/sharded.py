@@ -25,14 +25,21 @@ mesh))`` (:func:`train_specs`; :func:`shard_params` and
   (or the embedding's, or the head's) are alive at a time
   (``collectives.GATHERED`` measures it).  A caller's ``moe_fn`` is
   expert-parallel: the expert weights then stay on their data shards.
-* **Tensor parallel over model** (mp > 1), GQA, MLA and FFN sublayers
-  (DeepSeek-V3's MTP layer too): the serving apply's placement
-  (``TP_AXES``) with the Megatron ``f`` / ``g`` collectives, the
-  embedding's masked lookup and the logits gathered over the vocab, and
+* **Tensor parallel over model** (mp > 1), GQA, MLA, Mamba2 and FFN
+  sublayers (DeepSeek-V3's MTP layer too): the serving apply's
+  placement (``TP_AXES``) with the Megatron ``f`` / ``g`` collectives,
+  the embedding's masked lookup and the logits gathered over the vocab,
   the head_dim routes' gathers (reduce-scatter backward) and
-  all-to-all where mp does not divide the heads or kv heads;
+  all-to-all where mp does not divide the heads or kv heads, and a
+  Mamba2 layer's ``d_inner`` columns with ``f`` on the whole tensors
+  each rank uses on its own channels and its gated norm's sum of
+  squares all-reduced both ways (:func:`~repro_torch.models.ssm.
+  ssm_apply`); the evaluation forward takes K6 on the rank's sub-heads
+  under ``use_pallas_ssd``.  The Mamba2 layers reach the same
+  ``_backbone`` as every other layer, their leaves split over ``data``
+  gathered by the same hook.
   :func:`~repro_torch.models.transformer.check_tensor_parallel` refuses
-  Mamba2 and Whisper at mp > 1.
+  Whisper at mp > 1.
 * **The multi-pod layout** (a mesh with a ``pod`` axis, the
   reference's ``(2, 16, 16)``): the batch's rows split over ``pod`` x
   ``data``, pod-major; the weights are placed as on one pod (the

@@ -30,12 +30,13 @@
   torch built with CUDA (a CPU-only build has no CUDA device guard to
   index them with): that case runs only there, and ``chip_smoke.py``'s
   dry-run phase holds qwen FULL's 64 launches on the card.
-* **The CLI**: a refused combination (mamba2-130m's d_inner) prints
-  ``FAIL`` with ``check_tensor_parallel``'s message and exits 1; an
-  accepted one writes its record; qwen1.5-32b's decode_32k passes as
-  published on the head_dim route, its census and scores' bytes as the
-  route sends them, no would-be K1 launch.  Each runs in a subprocess (a process makes one
-  world).
+* **The CLI**: a refused combination (whisper-large-v3's cross
+  layers) prints ``FAIL`` with ``check_tensor_parallel``'s message and
+  exits 1; an accepted one writes its record; qwen1.5-32b's decode_32k
+  passes as published on the head_dim route, its census and scores'
+  bytes as the route sends them, no would-be K1 launch; mamba2-130m's
+  decode_32k passes on the Mamba2 route, two all-reduces a layer.  Each
+  runs in a subprocess (a process makes one world).
 """
 import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import json
@@ -306,7 +307,7 @@ def _cli(tmp_path, *argv):
 
 
 def test_cli_prints_fail_for_a_refused_combination(tmp_path):
-    arch = "mamba2-130m"
+    arch = "whisper-large-v3"
     r = _cli(tmp_path, "--arch", arch, "--shape", "decode_32k",
              "--device", "cpu")
     assert r.returncode == 1, r.stderr[-3000:]
@@ -343,6 +344,35 @@ def test_cli_passes_qwen_decode_unpadded_on_the_head_dim_route(tmp_path):
     assert rec["launches"]["flash_decode"] == 0
     assert rec["fallbacks"] == []
     assert rec["peak_bytes"] < 80e9
+
+
+def test_cli_passes_mamba2_decode_on_the_ssm_route(tmp_path):
+    """mamba2-130m as published (d_inner 1536: 96 columns a rank over the
+    16-way model axis, 1.5 heads) at decode_32k on the single-pod
+    layout: the census (the embedding's all-reduce and two a Mamba2
+    layer, the gated norm's sum of squares and ``w_out``'s output; the
+    logits' all-gather) and their bytes (4 float32 bytes and one bf16
+    ``d_model`` row a token a layer)."""
+    arch = "mamba2-130m"
+    r = _cli(tmp_path, "--arch", arch, "--shape", "decode_32k",
+             "--device", "cpu")
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert f"OK    {arch}__decode_32k__single" in r.stdout
+    rec = json.loads((tmp_path / f"{arch}__decode_32k__single.json")
+                     .read_text())
+    cfg = get_config(arch, "full")
+    n = cfg.n_layers
+    B = INPUT_SHAPES["decode_32k"]["global_batch"] // 16
+    hidden = B * cfg.d_model * 2
+    assert rec["collective_counts"] == {
+        "all-gather": 1, "all-reduce": 2 * n + 1, "reduce-scatter": 0,
+        "all-to-all": 0, "collective-permute": 0}
+    assert rec["collective_bytes"]["all-reduce"] == (
+        n * (B * 4 + hidden) + hidden)
+    assert rec["collective_bytes"]["all-gather"] == (
+        B * cfg.padded_vocab * 4)
+    assert rec["launches"]["ssd_chunk_scan"] == 0
+    assert rec["fallbacks"] == []
 
 
 @pytest.mark.parametrize("absorb", [False, True],

@@ -19,9 +19,11 @@ apply then attends through ``models/layers.py::_gqa_head_dim``.  Here:
   qwen1.5-32b, command-r-35b, dbrx-132b, gemma3-12b, minicpm3-4b and
   deepseek-v3-671b (its MTP layer included) as published (serving's
   params and caches, dense, int8 and paged where the family pages;
-  training's FSDP specs) and still refuses Mamba2, jamba and Whisper's
-  cross and encoder leaves; the MLA leaves' placements there (heads at
-  deepseek-v3, head_dim at minicpm3, the cached latent on kv_lora);
+  training's FSDP specs), and mamba2-130m and jamba-1.5-large-398b
+  with their ``d_inner`` leaves on ``model``, and still refuses
+  Whisper's cross and encoder leaves; the MLA leaves' placements there
+  (heads at deepseek-v3, head_dim at minicpm3, the cached latent on
+  kv_lora);
 * ``local_params`` cuts a bridged reference leaf on head_dim as the
   resolver places it, so no converter is new: GQA's, and MLA's
   ``wq_b`` / ``wk_b`` / ``wv_b`` / ``wo`` and cached ``c_kv`` at
@@ -190,8 +192,9 @@ def test_kv_heads_of_a_block_of_query_heads(Hkv, G, start, count, n_kv):
 
 PROD = LayoutMesh(("data", "model"), np.empty((16, 16)))
 ACCEPTED = ("qwen1.5-32b", "command-r-35b", "dbrx-132b", "gemma3-12b",
-            "minicpm3-4b", "deepseek-v3-671b")
-REFUSED = ("mamba2-130m", "jamba-1.5-large-398b", "whisper-large-v3")
+            "minicpm3-4b", "deepseek-v3-671b", "mamba2-130m",
+            "jamba-1.5-large-398b")
+REFUSED = ("whisper-large-v3",)
 
 
 def _named(cfg, *, fsdp=False, caches=True):
@@ -213,16 +216,19 @@ def _named(cfg, *, fsdp=False, caches=True):
 
 @pytest.mark.parametrize("arch", ACCEPTED)
 def test_the_four_families_pass_the_check_at_mp16(arch):
-    """The GQA families of the head_dim route and the two MLA families
-    pass as published."""
+    """The GQA families of the head_dim route, the two MLA families and
+    the two Mamba2 families pass as published."""
     cfg = get_config(arch, "full")
     named = _named(cfg)
     placed = {ps.axes[spec.index("model")] for _, ps, spec in named
               if "model" in spec}
     # the published heads do not all divide 16 (deepseek-v3's 128 do):
-    # some leaf falls back
-    assert ("head_dim" in placed) == (arch != "deepseek-v3-671b")
+    # some leaf falls back; mamba2-130m has no attention
+    assert ("head_dim" in placed) == (arch not in ("deepseek-v3-671b",
+                                                   "mamba2-130m"))
     assert ("kv_lora" in placed) == (cfg.attn_type == "mla")
+    # a Mamba2 layer's leaves, the cache's conv_x with them, on d_inner
+    assert ("d_inner" in placed) == (cfg.ssm is not None)
     check_tensor_parallel(named, 16)
     check_tensor_parallel(_named(cfg, fsdp=True, caches=False), 16)
     if cfg.sliding_window:

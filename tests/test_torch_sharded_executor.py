@@ -18,7 +18,7 @@ dp=2, the mp=2 logits, every family
 at dp=2 and dbrx / gemma3 at dp=2 x mp=2 against the port's own
 single-device engine (itself held against the reference in
 ``test_torch_engine.py`` and ``test_torch_families.py``), the refusal of
-Mamba2 and Whisper at mp=2 (minicpm3's MLA serving there with the
+Whisper at mp=2 (minicpm3's MLA and mamba2 serving there with the
 single-device tokens instead), the reference's chaos plans, and the
 in-process world of one (whose admissions issue no collective of their
 own).
@@ -58,8 +58,9 @@ LAYOUTS = {"dp2": ("dp=2", 1, 2, 1), "mp2": ("dp=1,mp=2", 1, 1, 2),
            "pod2": ("pod=2,dp=1", 2, 1, 1)}
 LOGIT_RTOL = 1e-4   # of max |logit|: float32, the tensor-parallel partial
 #                     sums added in another order
-# the families of the mp = 2 refusal test; MLA (minicpm3) is served
-# there since its route exists (tests/test_torch_mla_tp.py)
+# the families of the mp = 2 refusal test; MLA (minicpm3) and Mamba2
+# are served there since their routes exist (tests/test_torch_mla_tp.py,
+# tests/test_torch_ssm_tp.py)
 MP_REFUSED = ("minicpm3-4b", "mamba2-130m", "whisper-large-v3")
 # the int8 cache: a k / v element an ulp of the tensor-parallel sums
 # moves across a rounding boundary takes the next code, a whole scale
@@ -421,12 +422,14 @@ def test_moe_and_windowed_families_serve_at_dp2_mp2(worlds, arch):
 
 @pytest.mark.parametrize("arch", MP_REFUSED)
 def test_mla_mamba2_and_whisper_are_refused_at_mp2(worlds, arch):
-    """No collective exists for Mamba2's d_inner or Whisper's cross and
-    encoder layers: the executor refuses before any collective, naming
-    the leaf, its spec and the roadmap item.  MLA's latent has its route
-    now: minicpm3 serves at dp=2 x mp=2 with the single-device tokens."""
+    """No collective exists for Whisper's cross and encoder layers: the
+    executor refuses before any collective, naming the leaf, its spec
+    and the roadmap item.  MLA's latent and Mamba2's d_inner have their
+    routes now: minicpm3 and mamba2 serve at dp=2 x mp=2 with the
+    single-device tokens."""
     for rank in worlds["families_mp"]:
-        if get_config(arch, "smoke").attn_type == "mla":
+        cfg = get_config(arch, "smoke")
+        if cfg.attn_type == "mla" or cfg.ssm is not None:
             kind, *res = rank[arch]
             assert kind == "served", res
             want, got = res

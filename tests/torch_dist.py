@@ -565,3 +565,129 @@ def mla_layer(rank, spec, cases):
                 got.append(y.numpy())
         out[key] = got
     return out
+
+
+# the Mamba2 route's engines: the dense slot cache (Mamba never pages)
+SSM_KW = dict(num_slots=4, max_len=64, max_new_cap=16, sync_every=4,
+              prefill_batch=2)
+
+
+def _ssm_config(arch, over, ssm_over):
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch, "smoke"), dtype="float32",
+                              **over)
+    return dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                            **ssm_over))
+
+
+def serve_ssm(rank, spec, cases, prompts, new_tokens):
+    """Each case ``(key, arch, over, ssm_over)`` (a float32 SMOKE config
+    with the fields ``over`` and, on its ``ssm``, ``ssm_over`` replaced;
+    its seeded weights): the single-device dense engine's tokens and the
+    tokens over the mesh ``spec``; the rank's local Mamba2 leaves and
+    cache and prefill scratch shapes; each Mamba2 cache leaf of the
+    rank's slots after the serve beside the single-device cache's same
+    slots; and the logits of a prefill of the first two prompts and 3
+    greedy decode steps on one device and through the sharded model
+    (every row on each rank, its ``conv_x`` columns)."""
+    import torch
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.schema import zeros_from_schema
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.sharding import local_schema, specs_for_schema
+    mesh = make_serving_mesh(spec, device="cpu")
+    out = {"coords": dict(mesh.coords)}
+    n = min(len(p) for p in prompts[:2])
+    toks = torch.tensor([p[:n] for p in prompts[:2]])
+    for key, arch, over, ssm_over in cases:
+        cfg = _ssm_config(arch, over, ssm_over)
+        model = build_model(cfg)
+        params = model.init(seed=0, device="cpu")
+        single = ContinuousEngine(model, params, **SSM_KW)
+        eng = ContinuousEngine(model, params, mesh=mesh, **SSM_KW)
+        res = {"tokens": (_tokens(single.generate_many(prompts, new_tokens)),
+                          _tokens(eng.generate_many(prompts, new_tokens)))}
+        ex, sx = eng.executor, single.executor
+        ssm = ex.params["blocks"]["p0"]["ssm"]
+        res["shapes"] = {
+            **{w: tuple(t.shape) for w, t in ssm.items()},
+            "cache": {c: tuple(t.shape) for c, t in
+                      ex._cache["blocks"]["p0"].items()},
+            "scratch": {c: tuple(t.shape) for c, t in
+                        ex._pcache["blocks"]["p0"].items()}}
+        rows = slice(ex.slot_base, ex.slot_base + ex._dactive.shape[0])
+        res["cache"] = {c: (sx._cache["blocks"]["p0"][c][:, rows].numpy(),
+                            t.numpy())
+                        for c, t in ex._cache["blocks"]["p0"].items()}
+        schema = model.cache_schema(2, 64)
+        local = zeros_from_schema(local_schema(
+            schema, specs_for_schema(schema, mesh), mesh, ("model",)),
+            device="cpu")
+        runs = {"single": (params, model.init_cache(2, 64, device="cpu"),
+                           None),
+                "sharded": (ex.params, local, ex.tp)}
+        for name, (p, cache, tp) in runs.items():
+            with torch.no_grad():
+                lg, cache = model.prefill(p, {"tokens": toks}, cache, tp=tp)
+                got = [lg.numpy()]
+                for _ in range(3):
+                    nxt = lg[:, -1].argmax(-1)[:, None]
+                    lg, cache = model.decode(p, {"tokens": nxt}, cache,
+                                             tp=tp)
+                    got.append(lg.numpy())
+            res[("logits", name)] = got
+        out[key] = res
+    return out
+
+
+def ssm_layer(rank, spec, cases):
+    """Each case ``(key, arch, over, ssm_over, np_params, x, steps)``: one
+    Mamba2 layer of the float32 SMOKE config over the mesh ``spec``, on
+    this rank's cut of the whole layer ``np_params`` (the resolver's
+    serving placement) and of its cache (``conv_x``'s columns, ``state``
+    whole): a prefill of ``x`` (B, S, d), then one decode step a column
+    of ``steps`` (B, n, d).  Returns each call's output and the cache's
+    ``state`` at the end."""
+    import torch
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.schema import zeros_from_schema
+    from repro_torch.models.ssm import ssm_apply, ssm_cache_schema, ssm_schema
+    from repro_torch.sharding import (local_params, local_schema,
+                                      specs_for_schema)
+    mesh = make_serving_mesh(spec, device="cpu")
+    tp = mesh.group("model")
+    out = {}
+    for key, arch, over, ssm_over, p, x, steps in cases:
+        cfg = _ssm_config(arch, over, ssm_over)
+        schema = ssm_schema(cfg)
+        params = local_params(
+            schema, {k: torch.from_numpy(v) for k, v in p.items()}, mesh,
+            specs_for_schema(schema, mesh, fsdp=False))
+        cs = ssm_cache_schema(cfg, x.shape[0])
+        cache = zeros_from_schema(local_schema(
+            cs, specs_for_schema(cs, mesh), mesh, ("model",)), device="cpu")
+        with torch.no_grad():
+            y, _ = ssm_apply(params, torch.from_numpy(x), cfg, cache=cache,
+                             tp=tp)
+            got = [y.numpy()]
+            for i in range(steps.shape[1]):
+                y, _ = ssm_apply(params, torch.from_numpy(
+                    steps[:, i:i + 1].copy()), cfg, cache=cache, tp=tp)
+                got.append(y.numpy())
+        out[key] = {"out": got, "state": cache["state"].numpy(),
+                    "conv_x": cache["conv_x"].numpy()}
+    return out
+
+
+def ssm_tp(rank, spec, serve, layer, train, evals, prompts, new_tokens):
+    """One world for each layout of ``tests/test_torch_ssm_tp.py``: the
+    cases of :func:`serve_ssm`, :func:`ssm_layer` and
+    ``torch_dist_training``'s ``grads_head_dim`` and ``eval_ssm``, by
+    name."""
+    import torch_dist_training as TW
+    served = serve_ssm(rank, spec, serve, prompts, new_tokens)
+    return {"coords": served["coords"], "serve": served,
+            "layer": ssm_layer(rank, spec, layer),
+            "train": TW.grads_head_dim(rank, spec, train),
+            "eval": TW.eval_ssm(rank, spec, evals)}

@@ -315,3 +315,40 @@ def grads_head_dim(rank, spec, cases):
                     "grads": {n: (g.numpy(), s.numpy()) for n, g, s in
                               zip(names, grads, tree_leaves(whole))}}
     return out
+
+
+def eval_ssm(rank, spec, cases):
+    """Each case ``(key, arch, over, batch)``: the loss of
+    ``make_eval_step`` on one device and of ``make_sharded_eval_step``
+    over the mesh ``spec`` on the global ``batch``, with
+    ``use_pallas_ssd`` (K6's gate; its plain version on the CPU), and
+    K6's calls in the sharded one."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import build_model
+    from repro_torch.training.sharded import (make_sharded_eval_step,
+                                              shard_params)
+    from repro_torch.training.steps import make_eval_step
+    import repro_torch.models.ssm as ssm_mod
+    mesh = make_serving_mesh(spec, device="cpu")
+    calls = []
+    real = ssm_mod.ssd_chunk_scan
+
+    def spy(x, *args, **kw):
+        calls.append(tuple(x.shape))
+        return real(x, *args, **kw)
+    ssm_mod.ssd_chunk_scan = spy
+    out = {}
+    for key, arch, over, batch in cases:
+        model = build_model(_cfg(arch, use_pallas_ssd=True, **over))
+        params = _noisy_params(model)
+        b = {k: torch.from_numpy(v.astype(np.int64)) for k, v in batch.items()}
+        loss = float(make_eval_step(model)(params, b))
+        del calls[:]
+        sloss = float(make_sharded_eval_step(model, mesh)(
+            shard_params(model, mesh, params), b))
+        out[key] = {"loss": (loss, sloss), "calls": list(calls)}
+    ssm_mod.ssd_chunk_scan = real
+    assert ssd_chunk_scan.launches == 0
+    return out

@@ -89,7 +89,8 @@ Phases, each on its own lines; any failure exits nonzero:
                Argmax-CE within 0.1 of best-fixed, refusing < 0.8; the
                constrained objective (cap 0.45) refusing less with a
                higher acc, on the mean over the draws of seeds 0..19,
-               each draw printed: at this cap one draw decides it); then
+               trained in 4 spawned processes at once, each draw
+               printed: at this cap one draw decides it); then
                quality_first Argmax-CE trained from one host-drawn init on
                the card and on the host (at most 2 of 200 eval actions
                may disagree; the largest parameter difference and each
@@ -281,8 +282,9 @@ Phases, each on its own lines; any failure exits nonzero:
                production mesh's mp = 16 does not divide) and the MLA
                route, and the Mamba2 route: qwen FULL's decode_32k and
                train_4k, and command-r FULL's, minicpm3-4b FULL's,
-               deepseek-v3-671b FULL's, mamba2-130m FULL's and
-               jamba-1.5-large-398b FULL's decode_32k, unpadded, traced
+               deepseek-v3-671b FULL's, mamba2-130m FULL's,
+               jamba-1.5-large-398b FULL's and whisper-large-v3 FULL's
+               (its cross layers on head_dim) decode_32k, unpadded, traced
                as rank 0 of the fake 16 x 16 world on fake CUDA tensors
                and, concurrently, on fake CPU tensors (two more
                subprocesses; a fourth traces 16c's one-rank
@@ -374,6 +376,23 @@ Phases, each on its own lines; any failure exits nonzero:
                weights plus the cross cache, then an audio prefill (4 x
                1500 frames + 384 tokens) beside the encoder's operations
                bound and 8 steps that read the cross cache.
+16w. whisper tp — Whisper under tensor parallelism, in two parts where
+               the weights already live.  In 16a0's whisper entry, on its
+               trained weights and held batch: K4 on each of the 16
+               ranks' blocks of heads at mp = 16 (layer 0's q, k and v
+               as ``_gqa_head_dim`` holds them after its gather: 2 heads
+               on ranks 0-3, 1 on ranks 4-15, each a view), each against
+               its plain version and all 16 reassembled against K4's
+               whole (4, 384, 20, 64) call, rank 0's and rank 4's
+               launches timed beside their bounds and SDPA (their rows
+               in the kernels line); then ``make_sharded_eval_step``
+               with K4 on a one-rank NCCL mesh: 32 launches, 16a0's
+               loss, its collectives and ms in turns with
+               ``make_eval_step``.  In 16d's whisper block:
+               ``ShardedExecutor`` on the one-rank mesh serves 16d's
+               first 8 requests with 16d's tokens (K1 32 x steps), and
+               a decode step's collectives and ms in turns with the
+               single-device step.  Its seconds by part are printed.
 17. serve cli — ``repro_torch.launch.serve.main`` in this process,
                ``--backend continuous --variant full`` (qwen1.5-32b
                FULL, seeded bf16 weights, 8 slots, prompts of 192, 8 new
@@ -437,11 +456,13 @@ import dataclasses
 import gc
 import json
 import math
+import multiprocessing
 import os
 import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 from unittest import mock
 
@@ -533,10 +554,19 @@ MAMBA_TP_MP = 16        # the production mesh's model axis (phase 16t)
 MAMBA_TP_LOSS_RTOL = 1e-5  # one rank: the same logits, the loss's sums
 #                            taken over the batch group
 MAMBA_EVAL_RTOL = 1e-3  # bf16 activations; both scans sum in float32
+WHISPER_TP_MP = 16        # the production mesh's model axis (phase 16w)
+WHISPER_TP_LOSS_RTOL = 1e-5  # one rank: the same logits, the loss's sums
+#                              taken over the batch group
+# phase 16w's results, for the kernel table: K4's rows at the rank
+# blocks and the launches of the 16 ranks' route, the one-rank sharded
+# eval's K4 launches, its seconds by part
+WHISPER_TP: dict = {"rows": [], "block_launches": {}, "launches": {},
+                    "seconds": {}}
 TOKEN_GAP_RTOL = 2e-2   # of max |logit|: bf16 rounding of a batch of 8
 #                         against a batch of 1
 ROUTER_CAP = 0.45        # the constrained objective's refusal cap
 ROUTER_SEEDS = 20        # draws the constrained objective is held over
+ROUTER_WORKERS = 4       # processes the draws train in, a card context each
 ROUTER_MAX_DISAGREE = 2  # of 200 eval actions, card vs host training: the
 #                          same float32 steps, sums in another order
 # the open loop: Poisson traces at these multiples of the closed loop's
@@ -2074,6 +2104,29 @@ def nan_phase(model, bad) -> None:
                                  f"{eng.stats}, {eng.quarantined_slots}")
 
 
+def _cheap_draws(train_log, eval_log, rc, jobs, device: str) -> list:
+    """``train_policy`` under ``cheap`` for each ``(seed, objective)`` of
+    ``jobs`` on ``device``: (refuse share, acc) of each on the eval log.
+    :func:`router_phase` runs it in spawned worker processes, each on
+    its share of the host's cores."""
+    import torch
+    from repro_torch.core.actions import REFUSE_ACTION, SLO_PROFILES
+    from repro_torch.core.metrics import evaluate_actions
+    from repro_torch.core.policy import policy_actions, train_policy
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // ROUTER_WORKERS))
+    cheap = SLO_PROFILES["cheap"]
+    cheap_rewards = train_log.rewards(cheap)
+    out = []
+    for seed, obj in jobs:
+        tr = train_policy(train_log, cheap_rewards, rc, objective=obj,
+                          refusal_cap=ROUTER_CAP, seed=seed, device=device)
+        rep = evaluate_actions(
+            eval_log, policy_actions(tr.params, eval_log.states, rc),
+            cheap, obj)
+        out.append((float(rep.action_dist[REFUSE_ACTION]), rep.acc))
+    return out
+
+
 def router_phase(card: str):
     """The paper's router, trained on the card at the FULL testbed
     (``configs/paper_slo_router.py``: 800 train / 200 eval questions
@@ -2090,8 +2143,7 @@ def router_phase(card: str):
     from repro_torch.core.actions import REFUSE_ACTION, SLO_PROFILES
     from repro_torch.core.experiment import run_experiment
     from repro_torch.core.metrics import evaluate_actions
-    from repro_torch.core.policy import (init_policy, policy_actions,
-                                         train_policy)
+    from repro_torch.core.policy import init_policy, resolve_device
     from repro_torch.routing import (ConditionedPolicy, Gateway, MLPPolicy,
                                      Request, SimulatorBackend)
     cfg = paper_slo_router.FULL
@@ -2130,19 +2182,22 @@ def router_phase(card: str):
     # binds (Argmax-CE's own is about 0.5 in training), so one draw
     # decides whether the eval refusals fall; the objective's effect is
     # held on the mean over the draws of seeds 0 .. ROUTER_SEEDS - 1.
-    cheap = SLO_PROFILES["cheap"]
-    cheap_rewards = train_log.rewards(cheap)
+    # The 2 x ROUTER_SEEDS trainings are host-bound (a few ms of Python a
+    # step of a small MLP), so they train in ROUTER_WORKERS spawned
+    # processes at once, nothing else running beside them
     draws = {"argmax_ce": [], "constrained": []}
+    jobs = [(seed, obj) for seed in range(ROUTER_SEEDS) for obj in draws]
+    device = resolve_device("cuda").type
     t0 = time.perf_counter()
-    for seed in range(ROUTER_SEEDS):
-        for obj, out in draws.items():
-            tr = train_policy(train_log, cheap_rewards, rc, objective=obj,
-                              refusal_cap=ROUTER_CAP, seed=seed,
-                              device="cuda")
-            rep = evaluate_actions(
-                eval_log, policy_actions(tr.params, eval_log.states, rc),
-                cheap, obj)
-            out.append((float(rep.action_dist[REFUSE_ACTION]), rep.acc))
+    with ProcessPoolExecutor(ROUTER_WORKERS, mp_context=multiprocessing
+                             .get_context("spawn")) as pool:
+        parts = pool.map(_cheap_draws, *zip(*[
+            (train_log, eval_log, rc, jobs[w::ROUTER_WORKERS], device)
+            for w in range(ROUTER_WORKERS)]))
+        for w, part in enumerate(parts):
+            for (seed, obj), draw in zip(jobs[w::ROUTER_WORKERS], part):
+                draws[obj].append((seed, draw))
+    draws = {o: [d for _, d in sorted(v)] for o, v in draws.items()}
     ref_share = {o: float(np.mean([d[0] for d in v]))
                  for o, v in draws.items()}
     acc = {o: float(np.mean([d[1] for d in v])) for o, v in draws.items()}
@@ -3779,10 +3834,14 @@ def train_families_phase(card: str, records: dict = None) -> dict:
         if records is not None:
             records[arch] = trained["record"]
         del trained["opt_state"], trained["batch"]
-        out[arch] = {"flash_attention": _eval_family(trained, card, arch)[0],
+        k4, held, k4_model = _eval_family(trained, card, arch)
+        out[arch] = {"flash_attention": k4,
                      "grouped_gemm_dw":
                          trained["launches"]["grouped_gemm_dw"]}
-        del trained
+        if arch == WHISPER:
+            # phase 16w's K4 and eval parts, where the weights live
+            whisper_tp_eval(card, trained, held, k4_model)
+        del trained, held, k4_model
     microbatch_phase(card)
     say(f"== train families: {time.perf_counter() - t0:.1f} s")
     return out
@@ -4210,7 +4269,8 @@ DRYRUN_MESH_CASES = (("qwen1.5-32b", "decode_32k", None),
                      ("minicpm3-4b", "decode_32k", None),
                      ("deepseek-v3-671b", "decode_32k", None),
                      ("mamba2-130m", "decode_32k", None),
-                     ("jamba-1.5-large-398b", "decode_32k", None))
+                     ("jamba-1.5-large-398b", "decode_32k", None),
+                     ("whisper-large-v3", "decode_32k", None))
 _DRYRUN_MESH_CODE = r"""
 import time; t0 = time.perf_counter()
 import json, sys
@@ -5014,6 +5074,352 @@ def mamba_tp_phase(card: str, single: dict, policy) -> tuple:
     _free_gpu_memory("mamba tp")
     say(f"== mamba tp: {time.perf_counter() - t0:.1f} s [{card}]")
     return row, {"ssd_chunk_scan": k6}
+
+
+def _k4_block_row(label, q, k, v, out, err) -> dict:
+    """K4 at one rank's block of heads (views): warm and flushed ms, the
+    plain version's, SDPA's on the same views, the bound over the
+    block's bytes (q, k, v read, out written) and its causal operations;
+    the ``flash_attention`` row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_torch)
+    B, S, H, D = q.shape
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    with torch.no_grad():
+        ms = cuda_ms(lambda: flash_attention(q, k, v), 50)
+        cold = cuda_ms_cold(lambda: flash_attention(q, k, v))
+        plain_ms = cuda_ms(lambda: flash_attention_torch(q, k, v), 10)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 50)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
+    nops = 4 * B * H * D * (S * (S + 1) // 2)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    say(f"   K4 [{label}]: {ms * 1e3:.2f} us warm, {cold * 1e3:.2f} us "
+        f"flushed | plain {plain_ms * 1e3:.2f} us | library (SDPA, "
+        f"is_causal, the same views) {library_ms * 1e3:.2f} us | bound "
+        f"{bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB: "
+        f"{t_bytes * 1e6:.2f} us; {nops / 1e9:.3f} GFLOP: "
+        f"{t_ops * 1e6:.2f} us; {bound_by})")
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:63",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms, shape=label,
+                ms_cold=cold)
+
+
+class _HandGroup:
+    """Rank ``r`` of ``n`` ranks run as threads of this process: a
+    tensor handed in by every rank, every rank's back in rank order."""
+
+    def __init__(self, hub: dict, r: int):
+        self.hub, self.r, self.n = hub, r, len(hub["parts"])
+
+    def exchange(self, x):
+        hub = self.hub
+        hub["parts"][self.r] = x
+        hub["barrier"].wait()
+        got = list(hub["parts"])
+        hub["barrier"].wait()
+        return got
+
+
+def _rank_threads(n: int, cfg, q, k, v, pos):
+    """``models/layers.py::_gqa_head_dim`` on each of ``n`` ranks' head_dim
+    columns of the whole (B, S, H, D) ``q``, ``k``, ``v`` (no cache,
+    causal), the ranks in threads and the route's two collectives at
+    S > 1 done by hand over a :class:`_HandGroup` (the gather
+    concatenated and the all-to-all's blocks handed on in rank order;
+    any other collective on the group raises; a failed rank breaks
+    the barrier, so no rank waits for ever).  K4's count is 0 just
+    before the threads start and is read just after they end, into
+    ``WHISPER_TP["block_launches"]``; each launch is made under a lock,
+    so the count is exact.  Returns every rank's output columns and
+    its K4 launch: (q, k, v, out) as the route handed them to K4."""
+    import threading
+    import torch.distributed as dist
+    import repro_torch.models.layers as layers_mod
+    from repro_torch.kernels.flash_attention import flash_attention
+    hub = {"parts": [None] * n, "barrier": threading.Barrier(n, timeout=120)}
+    mine = threading.local()
+    lock = threading.Lock()
+    blocks = [None] * n
+    real = {name: getattr(layers_mod, name) for name in
+            ("gather_split", "all_to_all", "flash_attention")}
+    real_size, real_rank = dist.get_world_size, dist.get_rank
+
+    def gather_split(x, g, dim):
+        if not isinstance(g, _HandGroup):
+            return real["gather_split"](x, g, dim)
+        return torch.cat(g.exchange(x), dim)
+
+    def all_to_all(x, g, sizes=None, out_sizes=None):
+        if not isinstance(g, _HandGroup):
+            return real["all_to_all"](x, g, sizes, out_sizes)
+        return torch.cat([p.split(ps)[g.r] for p, ps in g.exchange((x,
+                                                                     sizes))])
+
+    def k4(qb, kb, vb, **kw):
+        with lock:
+            out = real["flash_attention"](qb, kb, vb, **kw)
+        blocks[mine.r] = (qb, kb, vb, out)
+        return out
+
+    def body(r):
+        mine.r = r
+        g = _HandGroup(hub, r)
+        dims = slice(r * (q.shape[-1] // n), (r + 1) * (q.shape[-1] // n))
+        try:
+            return layers_mod._gqa_head_dim(
+                q[..., dims], k[..., dims], v[..., dims], cfg, positions=pos,
+                cache=None, window=0, causal=True, ring=False,
+                page_table=None, tp=g)
+        except BaseException:
+            hub["barrier"].abort()
+            raise
+
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    patched = dict(gather_split=gather_split, all_to_all=all_to_all,
+                   flash_attention=k4)
+    for name, fn in patched.items():
+        setattr(layers_mod, name, fn)
+    dist.get_world_size = lambda g=None: (g.n if isinstance(g, _HandGroup)
+                                          else real_size(g))
+    dist.get_rank = lambda g=None: (g.r if isinstance(g, _HandGroup)
+                                    else real_rank(g))
+    try:
+        flash_attention.launches = 0
+        with ThreadPoolExecutor(n) as pool:
+            outs = list(pool.map(body, range(n)))
+        torch.cuda.synchronize()
+        WHISPER_TP["block_launches"] = {
+            "flash_attention": flash_attention.launches}
+    finally:
+        for name, fn in real.items():
+            setattr(layers_mod, name, fn)
+        dist.get_world_size, dist.get_rank = real_size, real_rank
+    return outs, blocks
+
+
+def whisper_tp_eval(card: str, trained: dict, held: dict, k4_model) -> None:
+    """Phase 16w, its first part, on 16a0's trained ``whisper-large-v3``
+    FULL weights and held eval batch (4 x 384 tokens, 4 x 1500 frames):
+
+    * K4 on the rank blocks of mp = 16: decoder layer 0's q, k and v
+      projected from its input (captured from an eval forward), and
+      ``models/layers.py::_gqa_head_dim`` itself on each of the 16
+      ranks' ``head_dim`` columns, the ranks in threads with the
+      collectives done by hand (:func:`_rank_threads`): K4's count 0
+      just before and 16 just after, each launch on the route's own
+      views of the rank's block of heads (``_heads_of``: 2 heads on
+      ranks 0-3, 1 on ranks 4-15) against ``flash_attention_torch`` on
+      the same views within KERNEL_TOL, and the ranks' columns after the
+      route's all-to-all against K4's whole (4, 384, 20, 64) call.  Rank
+      0's (H = 2) and rank 4's (H = 1) launches timed warm and flushed
+      beside their bounds and SDPA: their rows in the kernels line, with
+      the launches of this run.
+    * The one-rank tensor-parallel eval, on an NCCL serving mesh of one
+      rank: ``make_sharded_eval_step`` with K4 on the held batch, K4's
+      count 0 just before and 32 (one a causal decoder layer) just
+      after, the loss within WHISPER_TP_LOSS_RTOL of ``make_eval_step``'s
+      with K4 (16a0's); its collectives by kind (the dry run's
+      ``Census``) and its ms in turns with the single-device eval's.
+    Results go into ``WHISPER_TP``."""
+    import torch
+    import repro_torch.models.layers as layers_mod
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_torch)
+    from repro_torch.launch.dryrun import Census
+    from repro_torch.training import make_eval_step
+    from repro_torch.training.sharded import (make_sharded_eval_step,
+                                              shard_params)
+    t0 = time.perf_counter()
+    params, cfg = trained["params"], k4_model.cfg
+    H, n = cfg.n_heads, WHISPER_TP_MP
+    say(f"== whisper tp (16w): {cfg.name} FULL (16a0's trained weights) at "
+        f"mp = {n}: {H} heads and kv heads of {cfg.head_dim}, on head_dim "
+        f"(20 % 16 != 0); at S > 1 each rank attends a block of whole "
+        f"heads [{card}]")
+    seen, real = [], layers_mod.gqa_apply
+
+    def capture(p, x, cfg_, **kw):
+        # decoder layer 0's self-attention: the first causal call (the
+        # encoder's layers come first and are not causal)
+        if not seen and kw.get("causal", True) and kw.get("cross_kv") is None:
+            seen.append((p, x, kw["positions"]))
+        return real(p, x, cfg_, **kw)
+    layers_mod.gqa_apply = capture
+    try:
+        with torch.no_grad():
+            k4_model.train_logits(params, {k: t for k, t in held.items()
+                                           if k != "labels"})
+    finally:
+        layers_mod.gqa_apply = real
+    p0, x0, pos = seen[0]
+    del seen
+    with torch.no_grad():
+        q, k, v = (layers_mod.proj_heads(x0, p0[w])
+                   for w in ("wq", "wk", "wv"))
+        if "bq" in p0:
+            q = q + p0["bq"]
+        if "bk" in p0:
+            k, v = k + p0["bk"], v + p0["bv"]
+        whole = flash_attention(layers_mod.apply_rope(q, pos, cfg.rope_theta),
+                                layers_mod.apply_rope(k, pos, cfg.rope_theta),
+                                v, causal=True)
+        outs, blocks = _rank_threads(n, cfg, q, k, v, pos)
+    k4 = WHISPER_TP["block_launches"]["flash_attention"]
+    if k4 != n:
+        raise AssertionError(f"[whisper tp] _gqa_head_dim over {n} ranks "
+                             f"launched K4 {k4} times, want {n}")
+    Dl, worst, join = cfg.head_dim // n, 0.0, 0.0
+    with torch.no_grad():
+        for r in range(n):
+            qb, kb, vb, out = blocks[r]
+            c = layers_mod._heads_of(H, n, r)[1][r]
+            want = flash_attention_torch(qb, kb, vb, causal=True)
+            torch.cuda.synchronize()
+            err = (out.float() - want.float()).abs().max().item()
+            worst = max(worst, err)
+            if (qb.shape[2] != c or qb.is_contiguous() or vb.is_contiguous()
+                    or not (torch.isfinite(out).all() and err <= KERNEL_TOL)):
+                raise AssertionError(f"[whisper tp] K4 on rank {r}'s heads "
+                                     f"{tuple(qb.shape)} (strides "
+                                     f"{qb.stride()}, {vb.stride()}; want "
+                                     f"{c} heads, views) against its plain "
+                                     f"version: {err}")
+            cols = whole[..., r * Dl:(r + 1) * Dl]
+            join = max(join, (outs[r].float() - cols.float()).abs().max()
+                       .item())
+            if r in (0, 4):
+                label = (f"{WHISPER} tp rank block: mp = {n}, rank {r}'s "
+                         f"B={qb.shape[0]} S={qb.shape[1]} H={c} D="
+                         f"{qb.shape[3]} causal, _gqa_head_dim's views (q "
+                         f"strides {tuple(qb.stride())}, v "
+                         f"{tuple(vb.stride())})")
+                WHISPER_TP["rows"].append(_k4_block_row(label, qb, kb, vb,
+                                                        out, err))
+        same = torch.equal(torch.cat(outs, 3), whole)
+    say(f"   _gqa_head_dim on all {n} ranks (threads, collectives by hand): "
+        f"K4 launched {k4} times, on views of 2 heads (ranks 0-3) and 1 "
+        f"(4-15); worst max_abs_err to the plain version {worst:.3e} (tol "
+        f"{KERNEL_TOL:.0e}); the ranks' columns after the all-to-all "
+        f"against K4's whole {tuple(whole.shape)} call: max_abs_err "
+        f"{join:.3e}, bit for bit {same} [{card}]")
+    if not join <= KERNEL_TOL:
+        raise AssertionError(f"[whisper tp] the ranks' columns do not "
+                             f"reassemble K4's whole call: {join}")
+    del q, k, v, whole, outs, blocks, p0, x0
+    WHISPER_TP["seconds"]["K4 blocks"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    with _serving_mesh(cfg) as mesh:
+        sparams = shard_params(k4_model, mesh, params)
+        sh_eval, k4_eval = (make_sharded_eval_step(k4_model, mesh),
+                            make_eval_step(k4_model))
+        single = float(k4_eval(params, held))
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        counted = Census()
+        with counted:
+            loss = float(sh_eval(sparams, held))
+        torch.cuda.synchronize()
+        k4 = flash_attention.launches
+        coll = {kind: c for kind, c in counted.coll_counts.items() if c}
+        ms = _in_turns({"single": lambda: k4_eval(params, held),
+                        "tp": lambda: sh_eval(sparams, held)}, 2)
+        rel = abs(loss - single) / abs(single)
+        want = _kernel_layers(cfg)
+        say(f"   make_sharded_eval_step with K4: loss {loss:.6f} "
+            f"(make_eval_step with K4, 16a0's: {single:.6f}, relative "
+            f"{rel:.2e}, tol {WHISPER_TP_LOSS_RTOL:.0e}); K4 launches {k4} "
+            f"for {want} causal decoder layers; collectives {coll}; in "
+            f"turns {ms['tp']} ms beside make_eval_step's {ms['single']} "
+            f"ms [{card}]")
+        if k4 != want or not rel <= WHISPER_TP_LOSS_RTOL:
+            raise AssertionError(f"[whisper tp] sharded eval: K4 {k4} for "
+                                 f"{want} layers, loss {loss} vs {single}")
+        del sparams
+    WHISPER_TP["launches"] = {"flash_attention": k4}
+    WHISPER_TP["seconds"]["sharded eval"] = time.perf_counter() - t1
+    say(f"== whisper tp, eval part: {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+
+
+def whisper_tp_serve(card: str, model, params, index, qs, tokens: dict,
+                     counters: dict, policy) -> None:
+    """Phase 16w, its serving part, on 16d's ``whisper-large-v3`` FULL
+    weights: on an NCCL serving mesh of one rank, ``ShardedExecutor``
+    serves 16d's first 8 requests through ``Gateway.serve``, every
+    launch count 0 just before and read just after: K1 exactly 32
+    decoder layers x decode steps, K2 never, the tokens equal to 16d's
+    (``tokens``, by prompt); then one decode step of NUM_SLOTS slots
+    through the tensor-parallel apply and on one device: its
+    collectives by kind (the dry run's ``Census``) and its ms in turns
+    (single, tp, tp, single)."""
+    import torch
+    from repro_torch.data import HashTokenizer
+    from repro_torch.launch.dryrun import Census
+    from repro_torch.routing import ContinuousEngineBackend
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    L = _kernel_layers(cfg)
+    with _serving_mesh(cfg) as mesh:
+        tp = mesh.group("model")
+        backend = ContinuousEngineBackend.create(
+            model, params, HashTokenizer(cfg.vocab_size), index,
+            num_slots=NUM_SLOTS, prefill_batch=PREFILL_BATCH,
+            max_prompt_len=MAX_PROMPT_LEN, max_new_tokens=MAX_NEW_TOKENS,
+            mesh=mesh)
+        ex = backend.engine.executor
+        if type(ex).__name__ != "ShardedExecutor":
+            raise AssertionError(f"[whisper tp] executor "
+                                 f"{type(ex).__name__}")
+        label = f"{WHISPER} tp dense"
+        run = _drive(label, backend, index, qs, 1, card, L, counters, policy)
+        _check_launches(label, run["launches"], "flash_decode",
+                        run["steps"], L, absent=("paged_flash_decode",))
+        got = run["rec"]["tokens"]
+        equal = sum(tokens.get(p) == t for p, t in got.items())
+        say(f"   ShardedExecutor (dp = 1 over NCCL): {equal} of {len(got)} "
+            f"requests' tokens equal to 16d's; launches {run['launches']} "
+            f"[{card}]")
+        if len(got) != 8 or equal != len(got):
+            raise AssertionError(f"[whisper tp] {equal} of {len(got)} token "
+                                 f"lists equal 16d's")
+        del backend, run, ex
+        dev = params["embed"].device
+        cache = model.init_cache(NUM_SLOTS, MAX_PROMPT_LEN + MAX_NEW_TOKENS,
+                                 device=dev)
+        step_tokens = torch.zeros(NUM_SLOTS, 1, dtype=torch.int32,
+                                  device=dev)
+        steps, colls = {}, {}
+        for name, group in (("single", None), ("tp", tp)):
+            @torch.no_grad()
+            def step(group=group):
+                lg, _ = model.decode(params, {"tokens": step_tokens}, cache,
+                                     tp=group)
+                return lg[:, -1].argmax(-1)
+            counted = Census()
+            with counted:
+                step()
+            torch.cuda.synchronize()
+            steps[name] = step
+            colls[name] = {k: c for k, c in counted.coll_counts.items() if c}
+        ms = _in_turns(steps, 2)
+        del cache
+    say(f"   decode step ({NUM_SLOTS} slots), in turns single, tp, tp, "
+        f"single: tensor-parallel {ms['tp']} ms, collectives "
+        f"{colls['tp']}; single-device {ms['single']} ms, collectives "
+        f"{colls['single']} [{card}]")
+    WHISPER_TP["seconds"]["serve"] = time.perf_counter() - t0
+    say(f"== whisper tp (16w): {sum(WHISPER_TP['seconds'].values()):.1f} s "
+        f"in all ({', '.join(f'{k} {v:.1f} s' for k, v in WHISPER_TP['seconds'].items())}) [{card}]")
 
 
 def _prefill_flops(cfg, B: int, S: int) -> int:
@@ -6073,7 +6479,11 @@ def modality_serve_phase(card: str, policy) -> dict:
     _check_repeat(label, dense, qs)
     _check_no_sync(ex, "decode chunk")
     out[WHISPER] = dense["launches"]
+    tokens = dense["rec"]["tokens"]
     del dense, backend, ex
+    # phase 16w's serving part, where the weights live
+    _free_gpu_memory(f"{WHISPER} tp")
+    whisper_tp_serve(card, model, params, index, qs, tokens, counters, policy)
     _free_gpu_memory(f"{WHISPER} paged")
     try:
         backend_for(paged=True, page_size=PAGE_SIZE, num_pages=NUM_PAGES)
@@ -6808,8 +7218,13 @@ def main() -> None:
     moe_launches.update(mla_serve_phase(card, router))
     family_launches = modality_serve_phase(card, router)
     family_launches[GEMMA] = gemma_launches
-    # K6's row at mamba2-130m's rank shard counts phase 16t's eval
+    # K6's row at mamba2-130m's rank shard counts phase 16t's eval, K4's
+    # at whisper's rank blocks phase 16w's run of the 16 ranks' route
     family_launches[MAMBA + " tp"] = tp_launches
+    family_launches[WHISPER + " tp"] = WHISPER_TP["launches"]
+    family_launches[WHISPER + " tp rank block"] = \
+        WHISPER_TP["block_launches"]
+    rows += WHISPER_TP["rows"]
     # K4's rows at a family's eval shape count that family's eval, K8's
     # its train steps
     for arch, counts in train_launches.items():
@@ -6838,9 +7253,10 @@ def main() -> None:
         # K4's at phi-3's and gemma3's eval shapes, their evals'; K7's at
         # dbrx's and deepseek's, their serve phases'; K8's, dbrx's train
         # steps)
-        fam = [f for f in family_launches
-               if row.get("shape", "").startswith(f)]
-        row["launches"] = (family_launches[fam[0]] if fam
+        fam = max((f for f in family_launches
+                   if row.get("shape", "").startswith(f)), key=len,
+                  default=None)
+        row["launches"] = (family_launches[fam] if fam
                            else launches)[row["name"]]
     say(f"== won back by running beside other phases: "
         f"{', '.join(f'{k} {v:.1f} s' for k, v in WON_BACK.items())}; "

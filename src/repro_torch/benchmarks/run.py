@@ -5,18 +5,20 @@ each benchmark's own report.  Artifacts land in
 ``src/repro_torch/benchmarks/artifacts/``.  Every policy trains on
 ``--device`` (the card unless ``--device cpu``).
 
-    PYTHONPATH=src python -m repro_torch.benchmarks.run             # all ten
+    PYTHONPATH=src python -m repro_torch.benchmarks.run             # all
     PYTHONPATH=src python -m repro_torch.benchmarks.run table1 ope  # a subset
     PYTHONPATH=src python -m repro_torch.benchmarks.run --device cpu
 
-The repository's ``benchmarks/run.py`` also lists benches without a
-twin here: ``kernels``, ``serving``, ``retrieval`` and ``chaos`` write
-the JAX package's measurement rows and wait for a benchmark of the port
+The ten paper benches, and ``perf``: the §Perf before/after table from
+the records of ``python -m repro_torch.launch.dryrun`` (fake-tensor
+models, not measurements; :mod:`repro_torch.benchmarks.perf_variants`,
+whose ``--make`` traces the missing ones).  The repository's
+``benchmarks/run.py`` also lists benches without a twin here:
+``kernels``, ``serving``, ``retrieval`` and ``chaos`` write the JAX
+package's measurement rows and wait for a benchmark of the port
 (ROADMAP.md queue 1, item 10); ``roofline`` is no paper bench: the
 port's twin is ``python -m repro_torch.analysis.roofline`` over the
-records of ``python -m repro_torch.launch.dryrun`` (H100 constants);
-``perf`` reads ``experiments/dryrun/``, which the repository does not
-have.
+dry run's records (H100 constants).
 """
 from __future__ import annotations
 
@@ -27,8 +29,8 @@ import time
 from repro_torch.benchmarks import (conditioned_policy, fig1_action_dist,
                                     fig2_cost_quality, fig3_reward,
                                     mitigation, objectives_ablation, ope,
-                                    pareto_sweep, seeds_ablation,
-                                    table1_slo_grid)
+                                    pareto_sweep, perf_variants,
+                                    seeds_ablation, table1_slo_grid)
 
 BENCHMARKS = {
     "table1": table1_slo_grid.main,     # paper Table 1
@@ -41,6 +43,8 @@ BENCHMARKS = {
     "conditioned": conditioned_policy.main,  # beyond paper
     "pareto": pareto_sweep.main,        # beyond paper: collapse onset
     "seeds": seeds_ablation.main,       # beyond paper: §8 uncertainty
+    "perf": perf_variants.main,         # §Perf before/after from the dry
+                                        # run's records (fake tensors)
 }
 
 

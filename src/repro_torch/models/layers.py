@@ -36,7 +36,9 @@ Where mp does not divide the kv heads (qwen1.5-32b's 40, command-r's,
 dbrx's and gemma3's 8 at mp = 16), the resolver splits the attention's
 leaves on ``head_dim`` and the layer takes that placement's own route
 (:func:`_gqa_head_dim`: the step's rows gathered for rope, decode's
-partial scores summed over ``tp``, whole heads at S > 1).
+partial scores summed over ``tp``, whole heads at S > 1); Whisper's
+cross-attention takes the same placements and routes, with no rope
+and nothing written.
 
 Multi-head latent attention (:func:`mla_apply`) reaches no kernel, as in
 the reference: its naive decode runs the plain :func:`attention`, its
@@ -313,6 +315,9 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
     ``cross_kv=(k, v)`` (B, T, Hkv, Dh) makes this Whisper's
     cross-attention: only the query is projected (with its bias), no
     rope on either side, no mask, and the cache is returned untouched.
+    Under ``tp`` k and v hold the kv heads, or the ``head_dim``
+    columns, of ``cross/wk`` / ``cross/wv`` on this rank, and the
+    layer takes the same routes as the self-attention's.
 
     With ``tp`` the weights, biases and cache hold this rank's heads and
     kv heads, and the output projection is all-reduced over ``tp``.
@@ -329,7 +334,18 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None, window=0,
         q = q + p["bq"]
     if cross_kv is not None:
         k, v = cross_kv
-        out = attention(q, k, v, q_pos=positions, causal=False)
+        if k.shape[-1] < cfg.head_dim:
+            # the cross k / v split on head_dim over tp: the head_dim
+            # route without rope or a cache write
+            out = _gqa_head_dim(q, k, v, cfg, positions=positions,
+                                cache=None, window=0, causal=False,
+                                ring=False, page_table=None, tp=tp,
+                                cross=True)
+        else:
+            # whole heads: one device, or the heads placement, where q
+            # and the cross k / v hold this rank's heads and kv heads and
+            # _out_proj's all-reduce sums the ranks' heads
+            out = attention(q, k, v, q_pos=positions, causal=False)
         return _out_proj(p, out, tp), cache
 
     softcap = cfg.attn_logit_softcap
@@ -479,8 +495,21 @@ def _cache_rows(k, v, quant: bool, dims):
             "v_s": vs}
 
 
+def _gather_heads(parts, group):
+    """``parts`` (B, S_i, H_i, Dl), this rank's ``head_dim`` columns of
+    each, whole (B, S_i, H_i, Dl x n) in one all-gather over ``group``:
+    each part flattened to (B, S_i H_i, Dl) and joined on that, so parts
+    of other lengths (the cross-attention's q beside the encoder's rows)
+    go in the same gather as the self-attention's q, k and v."""
+    B, Dl = parts[0].shape[0], parts[0].shape[-1]
+    whole = gather_split(torch.cat([t.reshape(B, -1, Dl) for t in parts], 1),
+                         group, 2)
+    return [w.reshape(*t.shape[:3], -1) for w, t in zip(
+        whole.split([t.shape[1] * t.shape[2] for t in parts], 1), parts)]
+
+
 def _gqa_head_dim(q, k, v, cfg: ModelConfig, *, positions, cache, window,
-                  causal, ring, page_table, tp):
+                  causal, ring, page_table, tp, cross=False):
     """The attention of a layer whose kv heads split on ``head_dim`` over
     ``tp`` (the resolver's fallback where mp does not divide them): k, v
     (B, S, Hkv, Dh / n) and the cache leaves hold this rank's columns;
@@ -527,10 +556,29 @@ def _gqa_head_dim(q, k, v, cfg: ModelConfig, *, positions, cache, window,
       collective bytes.
     * int8 caches quantize the whole rows (:func:`_cache_rows`).
 
+    ``cross=True`` is Whisper's cross-attention (``gqa_apply``'s
+    ``cross_kv``): k, v (B, T, Hkv, Dh / n) are this rank's columns of
+    the encoder's rows (projected from it, or read from the cross
+    cache), nothing is rotated, masked or written, and the rest is the
+    route above.  By the shapes of rank 0 of whisper-large-v3 on the
+    16 x 16 layout (20 heads, 20 kv heads, 1500 encoder rows, bf16):
+
+    * Decode (S == 1) keeps the cross cache's split and sums the float32
+      partial scores over ``tp``: 8 rows x 20 heads x 1500 x 4 B = 0.96
+      MB a layer at decode_32k, where gathering the cross cache would
+      move 8 x 1500 x 20 x 64 x 2 B x 2 = 61 MB a layer.
+    * S > 1 (prefill, training, evaluation) gathers q, k and v whole on
+      head_dim in one all-gather (:func:`_gather_heads`; the k / v rows
+      are 2 x 1500 x 20 x 64 x 2 B x 2 = 15 MB at prefill_32k's 2 rows a
+      rank) and each rank attends its own block of heads, where summed
+      scores would be 2 x 20 x 32768 x 1500 x 4 B = 7.9 GB a layer.
+    * The mixed placement (q on heads, the cross k / v on head_dim)
+      would need H != Hkv, which Whisper does not have: it raises.
+
     Training runs it under a :class:`GradGroup`: each gather's backward
     reduce-scatters the gradient (every rank uses the gathered rows for
     its own heads) and the all-to-all sends it back.  The decode route
-    takes a cache, which training never does."""
+    takes a cache (or cross rows), which training never has at S == 1."""
     group = group_of(tp)
     n, r = dist.get_world_size(group), dist.get_rank(group)
     Dh, Hkv = cfg.head_dim, k.shape[2]
@@ -539,16 +587,26 @@ def _gqa_head_dim(q, k, v, cfg: ModelConfig, *, positions, cache, window,
     split_q = q.shape[-1] < Dh
     H = q.shape[2] if split_q else q.shape[2] * n
     B, S = q.shape[:2]
+    if cross and not split_q:
+        raise ValueError(
+            f"{cfg.name}: cross-attention with q on heads and the cross "
+            f"k / v on head_dim (H={H}, Hkv={Hkv} over {n} ranks) has no "
+            f"route")
+    if cross and S == 1:
+        return attention(q, k, v, q_pos=positions, causal=False,
+                         head_dim=Dh, reduce=lambda s: all_reduce(s, group))
     if split_q:
-        q, k, v = gather_split(torch.cat([q, k, v], 2), group, 3).split(
-            [H, Hkv, Hkv], 2)
+        q, k, v = _gather_heads([q, k, v], group)
     else:
-        k, v = gather_split(torch.cat([k, v], 2), group, 3).split(
-            [Hkv, Hkv], 2)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+        k, v = _gather_heads([k, v], group)
+    if not cross:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     quant = cache is not None and "k_q" in cache
     softcap = cfg.attn_logit_softcap
+    # the cross-attention's plain call is the one-device call's, with
+    # attention's own softcap and q_chunk
+    plain = {} if cross else {"softcap": softcap, "q_chunk": cfg.attn_q_chunk}
     bidx = torch.arange(B, device=q.device)
 
     if cache is not None and S == 1:
@@ -580,8 +638,8 @@ def _gqa_head_dim(q, k, v, cfg: ModelConfig, *, positions, cache, window,
                       else (cache["k"], cache["v"]))
         out = attention(q[..., dims], ck, cv, q_pos=positions,
                         kv_len=kv_len, causal=causal, window=window,
-                        softcap=softcap, q_chunk=cfg.attn_q_chunk,
-                        head_dim=Dh, reduce=lambda s: all_reduce(s, group))
+                        head_dim=Dh, reduce=lambda s: all_reduce(s, group),
+                        **plain)
         if split_q:
             return out
         Hl = H // n
@@ -621,8 +679,7 @@ def _gqa_head_dim(q, k, v, cfg: ModelConfig, *, positions, cache, window,
         out = flash_attention(q, k, v, causal=True)
     else:
         out = attention(q, k, v, q_pos=positions, kv_len=kv_len,
-                        causal=causal, window=window, softcap=softcap,
-                        q_chunk=cfg.attn_q_chunk)
+                        causal=causal, window=window, **plain)
     return _to_columns(out, group, counts) if split_q else out
 
 

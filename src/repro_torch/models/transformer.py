@@ -65,7 +65,12 @@ as on one device); an attention layer split on ``head_dim`` adds its
 own (see :func:`repro_torch.models.layers.gqa_apply`), an MLA layer its
 decode's gather of the latent (:func:`repro_torch.models.layers.
 mla_apply`), and a Mamba2 layer the all-reduce of its gated norm's sum
-of squares (:func:`repro_torch.models.ssm.ssm_apply`).
+of squares (:func:`repro_torch.models.ssm.ssm_apply`).  Whisper's
+encoder layers take ``tp`` as a decoder layer does, so its output
+leaves them whole on every rank, and a decoder layer's cross sublayer
+projects it through the rank's heads or ``head_dim`` columns of
+``cross/wk`` / ``cross/wv`` (into the same columns of the cache's
+``cross_k`` / ``cross_v``) and attends as the self-attention does.
 :func:`check_tensor_parallel` refuses any other placement.
 
 Training: gradients reach the stacked ``blocks`` leaves through the
@@ -210,9 +215,12 @@ def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
     over the cache's ``cross_k`` / ``cross_v`` when there is a cache;
     without, they are read from the cache.
 
-    ``tp``: the tensor-parallel group of the GQA, MLA, Mamba2 and FFN
-    sublayers (see the module docstring and
-    :func:`repro_torch.models.ssm.ssm_apply`).
+    ``tp``: the tensor-parallel group of the GQA (self and cross), MLA,
+    Mamba2 and FFN sublayers (see the module docstring and
+    :func:`repro_torch.models.ssm.ssm_apply`).  ``enc_out`` is whole on
+    every rank and feeds the cross sublayer's column-split ``cross/wk``
+    / ``cross/wv`` products as it is: :func:`_encode` has passed it
+    through ``f`` once for every decoder layer.
     ``moe_fn(p, x, cfg) -> (y, aux)`` replaces ``moe_apply_ragged`` in
     an MoE layer and brings its own collectives."""
     aux = 0.0
@@ -257,31 +265,36 @@ def apply_layer(p, x, cfg: ModelConfig, s: LayerSig, *, positions,
 
 # The leaves the tensor-parallel apply splits over the model axis, by
 # the end of their path, with the logical axes each one may split on
-# there (``None``: whole): the weights of the GQA, MLA and FFN
-# sublayers and the attention caches (the dense slot cache or page pool,
-# int8 or not; MLA's latent pair).  The attention's leaves split on
-# their heads, or, where the resolver falls back because the mesh's mp
-# does not divide the head count, on ``head_dim``
-# (:func:`repro_torch.models.layers.gqa_apply`'s head_dim route,
-# :func:`repro_torch.models.layers._mla_split`); the int8 scales have no
-# head_dim and stay whole then.  MLA's cached latent ``c_kv`` splits on
-# ``kv_lora``, its ``k_rope`` stays whole.  A Mamba2 layer's
-# ``d_inner`` leaves split on it: ``w_z``, ``w_x``, ``conv_x``, ``norm``,
-# ``w_out`` and the cache's ``conv_x`` (``conv_x`` names the weight and
-# the cache leaf alike); the cache's ``state`` stays whole
-# (:func:`repro_torch.models.ssm.ssm_apply` writes only the rank's rows),
-# as do ``conv_B`` / ``conv_C``.  Every other leaf stays whole on each
-# rank.
+# there (``None``: whole): the weights of the GQA (self- and Whisper's
+# cross-attention), MLA and FFN sublayers, of a decoder layer and of a
+# Whisper encoder layer alike (``encoder/attn/...`` ends as a block's
+# ``attn/...`` does), and the attention caches (the dense slot cache or
+# page pool, int8 or not; MLA's latent pair; Whisper's ``cross_k`` /
+# ``cross_v``, which the suffix match keeps apart from ``k`` / ``v``).
+# The attention's leaves split on their heads, or, where the resolver
+# falls back because the mesh's mp does not divide the head count, on
+# ``head_dim`` (:func:`repro_torch.models.layers.gqa_apply`'s head_dim
+# route, :func:`repro_torch.models.layers._mla_split`); the int8 scales
+# have no head_dim and stay whole then.  MLA's cached latent ``c_kv``
+# splits on ``kv_lora``, its ``k_rope`` stays whole.  A Mamba2 layer's
+# ``d_inner`` leaves split on it: ``w_z``, ``w_x``, ``conv_x``,
+# ``norm``, ``w_out`` and the cache's ``conv_x`` (``conv_x`` names the
+# weight and the cache leaf alike); the cache's ``state`` stays whole
+# (:func:`repro_torch.models.ssm.ssm_apply` writes only the rank's
+# rows), as do ``conv_B`` / ``conv_C``.  Every other leaf stays whole on
+# each rank: the norms, ``enc_pos``, the projector.
 TP_AXES = {
     "embed": ("vocab",), "lm_head": ("vocab",),
-    **{f"attn/{w}": ("heads", "head_dim")
-       for w in ("wq", "bq", "wo", "wq_b", "wk_b", "wv_b")},
-    **{f"attn/{w}": ("kv_heads", "head_dim")
+    **{f"{m}/{w}": ("heads", "head_dim") for m in ("attn", "cross")
+       for w in ("wq", "bq", "wo")},
+    **{f"attn/{w}": ("heads", "head_dim") for w in ("wq_b", "wk_b", "wv_b")},
+    **{f"{m}/{w}": ("kv_heads", "head_dim") for m in ("attn", "cross")
        for w in ("wk", "wv", "bk", "bv")},
     **{f"{m}/{w}": ("d_ff",) for m in ("mlp", "shared")
        for w in ("w_gate", "w_up", "w_down", "b_ff")},
     **{f"moe/{w}": ("d_ff_expert",) for w in ("w_gate", "w_up", "w_down")},
-    **{c: ("kv_heads", "head_dim") for c in ("k", "v", "k_q", "v_q")},
+    **{c: ("kv_heads", "head_dim") for c in ("k", "v", "k_q", "v_q",
+                                               "cross_k", "cross_v")},
     **{c: ("kv_heads", None) for c in ("k_s", "v_s")},
     "c_kv": ("kv_lora",), "k_rope": (None,),
     **{f"ssm/{w}": ("d_inner",) for w in ("w_z", "w_x", "norm", "w_out")},
@@ -293,17 +306,17 @@ def check_tensor_parallel(named, mp: int) -> None:
     """Refuse a placement the tensor-parallel apply (serving's, and the
     sharded train step's) has no collective for.  ``named`` holds
     ``(leaf name, ParamSpec, spec)`` of every parameter and cache leaf;
-    at ``mp > 1`` each leaf of :data:`TP_AXES` must split on one of its
-    axes there, and no other leaf may split over ``model``: Whisper's
-    cross layers, and Whisper's encoder, which runs without ``tp``.  The
-    MTP layer's leaves (``mtp/...``) split as a block's do."""
+    at ``mp > 1`` each leaf of :data:`TP_AXES` (matched by the end of
+    its name, so ``encoder/attn/wq`` and ``mtp/layer/attn/wq`` split as
+    a block's ``attn/wq``) must split on one of its axes there, and no
+    other leaf may split over ``model``.  Every published config passes
+    on the production mesh; the message names a leaf the resolver
+    places where the apply has no route."""
     if mp <= 1:
         return
     for name, ps, spec in named:
-        whole = name.startswith("encoder/")
-        want = (None,) if whole else next(
-            (axes for key, axes in TP_AXES.items()
-             if name == key or name.endswith("/" + key)), (None,))
+        want = next((axes for key, axes in TP_AXES.items()
+                     if name == key or name.endswith("/" + key)), (None,))
         got = next((ps.axes[i] for i, e in enumerate(spec)
                     if e == "model"), None)
         if got not in want:
@@ -311,9 +324,9 @@ def check_tensor_parallel(named, mp: int) -> None:
             raise ValueError(
                 f"tensor parallelism at mp={mp} has no collective "
                 f"for {name} {ps.shape} {ps.axes} resolved to {spec} "
-                f"(the apply splits it on {names}): serving "
-                f"or training this family at mp > 1 is ROADMAP.md queue "
-                f"1, item 9, next 2")
+                f"(the apply splits it on {names}): the port has no "
+                f"route for this placement, a fault of the port against "
+                f"the reference (ROADMAP.md queue 3)")
 
 
 def _layer_cache_schema(cfg: ModelConfig, s: LayerSig, batch: int,
@@ -522,11 +535,19 @@ def _gathered(gather, tree, *path):
     return tree if gather is None else gather(tree, path)
 
 
-def _encode(params, cfg: ModelConfig, audio_emb, gather=None):
+def _encode(params, cfg: ModelConfig, audio_emb, gather=None, tp=None):
     """Whisper's encoder over the stub frame embeddings (B, T, d), T =
     ``encoder_seq_len``: ``enc_pos`` added, ``n_encoder_layers``
     non-causal layers (rope on, as in the reference), the final norm.
-    With ``gather`` (and autograd on) each layer is rematerialized."""
+    With ``gather`` (and autograd on) each layer is rematerialized.
+    With ``tp`` each layer runs tensor-parallel, as a decoder layer
+    does: the residual stream, and so the output, is whole on every
+    rank after each sublayer's all-reduce.  The output leaves through
+    ``f`` (``copy_to_split``): every decoder layer's cross sublayer
+    projects it through its rank's heads or columns of ``cross/wk`` /
+    ``cross/wv``, so under training's :class:`GradGroup` each rank's
+    gradient into it is a part, summed over the layers on the rank and
+    then over ``tp`` in one all-reduce (identity forward)."""
     w = _gathered(gather, params["enc_pos"], "enc_pos")
     x = audio_emb.to(w.dtype) + w[None]
     B, T, _ = x.shape
@@ -535,15 +556,17 @@ def _encode(params, cfg: ModelConfig, audio_emb, gather=None):
 
     def layer(h, lp, i):
         lp = _gathered(gather, lp, "encoder", i)
-        return apply_layer(lp, h, cfg, ENC_SIG, positions=positions)[0]
+        return apply_layer(lp, h, cfg, ENC_SIG, positions=positions,
+                           tp=tp)[0]
 
     remat = gather is not None and torch.is_grad_enabled()
     for i in range(cfg.n_encoder_layers):
         lp = _slice(params["encoder"], i)
         x = (checkpoint(layer, x, lp, i, use_reentrant=False) if remat
              else layer(x, lp, i))
-    return L.rmsnorm(_gathered(gather, params["enc_final_norm"],
-                               "enc_final_norm"), x, cfg.norm_eps)
+    x = L.rmsnorm(_gathered(gather, params["enc_final_norm"],
+                            "enc_final_norm"), x, cfg.norm_eps)
+    return copy_to_split(x, tp)
 
 
 def forward_prefill(params, cfg: ModelConfig, inputs, cache, *,
@@ -579,7 +602,7 @@ def _forward_cached(params, cfg, inputs, cache, *, prefill, mla_absorb,
         S = x.shape[1]
     # with audio_emb the decoder's cross caches are written from the
     # encoder; without (a served request) they are read as they are
-    enc_out = (_encode(params, cfg, inputs["audio_emb"])
+    enc_out = (_encode(params, cfg, inputs["audio_emb"], tp=tp)
                if cfg.is_encoder_decoder and "audio_emb" in inputs else None)
 
     if prefill:
@@ -661,7 +684,7 @@ def _backbone(params, cfg: ModelConfig, inputs, *, moe_fn=None, tp=None,
     too."""
     prefix, block, n_blocks = layer_structure(cfg)
     x, positions = _embed_inputs(params, cfg, inputs, tp, gather)
-    enc_out = (_encode(params, cfg, inputs["audio_emb"], gather)
+    enc_out = (_encode(params, cfg, inputs["audio_emb"], gather, tp)
                if cfg.is_encoder_decoder else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 

@@ -37,9 +37,15 @@ mesh))`` (:func:`train_specs`; :func:`shard_params` and
   ssm_apply`); the evaluation forward takes K6 on the rank's sub-heads
   under ``use_pallas_ssd``.  The Mamba2 layers reach the same
   ``_backbone`` as every other layer, their leaves split over ``data``
-  gathered by the same hook.
-  :func:`~repro_torch.models.transformer.check_tensor_parallel` refuses
-  Whisper at mp > 1.
+  gathered by the same hook.  Whisper's encoder layers run
+  tensor-parallel too, split over ``model`` as a decoder layer is; the
+  gather of ``encoder`` (each layer's slice of the stack) gathers only
+  over ``data`` and leaves the ``model`` split in place, and the
+  encoder's output enters each cross sublayer's ``cross/wk`` /
+  ``cross/wv`` through ``f``, so ``enc_pos`` and every encoder leaf get
+  the whole gradient.  Every published family passes
+  :func:`~repro_torch.models.transformer.check_tensor_parallel` at the
+  production mesh's mp = 16.
 * **The multi-pod layout** (a mesh with a ``pod`` axis, the
   reference's ``(2, 16, 16)``): the batch's rows split over ``pod`` x
   ``data``, pod-major; the weights are placed as on one pod (the

@@ -30,13 +30,16 @@
   torch built with CUDA (a CPU-only build has no CUDA device guard to
   index them with): that case runs only there, and ``chip_smoke.py``'s
   dry-run phase holds qwen FULL's 64 launches on the card.
-* **The CLI**: a refused combination (whisper-large-v3's cross
-  layers) prints ``FAIL`` with ``check_tensor_parallel``'s message and
-  exits 1; an accepted one writes its record; qwen1.5-32b's decode_32k
-  passes as published on the head_dim route, its census and scores'
-  bytes as the route sends them, no would-be K1 launch; mamba2-130m's
-  decode_32k passes on the Mamba2 route, two all-reduces a layer.  Each
-  runs in a subprocess (a process makes one world).
+* **The CLI**: a refused combination (whisper-large-v3 with
+  ``cross/wk`` taken out of ``TP_AXES`` in the subprocess) prints
+  ``FAIL`` with ``check_tensor_parallel``'s message and exits 1; an
+  accepted one writes its record; qwen1.5-32b's decode_32k passes as
+  published on the head_dim route, its census and scores' bytes as the
+  route sends them, no would-be K1 launch; mamba2-130m's decode_32k
+  passes on the Mamba2 route, two all-reduces a layer; whisper-large-v3's
+  decode_32k passes as published, its cross-attention's summed scores
+  and output all-reduced a decoder layer.  Each runs in a subprocess (a
+  process makes one world).
 """
 import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 import json
@@ -294,10 +297,10 @@ def test_smoke_decode_on_fake_cuda_tensors_counts_k1_once_a_layer():
 # ---------------------------------------------------------------------------
 
 
-def _cli(tmp_path, *argv):
+def _cli(tmp_path, *argv, before=""):
     code = ("import sys\nfrom pathlib import Path\n"
             "from repro_torch.launch import dryrun as D\n"
-            f"D.RESULTS_DIR = Path({str(tmp_path)!r})\n"
+            f"D.RESULTS_DIR = Path({str(tmp_path)!r})\n{before}"
             f"sys.exit(D.main({list(argv)!r}))\n")
     return subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300,
@@ -307,15 +310,55 @@ def _cli(tmp_path, *argv):
 
 
 def test_cli_prints_fail_for_a_refused_combination(tmp_path):
+    """Every published family passes; with ``cross/wk``'s entry taken
+    out of ``TP_AXES`` whisper's cross layers have no route, and the CLI
+    prints the check's message as a FAIL line and exits 1."""
     arch = "whisper-large-v3"
     r = _cli(tmp_path, "--arch", arch, "--shape", "decode_32k",
-             "--device", "cpu")
+             "--device", "cpu",
+             before="from repro_torch.models import transformer as T\n"
+                    "del T.TP_AXES['cross/wk']\n")
     assert r.returncode == 1, r.stderr[-3000:]
     fail = [ln for ln in r.stdout.splitlines() if ln.startswith("FAIL")]
     assert len(fail) == 1 and f"{arch}__decode_32k__single" in fail[0]
     assert "tensor parallelism at mp=16 has no collective" in fail[0]
-    assert "queue 1, item 9, next 2" in fail[0]
+    assert "blocks/p0/cross/wk (32, 1280, 20, 64)" in fail[0]
+    assert "ROADMAP.md queue 3" in fail[0]
     assert not list(tmp_path.glob("*.json"))
+
+
+def test_cli_passes_whisper_decode_with_the_cross_census(tmp_path):
+    """whisper-large-v3 as published (20 heads and kv heads: head_dim on
+    the 16-way model axis, its cross layers and cross cache too) at
+    decode_32k on the single-pod layout: the census (the embedding's
+    all-reduce and five a decoder layer: the self-attention's summed
+    scores and output, the cross-attention's summed scores over the 1500
+    encoder rows and output, the MLP's output; one all-gather a layer of
+    the step's q / k / v rows, and the logits'; no all-to-all), the
+    scores' bytes, and no would-be K1 launch."""
+    arch = "whisper-large-v3"
+    r = _cli(tmp_path, "--arch", arch, "--shape", "decode_32k",
+             "--device", "cpu")
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert f"OK    {arch}__decode_32k__single" in r.stdout
+    rec = json.loads((tmp_path / f"{arch}__decode_32k__single.json")
+                     .read_text())
+    cfg = get_config(arch, "full")
+    n, H, Dh = cfg.n_layers, cfg.n_heads, cfg.head_dim
+    B = INPUT_SHAPES["decode_32k"]["global_batch"] // 16
+    L = INPUT_SHAPES["decode_32k"]["seq_len"]
+    assert rec["collective_counts"] == {
+        "all-gather": n + 1, "all-reduce": 5 * n + 1, "reduce-scatter": 0,
+        "all-to-all": 0, "collective-permute": 0}
+    cross = B * H * cfg.encoder_seq_len * 4
+    assert cross == 960_000          # 0.96 MB a layer
+    hidden = B * cfg.d_model * 2
+    assert rec["collective_bytes"]["all-reduce"] == (
+        n * (B * H * L * 4 + cross + 3 * hidden) + hidden)
+    assert rec["collective_bytes"]["all-gather"] == (
+        n * B * 3 * H * Dh * 2 + B * cfg.padded_vocab * 4)
+    assert rec["launches"]["flash_decode"] == 0
+    assert rec["fallbacks"] == []
 
 
 def test_cli_passes_qwen_decode_unpadded_on_the_head_dim_route(tmp_path):

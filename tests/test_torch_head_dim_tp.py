@@ -20,10 +20,12 @@ apply then attends through ``models/layers.py::_gqa_head_dim``.  Here:
   deepseek-v3-671b (its MTP layer included) as published (serving's
   params and caches, dense, int8 and paged where the family pages;
   training's FSDP specs), and mamba2-130m and jamba-1.5-large-398b
-  with their ``d_inner`` leaves on ``model``, and still refuses
-  Whisper's cross and encoder leaves; the MLA leaves' placements there
-  (heads at deepseek-v3, head_dim at minicpm3, the cached latent on
-  kv_lora);
+  with their ``d_inner`` leaves on ``model``, and whisper-large-v3
+  (its encoder, cross layers and cross cache on head_dim), and still
+  refuses a leaf the apply has no route for (naming it, its spec and
+  axes); the cache's ``cross_k`` / ``cross_v`` match their own entry,
+  not ``k`` / ``v``; the MLA leaves' placements there (heads at
+  deepseek-v3, head_dim at minicpm3, the cached latent on kv_lora);
 * ``local_params`` cuts a bridged reference leaf on head_dim as the
   resolver places it, so no converter is new: GQA's, and MLA's
   ``wq_b`` / ``wk_b`` / ``wv_b`` / ``wo`` and cached ``c_kv`` at
@@ -49,6 +51,8 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.launch.mesh import LayoutMesh
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.models.schema import ParamSpec
 from repro_torch.models.transformer import (check_tensor_parallel,
                                             decoder_param_schema,
                                             init_cache_schema,
@@ -193,8 +197,11 @@ def test_kv_heads_of_a_block_of_query_heads(Hkv, G, start, count, n_kv):
 PROD = LayoutMesh(("data", "model"), np.empty((16, 16)))
 ACCEPTED = ("qwen1.5-32b", "command-r-35b", "dbrx-132b", "gemma3-12b",
             "minicpm3-4b", "deepseek-v3-671b", "mamba2-130m",
-            "jamba-1.5-large-398b")
-REFUSED = ("whisper-large-v3",)
+            "jamba-1.5-large-398b", "whisper-large-v3")
+# leaves no entry of TP_AXES covers, which the resolver splits over model
+# at mp = 16: (id, axes, shape) of a block's attention leaf ``w_extra``
+REFUSED = (("heads", ("d_model", "heads", "head_dim"), (1280, 32, 64)),
+           ("head_dim", ("d_model", "kv_heads", "head_dim"), (1280, 20, 64)))
 
 
 def _named(cfg, *, fsdp=False, caches=True):
@@ -236,18 +243,40 @@ def test_the_four_families_pass_the_check_at_mp16(arch):
         check_tensor_parallel(_named(ring), 16)
 
 
-@pytest.mark.parametrize("arch", REFUSED)
-def test_the_rest_are_still_refused_at_mp16(arch):
-    cfg = get_config(arch, "full")
+@pytest.mark.parametrize("axis,axes,shape", REFUSED,
+                         ids=[r[0] for r in REFUSED])
+def test_the_rest_are_still_refused_at_mp16(axis, axes, shape):
+    """A schema with one leaf the apply has no route for: the check
+    names the leaf, its shape, axes and spec, and the roadmap's queue of
+    faults."""
+    schema = {"blocks": {"p0": {"attn": {"w_extra": ParamSpec(shape,
+                                                             axes)}}}}
+    named = named_specs(schema, specs_for_schema(schema, PROD))
+    spec = named[0][2]
+    assert axes[spec.index("model")] == axis
     with pytest.raises(ValueError) as exc:
-        check_tensor_parallel(_named(cfg, caches=False), 16)
+        check_tensor_parallel(named, 16)
     msg = str(exc.value)
     assert "tensor parallelism at mp=16 has no collective" in msg
-    assert "ROADMAP.md queue 1, item 9, next 2" in msg
-    if arch.startswith("whisper"):
-        # its decoder self-attention takes the head_dim route now
-        leaf = msg.split(" for ")[1].split(" ")[0]
-        assert "/cross/" in leaf or leaf.startswith("encoder/"), leaf
+    assert f"for blocks/p0/attn/w_extra {shape} {axes}" in msg
+    assert f"resolved to {spec}" in msg
+    assert "ROADMAP.md queue 3" in msg
+
+
+def test_cross_cache_leaves_match_their_own_entry(monkeypatch):
+    """``cross_k`` / ``cross_v`` end neither in ``/k`` nor ``/v``: they
+    take their own entry of TP_AXES, and without it they are refused
+    (``k``'s entry never covers them)."""
+    cfg = get_config("whisper-large-v3", "full")
+    schema = init_cache_schema(cfg, 128, 1024)
+    named = named_specs(schema, specs_for_schema(schema, PROD))
+    cross = [(n, ps, s) for n, ps, s in named if "cross_" in n]
+    assert cross and all(ps.axes[s.index("model")] == "head_dim"
+                         for _, ps, s in cross)
+    check_tensor_parallel(named, 16)
+    monkeypatch.delitem(T.TP_AXES, "cross_v")
+    with pytest.raises(ValueError, match="for blocks/p0/cross_v "):
+        check_tensor_parallel(named, 16)
 
 
 class _Mesh(types.SimpleNamespace):

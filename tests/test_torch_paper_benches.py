@@ -139,7 +139,8 @@ def test_run_prints_the_csv_and_takes_the_device(packages, capsys):
     name, us, derived = line.split(",", 2)
     assert name == "seeds" and int(us) > 0
     assert json.loads(derived) == rows[0][2]
-    assert list(run.BENCHMARKS) == list(BENCHES)
+    # the ten paper benches, then the dry run's before/after table
+    assert list(run.BENCHMARKS) == list(BENCHES) + ["perf"]
     with pytest.raises(SystemExit):
         run.main(["roofline", "--device", "cpu"])
 

@@ -17,9 +17,10 @@ routes of the row exchange and the borrow at every rank of pod=2 x
 dp=2, the mp=2 logits, every family
 at dp=2 and dbrx / gemma3 at dp=2 x mp=2 against the port's own
 single-device engine (itself held against the reference in
-``test_torch_engine.py`` and ``test_torch_families.py``), the refusal of
-Whisper at mp=2 (minicpm3's MLA and mamba2 serving there with the
-single-device tokens instead), the reference's chaos plans, and the
+``test_torch_engine.py`` and ``test_torch_families.py``), minicpm3's
+MLA, mamba2 and whisper at dp=2 x mp=2 with the single-device tokens,
+the refusal there of whisper with ``cross/wk`` taken out of
+``TP_AXES`` (a leaf with no route), the reference's chaos plans, and the
 in-process world of one (whose admissions issue no collective of their
 own).
 
@@ -58,10 +59,13 @@ LAYOUTS = {"dp2": ("dp=2", 1, 2, 1), "mp2": ("dp=1,mp=2", 1, 1, 2),
            "pod2": ("pod=2,dp=1", 2, 1, 1)}
 LOGIT_RTOL = 1e-4   # of max |logit|: float32, the tensor-parallel partial
 #                     sums added in another order
-# the families of the mp = 2 refusal test; MLA (minicpm3) and Mamba2
-# are served there since their routes exist (tests/test_torch_mla_tp.py,
-# tests/test_torch_ssm_tp.py)
-MP_REFUSED = ("minicpm3-4b", "mamba2-130m", "whisper-large-v3")
+# the families of the mp = 2 refusal test; MLA (minicpm3), Mamba2 and
+# whisper are served there since their routes exist
+# (tests/test_torch_mla_tp.py, tests/test_torch_ssm_tp.py,
+# tests/test_torch_whisper_tp.py); whisper with cross/wk's entry taken
+# out of TP_AXES is the leaf the check refuses
+MP_REFUSED = ("minicpm3-4b", "mamba2-130m", "whisper-large-v3",
+              "whisper-large-v3 without cross/wk")
 # the int8 cache: a k / v element an ulp of the tensor-parallel sums
 # moves across a rounding boundary takes the next code, a whole scale
 # step (up to 7.7e-5 of max |logit| seen here)
@@ -422,14 +426,13 @@ def test_moe_and_windowed_families_serve_at_dp2_mp2(worlds, arch):
 
 @pytest.mark.parametrize("arch", MP_REFUSED)
 def test_mla_mamba2_and_whisper_are_refused_at_mp2(worlds, arch):
-    """No collective exists for Whisper's cross and encoder layers: the
-    executor refuses before any collective, naming the leaf, its spec
-    and the roadmap item.  MLA's latent and Mamba2's d_inner have their
-    routes now: minicpm3 and mamba2 serve at dp=2 x mp=2 with the
-    single-device tokens."""
+    """MLA's latent, Mamba2's d_inner and Whisper's cross and encoder
+    layers have their routes: minicpm3, mamba2 and whisper serve at dp=2
+    x mp=2 with the single-device tokens.  A leaf with no route (whisper
+    with ``cross/wk`` taken out of ``TP_AXES``) is refused before any
+    collective, naming the leaf, its spec and the roadmap's queue."""
     for rank in worlds["families_mp"]:
-        cfg = get_config(arch, "smoke")
-        if cfg.attn_type == "mla" or cfg.ssm is not None:
+        if " without " not in arch:
             kind, *res = rank[arch]
             assert kind == "served", res
             want, got = res
@@ -437,8 +440,8 @@ def test_mla_mamba2_and_whisper_are_refused_at_mp2(worlds, arch):
             continue
         kind, msg = rank[arch]
         assert kind == "refused"
-        assert "ROADMAP.md queue 1, item 9" in msg and "mp=2" in msg
-        assert "resolved to (" in msg
+        assert "ROADMAP.md queue 3" in msg and "mp=2" in msg
+        assert "cross/wk" in msg and "resolved to (" in msg
 
 
 def test_reference_chaos_plans_on_dp2_mp2(worlds):

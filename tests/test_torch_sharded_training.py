@@ -44,9 +44,11 @@ block's weights; the collectives a step; the sharded eval step against
 ``make_eval_step``; the EP ``moe_fn`` in the cached forward (prefill and
 4 greedy decode steps, dbrx SMOKE at dp = 2) against the reference's
 single-device logits (1e-5 of max |logit|) and tokens (identical);
-whisper refused at mp = 2 with ``check_tensor_parallel``'s error,
-minicpm3's MLA and mamba2 accepted there (their gradients:
-``tests/test_torch_mla_tp.py``, ``tests/test_torch_ssm_tp.py``).
+minicpm3's MLA, mamba2 and whisper accepted at mp = 2 (their
+gradients: ``tests/test_torch_mla_tp.py``, ``tests/test_torch_ssm_tp.py``,
+``tests/test_torch_whisper_tp.py``), and whisper with ``cross/wk`` taken
+out of ``TP_AXES`` refused there with ``check_tensor_parallel``'s
+error.
 
 The ``head_dim`` route (kv heads, or heads too, that mp does not
 divide): one step's loss and every parameter's gradient over the mesh
@@ -212,7 +214,9 @@ def runs(tmp_path_factory):
         "dp=1,mp=2": [steps("qwen", QWEN, {}, qp, qb),
                       steps("dbrx_global_aux", DBRX, {}, dp_, db6)] + [
             steps(f"refuse/{a}", a, {}, None, None, "refuse")
-            for a in ("minicpm3-4b", "mamba2-130m", "whisper-large-v3")],
+            for a in ("minicpm3-4b", "mamba2-130m", "whisper-large-v3")] + [
+            steps("refuse/whisper-large-v3 without cross/wk",
+                  "whisper-large-v3", {}, "cross/wk", None, "refuse")],
         "dp=2,mp=2": [steps("qwen", QWEN, {}, qp, qb),
                       steps("dbrx_ep", DBRX, NO_COEF, dp_, db4, "ep")],
         "dp=3": [steps("dbrx_global_aux", DBRX, {}, dp_, db6)],
@@ -376,18 +380,21 @@ def test_ep_aux_is_the_mean_of_the_ranks_aux(runs):
 
 
 @pytest.mark.parametrize("arch", ["minicpm3-4b", "mamba2-130m",
-                                  "whisper-large-v3"])
+                                  "whisper-large-v3",
+                                  "whisper-large-v3 without cross/wk"])
 def test_mp2_refuses_mla_mamba2_whisper(runs, arch):
-    """Whisper is refused; MLA's and Mamba2's routes build the step."""
+    """MLA's, Mamba2's and Whisper's routes build the step; a leaf with
+    no route (whisper with ``cross/wk`` taken out of ``TP_AXES``) is
+    refused."""
     _, port = runs
     for r in port["dp=1,mp=2"]:
         msg = r[f"refuse/{arch}"]
-        if arch in ("minicpm3-4b", "mamba2-130m"):
+        if " without " not in arch:
             assert msg is None, msg
             continue
         assert msg is not None, f"{arch} trained at mp=2"
         assert "at mp=2 has no collective" in msg, msg
-        assert "ROADMAP.md queue 1, item 9" in msg
+        assert "cross/wk" in msg and "ROADMAP.md queue 3" in msg
 
 
 @pytest.fixture(scope="module")

@@ -242,16 +242,21 @@ def test_local_shards_make_the_tensor_whole(spec):
 
 def test_tensor_parallel_check_names_the_leaf():
     """At mp > 1 every leaf the apply splits must split on its own axis
-    and no other leaf may split; mp = 1 checks nothing."""
+    and no other leaf may split; mp = 1 checks nothing.  Whisper's cross
+    and encoder leaves split as a block's attention leaves do."""
     ps = ParamSpec((4, 64, 8), ("kv_heads", "head_dim", "d_model"))
     good = [("blocks/p0/attn/wk", ParamSpec((64, 4, 64), (
         "d_model", "kv_heads", "head_dim")), (None, "model", None))]
     PT.check_tensor_parallel(good, 2)
+    PT.check_tensor_parallel([("blocks/p0/cross/wk", ps,
+                               (None, "model", None)),
+                              ("encoder/attn/wk", good[0][1],
+                               (None, "model", None))], 2)
     for name, spec in (("blocks/p0/attn/wk", ("model", None, None)),
-                       ("blocks/p0/cross/wk", (None, "model", None)),
-                       ("encoder/attn/wk", (None, "model", None)),
+                       ("blocks/p0/cross/wk", (None, None, "model")),
+                       ("encoder/attn/wk", ("model", None, None)),
                        ("blocks/p0/attn/wk", (None, None, None))):
         bad = [(name, ps if "cross" in name else good[0][1], spec)]
-        with pytest.raises(ValueError, match="ROADMAP.md queue 1, item 9"):
+        with pytest.raises(ValueError, match="ROADMAP.md queue 3"):
             PT.check_tensor_parallel(bad, 2)
         PT.check_tensor_parallel(bad, 1)

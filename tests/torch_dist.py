@@ -243,25 +243,43 @@ def serve_layout(rank, spec, np_params, dense_prompts, paged_prompts,
     return out
 
 
+@contextlib.contextmanager
+def tp_axes_without(key):
+    """``TP_AXES`` with ``key``'s entry taken out (``None``: as it is),
+    so that the leaves it covers have no route."""
+    from repro_torch.models import transformer as T
+    saved = T.TP_AXES.pop(key) if key else None
+    try:
+        yield
+    finally:
+        if key:
+            T.TP_AXES[key] = saved
+
+
 def serve_families(rank, spec, archs, prompts):
     """Each SMOKE family's dense engine tokens on one device and over the
-    mesh, and a ``ValueError``'s text where the mesh refuses it."""
+    mesh, and a ``ValueError``'s text where the mesh refuses it.  An
+    entry ``"<arch> without <key>"`` builds the mesh's engine with
+    ``key`` taken out of ``TP_AXES`` (:func:`tp_axes_without`)."""
     from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.serving.continuous import ContinuousEngine
     out = {}
     mesh = make_serving_mesh(spec, device="cpu")
-    for arch in archs:
+    for entry in archs:
+        arch, _, drop = entry.partition(" without ")
         _, model, params = _model(arch)
         single = ContinuousEngine(model, params, **FAMILY_KW)
         want = _tokens(single.generate_many(prompts, 8))
         try:
-            eng = ContinuousEngine(model, params, mesh=mesh, **FAMILY_KW)
+            with tp_axes_without(drop):
+                eng = ContinuousEngine(model, params, mesh=mesh,
+                                       **FAMILY_KW)
         except ValueError as exc:
-            out[arch] = ("refused", str(exc))
+            out[entry] = ("refused", str(exc))
             continue
         rows = _record_prefill_rows(model)
-        out[arch] = ("served", want, _tokens(eng.generate_many(prompts, 8)))
-        out[arch + "_rows"] = rows
+        out[entry] = ("served", want, _tokens(eng.generate_many(prompts, 8)))
+        out[entry + "_rows"] = rows
     return out
 
 
@@ -691,3 +709,164 @@ def ssm_tp(rank, spec, serve, layer, train, evals, prompts, new_tokens):
             "layer": ssm_layer(rank, spec, layer),
             "train": TW.grads_head_dim(rank, spec, train),
             "eval": TW.eval_ssm(rank, spec, evals)}
+
+
+# Whisper under tensor parallelism: the dense engine (Whisper never
+# pages), prompts of 20-40 tokens and 12 new ones
+WHISPER = "whisper-large-v3"
+WHISPER_KW = dict(num_slots=4, max_len=64, max_new_cap=16, sync_every=4,
+                  prefill_batch=2)
+
+
+def _cross_leaves(tree) -> dict:
+    """Layer 0's ``cross_k`` / ``cross_v`` of a Whisper cache, as numpy."""
+    return {c: tree["blocks"]["p0"][c].numpy() for c in ("cross_k",
+                                                         "cross_v")}
+
+
+def serve_whisper(rank, spec, cases, prompts, new_tokens, frames):
+    """Each case ``(key, over)`` (whisper SMOKE in float32 with the fields
+    ``over`` replaces, its seeded weights): the single-device dense
+    engine's tokens and the tokens over the mesh ``spec`` (fed tokens
+    alone, so the cross cache stays zero), the largest |value| of the
+    slot cache's cross leaves after the serve, the rank's local weight,
+    cache and scratch shapes; and a prefill of the first two prompts
+    with the frames ``frames`` (the encoder, the cross cache written)
+    and 3 greedy decode steps reading it, on one device and through the
+    sharded model (every row on each rank, its model split): logits,
+    tokens and layer 0's cross leaves."""
+    import torch
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.schema import zeros_from_schema
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.sharding import local_schema, specs_for_schema
+    mesh = make_serving_mesh(spec, device="cpu")
+    out = {"coords": dict(mesh.coords)}
+    n = min(len(p) for p in prompts[:2])
+    toks = torch.tensor([p[:n] for p in prompts[:2]])
+    audio = torch.from_numpy(frames)
+    for key, over in cases:
+        cfg, model, params = _model(WHISPER, **over)
+        single = ContinuousEngine(model, params, **WHISPER_KW)
+        eng = ContinuousEngine(model, params, mesh=mesh, **WHISPER_KW)
+        res = {"tokens": (_tokens(single.generate_many(prompts, new_tokens)),
+                          _tokens(eng.generate_many(prompts, new_tokens)))}
+        ex = eng.executor
+        res["served_cross"] = max(float(np.abs(t).max()) for t in
+                                  _cross_leaves(ex._cache).values())
+        blk, enc = ex.params["blocks"]["p0"], ex.params["encoder"]
+        res["shapes"] = {
+            **{f"{m}/{w}": tuple(blk[m][w].shape) for m in ("attn", "cross")
+               for w in ("wq", "wk", "wv", "wo")},
+            **{f"encoder/attn/{w}": tuple(enc["attn"][w].shape)
+               for w in ("wq", "wk", "wv", "wo")},
+            "encoder/mlp/w_gate": tuple(enc["mlp"]["w_gate"].shape),
+            "enc_pos": tuple(ex.params["enc_pos"].shape),
+            "cache": {c: tuple(t.shape) for c, t in
+                      ex._cache["blocks"]["p0"].items()},
+            "scratch": {c: tuple(t.shape) for c, t in
+                        ex._pcache["blocks"]["p0"].items()}}
+        schema = model.cache_schema(2, 64)
+        local = zeros_from_schema(local_schema(
+            schema, specs_for_schema(schema, mesh), mesh, ("model",)),
+            device="cpu")
+        runs = {"single": (params, model.init_cache(2, 64, device="cpu"),
+                           None),
+                "sharded": (ex.params, local, ex.tp)}
+        for name, (p, cache, tp) in runs.items():
+            with torch.no_grad():
+                lg, cache = model.prefill(p, {"tokens": toks,
+                                              "audio_emb": audio}, cache,
+                                          tp=tp)
+                got, picked = [lg.numpy()], []
+                for _ in range(3):
+                    nxt = lg[:, -1].argmax(-1)[:, None]
+                    picked.append(nxt.numpy())
+                    lg, cache = model.decode(p, {"tokens": nxt}, cache, tp=tp)
+                    got.append(lg.numpy())
+            res[("logits", name)] = got
+            res[("greedy", name)] = picked
+            res[("cross", name)] = _cross_leaves(cache)
+        out[key] = res
+    return out
+
+
+def whisper_layer(rank, spec, cases):
+    """Each case ``(key, over, dec, enc, x, enc_out, steps, frames)``:
+    whisper SMOKE in float32 (``over`` replaced) over the mesh ``spec``,
+    on this rank's cut (the resolver's serving placement) of the whole
+    decoder layer ``dec`` and encoder layer ``enc`` (numpy): the decoder
+    layer's prefill of ``x`` (B, S, d) with ``enc_out`` (B, T, d) into a
+    cache of 16 rows (its cross leaves written), then a decode step a
+    column of ``steps`` reading them; the encoder layer on ``frames``
+    (B, T, d).  Returns each output and the cache's cross leaves."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.schema import zeros_from_schema
+    from repro_torch.models.transformer import (ENC_SIG, _layer_cache_schema,
+                                                _layer_schema, apply_layer,
+                                                layer_structure)
+    from repro_torch.sharding import (local_params, local_schema,
+                                      specs_for_schema)
+    mesh = make_serving_mesh(spec, device="cpu")
+    tp = mesh.group("model")
+    out = {}
+    for key, over, dec, enc, x, enc_out, steps, frames in cases:
+        cfg = dataclasses.replace(get_config(WHISPER, "smoke"),
+                                  dtype="float32", **over)
+        sig = layer_structure(cfg)[1][0]
+
+        def cut(sig_, p):
+            schema = _layer_schema(cfg, sig_)
+            return local_params(
+                schema, _tree(p), mesh,
+                specs_for_schema(schema, mesh, fsdp=False))
+        B, S = x.shape[:2]
+        cs = _layer_cache_schema(cfg, sig, B, 16)
+        cache = zeros_from_schema(local_schema(
+            cs, specs_for_schema(cs, mesh), mesh, ("model",)), device="cpu")
+        p = cut(sig, dec)
+        pos = torch.arange(S, dtype=torch.int32)[None].expand(B, S)
+        with torch.no_grad():
+            y, _, _ = apply_layer(p, torch.from_numpy(x), cfg, sig,
+                                  positions=pos, cache=cache,
+                                  enc_out=torch.from_numpy(enc_out), tp=tp)
+            got = [y.numpy()]
+            for i in range(steps.shape[1]):
+                y, _, _ = apply_layer(
+                    p, torch.from_numpy(steps[:, i:i + 1].copy()), cfg, sig,
+                    positions=torch.full((B, 1), S + i, dtype=torch.int32),
+                    cache=cache, tp=tp)
+                got.append(y.numpy())
+            T = frames.shape[1]
+            y, _, _ = apply_layer(
+                cut(ENC_SIG, enc), torch.from_numpy(frames), cfg, ENC_SIG,
+                positions=torch.arange(T, dtype=torch.int32)[None].expand(
+                    B, T), tp=tp)
+        out[key] = {"decoder": got, "encoder": y.numpy(),
+                    "cross": {c: cache[c].numpy() for c in ("cross_k",
+                                                            "cross_v")}}
+    return out
+
+
+def _tree(p):
+    """A numpy tree as torch tensors (views of the arrays)."""
+    import torch
+    if isinstance(p, dict):
+        return {k: _tree(v) for k, v in p.items()}
+    return torch.from_numpy(np.ascontiguousarray(p))
+
+
+def whisper_tp(rank, spec, serve, prompts, new_tokens, frames, layer, train,
+               evals):
+    """One world for each layout of ``tests/test_torch_whisper_tp.py``:
+    :func:`serve_whisper`, :func:`whisper_layer` and
+    ``torch_dist_training``'s ``grads_head_dim`` and ``eval_attention``,
+    by name."""
+    import torch_dist_training as TW
+    served = serve_whisper(rank, spec, serve, prompts, new_tokens, frames)
+    return {"coords": served["coords"], "serve": served,
+            "layer": whisper_layer(rank, spec, layer),
+            "train": TW.grads_head_dim(rank, spec, train),
+            "eval": TW.eval_attention(rank, spec, evals)}

@@ -154,7 +154,10 @@ def train_layout(rank, spec, cases):
     (the sharded eval step, and K4's gate left off), "ep_cached"
     (prefill and 4 greedy decode steps with the EP moe_fn on this
     rank's rows), "ep_aux" (the aux loss of the sharded forward with the
-    EP moe_fn), "refuse" (the step's ValueError text)."""
+    EP moe_fn), "refuse" (the step's ValueError text, or None where it
+    builds; ``np_params`` names a ``TP_AXES`` key taken out first, or is
+    None)."""
+    from torch_dist import tp_axes_without
     import torch
     from repro_torch.bridge import params_from_numpy
     from repro_torch.launch.mesh import make_serving_mesh
@@ -170,7 +173,8 @@ def train_layout(rank, spec, cases):
         model = build_model(_cfg(arch, **over))
         if kind == "refuse":
             try:
-                make_sharded_train_step(model, OptConfig(), mesh)
+                with tp_axes_without(np_params):
+                    make_sharded_train_step(model, OptConfig(), mesh)
             except ValueError as exc:
                 out[key] = str(exc)
             else:
@@ -272,6 +276,13 @@ def _noisy_params(model, seed=0):
         model.init(seed=0, device="cpu"))
 
 
+def _batch(batch) -> dict:
+    """A numpy batch as tensors: ids as int64, frames as they are."""
+    import torch
+    return {k: torch.from_numpy(v.astype(np.int64) if v.dtype.kind in "iu"
+                                else v) for k, v in batch.items()}
+
+
 def grads_head_dim(rank, spec, cases):
     """Each case ``(key, arch, over, batch)``: the loss and every
     parameter's gradient of one step on the global ``batch``, on one
@@ -293,7 +304,7 @@ def grads_head_dim(rank, spec, cases):
         cfg = _cfg(arch, **over)
         model = build_model(cfg)
         params = _noisy_params(model)
-        b = {k: torch.from_numpy(v.astype(np.int64)) for k, v in batch.items()}
+        b = _batch(batch)
         loss, grads = value_and_grads(
             lambda p, mb: forward_train_loss(p, cfg, mb), params, [b])
         sh = _Sharded(model, mesh, None)
@@ -351,4 +362,45 @@ def eval_ssm(rank, spec, cases):
         out[key] = {"loss": (loss, sloss), "calls": list(calls)}
     ssm_mod.ssd_chunk_scan = real
     assert ssd_chunk_scan.launches == 0
+    return out
+
+
+def eval_attention(rank, spec, cases):
+    """Each case ``(key, arch, over, batch)``: the loss of
+    ``make_eval_step`` on one device and of ``make_sharded_eval_step``
+    over the mesh ``spec`` on the global ``batch``, with
+    ``use_pallas_attention`` (K4's gate; its plain version on the CPU),
+    and the shapes of K4's calls in the sharded one."""
+    import repro_torch.models.layers as layers_mod
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import build_model
+    from repro_torch.training.sharded import (make_sharded_eval_step,
+                                              shard_params)
+    from repro_torch.training.steps import make_eval_step
+    mesh = make_serving_mesh(spec, device="cpu")
+    calls = []
+    real = layers_mod.flash_attention
+
+    def spy(q, *args, **kw):
+        calls.append((tuple(q.shape), tuple(q.stride())))
+        return real(q, *args, **kw)
+    layers_mod.flash_attention = spy
+    out = {}
+    try:
+        for key, arch, over, batch in cases:
+            model = build_model(_cfg(arch, use_pallas_attention=True, **over))
+            params = _noisy_params(model)
+            b = _batch(batch)
+            loss = float(make_eval_step(model)(params, b))
+            single = list(calls)
+            del calls[:]
+            sloss = float(make_sharded_eval_step(model, mesh)(
+                shard_params(model, mesh, params), b))
+            out[key] = {"loss": (loss, sloss), "calls": list(calls),
+                        "single_calls": single}
+            del calls[:]
+    finally:
+        layers_mod.flash_attention = real
+    assert flash_attention.launches == 0
     return out

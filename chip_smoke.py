@@ -10,6 +10,18 @@ Phases, each on its own lines; any failure exits nonzero:
 2. build     — compile every hand-written kernel from ``src/`` (one
                ``nvcc`` per source, concurrently) and print the build
                seconds and the ``-Xptxas -v`` report.
+2a. lint     — host only, alone: ``python -m repro_torch.analysis
+               src/repro_torch chip_smoke.py --fail-on-findings`` in a
+               subprocess (any finding fails; files, counts and
+               suppressions printed); RPL004's static shared bytes of
+               every ``__global__`` of the seven sources held against
+               ptxas's ``bytes smem`` for each built entry (demangled
+               with ``cu++filt``), equal once rounded up to the source's
+               ``extern __shared__`` alignment (the dynamic region starts
+               there), every kernel matched; RPL004's default budget
+               against the card's ``cudaDevAttrMaxSharedMemoryPerBlock
+               Optin`` (read with ``ctypes`` from the toolkit's CUDA
+               runtime): a card reporting less fails.
 3. kernels   — hold each decode kernel against its plain PyTorch version
                in bf16 at the main path's shapes and time the kernel, the
                plain version, the bound and a library yardstick: K1
@@ -687,6 +699,139 @@ def build_phase() -> dict:
         for line in ptxas_lines(r["compiler_output"]):
             say(f"     {line}")
     return report
+
+
+CUDA_DEV_ATTR_SMEM_OPTIN = 97  # cudaDevAttrMaxSharedMemoryPerBlockOptin
+
+
+def smem_optin() -> int:
+    """The card's opt-in maximum of shared memory a block, read through
+    ``cudaDeviceGetAttribute`` of the toolkit's CUDA runtime (the
+    library beside ``nvcc``)."""
+    import torch
+    from repro_torch.kernels import build
+    lib64 = Path(build.nvcc_path()).resolve().parent.parent / "lib64"
+    cudart = ctypes.CDLL(str(sorted(lib64.glob("libcudart.so*"))[0]))
+    get = cudart.cudaDeviceGetAttribute
+    get.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                    ctypes.c_int]
+    get.restype = ctypes.c_int
+    value = ctypes.c_int(0)
+    rc = get(ctypes.byref(value), CUDA_DEV_ATTR_SMEM_OPTIN,
+             torch.cuda.current_device())
+    if rc != 0:
+        raise SystemExit(f"chip_smoke: cudaDeviceGetAttribute returned {rc}")
+    return value.value
+
+
+def ptxas_smem(compiler_output: str) -> list:
+    """``[(mangled entry, static shared bytes)]`` of one source's
+    ``-Xptxas -v`` report (no ``bytes smem`` on its line: 0)."""
+    out, entry = [], None
+    for line in compiler_output.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        elif entry and re.search(r"Used \d+ registers", line):
+            m = re.search(r"(\d+) bytes smem", line)
+            out.append((entry, int(m.group(1)) if m else 0))
+            entry = None
+    return out
+
+
+def lint_phase(card: str, build_report: dict) -> None:
+    """Phase 2a: the port's linter on the card's Python, and RPL004's
+    static shared bytes and budget held against ptxas and the card."""
+    from repro_torch.analysis.lintconfig import DEFAULT_CONFIG
+    from repro_torch.analysis.rules.cuda_smem import (CudaUnit,
+                                                      estimate_static_smem)
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               PYTHONDONTWRITEBYTECODE="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "src/repro_torch",
+         "chip_smoke.py", "--fail-on-findings", "--format", "json"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise SystemExit(f"chip_smoke: the lint gate exited "
+                         f"{proc.returncode}:\n{proc.stdout[-4000:]}"
+                         f"{proc.stderr[-4000:]}")
+    data = json.loads(proc.stdout)
+    cuda = sum(f["path"].endswith((".cu", ".cuh"))
+               for f in data["suppressed"])
+    say(f"== lint: python -m repro_torch.analysis src/repro_torch "
+        f"chip_smoke.py: {data['n_files']} files, "
+        f"{len(data['findings'])} findings {data['counts']}, "
+        f"{len(data['suppressed'])} suppressed ({cuda} in CUDA sources), "
+        f"Python {sys.version.split()[0]}")
+    missing = [s for s in build.SOURCES if s not in build_report]
+    if missing:
+        raise SystemExit(f"chip_smoke: {missing} not built in this run: "
+                         f"no ptxas report to hold RPL004 against (remove "
+                         f"{build.BUILD_DIR})")
+    entries = [(src, mangled, smem) for src in build.SOURCES
+               for mangled, smem in ptxas_smem(
+                   build_report[src]["compiler_output"])]
+    filt = Path(build.nvcc_path()).with_name("cu++filt")
+    names = subprocess.run([str(filt)], input="\n".join(
+        e[1] for e in entries), capture_output=True, text=True,
+        check=True).stdout.splitlines()
+    units = {src: CudaUnit((build.CSRC / f"{src}.cu").read_text(),
+                           str(build.CSRC / f"{src}.cu"))
+             for src in build.SOURCES}
+    matched, bad, rows = set(), [], {}
+    for (src, _, smem), name in zip(entries, names):
+        plain = name.replace("<unnamed>::", "").replace(
+            "(anonymous namespace)::", "")
+        m = re.match(r"(?:void )?(\w+)(?:<([^<>]*)>)?\(", plain)
+        if m is None:
+            raise SystemExit(f"chip_smoke: cannot read the entry {name!r}")
+        kernel = next((k for k in units[src].kernels
+                       if k.name == m.group(1)), None)
+        if kernel is None:
+            raise SystemExit(f"chip_smoke: ptxas entry {name!r} is no "
+                             f"__global__ RPL004 found in {src}.cu")
+        env = {}
+        args = [re.sub(r"^\(\w+(?: \w+)?\)", "", a)
+                for a in (m.group(2) or "").split(", ")]
+        for param, arg in zip(kernel.template_params, args):
+            if arg.isdigit():
+                env[param] = int(arg)
+            elif arg in ("true", "false"):
+                env[param] = int(arg == "true")
+        est = estimate_static_smem(build.CSRC / f"{src}.cu",
+                                   env)[kernel.name]
+        align = max(1, units[src].extern_align)
+        padded = -(-est // align) * align
+        matched.add((src, kernel.name))
+        rows.setdefault((src, kernel.name, est, padded, align, smem),
+                        []).append("<" + ", ".join(args) + ">"
+                                   if m.group(2) else "")
+        if padded != smem:
+            bad.append(f"{name}: RPL004 {est} B ({padded} aligned), "
+                       f"ptxas {smem} B")
+    for (src, kernel, est, padded, align, smem), insts in rows.items():
+        say(f"   RPL004 {src}.cu {kernel}: {est} B static, {padded} B at "
+            f"the extern alignment {align}; ptxas {smem} B "
+            f"({len(insts)} {'entry' if len(insts) == 1 else 'entries'}"
+            f"{': ' if insts[0] else ''}{' '.join(insts)}) [{card}]")
+    unmatched = {(src, k.name) for src, u in units.items()
+                 for k in u.kernels} - matched
+    if bad or unmatched:
+        raise SystemExit(f"chip_smoke: RPL004's static shared bytes "
+                         f"disagree with ptxas: {bad}; kernels with no "
+                         f"ptxas entry: {sorted(unmatched)}")
+    optin = smem_optin()
+    budget = DEFAULT_CONFIG.rule("RPL004").options["budget_bytes"]
+    say(f"== lint: {len(entries)} ptxas entries of {len(matched)} "
+        f"kernels in {len(units)} sources equal RPL004's static bytes; "
+        f"the card's opt-in maximum {optin} B a block "
+        f"(cudaDevAttrMaxSharedMemoryPerBlockOptin), RPL004's budget "
+        f"{budget} B; {time.perf_counter() - t0:.2f} s [{card}]")
+    if optin < budget:
+        raise SystemExit(f"chip_smoke: the card's opt-in maximum {optin} B "
+                         f"is under RPL004's budget {budget} B")
 
 
 def sass_count(name: str, opcode: str) -> int:
@@ -6887,6 +7032,7 @@ def start_paper_benches() -> dict:
            *PAPER_BENCHES, "--device", "cuda"]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    # repro: allow[RPL001] compared with the artifacts' file times (each artifact written by this run), which are wall time
     return {"cmd": cmd, "out": out, "err": err, "started": time.time(),
             "t0": time.perf_counter(),
             "proc": subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
@@ -7182,6 +7328,7 @@ def main() -> None:
     t0 = time.perf_counter()
     card = device_phase()
     report = build_phase()
+    lint_phase(card, report)
     rows = (kernel_phase(report) + paged_kernel_phase()
             + attention_kernel_phase(report))
     k6 = ssd_kernel_phase()

@@ -573,6 +573,13 @@ int bind_context() {
   return static_cast<int>(err);
 }
 
+// A bf16 block's shared memory: the ring, its barriers and, for K7, the
+// groups' row prefix, E <= kMaxGroups (checked before the launch).
+constexpr int kMaxSmem = 227 * 1024;  // a block's most, with the opt-in
+constexpr int kBf16SmemBytes =
+    1024 + kRing + 16 * kStages + 8 * (kMaxGroups + 1);
+static_assert(kBf16SmemBytes <= kMaxSmem, "over a block's shared memory");
+
 // Persistent: min(tiles, SMs) blocks, `tiles` a bound from the shapes.
 template <bool GROUP_RED, bool A_MN, bool B_MN>
 int launch_bf16(const CUtensorMap& ta, const CUtensorMap& tb, void* y,

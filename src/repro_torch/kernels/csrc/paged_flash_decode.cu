@@ -84,6 +84,8 @@ using decode_attention::load8;
 constexpr int kStages = 4;
 constexpr int kMaxParts = 256;  // the last block's weights fit the ring
 constexpr int kDefaultSmemLimit = 48 * 1024;  // without the attribute
+constexpr int kMaxSmem = 227 * 1024;          // a block's most, with it
+constexpr int kMaxPartPages = 32768;  // table entries a block (its smem)
 
 // lanes a row takes: its D / 8 16-byte pieces, rounded up to a power of
 // two that divides the warp (D = 96: 12 pieces on 16 lanes, 4 idle)
@@ -403,6 +405,11 @@ struct Launch {
 
   template <int D, int MAXG>
   void run() const {
+    // part_pages <= kMaxPartPages (checked before the launch) bounds it
+    static_assert(body_bytes<D, MAXG>() + sizeof(float) * MAXG * D +
+                          sizeof(int) * kMaxPartPages <=
+                      kMaxSmem,
+                  "over a block's shared memory");
     const size_t smem = body_bytes<D, MAXG>() + sizeof(float) * MAXG * D +
                         sizeof(int) * p.part_pages;
     if (smem > kDefaultSmemLimit)
@@ -419,7 +426,7 @@ struct Launch {
 // strides (sp, so, sh); table (B, max_blocks) int32, row stride t_sb,
 // unit stride along blocks; lengths (B,) int32; out (B, H, D) strides
 // (o_sb, o_sh).  Every last dim contiguous, every row 16-byte aligned.
-// parts partitions of part_pages pages cover the table
+// parts partitions of part_pages <= kMaxPartPages pages cover the table
 // ((parts - 1) * part_pages < max_blocks <= parts * part_pages); with
 // parts > 1, part holds B * Hkv * parts * (H / Hkv) * (D + 2) float32 and
 // tickets B * Hkv int32 zeros, left zero by the launch.
@@ -433,7 +440,8 @@ extern "C" int paged_flash_decode_bf16(
     long long o_sb, long long o_sh, float scale, void* stream) {
   if (B <= 0 || Hkv <= 0 || num_pages <= 0 || ps <= 0 || max_blocks <= 0 ||
       H % Hkv != 0 || B > 65535 || parts <= 0 || parts > kMaxParts ||
-      part_pages <= 0 || (long long)(parts - 1) * part_pages >= max_blocks ||
+      part_pages <= 0 || part_pages > kMaxPartPages ||
+      (long long)(parts - 1) * part_pages >= max_blocks ||
       (long long)parts * part_pages < max_blocks ||
       (parts > 1 && (part == nullptr || tickets == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -415,7 +415,7 @@ __device__ __forceinline__ void stage_cum(const T* dtp, long long ds_s,
 constexpr int kStateCols = 64;  // n columns of s_chunk a phase-1 block
 
 template <typename T>
-size_t state_smem_bytes(int chunk) {
+constexpr size_t state_smem_bytes(int chunk) {
   return sizeof(bf16) * kTile * kDS * (Prec<T>::kSplit + Prec<T>::kIn) +
          sizeof(float) * 3 * chunk;
 }
@@ -529,8 +529,19 @@ struct ScanSmem {
   static constexpr size_t kRegion =
       kTileBytes > kPrevBytes ? kTileBytes : kPrevBytes;
   static constexpr size_t kFixed = sizeof(bf16) * PI * kTile * kNS + kRegion;
-  static size_t bytes(int chunk) { return kFixed + sizeof(float) * 2 * chunk; }
+  static constexpr size_t bytes(int chunk) {
+    return kFixed + sizeof(float) * 2 * chunk;
+  }
 };
+
+// chunk <= kMaxChunk (checked before any launch) bounds both phases'
+// shared memory under a block's most
+constexpr size_t kMaxSmem = 227 * 1024;
+static_assert(state_smem_bytes<float>(kMaxChunk) <= kMaxSmem &&
+                  state_smem_bytes<bf16>(kMaxChunk) <= kMaxSmem &&
+                  ScanSmem<float>::bytes(kMaxChunk) <= kMaxSmem &&
+                  ScanSmem<bf16>::bytes(kMaxChunk) <= kMaxSmem,
+              "over a block's shared memory");
 
 // Phase 3: 64 output rows t of chunk z.  Warp w owns rows 16 w .. 16 w +
 // 15 of the tile and every d.

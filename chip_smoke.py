@@ -183,7 +183,17 @@ Phases, each on its own lines; any failure exits nonzero:
                (only the apply's over ``model``; no all-to-all), the
                first tokens of every turn equal; then ``--mesh dp=1`` on
                the serve CLI (``--variant smoke``) printing the lines of
-               the run without it.  One more decode step of the 8
+               the run without it.  In the first single and sharded dense
+               turns, one closed loop through ``Gateway.serve`` on a
+               ``VirtualClock`` with ``RetryPolicy`` and per-request
+               ``deadline_ms`` (a transient decode fault around the
+               turn's own executor): the sharded outcomes equal the
+               single-device ones, and the loop issues no host-group
+               broadcast (the agreed clock of a world of one is the
+               clock itself).  The host cost of one agreed clock read in
+               a 2-process gloo world with no model (two ``python``
+               processes started as ``torchrun`` starts them), a host
+               time, printed with the card.  One more decode step of the 8
                slots over 392-row caches through the tensor-parallel
                apply: its collectives, K1 launches, peak memory and its
                rise, and ms, for phase 16a2.  The process group is
@@ -3348,9 +3358,11 @@ def main_path_phases(card: str, policy, dist_launches: dict) -> dict:
 
 
 def _count_collectives(fn) -> dict:
-    """The ``torch.distributed`` collectives ``fn()`` issues, by name."""
+    """The ``torch.distributed`` collectives ``fn()`` issues, by name
+    (``broadcast``: the host group's agreed readings)."""
     import torch.distributed as dist
-    counts = {"all_reduce": 0, "all_gather": 0, "all_to_all_single": 0}
+    counts = {"all_reduce": 0, "all_gather": 0, "all_to_all_single": 0,
+              "broadcast": 0}
     real = {name: getattr(dist, name) for name in counts}
 
     def counting(name):
@@ -3415,6 +3427,127 @@ def _time_admission(label: str, ex, collectives: dict) -> dict:
             "firsts": ex._host(ex._dtok)[:pb].tolist()}
 
 
+# the closed loop with deadlines and retries of phase 11a: four of the
+# main path's requests, a per-request deadline_ms each (0: none; 0.5 ms:
+# below the 1 ms backoff alone, so its retry is dropped on any host),
+# one transient decode fault
+DEADLINE_LOOP_MS = (0.5, 0.0, 1e7, 0.5)
+AGREED_READS = 2000
+
+
+def _deadline_loop(label: str, backend, index, qs) -> dict:
+    """One closed loop through ``Gateway.serve`` on ``backend``'s own
+    engine: ``FixedPolicy(0)``, ``RetryPolicy(max_retries=2,
+    backoff_s=0.001)``, the first ``len(DEADLINE_LOOP_MS)`` requests of
+    ``qs`` with those ``deadline_ms``, the gateway's clock and sleep a
+    ``VirtualClock``'s, and for this loop only a transient fault on the
+    first decode chunk (a ``ChaosExecutor`` around the turn's executor:
+    no new engine).  Every request is faulted once; the retry budget
+    drops the two whose deadline is under the backoff and re-executes
+    the other two.  Returns the stats and each outcome, and the
+    collectives the loop issued (``broadcast``: the agreed clock's)."""
+    from repro_torch.core.config import RouterConfig
+    from repro_torch.routing import FixedPolicy, Gateway, Request
+    from repro_torch.serving.faults import (ChaosExecutor, ChaosInjector,
+                                            FaultPlan, FaultSpec,
+                                            RetryPolicy)
+    from repro_torch.serving.traffic import VirtualClock
+    engine = backend.engine
+    clock, outs = VirtualClock(), []
+    gw = Gateway(FixedPolicy(0), backend, router_cfg=RouterConfig(),
+                 index=index, max_batch=8, adaptive_refusal=False,
+                 retry=RetryPolicy(max_retries=2, backoff_s=0.001),
+                 sleep=clock.advance, clock=clock.now,
+                 on_outcome=lambda r, a, o, rew: outs.append(
+                     (r.qid, a.idx, o.answer, o.refused,
+                      bool(getattr(o, "transient", False)))))
+    reqs = [Request(qid=q.qid, question=q, slo="quality_first",
+                    deadline_ms=dl) for q, dl in zip(qs, DEADLINE_LOOP_MS)]
+    inner = engine.executor
+    engine.executor = ChaosExecutor(inner, ChaosInjector(FaultPlan(specs=(
+        FaultSpec(site="executor.decode", kind="raise", start=0,
+                  count=1),))))
+    stats = []
+    try:
+        counts = _count_collectives(lambda: stats.append(gw.serve(reqs)))
+    finally:
+        engine.executor = inner
+    st = stats[0]
+    got = {"served": st.served, "retries": st.retries,
+           "faulted": st.faulted, "timed_out": st.timed_out,
+           "outcomes": outs}
+    if (got["served"], got["retries"], got["faulted"]) != (4, 2, 2):
+        raise AssertionError(f"[{label} deadline loop] {got}")
+    if counts["broadcast"]:
+        raise AssertionError(f"[{label} deadline loop] {counts['broadcast']}"
+                             f" host broadcasts in a world of one")
+    return got
+
+
+_AGREED_READ_CODE = r"""
+import json, sys, time
+import torch
+import torch.distributed as dist
+from repro_torch.launch.mesh import make_serving_mesh
+torch.set_num_threads(1)
+n = int(sys.argv[1])
+mesh = make_serving_mesh("dp=2", device="cpu")
+clock = mesh.agreed_clock(time.perf_counter)
+for _ in range(100):
+    clock()
+blocks = []
+for _ in range(5):
+    t0 = time.perf_counter()
+    for _ in range(n // 5):
+        last = clock()
+    blocks.append((time.perf_counter() - t0) / (n // 5) * 1e6)
+# the last reading of every rank, gathered: one value, rank 0's
+rank, vals = dist.get_rank(), [None] * dist.get_world_size()
+dist.all_gather_object(vals, last)
+dist.destroy_process_group()
+print(json.dumps({"rank": rank, "us": blocks, "reads": clock.reads,
+                  "last": vals}))
+"""
+
+
+def _start_agreed_read_world() -> list:
+    """Two ``python`` processes in a gloo world started as ``torchrun
+    --nproc-per-node 2`` starts them (``RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR=localhost``, a free ``MASTER_PORT``), no model, no
+    card: each times ``AGREED_READS`` agreed clock reads in 5 blocks."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]),
+        "WORLD_SIZE": "2", "MASTER_ADDR": "localhost",
+        "MASTER_PORT": str(port), "CUDA_VISIBLE_DEVICES": ""}
+    return [subprocess.Popen(
+        [sys.executable, "-c", _AGREED_READ_CODE, str(AGREED_READS)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env={**env, "RANK": str(r), "LOCAL_RANK": str(r)})
+        for r in range(2)]
+
+
+def _finish_agreed_read_world(procs, card: str) -> None:
+    """Both ranks' results: every rank's last reading rank 0's, and the
+    host microseconds a read, printed with the card."""
+    import numpy as np
+    recs = [_finish(p, f"agreed clock rank {r}", 120.0)
+            for r, p in enumerate(procs)]
+    if any(len(set(r["last"])) != 1 or r["reads"] != 100 + AGREED_READS
+           for r in recs):
+        raise AssertionError(f"[agreed clock] readings differ: {recs}")
+    us = {r["rank"]: float(np.median(r["us"])) for r in recs}
+    say(f"   agreed clock read, a 2-process gloo world (host group, no "
+        f"model), median of 5 blocks of {AGREED_READS // 5}: rank 0 "
+        f"{us[0]:.2f} us, rank 1 {us[1]:.2f} us a read (host time; "
+        f"blocks {' / '.join(f'{x:.2f}' for x in recs[0]['us'])} us) "
+        f"[{card}]")
+
+
 def sharded_serve_phase(card: str, model, params, index, qs, policy,
                         single: dict, paged_kw: dict,
                         dist_launches: dict) -> None:
@@ -3451,12 +3584,17 @@ def sharded_serve_phase(card: str, model, params, index, qs, policy,
     say(f"== sharded: {cfg.name} FULL through ShardedExecutor, "
         f"{NUM_SLOTS} slots, in turns with the single-device executor "
         f"[{card}]")
-    sharded = {}
+    sharded, loops = {}, []
     with _serving_mesh(cfg) as mesh:
+        if mesh.host is None or mesh.agreed_clock(time.perf_counter) \
+                is not time.perf_counter:
+            raise AssertionError("[sharded] the mesh of one has no host "
+                                 "group, or its agreed clock is not the "
+                                 "clock itself")
         for kind, engine_kw in (("dense", {}), ("paged", paged_kw)):
             want, main_ms = single[kind]
             steps_ms, admits = [], []
-            for turn in (None, mesh, mesh, None):
+            for i_turn, turn in enumerate((None, mesh, mesh, None)):
                 label = f"{'sharded' if turn else 'single'} {kind}"
                 backend = ContinuousEngineBackend.create(
                     model, params, HashTokenizer(cfg.vocab_size), index,
@@ -3493,6 +3631,14 @@ def sharded_serve_phase(card: str, model, params, index, qs, policy,
                                          f"path's")
                 steps_ms.append(rec["step_ms"])
                 served = len(rec["tokens"])
+                if kind == "dense" and i_turn < 2:
+                    t_loop = time.perf_counter()
+                    loops.append(_deadline_loop(label, backend, index, qs))
+                    say(f"   {label}: closed loop with deadlines and "
+                        f"retries, {len(DEADLINE_LOOP_MS)} requests: "
+                        f"retries {loops[-1]['retries']}, faulted "
+                        f"{loops[-1]['faulted']}, no host broadcast; "
+                        f"{time.perf_counter() - t_loop:.1f} s")
                 if kind == "dense":
                     # sharded: only the apply's collectives over model (an
                     # all-reduce for the embedding and two a layer, one
@@ -3500,7 +3646,7 @@ def sharded_serve_phase(card: str, model, params, index, qs, policy,
                     admits.append(_time_admission(label, ex, {
                         "all_reduce": (2 * L + 1) * bool(turn),
                         "all_gather": int(bool(turn)),
-                        "all_to_all_single": 0}))
+                        "all_to_all_single": 0, "broadcast": 0}))
                     say(f"   {label}: one admission group of "
                         f"{PREFILL_BATCH} x {MAX_PROMPT_LEN} tokens "
                         f"(prefill + commit), median of {ADMIT_REPS}: "
@@ -3514,7 +3660,8 @@ def sharded_serve_phase(card: str, model, params, index, qs, policy,
                     torch.cuda.synchronize()
                     k = ex.sync_every
                     if counts != {"all_reduce": (2 * L + 1) * k,
-                                  "all_gather": k, "all_to_all_single": 0}:
+                                  "all_gather": k, "all_to_all_single": 0,
+                                  "broadcast": 0}:
                         raise AssertionError(f"[{label}] collectives "
                                              f"{counts}")
                     _check_no_sync(ex, f"{label} decode chunk")
@@ -3528,6 +3675,10 @@ def sharded_serve_phase(card: str, model, params, index, qs, policy,
                 f"path's {main_ms:.2f}): sharded = {ratio:.3f} x single; "
                 f"{counts['all_reduce'] // k} all-reduces and "
                 f"{counts['all_gather'] // k} all-gather a step [{card}]")
+            if kind == "dense" and loops[1] != loops[0]:
+                raise AssertionError(f"[sharded deadline loop] outcomes "
+                                     f"differ from the single device's: "
+                                     f"{loops}")
             if admits:
                 if any(a["firsts"] != admits[0]["firsts"] for a in admits):
                     raise AssertionError(f"[sharded admission] first tokens "
@@ -3549,20 +3700,31 @@ def sharded_serve_phase(card: str, model, params, index, qs, policy,
 
         base = ["--backend", "continuous", "--variant", "smoke", "-n", "8",
                 "--device", "cuda"]
-        outs = []
-        for argv in (base, base + ["--mesh", "dp=1"]):
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                serve.main(argv)
-            outs.append(buf.getvalue().splitlines())
-        differ = [(a, b) for a, b in zip(*outs) if a != b]
-        say(f"   serve cli --variant smoke -n 8 --mesh dp=1: "
-            f"{len(outs[1])} lines, {len(differ)} differ from the run "
-            f"without --mesh")
-        for line in outs[1][:12]:
-            say(f"   | {line}")
-        if differ or len(outs[0]) != len(outs[1]):
-            raise AssertionError(f"[sharded cli] lines differ: {differ[:4]}")
+        # the agreed read's host cost runs beside the serve CLI, which
+        # is checked line for line and not timed
+        world = _start_agreed_read_world()
+        try:
+            outs = []
+            for argv in (base, base + ["--mesh", "dp=1"]):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    serve.main(argv)
+                outs.append(buf.getvalue().splitlines())
+            differ = [(a, b) for a, b in zip(*outs) if a != b]
+            say(f"   serve cli --variant smoke -n 8 --mesh dp=1: "
+                f"{len(outs[1])} lines, {len(differ)} differ from the run "
+                f"without --mesh")
+            for line in outs[1][:12]:
+                say(f"   | {line}")
+            if differ or len(outs[0]) != len(outs[1]):
+                raise AssertionError(f"[sharded cli] lines differ: "
+                                     f"{differ[:4]}")
+            _finish_agreed_read_world(world, card)
+        finally:
+            for proc in world:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
 
 
 # the real steps the dry-run phase (16a2) is held against

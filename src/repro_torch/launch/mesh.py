@@ -20,15 +20,28 @@ the reference's production layout without processes, for resolving
 specs (:mod:`repro_torch.launch.specs`); :func:`mesh_from_layout` puts
 process groups on such a layout, which the dry run
 (:mod:`repro_torch.launch.dryrun`) does over a fake world of 256 or 512
-ranks.  :data:`PEAK_FLOPS_BF16`, :data:`HBM_BW` and :data:`LINK_BW` feed
-the roofline (:mod:`repro_torch.analysis.roofline`).
+ranks.
+
+**One host clock.**  Every rank of a serving mesh runs the whole host
+scheduler on the same inputs, and a clock reading is one of them: a
+deadline, a retry's budget or a latency that one rank reads past its
+limit and another does not sends the ranks down different paths, and
+their next collectives no longer pair.  The reference serves a mesh
+from one controller, so it has one clock.  :func:`make_serving_mesh`
+also makes the *host group*, one gloo group over the whole world (on
+the card beside the NCCL axis groups, so a host float never goes
+through a CUDA tensor), and :meth:`ServingMesh.agreed_clock` wraps a
+clock so that every rank reads rank 0's reading.
+
+:data:`PEAK_FLOPS_BF16`, :data:`HBM_BW` and :data:`LINK_BW` feed the
+roofline (:mod:`repro_torch.analysis.roofline`).
 """
 from __future__ import annotations
 
 import contextlib
 import os
 from dataclasses import dataclass
-from typing import Dict
+from typing import Callable, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -59,12 +72,45 @@ class ServingMesh:
     ``devices.shape`` are all the sharding resolver reads); ``coords``
     this rank's position on each axis; ``groups`` the process group
     holding this rank of each axis and of ``BATCH`` (``pod`` x
-    ``data``).  An axis the mesh lacks has size 1 and coordinate 0."""
+    ``data``).  An axis the mesh lacks has size 1 and coordinate 0.
+    ``host`` is the gloo group over the whole world that carries rank
+    0's host readings (:meth:`agree`, :meth:`agreed_clock`); a mesh made
+    by :func:`mesh_from_layout` alone has none."""
     devices: np.ndarray
     coords: Dict[str, int]
     groups: Dict[str, object]
     device: torch.device
     axis_names: tuple = AXES
+    host: object = None
+
+    @property
+    def n_ranks(self) -> int:
+        return int(self.devices.size)
+
+    @property
+    def leader(self) -> bool:
+        """This process is rank 0, whose host readings every rank takes."""
+        return dist.get_rank() == 0
+
+    def agree(self, values: Sequence[float], n: int) -> List[float]:
+        """Rank 0's ``values`` (at most ``n`` floats, zero-padded to
+        ``n``) on every rank: one float64 broadcast on the host group.
+        The other ranks' ``values`` are not read."""
+        buf = torch.zeros(n, dtype=torch.float64)
+        if self.leader and len(values):
+            buf[:len(values)] = torch.tensor(values, dtype=torch.float64)
+        dist.broadcast(buf, src=0, group=self.host)
+        return buf.tolist()
+
+    def agreed_clock(self, clock: Callable[[], float]) -> Callable[[], float]:
+        """``clock`` itself in a world of one, else an :class:`AgreedClock`
+        over it: every host decision of a mesh reads rank 0's clock."""
+        if self.n_ranks == 1:
+            return clock
+        if self.host is None:
+            raise ValueError("this mesh has no host group (mesh_from_layout "
+                             "makes none): serve on make_serving_mesh's")
+        return AgreedClock(clock, self)
 
     def size(self, axis: str) -> int:
         if axis not in self.axis_names:
@@ -99,6 +145,27 @@ class ServingMesh:
     @property
     def mp(self) -> int:
         return self.size("model")
+
+
+class AgreedClock:
+    """Rank 0's reading of a ``perf_counter``-style ``clock`` on every
+    rank of a serving mesh.  Each call is one read: rank 0 calls
+    ``clock`` and broadcasts the float64 on the mesh's host group
+    (:meth:`ServingMesh.agree`), and every rank returns that value; the
+    other ranks never call their own.  Reads keep program order, so a
+    scripted clock gives the readings one device gives.  A read is a
+    collective: call it from one thread of a rank at a time, the same
+    number of times on every rank (``reads`` counts them)."""
+
+    def __init__(self, clock: Callable[[], float], mesh: "ServingMesh"):
+        self.clock = clock
+        self.mesh = mesh
+        self.reads = 0
+
+    def __call__(self) -> float:
+        self.reads += 1
+        return self.mesh.agree([self.clock()] if self.mesh.leader else [],
+                               1)[0]
 
 
 @dataclass(frozen=True)
@@ -220,7 +287,8 @@ def make_serving_mesh(spec: str, model_cfg=None, *,
     --nproc-per-node dp*mp`` sets (the group is then initialized from
     ``torchrun``'s environment), else 1 — one process alone makes a
     world of one over an in-memory ``HashStore``.  The backend is NCCL
-    on ``cuda``, gloo on ``cpu``.
+    on ``cuda``, gloo on ``cpu``; the host group (``ServingMesh.host``)
+    is gloo on both, made after the axis groups on every rank.
     """
     pod, dp, mp = _parse(spec)
     if model_cfg is not None:
@@ -242,8 +310,10 @@ def make_serving_mesh(spec: str, model_cfg=None, *,
                                     rank=0, world_size=1)
     shape, axes = ((pod, dp, mp), POD_AXES) if "pod" in spec else (
         (dp, mp), AXES)
-    return mesh_from_layout(LayoutMesh(axes, np.arange(n).reshape(shape)),
+    mesh = mesh_from_layout(LayoutMesh(axes, np.arange(n).reshape(shape)),
                             dev)
+    mesh.host = dist.new_group(backend="gloo")
+    return mesh
 
 
 def make_local_mesh(device="cuda") -> ServingMesh:

@@ -223,7 +223,9 @@ class CircuitBreaker:
     pacing: a sparse caller no longer has to burn ``cooldown`` denied
     calls to reach a probe, and a hot caller cannot probe a still-down
     service early just by hammering it.  Runs stay replayable when the
-    clock is virtual.
+    clock is virtual.  On a serving mesh the engine backend hands the
+    breaker the mesh's agreed clock, so every rank's breaker cools on
+    rank 0's reading and admits the same probes.
 
     * **closed** — calls flow; each outcome lands in the window.  When
       the window holds ≥ ``min_calls`` outcomes and the failure rate

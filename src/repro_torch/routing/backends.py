@@ -88,6 +88,8 @@ class SimulatorBackend:
         self.pipeline = pipeline
         self.stream_slots = max(1, stream_slots)
         self.service_polls = max(1, service_polls)
+        # the simulator serves no mesh (one process, one clock), so its
+        # stamps need no agreement across ranks
         self._clock = clock if clock is not None else time.perf_counter
         self._next_rid = 0
         # waiting: (rid, outcome); in service: [rid, outcome, polls_left,

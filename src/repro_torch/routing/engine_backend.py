@@ -70,6 +70,12 @@ class EngineBackend:
         self.index = index
         self.max_prompt_len = max_prompt_len
         self.max_new_tokens = max_new_tokens
+        if (self.mesh is not None and breaker_kw
+                and breaker_kw.get("clock") is not None):
+            # a breaker's cooldown decides whether a lookup runs: on a
+            # mesh it reads rank 0's clock, as the engine does
+            breaker_kw = dict(breaker_kw, clock=self.mesh.agreed_clock(
+                breaker_kw["clock"]))
         # named retrievers (None = bm25-only over `index`); a shared
         # bounded LRU fronts them when retrieval_cache_size > 0, and a
         # per-retriever circuit breaker sits under the cache (chaos
@@ -78,6 +84,12 @@ class EngineBackend:
             retrievers, index, cache_size=retrieval_cache_size,
             chaos=chaos, breaker_kw=breaker_kw)
         self.breakers = collect_breakers(self.retrievers)
+
+    @property
+    def mesh(self):
+        """The serving mesh the engine runs on (None: one device).  The
+        Gateway reads it to take the mesh's agreed clock."""
+        return getattr(self.engine, "mesh", None)
 
     def install_tracer(self, tracer) -> None:
         """Adopt the Gateway's tracer (called once at Gateway

@@ -40,6 +40,11 @@ from repro_torch.serving.slo_budget import (DEFAULT_TARGETS, LatencyReservoir,
                                       SLOBudgetTracker)
 
 
+def _perf_counter() -> float:
+    """``time.perf_counter()``, looked up at the call."""
+    return time.perf_counter()
+
+
 @dataclass
 class Request:
     qid: int
@@ -126,11 +131,23 @@ class Gateway:
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None):
         self.policy = policy
+        self.backend = as_backend(backend)
         # injectable clock for per-request latency spans (perf_counter
         # default: monotonic, immune to NTP steps); the AsyncGateway
         # passes its virtual/real clock through here so closed- and
-        # open-loop timing share one domain
-        self.clock = clock if clock is not None else time.perf_counter
+        # open-loop timing share one domain.  When the backend serves on
+        # a mesh, every rank reads rank 0's clock (``self.clock``), since
+        # latencies feed the budgets and so the routed actions;
+        # ``local_clock`` is this rank's own, for stamps no rank decides
+        # on.  In a world of one, and off a mesh, the two are one.
+        self.local_clock = clock if clock is not None else time.perf_counter
+        mesh = getattr(self.backend, "mesh", None)
+        self.clock = (self.local_clock if mesh is None
+                      else mesh.agreed_clock(self.local_clock))
+        # the retry budget's clock: the host's perf_counter, as the
+        # reference reads it, but rank 0's on a mesh
+        self._retry_clock = (_perf_counter if mesh is None
+                             else mesh.agreed_clock(_perf_counter))
         # telemetry plane: a no-op tracer keeps the hot path branchless
         # and allocation-free when tracing is off (see repro_torch.obs.trace)
         self.tracer = tracer if tracer is not None else NULL_TRACER
@@ -141,7 +158,6 @@ class Gateway:
         # (injectable for virtual-time tests).
         self.retry = retry
         self._sleep = sleep if sleep is not None else time.sleep
-        self.backend = as_backend(backend)
         self.space = action_space or get_action_space()
         if state_fn is None:
             index = index if index is not None else getattr(self.backend,
@@ -264,10 +280,11 @@ class Gateway:
         request's ``deadline_ms`` budget.  ``execute(questions,
         actions)`` runs the subset; healthy outcomes are kept as-is.
         The deadline test reads the host's perf_counter, as the
-        reference's does, not the injected clock."""
+        reference's does, not the injected clock; on a mesh it reads
+        rank 0's perf_counter, so every rank retries the same subset."""
         if self.retry is None or self.retry.max_retries <= 0:
             return outs
-        t0 = time.perf_counter()
+        t0 = self._retry_clock()
         for attempt in range(self.retry.max_retries):
             idxs = [i for i, o in enumerate(outs)
                     if getattr(o, "transient", False)
@@ -278,7 +295,7 @@ class Gateway:
             elig = []
             for i in idxs:
                 dl = batch[i].deadline_ms
-                if dl > 0 and (time.perf_counter() - t0 + wait) * 1e3 >= dl:
+                if dl > 0 and (self._retry_clock() - t0 + wait) * 1e3 >= dl:
                     continue     # cannot finish inside the deadline
                 elig.append(i)
             if not elig:

@@ -21,7 +21,10 @@ With an armed :class:`~repro_torch.serving.faults.ChaosInjector`
 nothing is installed.  With a ``mesh`` (:func:`repro_torch.launch.mesh.
 make_serving_mesh`) the executor is a
 :class:`~repro_torch.serving.executor.ShardedExecutor`: every process
-of the mesh runs this scheduler on the same inputs.
+of the mesh runs this scheduler on the same inputs, and the clock is
+one of them, so the engine reads the mesh's agreed clock (rank 0's
+reading on every rank, ``ServingMesh.agreed_clock``): a deadline that
+expires on one rank expires on all of them.
 
 **Prefill/decode overlap.**  Executor calls are async dispatch; the
 scheduler exploits that by dispatching the decode chunk for resident
@@ -168,6 +171,9 @@ class ContinuousEngine:
             executor = (ShardedExecutor(model, params, mesh=mesh, **kw)
                         if mesh is not None
                         else SingleDeviceExecutor(model, params, **kw))
+        # the serving mesh the executor runs on (None: one device)
+        self.mesh = mesh if mesh is not None else getattr(executor, "mesh",
+                                                          None)
         if chaos is not None and getattr(chaos, "armed", False):
             from repro_torch.serving.faults import ChaosExecutor
             executor = ChaosExecutor(executor, chaos)
@@ -186,8 +192,12 @@ class ContinuousEngine:
         # timestamp source for admitted_at / finished_at.  Injectable so
         # the open-loop traffic harness can drive the engine on a
         # virtual clock (deterministic latency accounting); default is
-        # the host monotonic clock.
+        # the host monotonic clock.  On a mesh every read is rank 0's
+        # (deadlines expire on every rank at once); the reference's one
+        # controller has one clock.
         self._clock = clock if clock is not None else time.perf_counter
+        if self.mesh is not None:
+            self._clock = self.mesh.agreed_clock(self._clock)
         # watchdog: quarantine a slot after this many consecutive syncs
         # with an active slot making zero token progress (0 = off)
         self.watchdog_syncs = max(0, watchdog_syncs)

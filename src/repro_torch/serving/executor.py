@@ -186,7 +186,8 @@ class SingleDeviceExecutor:
         """Register admit / decode-chunk host dispatch walls.  These
         are wall-clock measurements of the host's enqueueing (not
         virtual time), hence perf_counter rather than the engine
-        clock."""
+        clock; each rank's own, since they feed histograms and no
+        decision."""
         bounds = (0.05, 0.1, 0.2, 0.5, 1.0, 2.0, 5.0,
                   10.0, 20.0, 50.0, 100.0)
         self._m_admit = registry.histogram(
@@ -327,6 +328,7 @@ class SingleDeviceExecutor:
         same step (its garbage token is never written, ``gen`` does not
         advance) and its ``bad`` flag latches until the scheduler clears
         it — the rest of the batch decodes on untouched."""
+        # this rank's own clock: the wall feeds a histogram, no decision
         t0 = time.perf_counter() if self._m_decode is not None else 0.0
         cache, out, sidx, limit = self._cache, self._dout, self._sidx, \
             self._dlimit
@@ -374,6 +376,7 @@ class SingleDeviceExecutor:
         enqueued on the stream behind any decode chunk in flight."""
         if self.paged:
             raise RuntimeError("paged executor: use admit_paged()")
+        # this rank's own clock: the wall feeds a histogram, no decision
         t0 = time.perf_counter() if self._m_admit is not None else 0.0
         rows = self.prefill_rows
         firsts = self._prefill(self._to_device(
@@ -396,6 +399,7 @@ class SingleDeviceExecutor:
         pool pages (sentinel ``num_pages`` = no gather)."""
         if not self.paged:
             raise RuntimeError("dense executor: use admit()")
+        # this rank's own clock: the wall feeds a histogram, no decision
         t0 = time.perf_counter() if self._m_admit is not None else 0.0
         rows = self.prefill_rows
         self._gather(np.asarray(gather_src))

@@ -144,6 +144,8 @@ class ChaosInjector:
                 continue
             if spec.prob < 1.0 and self._rng.random() >= spec.prob:
                 continue
+            # a stamp for fire_log only: no decision reads it, so it
+            # needs no agreement across a mesh's ranks
             t = self.clock() if self.clock is not None else 0.0
             self.fire_log.append((site, spec.kind, n, t))
             return spec

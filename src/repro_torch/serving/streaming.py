@@ -40,9 +40,21 @@ Determinism: ``pump`` holds one lock and consumes the arrival queue in
 submission order; with a virtual clock (see
 :mod:`repro_torch.serving.traffic`) and no background thread, the same seed
 reproduces the same completions, sheds, and latencies bit-for-bit.
+
+**On a mesh of more than one rank** (the backend's ``mesh``) every rank
+runs this gateway on the same trace, and every pump runs in lockstep
+with rank 0's: rank 0 opens each pump, idle ones included, with one
+record on the mesh's host group (go or stop, how many arrivals the pump
+takes, their arrival stamps), a follower waits for that many arrivals
+of its own and takes rank 0's stamps, and every clock read inside the
+pump is rank 0's (``ServingMesh.agreed_clock``).  So the pumps, the
+batches they take and the engine steps they run are the same on every
+rank, and so are the collectives of those steps.  The reference's pump
+needs none of this: its mesh has one host.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from dataclasses import dataclass, field
@@ -230,6 +242,11 @@ class AsyncGateway(Gateway):
         self._processing: List[StreamHandle] = []
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
+        # pump iterations run, idle ones included
+        self.pumps = 0
+        # the mesh whose ranks pump in lockstep (None: one rank)
+        mesh = getattr(self.backend, "mesh", None)
+        self._mesh = mesh if mesh is not None and mesh.n_ranks > 1 else None
         self._shallowest: Dict[Tuple[str, str], Action] = {}
         for a in self.space:
             if a.mode == "refuse" or a.k <= 0:
@@ -244,8 +261,11 @@ class AsyncGateway(Gateway):
     def submit_stream(self, request: Request) -> StreamHandle:
         """Enqueue one open-loop request; returns its future.  The
         arrival time and deadline are stamped HERE — queueing delay is
-        part of the latency the SLO measures."""
-        now = self.clock()
+        part of the latency the SLO measures.  On a mesh the stamp is
+        this rank's own until the pump that takes the request replaces
+        it with rank 0's: this runs on the caller's thread, which issues
+        no collective."""
+        now = self.local_clock()
         if request.deadline_ms <= 0 and self.deadline_ms > 0:
             request.deadline_ms = self.deadline_ms
         request.arrival_ms = now * 1e3
@@ -277,6 +297,12 @@ class AsyncGateway(Gateway):
     def failed(self) -> Optional[BaseException]:
         """The fatal serving error, if the gateway has died."""
         return self._failed
+
+    @property
+    def is_leader(self) -> bool:
+        """This rank decides when serving stops: off a mesh, or rank 0
+        of one."""
+        return self._mesh is None or self._mesh.leader
 
     # -- admission control ---------------------------------------------
 
@@ -411,17 +437,54 @@ class AsyncGateway(Gateway):
 
         A non-transient backend exception marks the whole gateway
         failed (every in-flight handle is rejected with the error so
-        no waiter hangs) and re-raises."""
+        no waiter hangs) and re-raises.  On a mesh the pump runs in
+        lockstep with rank 0's (:meth:`_lockstep_pump`)."""
+        if self._mesh is not None:
+            return self._lockstep_pump(stop=False)
         try:
             return self._pump_once()
         except Exception as exc:
             self._fail(exc)
             raise
 
-    def _pump_once(self) -> int:
+    def _lockstep_pump(self, *, stop: bool) -> Optional[int]:
+        """One pump on a mesh of more than one rank.  Rank 0 opens it
+        with one record on the host group: ``stop`` (its own; a
+        follower's is not read), how many arrivals the pump takes (at
+        most ``route_batch``) and their arrival stamps.  A follower
+        waits until its own arrivals hold that many (every rank submits
+        the same trace in the same order), takes rank 0's stamps and
+        runs the same pump.  Returns the pump's events, or None when
+        rank 0 stopped.  This departs from the reference's pump, whose
+        mesh has one host and one clock."""
+        try:
+            with self._lock:
+                stamps = [h.arrival_t for h in itertools.islice(
+                    self._arrivals, self.route_batch)]
+            rec = self._mesh.agree([float(stop), float(len(stamps))]
+                                   + stamps, 2 + self.route_batch)
+            if rec[0]:
+                return None
+            k = int(rec[1])
+            while True:
+                with self._lock:
+                    if len(self._arrivals) >= k:
+                        for h, t in zip(self._arrivals, rec[2:2 + k]):
+                            h.arrival_t = t
+                            h.request.arrival_ms = t * 1e3
+                        break
+                # repro: allow[RPL001] a follower waits for its own submitter thread to enqueue the arrivals rank 0's pump takes
+                time.sleep(1e-4)
+            return self._pump_once(take=k)
+        except Exception as exc:
+            self._fail(exc)
+            raise
+
+    def _pump_once(self, take: Optional[int] = None) -> int:
         n_events = 0
         with self._lock:
             self._processing = []
+            self.pumps += 1
             # 0) resubmit retries whose backoff has elapsed (already
             #    routed — they bypass admission and routing)
             now = self.clock()
@@ -436,7 +499,8 @@ class AsyncGateway(Gateway):
                     n_events += 1
 
             batch: List[StreamHandle] = []
-            while self._arrivals and len(batch) < self.route_batch:
+            limit = self.route_batch if take is None else take
+            while self._arrivals and len(batch) < limit:
                 batch.append(self._arrivals.popleft())
             self._processing.extend(batch)
 
@@ -520,7 +584,9 @@ class AsyncGateway(Gateway):
         seen: set = set()
         victims = [h for h in victims
                    if not (id(h) in seen or seen.add(id(h)))]
-        now = self.clock()
+        # stamps of handles nobody serves: this rank's clock (a rank may
+        # fail alone, so no collective here)
+        now = self.local_clock()
         for h in victims:
             h.error = exc
             # close the victim's trace so no span is left open (the
@@ -580,15 +646,26 @@ class AsyncGateway(Gateway):
     # -- background serving thread -------------------------------------
 
     def start(self, *, idle_sleep_s: float = 1e-3) -> "AsyncGateway":
-        """Start the always-on host serving thread."""
+        """Start the always-on host serving thread.  On a mesh the
+        thread pumps in lockstep with rank 0's, idle pumps included;
+        rank 0's ``stop`` ends every rank's thread, and a follower's
+        thread ends on rank 0's stop record, not on its own ``stop``."""
         if self._thread is not None and self._thread.is_alive():
             return self
         self._stop.clear()
+        lockstep = self._mesh is not None
+        leader = self.is_leader
 
         def loop():
-            while not self._stop.is_set():
+            while lockstep or not self._stop.is_set():
                 try:
-                    n = self.pump()
+                    if lockstep:
+                        n = self._lockstep_pump(
+                            stop=leader and self._stop.is_set())
+                        if n is None:
+                            return
+                    else:
+                        n = self.pump()
                 except Exception:
                     # pump already marked the gateway failed and
                     # rejected every handle; a dead thread must not
@@ -609,7 +686,15 @@ class AsyncGateway(Gateway):
 
     def stop(self, *, drain: bool = True, timeout: float = 60.0) -> None:
         """Stop the serving thread; with ``drain`` (default) serve out
-        everything already submitted first."""
+        everything already submitted first.  On a mesh rank 0 decides
+        both: a follower's thread serves on until rank 0's stop record
+        ends it, which this waits for (up to ``timeout`` + 10 s)."""
+        if not self.is_leader:
+            self._stop.set()
+            if self._thread is not None:
+                self._thread.join(timeout=timeout + 10.0)
+                self._thread = None
+            return
         if drain:
             deadline = time.monotonic() + timeout
             while (self.in_flight and self._failed is None

@@ -317,7 +317,10 @@ class LoadGenerator:
 
     def run_realtime(self, *, timeout_s: float = 120.0) -> LoadReport:
         """Replay the trace in wall-clock time against the gateway's
-        background serving thread (started/stopped here)."""
+        background serving thread (started/stopped here).  On a mesh
+        every rank replays the trace, and rank 0 alone decides when
+        serving ends (drained or ``timeout_s``): a follower's ``stop``
+        waits for rank 0's."""
         gw = self.gateway
         handles = []
         gw.start()
@@ -330,11 +333,12 @@ class LoadGenerator:
                     time.sleep(lag)
                 handles.append(gw.submit_stream(arr.request))
             deadline = time.perf_counter() + timeout_s
-            while gw.in_flight and time.perf_counter() < deadline:
+            while (gw.in_flight and getattr(gw, "is_leader", True)
+                   and time.perf_counter() < deadline):
                 # repro: allow[RPL001] real-time pacing IS this method's contract; run() replays on the virtual clock
                 time.sleep(1e-3)
         finally:
-            gw.stop(drain=False)
+            gw.stop(drain=False, timeout=timeout_s)
         return self._report(handles)
 
 

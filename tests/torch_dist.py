@@ -870,3 +870,183 @@ def whisper_tp(rank, spec, serve, prompts, new_tokens, frames, layer, train,
             "layer": whisper_layer(rank, spec, layer),
             "train": TW.grads_head_dim(rank, spec, train),
             "eval": TW.eval_attention(rank, spec, evals)}
+
+
+# ---------------------------------------------------------------------------
+# One host clock across a mesh's ranks (tests/test_torch_mesh_clock.py)
+# ---------------------------------------------------------------------------
+
+CLOCK_WORLD_TIMEOUT_S = 120     # a new world's own bound: a regression
+#                                 fails in bounded time
+
+
+class ScriptedClock:
+    """A host clock that advances ``dt`` at every read.  Rank ``r`` of a
+    skewed world reads one of ``dt * (1 + r)``: a slow host and a fast
+    one, each deterministic."""
+
+    def __init__(self, dt: float):
+        self.dt, self.t, self.reads = dt, 0.0, 0
+
+    def __call__(self) -> float:
+        self.reads += 1
+        self.t += self.dt
+        return self.t
+
+
+@contextlib.contextmanager
+def gateway_perf_counter(clock):
+    """``time.perf_counter`` as ``repro_torch.routing.gateway`` sees it
+    (its default clock and its retry budget's) replaced by ``clock``;
+    ``time`` everywhere else is untouched."""
+    import time
+    import types
+    from repro_torch.routing import gateway
+    real = gateway.time
+    gateway.time = types.SimpleNamespace(perf_counter=clock, sleep=time.sleep)
+    try:
+        yield
+    finally:
+        gateway.time = real
+
+
+def _generations(gens):
+    return [(int(g.rid), [int(t) for t in g.tokens], bool(g.timed_out),
+             g.failed, bool(g.transient), float(g.admitted_at),
+             float(g.finished_at)) for g in gens]
+
+
+def engine_deadlines(model, params, prompts, deadlines, clock, mesh=None):
+    """``ContinuousEngine`` on ``DENSE_KW`` under ``clock``: ``prompts``
+    with engine-clock ``deadlines``, 12 new tokens each; every
+    ``CompletedGeneration`` (rid, tokens, timed_out, failed, transient,
+    admitted_at, finished_at) and the timed-out count."""
+    from repro_torch.serving.continuous import ContinuousEngine
+    eng = ContinuousEngine(model, params, mesh=mesh, clock=clock, **DENSE_KW)
+    rids = [eng.reserve_rid() for _ in prompts]
+    for rid, p, dl in zip(rids, prompts, deadlines):
+        eng.submit(rid, p, 12, deadline_at=dl)
+    done = eng.run()
+    return {"gens": _generations(done[r] for r in rids),
+            "timed_out": eng.stats.n_timed_out}
+
+
+def clock_engine(rank, spec, np_params, prompts, deadlines, dt):
+    """:func:`engine_deadlines` over the mesh, rank ``r`` on a
+    :class:`ScriptedClock` of ``dt * (1 + r)``."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    cfg, model, params = _model(QWEN, np_params)
+    mesh = make_serving_mesh(spec, cfg, device="cpu")
+    clock = ScriptedClock(dt * (1 + rank))
+    out = engine_deadlines(model, params, prompts, deadlines, clock, mesh)
+    out["own_reads"] = clock.reads
+    return out
+
+
+GATEWAY_FAULT = dict(site="executor.decode", kind="raise", start=1, count=2)
+
+
+def gateway_deadlines(model, params, cfg, n_questions, *, mesh, clock,
+                      deadline_ms, latency_ms=0.0):
+    """``Gateway.serve`` in closed loop over ``ContinuousEngineBackend``
+    (``CHAOS_KW``'s engine, two transient decode faults, no requeue),
+    ``RetryPolicy(max_retries=2)`` and requests of ``deadline_ms``.  The
+    gateway's clock and its retry budget read ``time.perf_counter`` (the
+    caller replaces it, :func:`gateway_perf_counter`); the engine reads
+    ``clock``, the same one.  With ``latency_ms`` the budgets gain a
+    latency target, refusal is adaptive and an MLP router (seed 2,
+    untrained) routes, so the refusal cap acts; else ``FixedPolicy(2)``.
+    Returns ``GatewayStats`` (its latency reservoir as percentiles), the
+    routed actions and, with a latency target, the budgets' report and
+    the latency target's events."""
+    from repro_torch.core.config import RetrievalConfig, RouterConfig
+    from repro_torch.core.policy import init_policy
+    from repro_torch.data import HashTokenizer, SyntheticSquad
+    from repro_torch.retrieval import BM25Index
+    from repro_torch.routing import (ContinuousEngineBackend, FixedPolicy,
+                                     Gateway, MLPPolicy, Request)
+    from repro_torch.serving.faults import (ChaosInjector, FaultPlan,
+                                            FaultSpec, RetryPolicy)
+    from repro_torch.serving.slo_budget import DEFAULT_TARGETS, latency_target
+    data = SyntheticSquad(n_paragraphs=40, n_questions=n_questions, seed=0)
+    index = BM25Index.build([p.text for p in data.paragraphs],
+                            RetrievalConfig(vocab_hash_dim=1024))
+    backend = ContinuousEngineBackend.create(
+        model, params, HashTokenizer(cfg.vocab_size), index, num_slots=4,
+        max_prompt_len=48, max_new_tokens=8, sync_every=2,
+        chaos=ChaosInjector(FaultPlan(specs=(FaultSpec(**GATEWAY_FAULT),))),
+        mesh=mesh, clock=clock)
+    rcfg = RouterConfig()
+    if latency_ms:
+        policy = MLPPolicy(init_policy(2, rcfg, device="cpu"), rcfg)
+        targets = DEFAULT_TARGETS + [latency_target(latency_ms)]
+    else:
+        policy, targets = FixedPolicy(2), None
+    gw = Gateway(policy, backend, router_cfg=rcfg, index=index, max_batch=4,
+                 adaptive_refusal=bool(latency_ms), budget_targets=targets,
+                 retry=RetryPolicy(max_retries=2, backoff_s=0.0),
+                 sleep=lambda s: None)
+    st = gw.serve([Request(qid=q.qid, question=q, slo="quality_first",
+                           deadline_ms=deadline_ms) for q in data.questions])
+    out = {f.name: getattr(st, f.name) for f in dataclasses.fields(st)
+           if f.name not in ("decisions", "latency", "action_counts",
+                             "refusal_cap_history")}
+    out["action_counts"] = dict(st.action_counts)
+    out["refusal_cap_history"] = list(st.refusal_cap_history)
+    out["latency"] = st.latency_percentiles()
+    out["actions"] = [[int(a) for a in d.actions] for d in st.decisions]
+    if latency_ms:
+        out["budgets"] = gw.budget.report_dict()
+        out["latency_events"] = list(gw.budget.states["latency"].events)
+    return out
+
+
+def clock_gateway(rank, spec, np_params, n_questions, deadline_ms, dt,
+                  latency_ms):
+    """:func:`gateway_deadlines` over the mesh, rank ``r``'s
+    ``time.perf_counter`` inside ``repro_torch.routing.gateway`` (and the
+    engine's clock) a :class:`ScriptedClock` of ``dt * (1 + r)``."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    cfg, model, params = _model(QWEN, np_params)
+    mesh = make_serving_mesh(spec, cfg, device="cpu")
+    clock = ScriptedClock(dt * (1 + rank))
+    with gateway_perf_counter(clock):
+        return gateway_deadlines(model, params, cfg, n_questions, mesh=mesh,
+                                 clock=clock, deadline_ms=deadline_ms,
+                                 latency_ms=latency_ms)
+
+
+def clock_open_loop(rank, spec, np_params, n_requests, rate, deadline_ms):
+    """The real-time open loop over the mesh: ``AsyncGateway.start`` and
+    ``LoadGenerator.run_realtime`` on a seeded Poisson trace of
+    ``n_requests`` at ``rate`` a second, every clock each rank's own
+    ``perf_counter``.  Each handle's outcome, the ``LoadReport`` and the
+    pumps run."""
+    from repro_torch.core.config import RetrievalConfig, RouterConfig
+    from repro_torch.data import HashTokenizer, SyntheticSquad
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.retrieval import BM25Index
+    from repro_torch.routing import ContinuousEngineBackend, FixedPolicy
+    from repro_torch.serving.streaming import AsyncGateway
+    from repro_torch.serving.traffic import (LoadGenerator, PoissonProcess,
+                                             build_trace)
+    cfg, model, params = _model(QWEN, np_params)
+    mesh = make_serving_mesh(spec, cfg, device="cpu")
+    data = SyntheticSquad(n_paragraphs=40, n_questions=8, seed=0)
+    index = BM25Index.build([p.text for p in data.paragraphs],
+                            RetrievalConfig(vocab_hash_dim=1024))
+    backend = ContinuousEngineBackend.create(
+        model, params, HashTokenizer(cfg.vocab_size), index, num_slots=4,
+        max_prompt_len=48, max_new_tokens=8, sync_every=2, mesh=mesh)
+    gw = AsyncGateway(FixedPolicy(2), backend, router_cfg=RouterConfig(),
+                      index=index, deadline_ms=deadline_ms, route_batch=4)
+    trace = build_trace(data.questions, PoissonProcess(rate, seed=0),
+                        n_requests, deadline_ms=deadline_ms)
+    gen = LoadGenerator(gw, trace)
+    rep = gen.run_realtime(timeout_s=60.0)
+    handles = [(h.request.qid, h.shed, h.forced_refusal, h.retries,
+                h.outcome.answer, h.outcome.refused,
+                bool(h.outcome.timed_out), h.arrival_t, h.completed_t,
+                h.first_token_t) for h in gen.last_handles]
+    return {"handles": handles, "report": rep.as_dict(), "pumps": gw.pumps,
+            "alive": gw._thread is not None}
